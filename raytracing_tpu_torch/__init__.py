@@ -1,0 +1,33 @@
+"""raytracing_tpu_torch — the PyTorch and CUDA port of raytracing_tpu.
+
+A second package beside the JAX reference ``raytracing_tpu``: the same 2-D
+batched ray tracer (step methods op1-op12, the four reference scenarios,
+the physics oracles), written as plain torch functions on tensors, with the
+JAX package's TPU kernels replaced by CUDA C++ kernels for the H100
+(``csrc/``, built at first use by :mod:`raytracing_tpu_torch.kernels.build`).
+It imports neither jax nor ``raytracing_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+from raytracing_tpu_torch.config import (  # noqa: F401
+    DELTA_S,
+    SIGMA,
+    ScenarioConfig,
+    scenario,
+)
+from raytracing_tpu_torch.engine.fast import FastResult, fast_trace  # noqa: F401
+from raytracing_tpu_torch.engine.trace import TraceResult, trace  # noqa: F401
+from raytracing_tpu_torch.media.medium import AnalyticMedium, analytic_medium  # noqa: F401
+from raytracing_tpu_torch.ops.registry import (  # noqa: F401
+    ALIASES,
+    ANISO_OPS,
+    EXTENSION_OPS,
+    OP_NAMES,
+)
+
+__all__ = [
+    "DELTA_S", "SIGMA", "ScenarioConfig", "scenario", "TraceResult", "trace",
+    "FastResult", "fast_trace", "AnalyticMedium", "analytic_medium",
+    "ALIASES", "ANISO_OPS", "EXTENSION_OPS", "OP_NAMES",
+]

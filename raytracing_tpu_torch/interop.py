@@ -1,0 +1,125 @@
+"""Carry ray state across from the JAX package, and back, as numpy.
+
+New in the port (nothing in ``raytracing_tpu`` to mirror).  The JAX
+package's state objects are pytrees of arrays; their numpy form is the
+interchange format, so neither package imports the other:
+
+* :func:`ray_state_from_numpy` builds the scan tier's
+  :class:`~raytracing_tpu_torch.engine.state.RayState` from a dict of
+  arrays (e.g. ``jax_state._asdict()`` converted with ``np.asarray``);
+* :func:`trace_result_to_numpy` turns a port :class:`TraceResult` into
+  nested dicts of numpy arrays, in the JAX result's field names;
+* :func:`resume_state_from_numpy` / :func:`resume_state_to_numpy` convert
+  the kernels' resume state from / to the flat component list of the JAX
+  segmented tier (``engine/segmented.py::_initial_comps`` layout, which the
+  JAX checkpoint format also stores): golden (x, y, cx, cy, ang, tt, dsim,
+  active) [+ count, mean, M2]; fused (x, y, ux, uy, cx, cy, tt, dsim,
+  active) [+ count, mean, M2] [+ op7 window wax, way, wbx, wby], with
+  ``active`` as 0/1 floats.
+
+The slice's media are analytic and carry no arrays; grid tables join this
+module when the sampled media are ported (ROADMAP.md §1 item 9).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytracing_tpu_torch.engine.state import RayState
+from raytracing_tpu_torch.engine.trace import TraceResult
+from raytracing_tpu_torch.kernels.fused import ResumeState
+from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS
+
+
+def _to_numpy(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def ray_state_from_numpy(d: dict, *, device) -> RayState:
+    """A :class:`RayState` from a dict of arrays keyed by its field names.
+
+    Missing or ``None`` entries stay ``None``; ``active`` becomes bool and
+    ``exit_step`` int32; float fields keep their dtype.
+    """
+    unknown = set(d) - set(RayState._fields)
+    if unknown:
+        raise ValueError(f"not RayState fields: {sorted(unknown)}")
+    vals = {}
+    for name in RayState._fields:
+        a = d.get(name)
+        if a is None:
+            vals[name] = None
+            continue
+        a = np.array(a)   # a writable copy: JAX's exported arrays are read-only
+        if name == "active":
+            t = torch.as_tensor(a.astype(bool), device=device)
+        elif name == "exit_step":
+            t = torch.as_tensor(a.astype(np.int32), device=device)
+        else:
+            t = torch.as_tensor(a, device=device)
+        vals[name] = t
+    return RayState(**vals)
+
+
+def trace_result_to_numpy(res: TraceResult) -> dict:
+    """Nested dict of numpy arrays: ``final`` (a dict of the RayState
+    fields), ``exit_step``, ``dist_real``, ``dist_sim``, ``history`` and
+    ``n_hist`` (None in metrics mode)."""
+    return {
+        "final": {k: _to_numpy(v) for k, v in res.final._asdict().items()},
+        "exit_step": _to_numpy(res.exit_step),
+        "dist_real": _to_numpy(res.dist_real),
+        "dist_sim": _to_numpy(res.dist_sim),
+        "history": _to_numpy(res.history),
+        "n_hist": _to_numpy(res.n_hist),
+    }
+
+
+def resume_state_from_numpy(comps, op: str, *, with_stats: bool,
+                            device) -> ResumeState:
+    """A kernel :class:`ResumeState` from the JAX segmented tier's component
+    list (any shapes; each component is flattened to (R,)).
+
+    The golden kernels carry the tangent beside the angle; from a JAX state
+    it is (cos, sin) of the angle, which is what the JAX golden kernel
+    itself re-derives at every segment start (golden.py:458).
+    """
+    def vec(a):
+        # a writable float32 copy: JAX's exported arrays are read-only
+        return torch.as_tensor(np.array(a, np.float32).reshape(-1),
+                               device=device)
+
+    comps = [vec(c) for c in comps]
+    golden = op in GOLDEN_OPS
+    n_base = 8 if golden else 9
+    want = n_base + (3 if with_stats else 0) + (4 if op == "op7" else 0)
+    if len(comps) != want:
+        raise ValueError(f"{op} with_stats={with_stats} has {want} resume "
+                         f"components, got {len(comps)}")
+    stats = dict(zip(("mom_count", "mom_mean", "mom_m2"),
+                     comps[n_base:n_base + 3])) if with_stats else {}
+    if golden:
+        x, y, cx, cy, ang, tt, dsim, act = comps[:8]
+        return ResumeState(x=x, y=y, ux=torch.cos(ang), uy=torch.sin(ang),
+                           cx=cx, cy=cy, tt=tt, dsim=dsim, active=act > 0.5,
+                           ang=ang, **stats)
+    x, y, ux, uy, cx, cy, tt, dsim, act = comps[:9]
+    window = {}
+    if op == "op7":
+        window = dict(zip(("wax", "way", "wbx", "wby"), comps[-4:]))
+    return ResumeState(x=x, y=y, ux=ux, uy=uy, cx=cx, cy=cy, tt=tt, dsim=dsim,
+                       active=act > 0.5, **stats, **window)
+
+
+def resume_state_to_numpy(st: ResumeState, op: str) -> list:
+    """The JAX segmented tier's component list of float32 (R,) arrays."""
+    act = _to_numpy(st.active).astype(np.float32)
+    if op in GOLDEN_OPS:
+        comps = [st.x, st.y, st.cx, st.cy, st.ang, st.tt, st.dsim, act]
+    else:
+        comps = [st.x, st.y, st.ux, st.uy, st.cx, st.cy, st.tt, st.dsim, act]
+    if st.mom_count is not None:
+        comps += [st.mom_count, st.mom_mean, st.mom_m2]
+    if op == "op7":
+        comps += [st.wax, st.way, st.wbx, st.wby]
+    return [c if isinstance(c, np.ndarray) else _to_numpy(c) for c in comps]

@@ -1,0 +1,402 @@
+"""Fused integrators on the analytic fields: op1/2/3/4/6/7/8/12.
+
+Port of ``raytracing_tpu/kernels/fused.py``: ``FUSED_FIELDS``/``FUSED_OPS``
+(fused.py:38-39), the analytic ``_field_fn`` (:44), the step of
+``_make_kernel`` (:336) in its resume form, ``FusedFinal`` (:713) and
+``fused_trace_final`` (:769); and the resume state layout of
+``engine/segmented.py`` (``_initial_comps`` :66, ``_final_from_state`` :99),
+whose launcher (segmented.py:165) chains the same kernel.
+
+The kernel is ``csrc/fused.cu`` (``fused_step``); :func:`fused_step_plain`
+is its plain PyTorch version, and :func:`fused_step` the wrapper that
+dispatches on the device of the state tensors: a CPU state runs the plain
+version, a CUDA state launches the kernel or raises.
+
+What the TPU kernel carried only for Mosaic is gone: no zeros buffer, the
+active mask is a bool, the scalars are arguments, and the state is plain
+(R,) vectors (no (R/128, 128) lanes, no padding to a block).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from raytracing_tpu_torch.config import THCK_PARAM, gold_tol
+from raytracing_tpu_torch.kernels import build
+
+FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
+FUSED_OPS = ("op1", "op2", "op3", "op4", "op6", "op7", "op8", "op12")
+#: field name -> the ``rt::Field`` code of csrc/common.cuh
+FIELD_CODES = {"fisheye": 0, "vert_heterogeneous": 1, "interface": 2}
+
+KERNEL = build.KernelInfo(
+    name="fused_step", source="raytracing_tpu_torch/csrc/fused.cu",
+    replaces="raytracing_tpu/kernels/fused.py:336")
+
+_SQRT2 = 1.4142135623730951
+#: curvature-negligibility threshold of the float32 kernels
+CURV_TOL = gold_tol(np.float32)
+
+
+def div_exact(a, b):
+    """a / b rounded once, for a Python float on either side.
+
+    PyTorch computes ``tensor / scalar`` as a product with the scalar's
+    reciprocal and ``scalar / tensor`` as the scalar times a reciprocal,
+    each off by up to an ulp from the division the kernels perform; a
+    one-element tensor operand keeps it a true division.
+    """
+    if not torch.is_tensor(a):
+        a = torch.full((1,), a, dtype=b.dtype, device=b.device)
+    elif not torch.is_tensor(b):
+        b = torch.full((1,), b, dtype=a.dtype, device=a.device)
+    return torch.div(a, b)
+
+
+def field_fn(field: str):
+    """n and its gradient as the kernels evaluate them (fused.py:44-62).
+
+    The interface uses the literal logistic, as the TPU kernel does; its
+    exp overflows to inf below y ~ -0.44 and gives the exact limit.
+    """
+    if field == "fisheye":
+        def f(x, y):
+            n = 1.0 / (1.0 + x * x + y * y)
+            c = -2.0 * n * n
+            return n, c * x, c * y
+    elif field == "vert_heterogeneous":
+        def f(x, y):
+            n = 1.0 / (18.0 + 2.0 * y)
+            return n, torch.zeros_like(x), -2.0 * n * n
+    elif field == "interface":
+        def f(x, y):
+            sig = 1.0 / (1.0 + torch.exp(div_exact(-y, THCK_PARAM)))
+            n = _SQRT2 - (_SQRT2 - 1.0) * sig
+            return (n, torch.zeros_like(x),
+                    div_exact(-(_SQRT2 - 1.0) * sig * (1.0 - sig), THCK_PARAM))
+    else:
+        raise ValueError(f"kernels support fields {FUSED_FIELDS}, got {field!r}")
+    return f
+
+
+class ResumeState(NamedTuple):
+    """Full resumable state of the fused and golden kernels, (R,) each.
+
+    Float32 vectors except ``active`` (bool: never left the box).  ``ang``
+    is the golden kernels' angle (None for fused ops); the Welford fields
+    are None without stats, the window fields None except for op7 (p_{-2}
+    = (wax, way), p_{-1} = (wbx, wby)).  The field order is the slot order
+    of ``rt::Slot`` in csrc/common.cuh.
+    """
+
+    x: Any
+    y: Any
+    ux: Any
+    uy: Any
+    cx: Any
+    cy: Any
+    tt: Any
+    dsim: Any
+    active: Any
+    ang: Any = None
+    mom_count: Any = None
+    mom_mean: Any = None
+    mom_m2: Any = None
+    wax: Any = None
+    way: Any = None
+    wbx: Any = None
+    wby: Any = None
+
+
+class FusedFinal(NamedTuple):
+    """Final-state bundle of a fused kernel run (all tensors length R)."""
+
+    pos: Any          # (R, 2) final positions
+    tangent: Any      # (R, 2) final unit tangent (cos/sin of the exit angle)
+    traveltime: Any   # (R,)
+    dist_sim: Any     # (R,)
+    active: Any       # (R,) bool: never left the box
+    mom_count: Any = None  # Welford m_x stats (with_stats=True only)
+    mom_mean: Any = None
+    mom_m2: Any = None
+
+
+def _vectors(pos0, theta0, device):
+    pos0 = torch.as_tensor(pos0, dtype=torch.float32, device=device)
+    theta0 = torch.as_tensor(theta0, dtype=torch.float32, device=device)
+    if pos0.dim() != 2 or pos0.shape[1] != 2 or theta0.shape != pos0.shape[:1]:
+        raise ValueError(f"pos0 must be (R, 2) and theta0 (R,), got "
+                         f"{tuple(pos0.shape)} and {tuple(theta0.shape)}")
+    return pos0[:, 0].contiguous(), pos0[:, 1].contiguous(), theta0.contiguous()
+
+
+def initial_state(op: str, pos0, theta0, *, field: str, with_stats: bool,
+                  device) -> ResumeState:
+    """Launch state of a fused run (segmented.py:66 ``_initial_comps``)."""
+    x, y, th = _vectors(pos0, theta0, device)
+    zeros = torch.zeros_like(x)
+    ux, uy = torch.cos(th), torch.sin(th)
+    st = ResumeState(x=x, y=y, ux=ux, uy=uy, cx=zeros, cy=zeros.clone(),
+                     tt=zeros.clone(), dsim=zeros.clone(),
+                     active=torch.ones_like(x, dtype=torch.bool))
+    if with_stats:
+        n0 = field_fn(field)(x, y)[0]
+        st = st._replace(mom_count=torch.ones_like(x), mom_mean=n0 * ux,
+                         mom_m2=zeros.clone())
+    if op == "op7":
+        # p_{-2} = p_{-1} = p_0 (fused.py:620)
+        st = st._replace(wax=x.clone(), way=y.clone(), wbx=x.clone(),
+                         wby=y.clone())
+    return st
+
+
+def final_from_state(st: ResumeState) -> FusedFinal:
+    """FusedFinal from a resume state (segmented.py:99)."""
+    if st.ang is not None:
+        tangent = torch.stack([torch.cos(st.ang), torch.sin(st.ang)], dim=-1)
+    else:
+        tangent = torch.stack([st.ux, st.uy], dim=-1)
+    return FusedFinal(pos=torch.stack([st.x, st.y], dim=-1), tangent=tangent,
+                      traveltime=st.tt, dist_sim=st.dsim, active=st.active,
+                      mom_count=st.mom_count, mom_mean=st.mom_mean,
+                      mom_m2=st.mom_m2)
+
+
+def rot_small(d):
+    """(sin d, cos d) by degree-5/4 small-angle polynomials (golden.py:101,
+    fused.py:453): below f32 roundoff for the per-step increments."""
+    d2 = d * d
+    sd = d * (1.0 - d2 * (1.0 / 6.0) * (1.0 - d2 * 0.05))
+    cd = 1.0 - d2 * 0.5 * (1.0 - d2 * (1.0 / 12.0))
+    return sd, cd
+
+
+def _rot(ax, ay, d):
+    """Rotate (ax, ay) by the small angle d."""
+    s, c = rot_small(d)
+    return ax * c - ay * s, ax * s + ay * c
+
+
+def arc_advance(ux, uy, gx, gy, txx, txy, n, ds):
+    """Position increment on the circle of curvature (RT_bench.py:335-365)
+    and the mask of significant curvature (>= CURV_TOL), below which the
+    increment is the straight u ds; (txx, txy) is grad n less its part
+    along u.  ``arc_advance`` of csrc/common.cuh."""
+    one = torch.ones_like(n)
+    curv = torch.sqrt(txx * txx + txy * txy) / n
+    significant = curv >= CURV_TOL
+    safe = torch.where(significant, curv, one)
+    d = curv * ds
+    sgn = torch.where(gx * uy - gy * ux > 0, -one, one)
+    sh, ch = rot_small(sgn * d * 0.5)
+    coefc = 2.0 * sh * sgn / safe
+    ddx = torch.where(significant, (ux * ch - uy * sh) * coefc, ux * ds)
+    ddy = torch.where(significant, (ux * sh + uy * ch) * coefc, uy * ds)
+    return ddx, ddy, significant
+
+
+def _kahan(x, c, dd):
+    dx = dd - c
+    nx = x + dx
+    return nx, (nx - x) - dx
+
+
+def _outside(x, y, box):
+    limx_i, limx_s, limy_i, limy_s = box
+    return (x > limx_s) | (x < limx_i) | (y > limy_s) | (y < limy_i)
+
+
+def fused_step_plain(st: ResumeState, *, field: str, op: str, steps: int,
+                     delta_s: float, step_limit: float, offset: float,
+                     box) -> ResumeState:
+    """Plain PyTorch version of the ``fused_step`` kernel.
+
+    The same step (fused.py:430-608) on every ray at once, with a frozen
+    ray's state kept by selects instead of leaving the loop.
+    """
+    nag = field_fn(field)
+    second = op in ("op6", "op7", "op8")
+    curvature = op in ("op3", "op4")
+    rk2 = op in ("op2", "op3", "op6")
+    window = op == "op7"
+    rk4 = op == "op12"
+    stats = st.mom_count is not None
+    ds32 = np.float32(delta_s)
+    ds = float(ds32)
+    dsds_half = float(ds32 * ds32 * np.float32(0.5))   # (ds*ds)*0.5 in f32
+    x, y, ux, uy, cx, cy, tt, dsim, active = st[:9]
+    cnt, mean, m2 = st.mom_count, st.mom_mean, st.mom_m2
+    wax, way, wbx, wby = st.wax, st.way, st.wbx, st.wby
+    n, gx, gy = nag(x, y)
+
+    for i in range(steps):
+        keep = active & (float(np.float32(i) + np.float32(offset)) < step_limit)
+        significant = None
+        if rk4:
+            h = ds
+            k1t = (ux * gy - uy * gx) / n
+            u1x, u1y = _rot(ux, uy, 0.5 * h * k1t)
+            nb, gbx, gby = nag(x + 0.5 * h * ux, y + 0.5 * h * uy)
+            k2t = (u1x * gby - u1y * gbx) / nb
+            u2x, u2y = _rot(ux, uy, 0.5 * h * k2t)
+            nc, gcx, gcy = nag(x + 0.5 * h * u1x, y + 0.5 * h * u1y)
+            k3t = (u2x * gcy - u2y * gcx) / nc
+            u3x, u3y = _rot(ux, uy, h * k3t)
+            nd, gdx, gdy = nag(x + h * u2x, y + h * u2y)
+            k4t = (u3x * gdy - u3y * gdx) / nd
+            h6 = float(np.float32(h) / np.float32(6.0))
+            ddx = h6 * (ux + 2 * u1x + 2 * u2x + u3x)
+            ddy = h6 * (uy + 2 * u1y + 2 * u2y + u3y)
+            dth = h6 * (k1t + 2 * k2t + 2 * k3t + k4t)
+            rk4_ux, rk4_uy = _rot(ux, uy, dth)
+        elif second:
+            gdotu = gx * ux + gy * uy
+            half_fac = div_exact(dsds_half, n)
+            ddx = ux * ds + (gx - gdotu * ux) * half_fac
+            ddy = uy * ds + (gy - gdotu * uy) * half_fac
+        elif curvature:
+            gdotu = gx * ux + gy * uy
+            ddx, ddy, significant = arc_advance(
+                ux, uy, gx, gy, gx - gdotu * ux, gy - gdotu * uy, n, ds)
+        else:
+            ddx = ux * ds
+            ddy = uy * ds
+        nx2, cx2 = _kahan(x, cx, ddx)
+        ny2, cy2 = _kahan(y, cy, ddy)
+        n2, gx2, gy2 = nag(nx2, ny2)
+
+        if rk4:
+            nux, nuy = rk4_ux, rk4_uy
+        elif window:
+            step_no = i + offset + 1
+            ca, cb, cc, cd = {1: (0.0, 0.0, -1.0, 1.0),
+                              2: (0.0, 1.0, -4.0, 3.0)}.get(
+                                  step_no, (-2.0, 9.0, -18.0, 11.0))
+            vx = ca * wax + cb * wbx + cc * x + cd * nx2
+            vy = ca * way + cb * wby + cc * y + cd * ny2
+            inv = torch.rsqrt(vx * vx + vy * vy)
+            nux, nuy = vx * inv, vy * inv
+        elif rk2:
+            k1 = ds * (ux * gy - uy * gx) / n
+            ux1, uy1 = _rot(ux, uy, k1)
+            k2 = ds * (ux1 * gy2 - uy1 * gx2) / n2
+            nux, nuy = _rot(ux, uy, (k1 + k2) * 0.5)
+        else:
+            half = ds * 0.5
+            sx = n * ux + (gx + gx2) * half
+            sy = n * uy + (gy + gy2) * half
+            inv = torch.rsqrt(sx * sx + sy * sy)
+            nux, nuy = sx * inv, sy * inv
+        if significant is not None:
+            nux = torch.where(significant, nux, ux)
+            nuy = torch.where(significant, nuy, uy)
+
+        if second or curvature or rk4:
+            dist = torch.sqrt(ddx * ddx + ddy * ddy)
+            ntt = tt + dist * (n + n2) * 0.5
+            ndsim = dsim + dist
+        else:
+            ntt = tt + ds * (n + n2) * 0.5
+            ndsim = dsim + ds
+
+        def sel(new, old):
+            return torch.where(keep, new, old)
+
+        if stats:
+            mx2 = n2 * nux
+            cnt2 = cnt + 1.0
+            delta = mx2 - mean
+            mean2 = mean + delta / cnt2
+            m22 = m2 + delta * (mx2 - mean2)
+            cnt, mean, m2 = sel(cnt2, cnt), sel(mean2, mean), sel(m22, m2)
+        if window:
+            wax, way, wbx, wby = (sel(wbx, wax), sel(wby, way), sel(x, wbx),
+                                  sel(y, wby))
+        active = active & ~(keep & _outside(nx2, ny2, box))
+        x, y, cx, cy = sel(nx2, x), sel(ny2, y), sel(cx2, cx), sel(cy2, cy)
+        ux, uy, n, gx, gy = (sel(nux, ux), sel(nuy, uy), sel(n2, n),
+                             sel(gx2, gx), sel(gy2, gy))
+        tt, dsim = sel(ntt, tt), sel(ndsim, dsim)
+
+    return ResumeState(x=x, y=y, ux=ux, uy=uy, cx=cx, cy=cy, tt=tt, dsim=dsim,
+                       active=active, mom_count=cnt, mom_mean=mean, mom_m2=m2,
+                       wax=wax, way=way, wbx=wbx, wby=wby)
+
+
+def check_state(st: ResumeState, *, needs_ang: bool, window: bool) -> None:
+    """Device, dtype, shape and contiguity checks of a resume state."""
+    dev = st.x.device
+    r = st.x.shape[0]
+    required = {"x", "y", "ux", "uy", "cx", "cy", "tt", "dsim", "active"}
+    if needs_ang:
+        required.add("ang")
+    if window:
+        required |= {"wax", "way", "wbx", "wby"}
+    stats = {"mom_count", "mom_mean", "mom_m2"}
+    present = {k for k, v in st._asdict().items() if v is not None}
+    if not required <= present:
+        raise ValueError(f"resume state lacks {sorted(required - present)}")
+    if present & stats and not stats <= present:
+        raise ValueError("resume state needs all of mom_count/mom_mean/mom_m2")
+    for name, t in st._asdict().items():
+        if t is None:
+            continue
+        want = torch.bool if name == "active" else torch.float32
+        if t.dtype != want or t.shape != (r,) or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"state.{name}: need a contiguous ({r},) {want} tensor on "
+                f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def fused_step(st: ResumeState, *, field: str, op: str, steps: int, delta_s,
+               step_limit, offset=0.0, box) -> ResumeState:
+    """Advance a resume state ``steps`` steps: the kernel's wrapper.
+
+    ``offset`` is the number of steps applied before this launch (global
+    step numbering: op7's order ramp and ``step_limit`` read it), so a run
+    of k steps then n - k steps with offset k equals one run of n.  A CPU
+    state runs :func:`fused_step_plain`; a CUDA state launches the kernel.
+    """
+    if field not in FUSED_FIELDS:
+        raise ValueError(f"fused kernel supports fields {FUSED_FIELDS}, got {field!r}")
+    if op not in FUSED_OPS:
+        raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
+    check_state(st, needs_ang=False, window=op == "op7")
+    box = tuple(float(v) for v in box)
+    if st.x.device.type == "cpu":
+        return fused_step_plain(st, field=field, op=op, steps=int(steps),
+                                delta_s=delta_s, step_limit=float(step_limit),
+                                offset=float(offset), box=box)
+    if st.x.device.type != "cuda":
+        raise ValueError(f"fused_step runs on cpu or cuda, not {st.x.device}")
+    out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
+    lib = build.library()
+    with torch.cuda.device(st.x.device):
+        err = lib.rt_fused_step(
+            FIELD_CODES[field], int(op[2:]), int(st.mom_count is not None),
+            build.pointer_array(st), build.pointer_array(out), st.x.shape[0],
+            int(steps), float(delta_s), float(step_limit), float(offset),
+            *box, CURV_TOL, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rt_fused_step")
+    KERNEL.launches += 1
+    return out
+
+
+def fused_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
+                      steps: int, box, device, step_limit=None,
+                      with_stats: bool = False) -> FusedFinal:
+    """Run ``steps`` fused integration steps; return a :class:`FusedFinal`.
+
+    ``step_limit`` (default ``steps``) freezes every ray after that many
+    steps; ``with_stats`` adds the Welford tracker of m_x = n u_x for
+    on-device conservation oracles (RT_bench.py:957-958).
+    """
+    st = initial_state(op, pos0, theta0, field=field, with_stats=with_stats,
+                       device=device)
+    st = fused_step(st, field=field, op=op, steps=steps, delta_s=delta_s,
+                    step_limit=steps if step_limit is None else step_limit,
+                    offset=0.0, box=box)
+    return final_from_state(st)

@@ -1,0 +1,429 @@
+"""Fused golden-section / Newton step kernels: op5, op9 (isotropic) and
+op10, op11, op10n, op11n (anisotropic momentum).
+
+Port of ``raytracing_tpu/kernels/golden.py``: ``GOLDEN_OPS`` (golden.py:51),
+``GOLD_POLISH``/``GOLD_COARSE_ITERS``/``GOLD_SEED_ITERS`` (:65-82),
+``golden_schedule`` (:85), ``_rot_small`` (:101, shared as
+``fused.rot_small``), ``_asin_small`` (:114),
+``_golden_offsets`` (:123), the step of ``_make_kernel`` (:138) in its
+resume form, ``init_mom_x`` (:532), ``golden_scalars`` (:548),
+``GoldenFinal`` (:564) and ``golden_trace_final`` (:581).
+
+Every step minimizes the momentum-impulse cost (RT_bench.py:573-600,
+676-764) by one of three schedules:
+
+* the production default (``iters == 0``): the closed-form minimizer (iso,
+  exact) or seed (aniso) plus ``polish`` Newton steps clipped to 0.15;
+* the ``newton`` solver of op10n/op11n: the seed plus 3 Newton steps
+  clipped to 0.3;
+* the golden bracket (``iters > 0``), probes advanced by constant
+  rotations; with ``polish=0`` it is the reference-parity mode.
+
+The kernel is ``csrc/golden.cu`` (``golden_step``); :func:`golden_step_plain`
+is its plain PyTorch version and :func:`golden_step` the wrapper that
+dispatches on the device of the state.  Both take the cost's first and
+second derivatives from :class:`Dual2`, the counterpart of the nested
+``jax.jvp`` at golden.py:306-328.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from raytracing_tpu_torch.config import DELTA_G, GOLD_RATIO, golden_iters
+from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.kernels.fused import (
+    CURV_TOL, FIELD_CODES, FUSED_FIELDS, ResumeState, _kahan, _outside,
+    _vectors, arc_advance, check_state, div_exact, field_fn, rot_small)
+
+GOLDEN_OPS = {"op5": ("curv", "golden"), "op9": ("t2", "golden"),
+              "op10": ("curv", "golden"), "op11": ("t2", "golden"),
+              "op10n": ("curv", "newton"), "op11n": ("t2", "newton")}
+#: Newton polish steps after the seed or bracket (golden.py:65)
+GOLD_POLISH: int = 2
+#: bracket iterations of the coarse bracket + polish schedule (golden.py:71)
+GOLD_COARSE_ITERS: int = 12
+#: ``iters == 0`` selects the closed-form schedule (golden.py:82)
+GOLD_SEED_ITERS: int = 0
+
+KERNEL = build.KernelInfo(
+    name="golden_step", source="raytracing_tpu_torch/csrc/golden.cu",
+    replaces="raytracing_tpu/kernels/golden.py:138")
+
+
+def golden_schedule(polish: int | None = None, iters: int | None = None):
+    """Resolve the (bracket iterations, polish steps) pair (golden.py:85)."""
+    if polish is None:
+        polish = GOLD_POLISH
+    if iters is None:
+        iters = GOLD_SEED_ITERS if polish else golden_iters(np.float32)
+    return int(iters), int(polish)
+
+
+def _golden_offsets(iters: int):
+    """(c0_off, d0_off, deltas) of the bracket schedule (golden.py:123)."""
+    r = GOLD_RATIO
+    L0 = 2.0 * DELTA_G
+    c0 = DELTA_G - L0 * r
+    d0 = -DELTA_G + L0 * r
+    deltas = [L0 * r ** (k + 2) for k in range(iters)]
+    return c0, d0, deltas
+
+
+def bracket_constants(iters: int):
+    """The bracket's fixed rotations: (cos c0, sin c0, cos d0, sin d0,
+    cos m, sin m, L_final), with m the final midpoint's offset from probe c
+    (golden.py:172-179)."""
+    c0, d0, _ = _golden_offsets(iters)
+    l_final = 2.0 * DELTA_G * GOLD_RATIO ** iters
+    mid = (GOLD_RATIO - 0.5) * l_final
+    vals = (math.cos(c0), math.sin(c0), math.cos(d0), math.sin(d0),
+            math.cos(mid), math.sin(mid), l_final)
+    return tuple(float(np.float32(v)) for v in vals)
+
+
+def golden_scalars(delta_s, gamma, step_limit, offset, iters: int, *,
+                   device) -> torch.Tensor:
+    """The scalar bundle [ds, gamma, limit, offset, (cos d_k, sin d_k) x
+    iters, d_k x iters] as a float32 tensor on ``device`` (golden.py:548)."""
+    _, _, deltas = _golden_offsets(iters)
+    rot = np.empty(2 * iters, np.float32)
+    rot[0::2] = np.cos(deltas)
+    rot[1::2] = np.sin(deltas)
+    head = np.array([delta_s, gamma, step_limit, offset], np.float32)
+    vals = np.concatenate([head, rot, np.asarray(deltas, np.float32)])
+    return torch.as_tensor(vals, device=device)
+
+
+def init_mom_x(op: str, n0, theta0, gamma):
+    """First Welford sample of m_x, as the kernel's tracker takes it
+    (golden.py:532): n cos t for op5/op9, n cos t / cf otherwise."""
+    ct, st = torch.cos(theta0), torch.sin(theta0)
+    if op in ("op5", "op9"):
+        return n0 * ct
+    gs = gamma * st
+    cf = torch.sqrt(gs * gs + ct * ct)
+    return n0 * ct / cf
+
+
+class GoldenFinal(NamedTuple):
+    """Final-state bundle of a golden kernel run (all tensors length R)."""
+
+    pos: Any          # (R, 2)
+    angle: Any        # (R,) final angle
+    traveltime: Any   # (R,)
+    dist_sim: Any     # (R,)
+    active: Any       # (R,) bool: never left the box
+    mom_count: Any = None  # Welford m_x stats (with_stats=True only)
+    mom_mean: Any = None
+    mom_m2: Any = None
+
+
+def initial_state(op: str, pos0, theta0, gamma, *, field: str,
+                  with_stats: bool, device) -> ResumeState:
+    """Launch state of a golden run (segmented.py:66 ``_initial_comps``,
+    with the tangent carried beside the angle)."""
+    x, y, th = _vectors(pos0, theta0, device)
+    zeros = torch.zeros_like(x)
+    st = ResumeState(x=x, y=y, ux=torch.cos(th), uy=torch.sin(th), cx=zeros,
+                     cy=zeros.clone(), tt=zeros.clone(), dsim=zeros.clone(),
+                     active=torch.ones_like(x, dtype=torch.bool), ang=th)
+    if with_stats:
+        n0 = field_fn(field)(x, y)[0]
+        st = st._replace(mom_count=torch.ones_like(x),
+                         mom_mean=init_mom_x(op, n0, th,
+                                             float(np.float32(gamma))),
+                         mom_m2=zeros.clone())
+    return st
+
+
+class Dual2:
+    """Second-order dual number {v, d1, d2} over tensors: the value and the
+    first two derivatives along one direction, which nested forward-mode
+    jvp carries.  Only the operations of the momentum cost are defined."""
+
+    __slots__ = ("v", "d1", "d2")
+
+    def __init__(self, v, d1, d2):
+        self.v, self.d1, self.d2 = v, d1, d2
+
+    def __add__(self, o):
+        if isinstance(o, Dual2):
+            return Dual2(self.v + o.v, self.d1 + o.d1, self.d2 + o.d2)
+        return Dual2(self.v + o, self.d1, self.d2)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        if isinstance(o, Dual2):
+            return Dual2(self.v - o.v, self.d1 - o.d1, self.d2 - o.d2)
+        return Dual2(self.v - o, self.d1, self.d2)
+
+    def __rsub__(self, o):
+        return Dual2(o - self.v, -self.d1, -self.d2)
+
+    def __mul__(self, o):
+        if isinstance(o, Dual2):
+            return Dual2(self.v * o.v, self.d1 * o.v + self.v * o.d1,
+                         self.d2 * o.v + 2.0 * self.d1 * o.d1 + self.v * o.d2)
+        return Dual2(self.v * o, self.d1 * o, self.d2 * o)
+
+    __rmul__ = __mul__
+
+    def rsqrt(self):
+        f = torch.rsqrt(self.v)
+        inv = 1.0 / self.v
+        f1 = -0.5 * f * inv
+        f2 = 0.75 * f * inv * inv
+        return Dual2(f, f1 * self.d1, f2 * self.d1 * self.d1 + f1 * self.d2)
+
+
+def _rsqrt(s):
+    return s.rsqrt() if isinstance(s, Dual2) else torch.rsqrt(s)
+
+
+def _asin_small(s):
+    """asin by its odd series for |s| <~ 0.15 (golden.py:114)."""
+    s2 = s * s
+    return s * (1.0 + s2 * ((1.0 / 6.0) + s2 * (3.0 / 40.0)))
+
+
+def _newton_polish(cost_uv, mc, ms, t0, n_steps: int, clip_b: float):
+    """Newton on d(cost)/d(delta), delta from the seed (mc, ms)."""
+    dlt = torch.zeros_like(t0)
+    one, zero = torch.ones_like(t0), torch.zeros_like(t0)
+    for _ in range(n_steps):
+        sd, cd = rot_small(Dual2(dlt, one, zero))
+        f = cost_uv(mc * cd - ms * sd, mc * sd + ms * cd)
+        ad2 = torch.abs(f.d2)
+        safe = torch.where(ad2 < 1e-12, torch.full_like(ad2, 1e-12), ad2)
+        dlt = dlt - torch.clamp(f.d1 / safe, -clip_b, clip_b)
+    dlt = torch.clamp(dlt, -clip_b, clip_b)
+    sd, cd = rot_small(dlt)
+    return t0 + dlt, mc * cd - ms * sd, mc * sd + ms * cd
+
+
+def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field: str,
+                      op: str, steps: int, box, iters: int,
+                      polish: int) -> ResumeState:
+    """Plain PyTorch version of the ``golden_step`` kernel (golden.py:230-455)
+    on every ray at once; frozen rays are kept by selects."""
+    nag = field_fn(field)
+    stepper, solver = GOLDEN_OPS[op]
+    iso = op in ("op5", "op9")
+    sv = scal.cpu().numpy()
+    ds32, gamma32, limit, offset = sv[:4]
+    ds, gamma = float(ds32), float(gamma32)
+    dsds_half = float(ds32 * ds32 * np.float32(0.5))
+    g2 = float(gamma32 * gamma32)
+    inv_g2 = float(np.float32(1.0) / np.float32(g2))
+    cos_c0, sin_c0, cos_d0, sin_d0, cos_m, sin_m, l_final = \
+        bracket_constants(iters)
+    stats = st.mom_count is not None
+    x, y, ux, uy, cx, cy, tt, dsim, active, ang = st[:10]
+    cnt, mean, m2 = st.mom_count, st.mom_mean, st.mom_m2
+    n, gx, gy = nag(x, y)
+    one = torch.ones_like(x)
+
+    for i in range(steps):
+        keep = active & (float(np.float32(i) + offset) < float(limit))
+        gdotu = gx * ux + gy * uy
+        txx = gx - gdotu * ux
+        txy = gy - gdotu * uy
+        if stepper == "t2":
+            half_fac = div_exact(dsds_half, n)
+            ddx = ux * ds + txx * half_fac
+            ddy = uy * ds + txy * half_fac
+            significant = torch.ones_like(active)
+        else:
+            ddx, ddy, significant = arc_advance(ux, uy, gx, gy, txx, txy, n,
+                                                ds)
+        nx2, cx2 = _kahan(x, cx, ddx)
+        ny2, cy2 = _kahan(y, cy, ddy)
+        n2, gx2, gy2 = nag(nx2, ny2)
+
+        gu = gamma * uy
+        coef_i = one if iso else torch.sqrt(gu * gu + ux * ux)
+        half_ds = ds * 0.5
+        if iso:
+            kx = n * ux + (gx + gx2) * half_ds
+            ky = n * uy + (gy + gy2) * half_ds
+
+            def cost_uv(ct, st_):
+                rx = n2 * ct - kx
+                ry = n2 * st_ - ky
+                return rx * rx + ry * ry
+        else:
+            inv_i = torch.rsqrt(gu * gu + ux * ux)
+            kx = n * ux * inv_i + coef_i * gx * half_ds
+            ky = n * g2 * uy * inv_i + coef_i * gy * half_ds
+            hx = gx2 * half_ds
+            hy = gy2 * half_ds
+            n2g2 = n2 * g2
+
+            def cost_uv(ct, st_):
+                gs = gamma * st_
+                s2 = gs * gs + ct * ct
+                inv = _rsqrt(s2)
+                cf = s2 * inv
+                rx = n2 * ct * inv - kx - cf * hx
+                ry = n2g2 * st_ * inv - ky - cf * hy
+                return rx * rx + ry * ry
+
+        kyg = ky if iso else ky * inv_g2
+        inv_k = torch.rsqrt(kx * kx + kyg * kyg)
+        mc, ms = kx * inv_k, kyg * inv_k
+        tc = ts = None
+        if solver == "newton":
+            t0 = ang + _asin_small(ux * ms - uy * mc)
+            t_new, tc, ts = _newton_polish(cost_uv, mc, ms, t0, 3, 0.3)
+        elif iters == 0:
+            t_new = ang + _asin_small(ux * ms - uy * mc)
+            if iso or not polish:
+                tc, ts = mc, ms
+            else:
+                t_new, tc, ts = _newton_polish(cost_uv, mc, ms, t_new,
+                                               polish, 0.15)
+        else:
+            a_ang = ang - DELTA_G
+            b_ang = ang + DELTA_G
+            pc = ux * cos_c0 - uy * sin_c0
+            ps = ux * sin_c0 + uy * cos_c0
+            qc = ux * cos_d0 - uy * sin_d0
+            qs = ux * sin_d0 + uy * cos_d0
+            fc, fd = cost_uv(pc, ps), cost_uv(qc, qs)
+            for k in range(iters):
+                cth, sth = float(sv[4 + 2 * k]), float(sv[5 + 2 * k])
+                dk = float(sv[4 + 2 * iters + k])
+                left = fc < fd
+                sth_s = torch.where(left, -sth * one, sth * one)
+                base_c = torch.where(left, qc, pc)
+                base_s = torch.where(left, qs, ps)
+                fresh_c = base_c * cth - base_s * sth_s
+                fresh_s = base_c * sth_s + base_s * cth
+                ff = cost_uv(fresh_c, fresh_s)
+                pc, ps, qc, qs = (torch.where(left, fresh_c, qc),
+                                  torch.where(left, fresh_s, qs),
+                                  torch.where(left, pc, fresh_c),
+                                  torch.where(left, ps, fresh_s))
+                fc, fd = torch.where(left, ff, fd), torch.where(left, fc, ff)
+                a_ang = torch.where(left, a_ang, a_ang + dk)
+                b_ang = torch.where(left, b_ang - dk, b_ang)
+            t_new = (a_ang + b_ang) * 0.5
+            if polish:
+                mmc = pc * cos_m - ps * sin_m
+                mms = pc * sin_m + ps * cos_m
+                t_new, tc, ts = _newton_polish(cost_uv, mmc, mms, t_new,
+                                               polish, l_final)
+        nang = torch.where(significant, t_new, ang)
+        if tc is not None:
+            inv_nrm = torch.rsqrt(tc * tc + ts * ts)
+            nux = torch.where(significant, tc * inv_nrm, ux)
+            nuy = torch.where(significant, ts * inv_nrm, uy)
+        else:
+            nux, nuy = torch.cos(nang), torch.sin(nang)
+
+        dist = torch.sqrt(ddx * ddx + ddy * ddy)
+        gnu = gamma * nuy
+        cf_new = one if iso else torch.sqrt(gnu * gnu + nux * nux)
+        ntt = tt + dist * (coef_i * n + cf_new * n2) * 0.5
+        ndsim = dsim + dist
+
+        def sel(new, old):
+            return torch.where(keep, new, old)
+
+        if stats:
+            mx2 = n2 * nux if iso else n2 * nux / cf_new
+            cnt2 = cnt + 1.0
+            delta = mx2 - mean
+            mean2 = mean + delta / cnt2
+            m22 = m2 + delta * (mx2 - mean2)
+            cnt, mean, m2 = sel(cnt2, cnt), sel(mean2, mean), sel(m22, m2)
+        active = active & ~(keep & _outside(nx2, ny2, box))
+        x, y, cx, cy = sel(nx2, x), sel(ny2, y), sel(cx2, cx), sel(cy2, cy)
+        ang, ux, uy = sel(nang, ang), sel(nux, ux), sel(nuy, uy)
+        n, gx, gy = sel(n2, n), sel(gx2, gx), sel(gy2, gy)
+        tt, dsim = sel(ntt, tt), sel(ndsim, dsim)
+
+    return ResumeState(x=x, y=y, ux=ux, uy=uy, cx=cx, cy=cy, tt=tt, dsim=dsim,
+                       active=active, ang=ang, mom_count=cnt, mom_mean=mean,
+                       mom_m2=m2)
+
+
+def golden_step(st: ResumeState, scal: torch.Tensor, *, field: str, op: str,
+                steps: int, box, gold_iters: int | None = None,
+                polish: int | None = None) -> ResumeState:
+    """Advance a resume state ``steps`` steps: the kernel's wrapper.
+
+    ``scal`` is :func:`golden_scalars` on the state's device, built with the
+    bracket iterations of the schedule (``golden_schedule(polish,
+    gold_iters)``); its ``offset`` entry makes step numbering global, so k
+    steps then n - k steps equal n steps.  A CPU state runs
+    :func:`golden_step_plain`; a CUDA state launches the kernel or raises.
+    """
+    if op not in GOLDEN_OPS:
+        raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
+    if field not in FUSED_FIELDS:
+        raise ValueError(f"golden kernel supports fields {FUSED_FIELDS}, got {field!r}")
+    iters, polish = golden_schedule(polish, gold_iters)
+    check_state(st, needs_ang=True, window=False)
+    if (scal.dtype != torch.float32 or scal.device != st.x.device
+            or scal.shape != (4 + 3 * iters,) or not scal.is_contiguous()):
+        raise ValueError(f"scal must be the contiguous float32 bundle of "
+                         f"{iters} bracket iterations on {st.x.device}")
+    box = tuple(float(v) for v in box)
+    stepper, solver = GOLDEN_OPS[op]
+    if st.x.device.type == "cpu":
+        return golden_step_plain(st, scal, field=field, op=op,
+                                 steps=int(steps), box=box, iters=iters,
+                                 polish=polish)
+    if st.x.device.type != "cuda":
+        raise ValueError(f"golden_step runs on cpu or cuda, not {st.x.device}")
+    out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
+    lib = build.library()
+    with torch.cuda.device(st.x.device):
+        err = lib.rt_golden_step(
+            FIELD_CODES[field], int(stepper == "curv"),
+            int(solver == "newton"), int(op in ("op5", "op9")),
+            int(st.mom_count is not None), build.pointer_array(st),
+            build.pointer_array(out), st.x.shape[0], int(steps),
+            scal.data_ptr(), iters, polish, *box, CURV_TOL,
+            *bracket_constants(iters),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rt_golden_step")
+    KERNEL.launches += 1
+    return out
+
+
+def final_from_state(st: ResumeState) -> GoldenFinal:
+    return GoldenFinal(pos=torch.stack([st.x, st.y], dim=-1), angle=st.ang,
+                       traveltime=st.tt, dist_sim=st.dsim, active=st.active,
+                       mom_count=st.mom_count, mom_mean=st.mom_mean,
+                       mom_m2=st.mom_m2)
+
+
+def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
+                       steps: int, box, device, with_stats: bool = False,
+                       step_limit=None, gold_iters: int | None = None,
+                       polish: int | None = None) -> GoldenFinal:
+    """Run ``steps`` golden/Newton integration steps (golden.py:581).
+
+    ``gamma`` is the anisotropy ratio (op5/op9 fold it to 1);
+    ``gold_iters``/``polish`` select the schedule (default: closed-form
+    seed + Newton polish; ``polish=0`` the pure f32 reference-parity
+    bracket); ``step_limit`` freezes rays after that many steps.
+    """
+    if op not in GOLDEN_OPS:
+        raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
+    iters, polish = golden_schedule(polish, gold_iters)
+    st = initial_state(op, pos0, theta0, gamma, field=field,
+                       with_stats=with_stats, device=device)
+    scal = golden_scalars(delta_s, gamma,
+                          steps if step_limit is None else step_limit, 0.0,
+                          iters, device=device)
+    st = golden_step(st, scal, field=field, op=op, steps=steps, box=box,
+                     gold_iters=iters, polish=polish)
+    return final_from_state(st)

@@ -1,0 +1,53 @@
+"""Shared helpers of the PyTorch-port tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages, so the
+JAX reference and the port see the same numbers.  Torch runs on one thread:
+the suite runs under several pytest-xdist workers, and torch's own thread
+pool would oversubscribe the machine.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none.
+
+    Decided when the test runs, never at import, so every pytest worker
+    collects the same tests.
+    """
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (and nvcc to build the "
+                    "kernels); this machine has none")
+    return torch.device("cuda", 0)
+
+
+def fan_near_interface(rng, r):
+    """Launch points just below the interface, heading up into it."""
+    pos0 = np.stack([-2.0 + rng.uniform(0.0, 0.5, r),
+                     -0.06 + rng.uniform(0.0, 0.03, r)], -1)
+    return pos0, rng.uniform(0.3, 1.4, r)
+
+
+def fan_vert(rng, r):
+    """Launch points near the vert/aniso scenarios' launch corner."""
+    pos0 = np.stack([-2.0 + rng.uniform(0.0, 0.5, r),
+                     -2.0 + rng.uniform(0.0, 0.5, r)], -1)
+    return pos0, rng.uniform(0.0, 1.5, r)
+
+
+#: shrunken boxes: rays leave them at different steps within a short run.
+#: The interface box keeps rays inside the sigmoid's gradient band, where
+#: the golden-section cost has a well-defined minimum; far from the
+#: interface the medium is uniform, the bracket's first comparison is a
+#: roundoff tie, and float64 golden results differ by the search
+#: tolerance (~3e-8 rad) between any two libms.
+INTERFACE_BOX = (-2.0, 20.0, -0.07, 0.07)
+VERT_BOX = (-2.0, -0.5, -2.5, -1.0)
+
+
+def to_np(t):
+    return t.detach().cpu().numpy()
