@@ -2,7 +2,9 @@
 
 A second package beside the JAX reference ``raytracing_tpu``: the same 2-D
 batched ray tracer (step methods op1-op12, the four reference scenarios,
-the physics oracles), written as plain torch functions on tensors, with the
+the physics oracles, the analytic fields and the reference's sampled media:
+stratified tables and the 2-D spline grid, parity and C1 forms), written as
+plain torch functions on tensors, with the
 JAX package's TPU kernels replaced by CUDA C++ kernels for the H100
 (``csrc/``, built at first use by :mod:`raytracing_tpu_torch.kernels.build`).
 It imports neither jax nor ``raytracing_tpu``.
@@ -18,7 +20,31 @@ from raytracing_tpu_torch.config import (  # noqa: F401
 )
 from raytracing_tpu_torch.engine.fast import FastResult, fast_trace  # noqa: F401
 from raytracing_tpu_torch.engine.trace import TraceResult, trace  # noqa: F401
+from raytracing_tpu_torch.media.c1 import (  # noqa: F401
+    C1GridMedium,
+    C1StratifiedMedium,
+    build_c1_medium,
+    build_c1_stratified,
+    c1_medium_from_samples,
+    c1_stratified_from_samples,
+)
+from raytracing_tpu_torch.media.hermite import (  # noqa: F401
+    HermiteGridMedium,
+    build_hermite_medium,
+)
 from raytracing_tpu_torch.media.medium import AnalyticMedium, analytic_medium  # noqa: F401
+from raytracing_tpu_torch.media.samples import (  # noqa: F401
+    compact_for_trace,
+    medium_from_samples,
+)
+from raytracing_tpu_torch.media.spline import (  # noqa: F401
+    GridMedium,
+    StratifiedGridMedium,
+    build_grid_medium,
+    build_stratified_medium,
+    grid_medium_from_samples,
+    stratified_medium_from_samples,
+)
 from raytracing_tpu_torch.ops.registry import (  # noqa: F401
     ALIASES,
     ANISO_OPS,
@@ -29,5 +55,11 @@ from raytracing_tpu_torch.ops.registry import (  # noqa: F401
 __all__ = [
     "DELTA_S", "SIGMA", "ScenarioConfig", "scenario", "TraceResult", "trace",
     "FastResult", "fast_trace", "AnalyticMedium", "analytic_medium",
+    "GridMedium", "StratifiedGridMedium", "HermiteGridMedium", "C1GridMedium",
+    "C1StratifiedMedium", "build_grid_medium", "build_stratified_medium",
+    "grid_medium_from_samples", "stratified_medium_from_samples",
+    "build_hermite_medium", "build_c1_medium", "build_c1_stratified",
+    "c1_medium_from_samples", "c1_stratified_from_samples",
+    "medium_from_samples", "compact_for_trace",
     "ALIASES", "ANISO_OPS", "EXTENSION_OPS", "OP_NAMES",
 ]

@@ -1,21 +1,31 @@
-"""FMA-contraction probe: the CUDA kernels built with ``-fmad=false`` (the
-build the package uses) against ``-fmad=true``, at the main path's shapes.
+"""Build probes of the CUDA kernels at the analytic main path's shapes, and
+profiles of the main paths.
 
-    python -m raytracing_tpu_torch.bench.fma_probe [--reps 5] [--profile PATH]
+    python -m raytracing_tpu_torch.bench.fma_probe [--reps 5]
+        [--parent-csrc DIR] [--profile PATH] [--profile-sampled PATH]
 
-Needs one CUDA device and nvcc.  Builds the library both ways, then makes
-four passes in the order off, on, on, off, so that a drift of the card's
-clock shows as a difference between the two passes of one build.  Each pass
-prints the card's name, power limit, SM clock, power draw and temperature,
-then for every shape the median kernel time of ``--reps`` runs after one
-warm-up (CUDA events, one run each) and the largest |delta| of the final
-positions against the first ``-fmad=false`` pass.  The kernel wrappers
-launch from ``build.library()``; the probe points it at each build in turn.
+Needs one CUDA device and nvcc.  By default it compares the build the
+package uses (``-fmad=false``) with ``-fmad=true``; with ``--parent-csrc``
+it compares instead the kernels built from another checkout's ``csrc``
+(e.g. the parent commit's, unpacked by ``git archive``) with this one's,
+both with the package's flags, on the analytic entry points they share.
+Either way it makes four passes in the order A, B, B, A, so that a drift of
+the card's clock shows as a difference between the two passes of one
+build.  Each pass prints the card's name, power limit, SM clock, power
+draw and temperature, then for every shape the median kernel time of
+``--reps`` runs after one warm-up (CUDA events, one run each) and the
+largest |delta| of the final positions against the first pass.  The
+kernel wrappers launch from ``build.library()``; the probe points it at
+each build in turn.
 
-``--profile PATH`` also traces the main path with torch.profiler (interface
-op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through ``fast_trace``, from
-numpy launch fans, after one warm-up), writes the Chrome trace to PATH and
-prints the device time of each kernel and copy.
+``--profile PATH`` also traces the analytic main path with torch.profiler
+(interface op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through
+``fast_trace``, from numpy launch fans, after one warm-up), writes the
+Chrome trace to PATH and prints the device time of each kernel and copy.
+``--profile-sampled PATH`` does the same for the sampled main path (the
+seven runs of chip_smoke.py's sampled phase through ``fast_trace``, media
+built on the card beforehand), and prints the wall time of the traced
+window and the share of it in which the card was idle.
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ import subprocess
 
 import numpy as np
 import torch
+
+import time
+from pathlib import Path
 
 from raytracing_tpu_torch import config
 from raytracing_tpu_torch.bench import launch_fan
@@ -89,12 +102,15 @@ def cases(device, rays=RAYS):
     ds_f = 2.0 * math.pi / 179
     steps_f = scenario("fisheye").max_size(ds_f, 180, 10) - 1
     ds_i = config.SIGMA / 5.0
+    ds_v = config.SIGMA / 0.05
     ds_a = config.SIGMA / 1.2
     return [
         (f"fisheye_op1 headline, {div} steps", headline),
         _fused_case("fisheye", "op6", ds_f, steps_f, device, rays),
         _fused_case("interface", "op6", ds_i,
                     scenario("interface").max_size(ds_i) - 1, device, rays),
+        _fused_case("vert", "op8", ds_v,
+                    scenario("vert").max_size(ds_v) - 1, device, rays),
         _golden_case("aniso", "op11", ds_a,
                      scenario("aniso").max_size(ds_a) - 1, device, rays),
         _golden_case("fisheye", "op11", ds_f, steps_f, device, rays),
@@ -123,28 +139,56 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def probe(device, reps):
-    libs = {}
-    for fmad in (False, True):
-        libs[fmad] = build.load(build.build(fmad_flags(fmad)))
+def probe(device, reps, builds):
+    """Four passes over the shapes, in the order A, B, B, A of the two
+    ``(label, library)`` builds."""
     shapes = cases(device)
     ref = {}
-    for p, fmad in enumerate((False, True, True, False)):
-        build.library = lambda lib=libs[fmad]: lib
+    (la, liba), (lb, libb) = builds
+    for p, (label_b, lib) in enumerate(((la, liba), (lb, libb), (lb, libb),
+                                        (la, liba))):
+        build.library = lambda lib=lib: lib
         print(smi(), flush=True)
         for label, run in shapes:
             times, pos = time_ms(run, reps)
             ref.setdefault(label, pos)
             dev = float((pos - ref[label]).abs().max())
-            print(f"pass {p} fmad={fmad} {label}: median "
+            print(f"pass {p} {label_b} {label}: median "
                   f"{statistics.median(times):.3f} ms runs "
-                  f"{[round(t, 3) for t in times]} max|d vs fmad=false| "
+                  f"{[round(t, 3) for t in times]} max|d vs {la}| "
                   f"{dev:.3e}", flush=True)
 
 
-def profile_main_path(device, path):
+def traced(main_path, path, wall=False):
+    """Trace ``main_path`` (after one warm-up) with torch.profiler, write the
+    Chrome trace to ``path`` and print the device time of each kernel and
+    copy; with ``wall``, also the traced window's wall time and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
+    main_path()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        main_path()
+        secs = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    # device events only: a host op's row repeats the time of what it launched
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in rows)
+    print(f"main path device time {total / 1e3:.3f} ms", flush=True)
+    if wall:
+        print(f"main path wall time {secs * 1e3:.3f} ms (host clock, "
+              f"synchronized), device idle {100.0 * (1 - total / 1e6 / secs):.1f}"
+              " % of it", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total):
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{100.0 * e.self_device_time_total / total:5.1f} % "
+              f"x{e.count} {e.key}", flush=True)
+
+
+def profile_main_path(device, path):
     import raytracing_tpu_torch as rtt
 
     def main_path():
@@ -159,34 +203,59 @@ def profile_main_path(device, path):
                            device=device)
         torch.cuda.synchronize()
 
-    main_path()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        main_path()
-    prof.export_chrome_trace(path)
-    # device events only: a host op's row repeats the time of what it launched
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in rows)
-    print(f"main path device time {total / 1e3:.3f} ms", flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total):
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{100.0 * e.self_device_time_total / total:5.1f} % "
-              f"x{e.count} {e.key}", flush=True)
+    traced(main_path, path)
+
+
+def profile_sampled_path(device, path):
+    """The sampled main path of chip_smoke.py: its seven runs through
+    fast_trace on media built on the card before the trace."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import SAMPLED_RUNS, sampled_media
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+
+    media = sampled_media(device)
+
+    def main_path():
+        for _, name, kind, op in SAMPLED_RUNS:
+            scen = scenario(name)
+            ds, div = calibrated_with_fallback(op, name)
+            pos0, theta0 = launch_fan(scen, RAYS)
+            rtt.fast_trace(op, scen, media[(kind, name)], delta_s=ds,
+                           pos0=pos0, theta0=theta0,
+                           steps=scen.max_size(ds, div, 1) - 1,
+                           stats=name in ("vert", "aniso"), device=device)
+        torch.cuda.synchronize()
+
+    traced(main_path, path, wall=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parent-csrc", metavar="DIR", type=Path,
+                    help="compare the kernels built from this csrc instead "
+                         "of -fmad=true")
     ap.add_argument("--profile", metavar="PATH",
-                    help="also trace the main path to this Chrome trace")
+                    help="also trace the analytic main path to this trace")
+    ap.add_argument("--profile-sampled", metavar="PATH",
+                    help="also trace the sampled main path to this trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fma_probe: needs a CUDA device")
-    probe("cuda", args.reps)   # ends on the -fmad=false build
+    own = ("fmad=false", build.load(build.build()))
+    if args.parent_csrc is not None:
+        analytic = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step")
+        other = ("parent", build.load(build.build(csrc=args.parent_csrc),
+                                      analytic))
+        probe("cuda", args.reps, (other, ("change", own[1])))
+    else:
+        probe("cuda", args.reps,
+              (own, ("fmad=true", build.load(build.build(fmad_flags(True))))))
+    build.library = lambda: own[1]
     if args.profile:
         profile_main_path("cuda", args.profile)
+    if args.profile_sampled:
+        profile_sampled_path("cuda", args.profile_sampled)
     return 0
 
 

@@ -12,7 +12,7 @@
 // so at thousands of steps the kernel is bound by FP32 issue, not memory:
 // the design keeps every step's traffic in registers and masks the ragged
 // edge instead of padding.
-#include "common.cuh"
+#include "media.cuh"
 
 namespace rt {
 
@@ -25,8 +25,9 @@ fisheye_op1_kernel(const float* __restrict__ x0, const float* __restrict__ y0,
   if (r >= n_rays) return;
   float x = x0[r], y = y0[r], ux = ux0[r], uy = uy0[r];
   float cx = 0.0f, cy = 0.0f, tt = 0.0f;
+  const Analytic<FISHEYE> medium{};
   float n, gx, gy;
-  nag<FISHEYE>(x, y, n, gx, gy);
+  medium.nag(x, y, n, gx, gy);
   const float half = ds * 0.5f;
   for (int i = 0; i < steps; ++i) {
     float nx, ny;
@@ -35,7 +36,7 @@ fisheye_op1_kernel(const float* __restrict__ x0, const float* __restrict__ y0,
     x = nx;
     y = ny;
     float n2, gx2, gy2;
-    nag<FISHEYE>(x, y, n2, gx2, gy2);
+    medium.nag(x, y, n2, gx2, gy2);
     // theta_cost_t, trig-free: new tangent = normalized momentum + impulse
     const float sx = n * ux + (gx + gx2) * half;
     const float sy = n * uy + (gy + gy2) * half;

@@ -1,10 +1,16 @@
-// fused_step: resumable fused integrator for op1/2/3/4/6/7/8/12 on the three
-// analytic fields.
+// fused_step, fused_step_strat, fused_step_grid: the resumable fused
+// integrator for op1/2/3/4/6/7/8/12, one step loop instantiated on three
+// media (media.cuh).
 //
-// Replaces raytracing_tpu/kernels/fused.py::_make_kernel (fused.py:336) with
-// the analytic _field_fn (fused.py:44), launched at fused.py:740 for
-// fused_trace_final and, in its resume form, at engine/segmented.py:165.  The
-// Pallas factory's compile-time arguments (field, op) are template
+// Replaces raytracing_tpu/kernels/fused.py::_make_kernel (fused.py:336),
+// launched at fused.py:740 for fused_trace_final(_strat) and, in its resume
+// form, at engine/segmented.py:165 and :778:
+// * fused_step: the analytic _field_fn (fused.py:44), rt_fused_step;
+// * fused_step_strat: the 1-D tables of _strat_nag (fused.py:65),
+//   rt_fused_step_strat (row 2s of the kernel table in PERF.md);
+// * fused_step_grid: the 2-D per-cell table of _tile_nag (fused.py:205)
+//   with _hermite_blend or c1_blend, rt_fused_step_grid (row 5).
+// The Pallas factory's compile-time arguments (medium, op) are template
 // parameters here; stats is a run-time flag (a uniform branch).
 //
 // What it computes is the TPU kernel's step: the tangent carried as (ux, uy)
@@ -19,10 +25,12 @@
 // every step; state is read and written once as coalesced planes, the
 // ragged edge is masked.  A step is 30-120 FP32 operations (op12 evaluates
 // the field four times) against ~64 bytes a ray for the whole launch, so the
-// kernel is bound by FP32 issue, not memory.  A thread leaves its step loop
+// kernel is bound by FP32 issue, not memory; a sampled medium adds one
+// 32-byte (1-D) or 64-144-byte (2-D) table read per field evaluation, served
+// by L1/L2 (the tables are at most 37.5 MB).  A thread leaves its step loop
 // as soon as its ray is frozen (box exit or the step limit) — results are
 // unchanged, since a frozen ray's state never changes again.
-#include "common.cuh"
+#include "media.cuh"
 
 namespace rt {
 
@@ -33,8 +41,9 @@ struct FusedArgs {
   float box[4];
 };
 
-template <int FIELD, int OP>
-__global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
+template <class Medium, int OP>
+__global__ void __launch_bounds__(kThreads)
+    fused_kernel(FusedArgs a, Medium medium) {
   constexpr bool kSecond = OP == 6 || OP == 7 || OP == 8;
   constexpr bool kCurv = OP == 3 || OP == 4;
   constexpr bool kRk2 = OP == 2 || OP == 3 || OP == 6;
@@ -63,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
   }
   const float ds = a.ds;
   float n, gx, gy;
-  nag<FIELD>(x, y, n, gx, gy);
+  medium.nag(x, y, n, gx, gy);
 
   for (int i = 0; i < a.steps; ++i) {
     // frozen rays never change again: stop stepping (fused.py:585-592)
@@ -80,13 +89,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
       float u1x, u1y, u2x, u2y, u3x, u3y, nb, gbx, gby, nc, gcx, gcy, nd, gdx,
           gdy;
       rot(ux, uy, 0.5f * h * k1t, u1x, u1y);
-      nag<FIELD>(x + 0.5f * h * ux, y + 0.5f * h * uy, nb, gbx, gby);
+      medium.nag(x + 0.5f * h * ux, y + 0.5f * h * uy, nb, gbx, gby);
       const float k2t = (u1x * gby - u1y * gbx) / nb;
       rot(ux, uy, 0.5f * h * k2t, u2x, u2y);
-      nag<FIELD>(x + 0.5f * h * u1x, y + 0.5f * h * u1y, nc, gcx, gcy);
+      medium.nag(x + 0.5f * h * u1x, y + 0.5f * h * u1y, nc, gcx, gcy);
       const float k3t = (u2x * gcy - u2y * gcx) / nc;
       rot(ux, uy, h * k3t, u3x, u3y);
-      nag<FIELD>(x + h * u2x, y + h * u2y, nd, gdx, gdy);
+      medium.nag(x + h * u2x, y + h * u2y, nd, gdx, gdy);
       const float k4t = (u3x * gdy - u3y * gdx) / nd;
       const float h6 = h / 6.0f;
       ddx = h6 * (ux + 2.0f * u1x + 2.0f * u2x + u3x);
@@ -112,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
     kahan(y, cy, ddy, ny2, cy2);
 
     float n2, gx2, gy2;
-    nag<FIELD>(nx2, ny2, n2, gx2, gy2);
+    medium.nag(nx2, ny2, n2, gx2, gy2);
 
     // -- angle update ----------------------------------------------------
     float nux, nuy;
@@ -211,33 +220,30 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(FusedArgs a) {
   }
 }
 
-template <int FIELD>
-static int launch_field(int op, const FusedArgs& a, int blocks,
-                        cudaStream_t s) {
+template <class Medium>
+static int launch(int op, const FusedArgs& a, const Medium& m,
+                  cudaStream_t s) {
+  const int blocks = (a.n + kThreads - 1) / kThreads;
   switch (op) {
-    case 1: fused_kernel<FIELD, 1><<<blocks, kThreads, 0, s>>>(a); break;
-    case 2: fused_kernel<FIELD, 2><<<blocks, kThreads, 0, s>>>(a); break;
-    case 3: fused_kernel<FIELD, 3><<<blocks, kThreads, 0, s>>>(a); break;
-    case 4: fused_kernel<FIELD, 4><<<blocks, kThreads, 0, s>>>(a); break;
-    case 6: fused_kernel<FIELD, 6><<<blocks, kThreads, 0, s>>>(a); break;
-    case 7: fused_kernel<FIELD, 7><<<blocks, kThreads, 0, s>>>(a); break;
-    case 8: fused_kernel<FIELD, 8><<<blocks, kThreads, 0, s>>>(a); break;
-    case 12: fused_kernel<FIELD, 12><<<blocks, kThreads, 0, s>>>(a); break;
+    case 1: fused_kernel<Medium, 1><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 2: fused_kernel<Medium, 2><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 3: fused_kernel<Medium, 3><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 4: fused_kernel<Medium, 4><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 6: fused_kernel<Medium, 6><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 7: fused_kernel<Medium, 7><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 8: fused_kernel<Medium, 8><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 12: fused_kernel<Medium, 12><<<blocks, kThreads, 0, s>>>(a, m); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace rt
-
-extern "C" int rt_fused_step(int field, int op, int stats, void* const* in,
-                             void* const* out, int n, int steps, float ds,
-                             float limit, float offset, float limx_i,
-                             float limx_s, float limy_i, float limy_s,
-                             float curv_tol, void* stream) {
-  if (n <= 0) return 0;
-  rt::FusedArgs a;
-  for (int k = 0; k < rt::NSLOTS; ++k) {
+static FusedArgs fused_args(int stats, void* const* in, void* const* out,
+                            int n, int steps, float ds, float limit,
+                            float offset, float limx_i, float limx_s,
+                            float limy_i, float limy_s, float curv_tol) {
+  FusedArgs a;
+  for (int k = 0; k < NSLOTS; ++k) {
     a.in.p[k] = in[k];
     a.out.p[k] = out[k];
   }
@@ -252,13 +258,56 @@ extern "C" int rt_fused_step(int field, int op, int stats, void* const* in,
   a.box[1] = limx_s;
   a.box[2] = limy_i;
   a.box[3] = limy_s;
-  const int blocks = (n + rt::kThreads - 1) / rt::kThreads;
+  return a;
+}
+
+}  // namespace rt
+
+#define RT_FUSED_PARAMS                                                     \
+  int op, int stats, void *const *in, void *const *out, int n, int steps,   \
+      float ds, float limit, float offset, float limx_i, float limx_s,      \
+      float limy_i, float limy_s, float curv_tol
+#define RT_FUSED_ARGS                                                        \
+  rt::fused_args(stats, in, out, n, steps, ds, limit, offset, limx_i, limx_s, \
+                 limy_i, limy_s, curv_tol)
+
+// fused_step: the analytic fields (row 2 of the kernel table)
+extern "C" int rt_fused_step(int field, RT_FUSED_PARAMS, void* stream) {
+  if (n <= 0) return 0;
+  const rt::FusedArgs a = RT_FUSED_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (field) {
-    case rt::FISHEYE: return rt::launch_field<rt::FISHEYE>(op, a, blocks, s);
-    case rt::VERT: return rt::launch_field<rt::VERT>(op, a, blocks, s);
+    case rt::FISHEYE: return rt::launch(op, a, rt::Analytic<rt::FISHEYE>{}, s);
+    case rt::VERT: return rt::launch(op, a, rt::Analytic<rt::VERT>{}, s);
     case rt::INTERFACE:
-      return rt::launch_field<rt::INTERFACE>(op, a, blocks, s);
+      return rt::launch(op, a, rt::Analytic<rt::INTERFACE>{}, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// fused_step_strat: 1-D stratified tables, ch = 6 (parity) or 4 (C1); row 2s
+extern "C" int rt_fused_step_strat(int ch, RT_FUSED_PARAMS, RT_TABLE_PARAMS,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  const rt::FusedArgs a = RT_FUSED_ARGS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ch) {
+    case 6: return rt::launch(op, a, rt::Strat<6>{RT_TABLE}, s);
+    case 4: return rt::launch(op, a, rt::Strat<4>{RT_TABLE}, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// fused_step_grid: the 2-D per-cell table, cell_ch = 36 (parity) or 16 (C1);
+// row 5, fused family
+extern "C" int rt_fused_step_grid(int cell_ch, RT_FUSED_PARAMS,
+                                  RT_TABLE_PARAMS, void* stream) {
+  if (n <= 0) return 0;
+  const rt::FusedArgs a = RT_FUSED_ARGS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cell_ch) {
+    case 36: return rt::launch(op, a, rt::Grid<36>{RT_TABLE}, s);
+    case 16: return rt::launch(op, a, rt::Grid<16>{RT_TABLE}, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,15 +1,21 @@
-// golden_step: resumable golden/Newton momentum-cost integrator for op5,
-// op9, op10, op11, op10n and op11n on the three analytic fields.
+// golden_step, golden_step_strat, golden_step_grid: the resumable
+// golden/Newton momentum-cost integrator for op5, op9, op10, op11, op10n and
+// op11n, one step loop instantiated on three media (media.cuh).
 //
 // Replaces raytracing_tpu/kernels/golden.py::_make_kernel (golden.py:138),
 // launched at golden.py:649 for golden_trace_final and, in its resume form,
-// at engine/segmented.py:165.  Template parameters: field x stepper
-// {curvature, 2nd-order Taylor} x solver {golden schedule, seeded Newton} x
-// iso (op5/op9 fold the anisotropy factor to 1).  The schedule runs at run
-// time: iters == 0 is the closed-form seed (+ `polish` Newton steps for the
-// anisotropic ops), iters > 0 the transcendental-free golden bracket with
-// per-iteration rotations read from the scalar bundle (golden.py:548), then
-// `polish` Newton steps clipped to the final bracket width.
+// at engine/segmented.py:165 and :778: golden_step on the analytic fields
+// (rt_golden_step), golden_step_strat on the 1-D tables (the strat
+// injection, golden.py:520-527; rt_golden_step_strat, row 3s) and
+// golden_step_grid on the 2-D per-cell table (the tile injection,
+// golden.py:491-518; rt_golden_step_grid, row 5).  Template parameters:
+// medium x stepper {curvature, 2nd-order Taylor} x solver {golden schedule,
+// seeded Newton} x iso (op5/op9 fold the anisotropy factor to 1).  The
+// schedule runs at run time: iters == 0 is the closed-form seed (+ `polish`
+// Newton steps for the anisotropic ops), iters > 0 the transcendental-free
+// golden bracket with per-iteration rotations read from the scalar bundle
+// (golden.py:548), then `polish` Newton steps clipped to the final bracket
+// width.
 //
 // The TPU kernel takes the cost's first and second derivatives by nested
 // jax.jvp (golden.py:306-328).  Here the cost is written once, templated on
@@ -23,7 +29,7 @@
 // once its ray is frozen.  A step costs ~150-900 FP32 operations (each
 // Newton step is one Dual2 cost, ~4 plain costs; each bracket iteration one
 // cost) against ~60 bytes a ray for the whole launch: FP32-issue bound.
-#include "common.cuh"
+#include "media.cuh"
 
 namespace rt {
 
@@ -127,8 +133,9 @@ struct GoldenArgs {
 
 constexpr float kDeltaG = (float)(3.141592653589793 / 2.0);  // config.DELTA_G
 
-template <int FIELD, bool CURV, bool NEWTON, bool ISO>
-__global__ void __launch_bounds__(kThreads) golden_kernel(GoldenArgs a) {
+template <class Medium, bool CURV, bool NEWTON, bool ISO>
+__global__ void __launch_bounds__(kThreads)
+    golden_kernel(GoldenArgs a, Medium medium) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= a.n) return;
   const float ds = a.scal[0], gamma = a.scal[1], limit = a.scal[2],
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) golden_kernel(GoldenArgs a) {
     m2 = ld(a.in, M2, r);
   }
   float n, gx, gy;
-  nag<FIELD>(x, y, n, gx, gy);
+  medium.nag(x, y, n, gx, gy);
 
   for (int i = 0; i < a.steps; ++i) {
     if (!active || !((float)i + offset < limit)) break;
@@ -172,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) golden_kernel(GoldenArgs a) {
     kahan(x, cx, ddx, nx2, cx2);
     kahan(y, cy, ddy, ny2, cy2);
     float n2, gx2, gy2;
-    nag<FIELD>(nx2, ny2, n2, gx2, gy2);
+    medium.nag(nx2, ny2, n2, gx2, gy2);
 
     // ---- minimize the momentum cost -----------------------------------
     const float gu = gamma * uy;
@@ -310,35 +317,32 @@ __global__ void __launch_bounds__(kThreads) golden_kernel(GoldenArgs a) {
   }
 }
 
-template <int FIELD>
-static int launch_field(int curv, int newton, int iso, const GoldenArgs& a,
-                        int blocks, cudaStream_t s) {
+template <class Medium>
+static int launch(int curv, int newton, int iso, const GoldenArgs& a,
+                  const Medium& m, cudaStream_t s) {
+  const int blocks = (a.n + kThreads - 1) / kThreads;
   const int code = (curv ? 4 : 0) | (newton ? 2 : 0) | (iso ? 1 : 0);
   switch (code) {
-    case 0: golden_kernel<FIELD, false, false, false><<<blocks, kThreads, 0, s>>>(a); break;
-    case 1: golden_kernel<FIELD, false, false, true><<<blocks, kThreads, 0, s>>>(a); break;
-    case 2: golden_kernel<FIELD, false, true, false><<<blocks, kThreads, 0, s>>>(a); break;
-    case 4: golden_kernel<FIELD, true, false, false><<<blocks, kThreads, 0, s>>>(a); break;
-    case 5: golden_kernel<FIELD, true, false, true><<<blocks, kThreads, 0, s>>>(a); break;
-    case 6: golden_kernel<FIELD, true, true, false><<<blocks, kThreads, 0, s>>>(a); break;
+    case 0: golden_kernel<Medium, false, false, false><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 1: golden_kernel<Medium, false, false, true><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 2: golden_kernel<Medium, false, true, false><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 4: golden_kernel<Medium, true, false, false><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 5: golden_kernel<Medium, true, false, true><<<blocks, kThreads, 0, s>>>(a, m); break;
+    case 6: golden_kernel<Medium, true, true, false><<<blocks, kThreads, 0, s>>>(a, m); break;
     default: return static_cast<int>(cudaErrorInvalidValue);  // no iso Newton op
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace rt
-
-extern "C" int rt_golden_step(int field, int curv, int newton, int iso,
-                              int stats, void* const* in, void* const* out,
+static GoldenArgs golden_args(int stats, void* const* in, void* const* out,
                               int n, int steps, const void* scal, int iters,
                               int polish, float limx_i, float limx_s,
                               float limy_i, float limy_s, float curv_tol,
                               float cos_c0, float sin_c0, float cos_d0,
                               float sin_d0, float cos_m, float sin_m,
-                              float l_final, void* stream) {
-  if (n <= 0) return 0;
-  rt::GoldenArgs a;
-  for (int k = 0; k < rt::NSLOTS; ++k) {
+                              float l_final) {
+  GoldenArgs a;
+  for (int k = 0; k < NSLOTS; ++k) {
     a.in.p[k] = in[k];
     a.out.p[k] = out[k];
   }
@@ -360,15 +364,62 @@ extern "C" int rt_golden_step(int field, int curv, int newton, int iso,
   a.cos_m = cos_m;
   a.sin_m = sin_m;
   a.l_final = l_final;
-  const int blocks = (n + rt::kThreads - 1) / rt::kThreads;
+  return a;
+}
+
+}  // namespace rt
+
+#define RT_GOLDEN_PARAMS                                                      \
+  int curv, int newton, int iso, int stats, void *const *in,                 \
+      void *const *out, int n, int steps, const void *scal, int iters,       \
+      int polish, float limx_i, float limx_s, float limy_i, float limy_s,    \
+      float curv_tol, float cos_c0, float sin_c0, float cos_d0,              \
+      float sin_d0, float cos_m, float sin_m, float l_final
+#define RT_GOLDEN_ARGS                                                        \
+  rt::golden_args(stats, in, out, n, steps, scal, iters, polish, limx_i,     \
+                  limx_s, limy_i, limy_s, curv_tol, cos_c0, sin_c0, cos_d0,  \
+                  sin_d0, cos_m, sin_m, l_final)
+
+// golden_step: the analytic fields (row 3 of the kernel table)
+extern "C" int rt_golden_step(int field, RT_GOLDEN_PARAMS, void* stream) {
+  if (n <= 0) return 0;
+  const rt::GoldenArgs a = RT_GOLDEN_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (field) {
     case rt::FISHEYE:
-      return rt::launch_field<rt::FISHEYE>(curv, newton, iso, a, blocks, s);
+      return rt::launch(curv, newton, iso, a, rt::Analytic<rt::FISHEYE>{}, s);
     case rt::VERT:
-      return rt::launch_field<rt::VERT>(curv, newton, iso, a, blocks, s);
+      return rt::launch(curv, newton, iso, a, rt::Analytic<rt::VERT>{}, s);
     case rt::INTERFACE:
-      return rt::launch_field<rt::INTERFACE>(curv, newton, iso, a, blocks, s);
+      return rt::launch(curv, newton, iso, a, rt::Analytic<rt::INTERFACE>{},
+                        s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// golden_step_strat: 1-D stratified tables, ch = 6 or 4; row 3s
+extern "C" int rt_golden_step_strat(int ch, RT_GOLDEN_PARAMS, RT_TABLE_PARAMS,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  const rt::GoldenArgs a = RT_GOLDEN_ARGS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ch) {
+    case 6: return rt::launch(curv, newton, iso, a, rt::Strat<6>{RT_TABLE}, s);
+    case 4: return rt::launch(curv, newton, iso, a, rt::Strat<4>{RT_TABLE}, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// golden_step_grid: the 2-D per-cell table, cell_ch = 36 or 16; row 5,
+// golden family
+extern "C" int rt_golden_step_grid(int cell_ch, RT_GOLDEN_PARAMS,
+                                   RT_TABLE_PARAMS, void* stream) {
+  if (n <= 0) return 0;
+  const rt::GoldenArgs a = RT_GOLDEN_ARGS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cell_ch) {
+    case 36: return rt::launch(curv, newton, iso, a, rt::Grid<36>{RT_TABLE}, s);
+    case 16: return rt::launch(curv, newton, iso, a, rt::Grid<16>{RT_TABLE}, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,0 +1,231 @@
+// The media the step kernels evaluate: each type has one
+// __device__ nag(x, y, n, gx, gy) giving n and its gradient at (x, y), and
+// the step loops of fused.cu and golden.cu are templates on the type.
+//
+// * Analytic<FIELD>: the closed-form fields
+//   (raytracing_tpu/kernels/fused.py::_field_fn, fused.py:44-62).
+// * Strat<CH>: a 1-D stratified table
+//   (raytracing_tpu/kernels/fused.py::_strat_nag, fused.py:65-105), one row
+//   a cell: CH = 6 for the parity form (Zy[i], Zy[i+1], cy[i, 0..3]) or 4
+//   for the C1 form (cn[i, 0..3]), each row padded to 8 floats so that one
+//   32-byte sector holds a cell.  The TPU kernel's 128-lane chunks and
+//   chunk selects exist only for tpu.dynamic_gather; here the row is read
+//   directly, through the read-only cache.
+// * Grid<CELL_CH>: a 2-D per-cell table in the _cells36 layout
+//   (raytracing_tpu/engine/segmented.py:449-467): one row a cell, the 4
+//   corners (00, +x, +y, +xy) of channel ch at ch*4 + corner, 36 floats for
+//   the parity Hermite form (fused.py::_hermite_blend, :108-148) or 16 for
+//   the C1 form (media/c1.py::c1_blend).  It replaces the TPU's
+//   block-shared cell window (fused.py::_tile_nag, :205): every ray reads
+//   its own cell's row from global memory (144 or 64 bytes, float4 loads);
+//   the parity fisheye table (37.5 MB) fits in the H100's 50 MB L2.
+//
+// Every expression keeps the JAX kernels' order of operations, and the
+// cell index follows the same float32 path (clip, floor, min), so the
+// kernels agree to the bit with their plain PyTorch versions
+// (raytracing_tpu_torch/kernels/fused.py: field_fn, strat_nag_plain,
+// tile_nag_plain) under -fmad=false.
+#pragma once
+
+#include "common.cuh"
+
+namespace rt {
+
+// -- analytic fields (raytracing_tpu/kernels/fused.py:44-62) ----------------
+enum Field { FISHEYE = 0, VERT = 1, INTERFACE = 2 };
+
+constexpr float kSqrt2 = (float)1.4142135623730951;
+constexpr float kSqrt2m1 = (float)(1.4142135623730951 - 1.0);
+constexpr float kThck = (float)0.005;   // config.THCK_PARAM
+
+template <int FIELD>
+struct Analytic {
+  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
+                                      float& gy) const {
+    if (FIELD == FISHEYE) {
+      n = 1.0f / (1.0f + x * x + y * y);
+      const float c = -2.0f * n * n;
+      gx = c * x;
+      gy = c * y;
+    } else if (FIELD == VERT) {
+      n = 1.0f / (18.0f + 2.0f * y);
+      gx = 0.0f;
+      gy = -2.0f * n * n;
+    } else {
+      // literal logistic as in the TPU kernel (fused.py:58): expf overflows
+      // to inf for y < ~-0.44, giving sig = 0 exactly, which is the right
+      // value
+      const float sig = 1.0f / (1.0f + expf(-y / kThck));
+      n = kSqrt2 - kSqrt2m1 * sig;
+      gx = 0.0f;
+      gy = -kSqrt2m1 * sig * (1.0f - sig) / kThck;
+    }
+  }
+};
+
+// A sampled medium's table on the card and its geometry; x0, inv_hx and nx
+// are unused by the 1-D tables.
+struct Table {
+  const float* __restrict__ t;
+  float x0, y0, inv_hx, inv_hy;
+  int nx, ny;
+};
+
+// The table arguments of a C entry point, and the Table they make
+#define RT_TABLE_PARAMS                                                       \
+  const void *table, float x0, float y0, float inv_hx, float inv_hy, int nx, \
+      int ny
+#define RT_TABLE                                                           \
+  rt::Table {                                                              \
+    static_cast<const float*>(table), x0, y0, inv_hx, inv_hy, nx, ny       \
+  }
+
+// jnp.clip(v, lo, hi) = min(max(v, lo), hi)
+__device__ __forceinline__ float clampf(float v, float hi) {
+  return fminf(fmaxf(v, 0.0f), hi);
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p, int k) {
+  return __ldg(reinterpret_cast<const float4*>(p) + k);
+}
+
+// -- 1-D stratified tables (fused.py:65-105) ---------------------------------
+template <int CH>
+struct Strat {
+  static_assert(CH == 6 || CH == 4, "parity (6) or C1 (4) channels");
+  Table m;
+  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
+                                      float& gy) const {
+    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
+    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
+    const float uy = fy - iy;
+    const float* row = m.t + static_cast<long long>(iy) * 8;
+    const float4 a = ldg4(row, 0);
+    if (CH == 4) {
+      // consistent C1 cubic: n and dn/dy from the same coefficients
+      const float c0 = a.x, c1 = a.y, c2 = a.z, c3 = a.w;
+      n = c0 + uy * (c1 + uy * (c2 + uy * c3));
+      gy = (c1 + uy * (2.0f * c2 + uy * 3.0f * c3)) * m.inv_hy;
+    } else {
+      const float4 b = ldg4(row, 1);
+      const float zlo = a.x, zhi = a.y, c0 = a.z, c1 = a.w, c2 = b.x,
+                  c3 = b.y;
+      n = (1.0f - uy) * zlo + uy * zhi;
+      gy = c0 + uy * (c1 + uy * (c2 + uy * c3));
+    }
+    gx = 0.0f;
+  }
+};
+
+// -- 2-D grid blends ---------------------------------------------------------
+// A cell row's channel ch holds its 4 corners (00, +x, +y, +xy) as one
+// float4 (x, y, z, w).
+
+// bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8):
+// raytracing_tpu/kernels/fused.py::_hermite_blend (:108-148)
+__device__ __forceinline__ void hermite_blend(const float* c, float u, float v,
+                                              float& n, float& gx,
+                                              float& gy) {
+  const float4 z = ldg4(c, 0);
+  n = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
+      v * ((1.0f - u) * z.z + u * z.w);
+  const float v2 = v * v;
+  const float v3 = v2 * v;
+  const float hv0 = 2.0f * v3 - 3.0f * v2 + 1.0f;
+  const float gv0 = v3 - 2.0f * v2 + v;
+  const float hv1 = -2.0f * v3 + 3.0f * v2;
+  const float gv1 = v3 - v2;
+  const float u2 = u * u;
+  const float u3 = u2 * u;
+  const float hu0 = 2.0f * u3 - 3.0f * u2 + 1.0f;
+  const float gu0 = u3 - 2.0f * u2 + u;
+  const float hu1 = -2.0f * u3 + 3.0f * u2;
+  const float gu1 = u3 - u2;
+  float g[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int ch0 = 1 + 4 * k;
+    const float4 f = ldg4(c, ch0), fv = ldg4(c, ch0 + 1),
+                 fu = ldg4(c, ch0 + 2), fw = ldg4(c, ch0 + 3);
+    g[k] = (f.x * hv0 + fv.x * gv0 + f.z * hv1 + fv.z * gv1) * hu0 +
+           (f.y * hv0 + fv.y * gv0 + f.w * hv1 + fv.w * gv1) * hu1 +
+           (fu.x * hv0 + fw.x * gv0 + fu.z * hv1 + fw.z * gv1) * gu0 +
+           (fu.y * hv0 + fw.y * gv0 + fu.w * hv1 + fw.w * gv1) * gu1;
+  }
+  gx = g[0];
+  gy = g[1];
+}
+
+// Hermite basis (h00, h10, h01, h11) and its derivative at t
+// (media/hermite.py::hermite_basis, media/c1.py::hermite_dbasis)
+struct Basis {
+  float h0, g0, h1, g1;
+};
+__device__ __forceinline__ Basis hermite_basis(float t) {
+  const float t2 = t * t;
+  const float t3 = t2 * t;
+  return {2.0f * t3 - 3.0f * t2 + 1.0f, t3 - 2.0f * t2 + t,
+          -2.0f * t3 + 3.0f * t2, t3 - t2};
+}
+__device__ __forceinline__ Basis hermite_dbasis(float t) {
+  const float t2 = t * t;
+  return {6.0f * t2 - 6.0f * t, 3.0f * t2 - 4.0f * t + 1.0f,
+          -6.0f * t2 + 6.0f * t, 3.0f * t2 - 2.0f * t};
+}
+// c0*h0 + c1*g0 + c2*h1 + c3*g1 (media/c1.py::_hermite1)
+__device__ __forceinline__ float hermite1(float c0, float c1, float c2,
+                                          float c3, const Basis& b) {
+  return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
+}
+
+// n and grad n of one bicubic patch: media/c1.py::c1_blend
+__device__ __forceinline__ void c1_blend(const float* c, float u, float v,
+                                         float inv_hx, float inv_hy, float& n,
+                                         float& gx, float& gy) {
+  const float4 f = ldg4(c, 0), fv = ldg4(c, 1), fu = ldg4(c, 2),
+               fw = ldg4(c, 3);
+  const Basis hv = hermite_basis(v), dv = hermite_dbasis(v);
+  const Basis hu = hermite_basis(u), du = hermite_dbasis(u);
+  // v-blend each corner column pair into cubic-in-u Hermite data
+  // (p0, m0, p1, m1)
+  const Basis col = {hermite1(f.x, fv.x, f.z, fv.z, hv),
+                     hermite1(fu.x, fw.x, fu.z, fw.z, hv),
+                     hermite1(f.y, fv.y, f.w, fv.w, hv),
+                     hermite1(fu.y, fw.y, fu.w, fw.w, hv)};
+  const Basis col_dv = {hermite1(f.x, fv.x, f.z, fv.z, dv),
+                        hermite1(fu.x, fw.x, fu.z, fw.z, dv),
+                        hermite1(f.y, fv.y, f.w, fv.w, dv),
+                        hermite1(fu.y, fw.y, fu.w, fw.w, dv)};
+  n = hermite1(col.h0, col.g0, col.h1, col.g1, hu);
+  const float gu = hermite1(col.h0, col.g0, col.h1, col.g1, du);
+  const float gv = hermite1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, hu);
+  gx = gu * inv_hx;
+  gy = gv * inv_hy;
+}
+
+// -- 2-D grid (engine/segmented.py::_cells, fused.py::_tile_nag) -------------
+template <int CELL_CH>
+struct Grid {
+  static_assert(CELL_CH == 36 || CELL_CH == 16, "parity (36) or C1 (16)");
+  Table m;
+  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
+                                      float& gy) const {
+    const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
+    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
+    const float ix = fminf(floorf(fx), (float)(m.nx - 2));
+    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
+    const float u = fx - ix;
+    const float v = fy - iy;
+    // 64-bit offset: a user grid may hold more than 2^31 floats
+    const long long cell = static_cast<long long>(iy) * (m.nx - 1) +
+                           static_cast<long long>(ix);
+    const float* c = m.t + cell * CELL_CH;
+    if (CELL_CH == 16) {
+      c1_blend(c, u, v, m.inv_hx, m.inv_hy, n, gx, gy);
+    } else {
+      hermite_blend(c, u, v, n, gx, gy);
+    }
+  }
+};
+
+}  // namespace rt

@@ -1,20 +1,28 @@
-"""fast_trace: one entry point for the kernel tier on analytic media.
+"""fast_trace: one entry point for the kernel tier, analytic and sampled media.
 
-Port of ``raytracing_tpu/engine/fast.py``: ``FastResult`` (fast.py:59),
-``supports`` (:85) and ``fast_trace`` (:99), restricted to
-:class:`AnalyticMedium`.  Fused ops go to ``kernels/fused.py``, golden and
-Newton ops to ``kernels/golden.py``, for all four scenarios and any step
-count.
+Port of ``raytracing_tpu/engine/fast.py``: ``_as_hermite`` and its LRU
+cache (fast.py:31-51), ``FastResult`` (:59), ``supports`` (:85) and
+``fast_trace`` (:99), with its routing of the analytic fields, the
+stratified tables (compaction and the stats check, :128-139, :309-329) and
+the 2-D grid media (:169-205).
+
+* Analytic fields: fused ops to ``kernels/fused.py``, golden and Newton ops
+  to ``kernels/golden.py`` (engines ``"fused"``, ``"golden"``).
+* Stratified tables (``StratifiedGridMedium``, ``C1StratifiedMedium``),
+  trimmed by ``compact_for_trace`` as JAX trims them: the same kernels on
+  the tables (``"fused-strat"``, ``"golden-strat"``; JAX adds ``-seg-skip``
+  for its segmented route).
+* 2-D grids (``GridMedium`` through its cached Hermite form,
+  ``HermiteGridMedium``, ``C1GridMedium``): ``engine/segmented.py::
+  grid_trace_tiled`` (``"grid"``; JAX says ``"grid-tiled"``).
 
 Not ported, on purpose: ``SEGMENT_THRESHOLD`` and the segmented route
 (fast.py:56, 226-307) and the angle sort (fast.py:275-283).  They bound
 Mosaic's compile time and skip frozen TPU blocks; on the card one launch
 covers every trace length, and each thread stops stepping once its ray is
-frozen, which gives the same results.
-
-Every other medium, and ``precision="high"``, raises NotImplementedError
-naming the ROADMAP.md item that ports it; nothing falls back to the scan
-tier silently.
+frozen, which gives the same results.  No medium falls back to the scan
+tier; ``CustomMedium`` (and any other medium) and ``precision="high"``
+raise NotImplementedError naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -23,14 +31,41 @@ from typing import Any, NamedTuple
 import torch
 
 from raytracing_tpu_torch import config
+from raytracing_tpu_torch.engine.segmented import grid_trace_tiled
 from raytracing_tpu_torch.kernels.fused import (
-    FUSED_FIELDS, FUSED_OPS, fused_trace_final)
+    FUSED_FIELDS, FUSED_OPS, fused_trace_final, fused_trace_final_strat)
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS, golden_trace_final
+from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
+from raytracing_tpu_torch.media.hermite import (
+    HermiteGridMedium, build_hermite_medium)
 from raytracing_tpu_torch.media.medium import AnalyticMedium
+from raytracing_tpu_torch.media.samples import compact_for_trace
+from raytracing_tpu_torch.media.spline import GridMedium, StratifiedGridMedium
 from raytracing_tpu_torch.ops.registry import canonical
 
 #: fields on which p_x is an invariant (x-independent), so stats=True holds
 STATS_FIELDS = ("vert_heterogeneous", "interface")
+STRAT_MEDIA = (StratifiedGridMedium, C1StratifiedMedium)
+GRID_MEDIA = (GridMedium, HermiteGridMedium, C1GridMedium)
+
+# GridMedium -> HermiteGridMedium conversions, cached by table identity.
+# LRU-bounded: an unbounded cache would keep every medium a caller ever
+# traced alive on the card.
+_HERMITE_CACHE: dict = {}
+_HERMITE_CACHE_MAX = 4
+
+
+def _as_hermite(medium: GridMedium) -> HermiteGridMedium:
+    key = id(medium.Z)
+    hit = _HERMITE_CACHE.pop(key, None)
+    # the cached entry keeps a strong reference to the key object, so an id
+    # reuse after garbage collection cannot alias a different medium
+    if hit is None or hit[0] is not medium.Z:
+        hit = (medium.Z, build_hermite_medium(medium))
+    _HERMITE_CACHE[key] = hit  # (re)insert at the recent end
+    while len(_HERMITE_CACHE) > _HERMITE_CACHE_MAX:
+        _HERMITE_CACHE.pop(next(iter(_HERMITE_CACHE)))
+    return hit[1]
 
 
 class FastResult(NamedTuple):
@@ -38,7 +73,7 @@ class FastResult(NamedTuple):
     traveltime: Any  # (R,)
     dist_sim: Any    # (R,)
     active: Any      # (R,) bool: still inside the box
-    engine: str      # "fused" | "golden"
+    engine: str      # "fused" | "golden" | "fused-strat" | "golden-strat" | "grid"
     mom_count: Any = None   # Welford p_x tracker (stats=True)
     mom_mean: Any = None
     mom_m2: Any = None
@@ -48,9 +83,11 @@ class FastResult(NamedTuple):
 def supports(op_name: str, medium) -> bool:
     """True when a kernel covers this (op, medium) pairing."""
     op = canonical(op_name)
-    return (isinstance(medium, AnalyticMedium)
-            and medium.field in FUSED_FIELDS
-            and (op in FUSED_OPS or op in GOLDEN_OPS))
+    if not (op in FUSED_OPS or op in GOLDEN_OPS):
+        return False
+    if isinstance(medium, STRAT_MEDIA + GRID_MEDIA):
+        return True
+    return isinstance(medium, AnalyticMedium) and medium.field in FUSED_FIELDS
 
 
 def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
@@ -61,11 +98,12 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
     """Metrics-only trace through the kernels, on ``device``.
 
     ``pos0`` (R, 2) / ``theta0`` (R,) may have any R.  ``steps`` defaults to
-    the scenario's ``max_size - 1``.  ``stats=True`` fills the Welford
-    tracker of p_x (RT_bench.py:1352-1360); it needs an x-independent field
-    (:data:`STATS_FIELDS`), where p_x is an invariant.  The JAX tier offers
-    stats on stratified tables only; on the analytic vert and interface
-    fields the invariant is the same.
+    the scenario's ``max_size - 1``.  A sampled medium's tables must already
+    lie on ``device`` (build it there or move it with ``medium.to``); they
+    are never uploaded here.  ``stats=True`` fills the Welford tracker of
+    p_x (RT_bench.py:1352-1360); it needs an x-independent medium, where p_x
+    is an invariant: a stratified table (as in JAX) or an analytic field of
+    :data:`STATS_FIELDS`, and raises on 2-D grids.
     """
     op = canonical(op_name)
     if precision == "high":
@@ -74,14 +112,24 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
             "ported yet: ROADMAP.md §1 item 16 and §2 item 10")
     if precision != "standard":
         raise ValueError(f"precision must be 'standard' or 'high', got {precision!r}")
-    if not isinstance(medium, AnalyticMedium):
+    # trim stratified tables to their reachable, nontrivial window exactly
+    # as JAX does: the trim fixes y0 and so every cell index's rounding
+    medium = compact_for_trace(medium, scen.box, delta_s)
+    strat = isinstance(medium, STRAT_MEDIA)
+    grid = isinstance(medium, GRID_MEDIA)
+    if not (strat or grid or isinstance(medium, AnalyticMedium)):
         raise NotImplementedError(
             f"fast_trace on {type(medium).__name__} is not ported yet: "
-            "sampled media are ROADMAP.md §1 items 9-10 (§2 items 5, 7-9), "
-            "CustomMedium is §2 item 4")
+            "CustomMedium is ROADMAP.md §2 item 4")
     if not supports(op, medium):
-        raise ValueError(f"no kernel for {op!r} on field {medium.field!r}")
-    if stats and medium.field not in STATS_FIELDS:
+        on = (f"field {medium.field!r}" if isinstance(medium, AnalyticMedium)
+              else type(medium).__name__)
+        raise ValueError(f"no kernel for {op!r} on {on}")
+    if stats and grid:
+        raise ValueError("stats=True needs a stratified (x-independent) "
+                         "medium — p_x is only an invariant there; got "
+                         f"{type(medium).__name__}")
+    if stats and not strat and medium.field not in STATS_FIELDS:
         raise ValueError(f"stats=True needs an x-independent field "
                          f"{STATS_FIELDS}; p_x is not an invariant on "
                          f"{medium.field!r}")
@@ -89,19 +137,38 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
         steps = scen.max_size(float(delta_s), divisor, n_turns) - 1
 
     box = tuple(scen.box)
+    if grid:
+        if isinstance(medium, GridMedium):
+            # the Hermite node form is the same spline in the kernels' layout
+            medium = _as_hermite(medium)
+        f = grid_trace_tiled(op, pos0, theta0, delta_s, medium,
+                             steps=int(steps), box=box, device=device,
+                             gamma=float(scen.gamma))
+        return FastResult(pos=f.pos, traveltime=f.traveltime,
+                          dist_sim=f.dist_sim, active=f.active, engine="grid",
+                          tangent=f.tangent)
     if op in GOLDEN_OPS:
-        g = golden_trace_final(pos0, theta0, delta_s, scen.gamma,
-                               field=medium.field, op=op, steps=int(steps),
-                               box=box, device=device, with_stats=stats)
+        kw = (dict(field=None, medium=medium) if strat
+              else dict(field=medium.field))
+        g = golden_trace_final(pos0, theta0, delta_s, scen.gamma, op=op,
+                               steps=int(steps), box=box, device=device,
+                               with_stats=stats, **kw)
         tangent = torch.stack([torch.cos(g.angle), torch.sin(g.angle)], dim=-1)
         return FastResult(pos=g.pos, traveltime=g.traveltime,
                           dist_sim=g.dist_sim, active=g.active,
-                          engine="golden", mom_count=g.mom_count,
-                          mom_mean=g.mom_mean, mom_m2=g.mom_m2,
-                          tangent=tangent)
-    f = fused_trace_final(pos0, theta0, delta_s, field=medium.field, op=op,
-                          steps=int(steps), box=box, device=device,
-                          with_stats=stats)
+                          engine="golden-strat" if strat else "golden",
+                          mom_count=g.mom_count, mom_mean=g.mom_mean,
+                          mom_m2=g.mom_m2, tangent=tangent)
+    if strat:
+        f = fused_trace_final_strat(pos0, theta0, delta_s, medium, op=op,
+                                    steps=int(steps), box=box, device=device,
+                                    with_stats=stats)
+    else:
+        f = fused_trace_final(pos0, theta0, delta_s, field=medium.field,
+                              op=op, steps=int(steps), box=box, device=device,
+                              with_stats=stats)
     return FastResult(pos=f.pos, traveltime=f.traveltime, dist_sim=f.dist_sim,
-                      active=f.active, engine="fused", mom_count=f.mom_count,
-                      mom_mean=f.mom_mean, mom_m2=f.mom_m2, tangent=f.tangent)
+                      active=f.active,
+                      engine="fused-strat" if strat else "fused",
+                      mom_count=f.mom_count, mom_mean=f.mom_mean,
+                      mom_m2=f.mom_m2, tangent=f.tangent)

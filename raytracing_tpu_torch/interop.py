@@ -15,12 +15,16 @@ interchange format, so neither package imports the other:
   JAX checkpoint format also stores): golden (x, y, cx, cy, ang, tt, dsim,
   active) [+ count, mean, M2]; fused (x, y, ux, uy, cx, cy, tt, dsim,
   active) [+ count, mean, M2] [+ op7 window wax, way, wbx, wby], with
-  ``active`` as 0/1 floats.
-
-The slice's media are analytic and carry no arrays; grid tables join this
-module when the sampled media are ported (ROADMAP.md §1 item 9).
+  ``active`` as 0/1 floats;
+* :func:`medium_from_numpy` builds any of the five sampled media
+  (``GridMedium``, ``StratifiedGridMedium``, ``HermiteGridMedium``,
+  ``C1GridMedium``, ``C1StratifiedMedium``) from the JAX medium's class
+  name, its arrays as numpy and its static fields, so both packages trace
+  the same tables.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -29,6 +33,14 @@ from raytracing_tpu_torch.engine.state import RayState
 from raytracing_tpu_torch.engine.trace import TraceResult
 from raytracing_tpu_torch.kernels.fused import ResumeState
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS
+from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
+from raytracing_tpu_torch.media.hermite import HermiteGridMedium
+from raytracing_tpu_torch.media.spline import GridMedium, StratifiedGridMedium
+
+#: the sampled media by class name, the same in both packages
+MEDIUM_CLASSES = {cls.__name__: cls for cls in (
+    GridMedium, StratifiedGridMedium, HermiteGridMedium, C1GridMedium,
+    C1StratifiedMedium)}
 
 
 def _to_numpy(t):
@@ -123,3 +135,26 @@ def resume_state_to_numpy(st: ResumeState, op: str) -> list:
     if op == "op7":
         comps += [st.wax, st.way, st.wbx, st.wby]
     return [c if isinstance(c, np.ndarray) else _to_numpy(c) for c in comps]
+
+
+def medium_from_numpy(kind: str, fields: dict, *, device):
+    """The port's sampled medium of class name ``kind`` from a dict of its
+    fields: arrays (numpy, e.g. ``np.asarray`` of a JAX medium's tables)
+    become tensors on ``device`` in their own dtype, static fields are
+    copied.  Fields with defaults (the Hermite and C1 grids' window bounds)
+    may be missing."""
+    if kind not in MEDIUM_CLASSES:
+        raise ValueError(f"unknown medium class {kind!r}; have "
+                         f"{sorted(MEDIUM_CLASSES)}")
+    vals = {}
+    for f in dataclasses.fields(MEDIUM_CLASSES[kind]):
+        if f.name not in fields:
+            if f.default is dataclasses.MISSING:
+                raise ValueError(f"{kind} needs field {f.name!r}")
+            continue
+        v = fields[f.name]
+        if isinstance(v, np.ndarray):
+            # a writable copy: JAX's exported arrays are read-only
+            v = torch.as_tensor(np.array(v), device=device)
+        vals[f.name] = v
+    return MEDIUM_CLASSES[kind](**vals)

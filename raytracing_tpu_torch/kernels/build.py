@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of ``raytracing_tpu_torch/csrc``.
 
 The sources (``*.cu``, ``*.cuh``) are compiled at first use with ``nvcc``
-into one shared library with a plain C interface, loaded with ``ctypes``::
+into one shared library with a plain C interface, loaded with ``ctypes``:
+one ``nvcc -c`` for each ``.cu`` file, all started together, then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -Xptxas -v \
-         -o _build/librt_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o _build/<name>-<hash>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/librt_kernels_<hash>.so _build/*-<hash>.o
 
 The library lands in ``raytracing_tpu_torch/_build/`` under a name that
 carries the SHA-256 of every source and of the flags, so an edited source
@@ -30,11 +32,15 @@ BUILD_DIR = _PKG / "_build"
 #: -fmad=false: no FMA contraction, so every kernel rounds each operation as
 #: its plain PyTorch version does and the two agree to the last bits
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+#: a sampled medium's table and geometry: table, x0, y0, inv_hx, inv_hy,
+#: nx, ny (csrc/media.cuh RT_TABLE_PARAMS)
+_TABLE = (_P, _F, _F, _F, _F, _I, _I)
 #: C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
     # x, y, ux, uy, out_x, out_y, out_tt, n, steps, ds, stream
@@ -48,6 +54,19 @@ _SIGNATURES = {
     # curv_tol, cos_c0, sin_c0, cos_d0, sin_d0, cos_m, sin_m, l_final, stream
     "rt_golden_step": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # ch (6 | 4), then rt_fused_step's arguments after field, the table, stream
+    "rt_fused_step_strat": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
+                            _F, _F, _F, _F, _F, *_TABLE, _P),
+    # cell_ch (36 | 16), the same
+    "rt_fused_step_grid": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
+                           _F, _F, _F, _F, _F, *_TABLE, _P),
+    # ch, then rt_golden_step's arguments after field, the table, stream
+    "rt_golden_step_strat": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                             _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                             *_TABLE, _P),
+    "rt_golden_step_grid": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                            *_TABLE, _P),
 }
 
 
@@ -65,13 +84,13 @@ class KernelInfo:
     launches: int = 0
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc=CSRC):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
-def source_digest(flags=NVCC_FLAGS) -> str:
+def source_digest(flags=NVCC_FLAGS, csrc=CSRC) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    cu, cuh = _sources()
+    cu, cuh = _sources(csrc)
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -89,30 +108,52 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def build(flags=NVCC_FLAGS) -> Path:
-    """Compile the library with ``flags`` if this digest of the sources and
-    flags has none yet; its path."""
-    digest = source_digest(flags)
+def build(flags=NVCC_FLAGS, csrc=CSRC) -> Path:
+    """Compile the library of the sources in ``csrc`` with ``flags`` if this
+    digest of the sources and flags has none yet; its path.  Every ``.cu``
+    file compiles in its own ``nvcc`` process, all at once; a failed compile
+    raises."""
+    digest = source_digest(flags, csrc)
     lib = BUILD_DIR / f"librt_kernels_{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    cu, _ = _sources()
+    cu, _ = _sources(csrc)
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in cu]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *flags, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(cu, objs))]
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out[-8000:]}")
+    (BUILD_DIR / f"ptxas-{digest}.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, cu)]
+    cmd = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"ptxas-{digest}.log").write_text(proc.stdout + proc.stderr)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stderr[-8000:]}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
     os.replace(tmp, lib)   # atomic: a concurrent process never loads a torn file
     return lib
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """A built library, loaded, with its entry points' signatures set."""
+def load(path: Path, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """A built library, loaded, with the signatures of its entry points
+    ``names`` set."""
     lib = ctypes.CDLL(str(path))
-    for name, args in _SIGNATURES.items():
+    for name in names:
+        args = _SIGNATURES[name]
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int

@@ -1,16 +1,25 @@
-"""Fused integrators on the analytic fields: op1/2/3/4/6/7/8/12.
+"""Fused integrators op1/2/3/4/6/7/8/12 on analytic and sampled media.
 
 Port of ``raytracing_tpu/kernels/fused.py``: ``FUSED_FIELDS``/``FUSED_OPS``
-(fused.py:38-39), the analytic ``_field_fn`` (:44), the step of
-``_make_kernel`` (:336) in its resume form, ``FusedFinal`` (:713) and
-``fused_trace_final`` (:769); and the resume state layout of
+(fused.py:38-39), the analytic ``_field_fn`` (:44), the stratified-table
+evaluator ``_strat_nag`` (:65), ``_hermite_blend`` (:108), the per-cell
+grid evaluator ``_tile_nag`` (:205) without its window, ``strat_tables``
+(:286), the step of ``_make_kernel`` (:336) in its resume form,
+``FusedFinal`` (:713), ``fused_trace_final`` (:769) and
+``fused_trace_final_strat`` (:847); and the resume state layout of
 ``engine/segmented.py`` (``_initial_comps`` :66, ``_final_from_state`` :99),
-whose launcher (segmented.py:165) chains the same kernel.
+whose launchers (segmented.py:165, :778) chain the same kernel.
 
-The kernel is ``csrc/fused.cu`` (``fused_step``); :func:`fused_step_plain`
-is its plain PyTorch version, and :func:`fused_step` the wrapper that
-dispatches on the device of the state tensors: a CPU state runs the plain
-version, a CUDA state launches the kernel or raises.
+The medium is an argument of the step, as JAX's ``nag`` injection
+(``_make_kernel(strat=, tile=)``, fused.py:336-340): ``field`` is an
+analytic field name, a :class:`StratTables` or a :class:`GridTables`, and
+:func:`nag_fn` gives its plain evaluator.  One step loop, ``csrc/fused.cu``,
+is instantiated on the three media (``csrc/media.cuh``), as three kernels
+with their own launch counts: ``fused_step`` (analytic), ``fused_step_strat``
+and ``fused_step_grid``.  :func:`fused_step_plain` is their plain PyTorch
+version, and :func:`fused_step` the wrapper that dispatches on the device of
+the state tensors: a CPU state runs the plain version, a CUDA state launches
+the kernel or raises.
 
 What the TPU kernel carried only for Mosaic is gone: no zeros buffer, the
 active mask is a bool, the scalars are arguments, and the state is plain
@@ -28,12 +37,20 @@ from raytracing_tpu_torch.kernels import build
 
 FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
 FUSED_OPS = ("op1", "op2", "op3", "op4", "op6", "op7", "op8", "op12")
-#: field name -> the ``rt::Field`` code of csrc/common.cuh
+#: field name -> the ``rt::Field`` code of csrc/media.cuh
 FIELD_CODES = {"fisheye": 0, "vert_heterogeneous": 1, "interface": 2}
 
 KERNEL = build.KernelInfo(
     name="fused_step", source="raytracing_tpu_torch/csrc/fused.cu",
     replaces="raytracing_tpu/kernels/fused.py:336")
+KERNEL_STRAT = build.KernelInfo(
+    name="fused_step_strat", source="raytracing_tpu_torch/csrc/fused.cu",
+    replaces="raytracing_tpu/kernels/fused.py:65")
+KERNEL_GRID = build.KernelInfo(
+    name="fused_step_grid", source="raytracing_tpu_torch/csrc/fused.cu",
+    replaces="raytracing_tpu/kernels/fused.py:205")
+#: the family's kernels by medium: analytic, stratified, grid
+KERNELS = (KERNEL, KERNEL_STRAT, KERNEL_GRID)
 
 _SQRT2 = 1.4142135623730951
 #: curvature-negligibility threshold of the float32 kernels
@@ -79,6 +96,142 @@ def field_fn(field: str):
     else:
         raise ValueError(f"kernels support fields {FUSED_FIELDS}, got {field!r}")
     return f
+
+
+class StratTables(NamedTuple):
+    """A 1-D stratified medium laid out for the kernels (``Strat`` in
+    csrc/media.cuh; fused.py:286 ``strat_tables`` without its lane chunks).
+
+    One row a cell, padded to 8 float32 (one 32-byte sector): ``ch`` = 6
+    for the parity form (Zy[i], Zy[i+1], cy[i, 0..3]), 4 for the C1 form
+    (cn[i, 0..3]).
+    """
+
+    table: Any       # (ny - 1, 8) float32
+    ch: int
+    y0: float
+    inv_hy: float
+    ny: int
+
+
+class GridTables(NamedTuple):
+    """A 2-D grid medium laid out for the kernels (``Grid`` in
+    csrc/media.cuh): the per-cell rows of ``engine/segmented.py::_cells36``,
+    ``cell_ch`` = 36 (parity Hermite form) or 16 (C1 form) float32 a cell."""
+
+    table: Any       # ((ny - 1) * (nx - 1), cell_ch) float32
+    cell_ch: int
+    x0: float
+    y0: float
+    inv_hx: float
+    inv_hy: float
+    nx: int
+    ny: int
+
+
+def strat_tables(medium) -> StratTables:
+    """Pack a stratified medium (parity or C1) into :class:`StratTables`, on
+    the medium's device.  The ONE definition the fused and golden wrappers
+    share."""
+    if hasattr(medium, "cn"):            # C1StratifiedMedium
+        cells, ch = medium.cn.float(), 4
+    else:
+        zy = medium.Zy.float()
+        cells = torch.cat([zy[:-1, None], zy[1:, None], medium.cy.float()], 1)
+        ch = 6
+    table = cells.new_zeros((medium.ny - 1, 8))
+    table[:, :ch] = cells
+    return StratTables(table=table, ch=ch, y0=float(medium.y0),
+                       inv_hy=float(medium.inv_hy), ny=int(medium.ny))
+
+
+def strat_nag_plain(t: StratTables):
+    """n/grad from the stratified rows (fused.py:65-105 ``_strat_nag``), the
+    kernel's order of operations: parity n = (1-uy) zlo + uy zhi and a cubic
+    dn/dy; C1 n the cubic and dn/dy its derivative times inv_hy."""
+    def nag(x, y):
+        fy = torch.clamp((y - t.y0) * t.inv_hy, 0.0, float(t.ny - 1))
+        iy = torch.clamp(torch.floor(fy), max=float(t.ny - 2))
+        uy = fy - iy
+        row = t.table[iy.long()]
+        if t.ch == 4:
+            c0, c1, c2, c3 = row[..., 0], row[..., 1], row[..., 2], row[..., 3]
+            n = c0 + uy * (c1 + uy * (c2 + uy * c3))
+            gy = (c1 + uy * (2.0 * c2 + uy * 3.0 * c3)) * t.inv_hy
+            return n, torch.zeros_like(x), gy
+        zlo, zhi, c0, c1, c2, c3 = (row[..., k] for k in range(6))
+        n = (1.0 - uy) * zlo + uy * zhi
+        gy = c0 + uy * (c1 + uy * (c2 + uy * c3))
+        return n, torch.zeros_like(x), gy
+
+    return nag
+
+
+def hermite_blend(corners, u, v):
+    """Bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8)
+    (fused.py:108-148 ``_hermite_blend``).
+
+    ``corners(ch) -> (c00, c01, c10, c11)`` fetches a channel's 2x2 corner
+    node values (c01 = +x neighbour, c10 = +y).
+    """
+    z00, z01, z10, z11 = corners(0)
+    n = ((1.0 - v) * ((1.0 - u) * z00 + u * z01)
+         + v * ((1.0 - u) * z10 + u * z11))
+
+    v2 = v * v
+    v3 = v2 * v
+    hv0 = 2.0 * v3 - 3.0 * v2 + 1.0
+    gv0 = v3 - 2.0 * v2 + v
+    hv1 = -2.0 * v3 + 3.0 * v2
+    gv1 = v3 - v2
+    u2 = u * u
+    u3 = u2 * u
+    hu0 = 2.0 * u3 - 3.0 * u2 + 1.0
+    gu0 = u3 - 2.0 * u2 + u
+    hu1 = -2.0 * u3 + 3.0 * u2
+    gu1 = u3 - u2
+
+    def hermite(ch0):
+        f00, f01, f10, f11 = corners(ch0)
+        fv00, fv01, fv10, fv11 = corners(ch0 + 1)
+        fu00, fu01, fu10, fu11 = corners(ch0 + 2)
+        fw00, fw01, fw10, fw11 = corners(ch0 + 3)
+        return ((f00 * hv0 + fv00 * gv0 + f10 * hv1 + fv10 * gv1) * hu0
+                + (f01 * hv0 + fv01 * gv0 + f11 * hv1 + fv11 * gv1) * hu1
+                + (fu00 * hv0 + fw00 * gv0 + fu10 * hv1 + fw10 * gv1) * gu0
+                + (fu01 * hv0 + fw01 * gv0 + fu11 * hv1 + fw11 * gv1) * gu1)
+
+    return n, hermite(1), hermite(5)
+
+
+def tile_nag_plain(g: GridTables):
+    """n/grad from the per-cell rows: a direct gather of the ray's cell
+    (the TPU's ``_tile_nag`` reads the same row through its window) blended
+    by :func:`hermite_blend` (36 floats) or ``media.c1.c1_blend`` (16)."""
+    from raytracing_tpu_torch.engine.segmented import _cells
+    from raytracing_tpu_torch.media.c1 import c1_blend
+
+    def nag(x, y):
+        ix, iy, u, v = _cells(x, y, g)
+        row = g.table[iy.long() * (g.nx - 1) + ix.long()]
+
+        def corners(ch):
+            return tuple(row[..., ch * 4 + c] for c in range(4))
+
+        if g.cell_ch == 16:
+            return c1_blend(corners, u, v, g.inv_hx, g.inv_hy)
+        return hermite_blend(corners, u, v)
+
+    return nag
+
+
+def nag_fn(field):
+    """The plain evaluator (x, y) -> (n, gx, gy) of a step's medium."""
+    if isinstance(field, StratTables):
+        return strat_nag_plain(field)
+    if isinstance(field, GridTables):
+        return tile_nag_plain(field)
+    return field_fn(field)
 
 
 class ResumeState(NamedTuple):
@@ -132,9 +285,10 @@ def _vectors(pos0, theta0, device):
     return pos0[:, 0].contiguous(), pos0[:, 1].contiguous(), theta0.contiguous()
 
 
-def initial_state(op: str, pos0, theta0, *, field: str, with_stats: bool,
+def initial_state(op: str, pos0, theta0, *, field, with_stats: bool,
                   device) -> ResumeState:
-    """Launch state of a fused run (segmented.py:66 ``_initial_comps``)."""
+    """Launch state of a fused run (segmented.py:66 ``_initial_comps``);
+    ``field`` is the step's medium (see :func:`fused_step`)."""
     x, y, th = _vectors(pos0, theta0, device)
     zeros = torch.zeros_like(x)
     ux, uy = torch.cos(th), torch.sin(th)
@@ -142,7 +296,7 @@ def initial_state(op: str, pos0, theta0, *, field: str, with_stats: bool,
                      tt=zeros.clone(), dsim=zeros.clone(),
                      active=torch.ones_like(x, dtype=torch.bool))
     if with_stats:
-        n0 = field_fn(field)(x, y)[0]
+        n0 = nag_fn(field)(x, y)[0]
         st = st._replace(mom_count=torch.ones_like(x), mom_mean=n0 * ux,
                          mom_m2=zeros.clone())
     if op == "op7":
@@ -208,15 +362,15 @@ def _outside(x, y, box):
     return (x > limx_s) | (x < limx_i) | (y > limy_s) | (y < limy_i)
 
 
-def fused_step_plain(st: ResumeState, *, field: str, op: str, steps: int,
+def fused_step_plain(st: ResumeState, *, field, op: str, steps: int,
                      delta_s: float, step_limit: float, offset: float,
                      box) -> ResumeState:
-    """Plain PyTorch version of the ``fused_step`` kernel.
+    """Plain PyTorch version of the ``fused_step`` kernels (all three media).
 
     The same step (fused.py:430-608) on every ray at once, with a frozen
     ray's state kept by selects instead of leaving the loop.
     """
-    nag = field_fn(field)
+    nag = nag_fn(field)
     second = op in ("op6", "op7", "op8")
     curvature = op in ("op3", "op4")
     rk2 = op in ("op2", "op3", "op6")
@@ -351,20 +505,57 @@ def check_state(st: ResumeState, *, needs_ang: bool, window: bool) -> None:
                 f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def fused_step(st: ResumeState, *, field: str, op: str, steps: int, delta_s,
-               step_limit, offset=0.0, box) -> ResumeState:
-    """Advance a resume state ``steps`` steps: the kernel's wrapper.
+def check_medium(field, device) -> None:
+    """A sampled medium's table must lie, as contiguous float32, on the
+    state's device: a medium held on the CPU never meets a CUDA state (move
+    it once with ``medium.to(device)``)."""
+    if isinstance(field, str):
+        return
+    if not isinstance(field, (StratTables, GridTables)):
+        raise ValueError("a step's medium is a field name, StratTables or "
+                         f"GridTables, got {type(field).__name__}")
+    t = field.table
+    if t.device != device or t.dtype != torch.float32 \
+            or not t.is_contiguous():
+        raise ValueError(f"medium table: need contiguous float32 on {device}, "
+                         f"got {t.dtype} on {t.device}; move the medium with "
+                         ".to(device)")
 
-    ``offset`` is the number of steps applied before this launch (global
-    step numbering: op7's order ramp and ``step_limit`` read it), so a run
-    of k steps then n - k steps with offset k equals one run of n.  A CPU
-    state runs :func:`fused_step_plain`; a CUDA state launches the kernel.
+
+def kernel_of(field, kernels):
+    """(KernelInfo, entry-point suffix, leading int, table arguments) of a
+    step's medium; ``kernels`` are the (analytic, strat, grid) KernelInfos
+    of a family, the table arguments those of csrc/media.cuh
+    RT_TABLE_PARAMS."""
+    if isinstance(field, StratTables):
+        return kernels[1], "_strat", field.ch, (
+            field.table.data_ptr(), 0.0, field.y0, 0.0, field.inv_hy, 0,
+            field.ny)
+    if isinstance(field, GridTables):
+        return kernels[2], "_grid", field.cell_ch, (
+            field.table.data_ptr(), field.x0, field.y0, field.inv_hx,
+            field.inv_hy, field.nx, field.ny)
+    return kernels[0], "", FIELD_CODES[field], ()
+
+
+def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
+               step_limit, offset=0.0, box) -> ResumeState:
+    """Advance a resume state ``steps`` steps: the kernels' wrapper.
+
+    ``field`` is the medium: an analytic field name (kernel ``fused_step``),
+    a :class:`StratTables` (``fused_step_strat``) or a :class:`GridTables`
+    (``fused_step_grid``).  ``offset`` is the number of steps applied
+    before this launch (global step numbering: op7's order ramp and
+    ``step_limit`` read it), so a run of k steps then n - k steps with
+    offset k equals one run of n.  A CPU state runs
+    :func:`fused_step_plain`; a CUDA state launches the kernel.
     """
-    if field not in FUSED_FIELDS:
+    if isinstance(field, str) and field not in FUSED_FIELDS:
         raise ValueError(f"fused kernel supports fields {FUSED_FIELDS}, got {field!r}")
     if op not in FUSED_OPS:
         raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
     check_state(st, needs_ang=False, window=op == "op7")
+    check_medium(field, st.x.device)
     box = tuple(float(v) for v in box)
     if st.x.device.type == "cpu":
         return fused_step_plain(st, field=field, op=op, steps=int(steps),
@@ -373,23 +564,26 @@ def fused_step(st: ResumeState, *, field: str, op: str, steps: int, delta_s,
     if st.x.device.type != "cuda":
         raise ValueError(f"fused_step runs on cpu or cuda, not {st.x.device}")
     out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
+    kernel, suffix, lead, table = kernel_of(field, KERNELS)
     lib = build.library()
     with torch.cuda.device(st.x.device):
-        err = lib.rt_fused_step(
-            FIELD_CODES[field], int(op[2:]), int(st.mom_count is not None),
+        err = getattr(lib, "rt_fused_step" + suffix)(
+            lead, int(op[2:]), int(st.mom_count is not None),
             build.pointer_array(st), build.pointer_array(out), st.x.shape[0],
             int(steps), float(delta_s), float(step_limit), float(offset),
-            *box, CURV_TOL, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "rt_fused_step")
-    KERNEL.launches += 1
+            *box, CURV_TOL, *table,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rt_fused_step" + suffix)
+    kernel.launches += 1
     return out
 
 
-def fused_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
+def fused_trace_final(pos0, theta0, delta_s, *, field, op: str,
                       steps: int, box, device, step_limit=None,
                       with_stats: bool = False) -> FusedFinal:
     """Run ``steps`` fused integration steps; return a :class:`FusedFinal`.
 
+    ``field`` is the step's medium (see :func:`fused_step`).
     ``step_limit`` (default ``steps``) freezes every ray after that many
     steps; ``with_stats`` adds the Welford tracker of m_x = n u_x for
     on-device conservation oracles (RT_bench.py:957-958).
@@ -400,3 +594,14 @@ def fused_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
                     step_limit=steps if step_limit is None else step_limit,
                     offset=0.0, box=box)
     return final_from_state(st)
+
+
+def fused_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
+                            steps: int, box, device, step_limit=None,
+                            with_stats: bool = False) -> FusedFinal:
+    """Fused integration through a sampled stratified medium (parity or C1;
+    fused.py:847): the reference's FITPACK pair (RT_bench.py:435-464)
+    collapsed to 1-D tables, read by the ``fused_step_strat`` kernel."""
+    return fused_trace_final(pos0, theta0, delta_s, field=strat_tables(medium),
+                             op=op, steps=steps, box=box, device=device,
+                             step_limit=step_limit, with_stats=with_stats)

@@ -19,9 +19,15 @@ Every step minimizes the momentum-impulse cost (RT_bench.py:573-600,
 * the golden bracket (``iters > 0``), probes advanced by constant
   rotations; with ``polish=0`` it is the reference-parity mode.
 
-The kernel is ``csrc/golden.cu`` (``golden_step``); :func:`golden_step_plain`
-is its plain PyTorch version and :func:`golden_step` the wrapper that
-dispatches on the device of the state.  Both take the cost's first and
+The medium is an argument of the step, as in JAX (golden.py:162, the strat
+injection :520-527 and the tile injection :491-518): ``field`` is an
+analytic field name, a ``StratTables`` or a ``GridTables``
+(kernels/fused.py).  The step loop of ``csrc/golden.cu`` is instantiated on
+the three media as three kernels with their own launch counts
+(``golden_step``, ``golden_step_strat``, ``golden_step_grid``);
+:func:`golden_step_plain` is their plain PyTorch version and
+:func:`golden_step` the wrapper that dispatches on the device of the
+state.  Both take the cost's first and
 second derivatives from :class:`Dual2`, the counterpart of the nested
 ``jax.jvp`` at golden.py:306-328.
 """
@@ -36,8 +42,9 @@ import torch
 from raytracing_tpu_torch.config import DELTA_G, GOLD_RATIO, golden_iters
 from raytracing_tpu_torch.kernels import build
 from raytracing_tpu_torch.kernels.fused import (
-    CURV_TOL, FIELD_CODES, FUSED_FIELDS, ResumeState, _kahan, _outside,
-    _vectors, arc_advance, check_state, div_exact, field_fn, rot_small)
+    CURV_TOL, FUSED_FIELDS, ResumeState, _kahan, _outside, _vectors,
+    arc_advance, check_medium, check_state, div_exact, kernel_of, nag_fn,
+    rot_small, strat_tables)
 
 GOLDEN_OPS = {"op5": ("curv", "golden"), "op9": ("t2", "golden"),
               "op10": ("curv", "golden"), "op11": ("t2", "golden"),
@@ -52,6 +59,14 @@ GOLD_SEED_ITERS: int = 0
 KERNEL = build.KernelInfo(
     name="golden_step", source="raytracing_tpu_torch/csrc/golden.cu",
     replaces="raytracing_tpu/kernels/golden.py:138")
+KERNEL_STRAT = build.KernelInfo(
+    name="golden_step_strat", source="raytracing_tpu_torch/csrc/golden.cu",
+    replaces="raytracing_tpu/kernels/golden.py:520")
+KERNEL_GRID = build.KernelInfo(
+    name="golden_step_grid", source="raytracing_tpu_torch/csrc/golden.cu",
+    replaces="raytracing_tpu/kernels/golden.py:491")
+#: the family's kernels by medium: analytic, stratified, grid
+KERNELS = (KERNEL, KERNEL_STRAT, KERNEL_GRID)
 
 
 def golden_schedule(polish: int | None = None, iters: int | None = None):
@@ -122,17 +137,18 @@ class GoldenFinal(NamedTuple):
     mom_m2: Any = None
 
 
-def initial_state(op: str, pos0, theta0, gamma, *, field: str,
+def initial_state(op: str, pos0, theta0, gamma, *, field,
                   with_stats: bool, device) -> ResumeState:
     """Launch state of a golden run (segmented.py:66 ``_initial_comps``,
-    with the tangent carried beside the angle)."""
+    with the tangent carried beside the angle); ``field`` is the step's
+    medium."""
     x, y, th = _vectors(pos0, theta0, device)
     zeros = torch.zeros_like(x)
     st = ResumeState(x=x, y=y, ux=torch.cos(th), uy=torch.sin(th), cx=zeros,
                      cy=zeros.clone(), tt=zeros.clone(), dsim=zeros.clone(),
                      active=torch.ones_like(x, dtype=torch.bool), ang=th)
     if with_stats:
-        n0 = field_fn(field)(x, y)[0]
+        n0 = nag_fn(field)(x, y)[0]
         st = st._replace(mom_count=torch.ones_like(x),
                          mom_mean=init_mom_x(op, n0, th,
                                              float(np.float32(gamma))),
@@ -206,12 +222,12 @@ def _newton_polish(cost_uv, mc, ms, t0, n_steps: int, clip_b: float):
     return t0 + dlt, mc * cd - ms * sd, mc * sd + ms * cd
 
 
-def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field: str,
+def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
                       op: str, steps: int, box, iters: int,
                       polish: int) -> ResumeState:
-    """Plain PyTorch version of the ``golden_step`` kernel (golden.py:230-455)
+    """Plain PyTorch version of the ``golden_step`` kernels (golden.py:230-455)
     on every ray at once; frozen rays are kept by selects."""
-    nag = field_fn(field)
+    nag = nag_fn(field)
     stepper, solver = GOLDEN_OPS[op]
     iso = op in ("op5", "op9")
     sv = scal.cpu().numpy()
@@ -353,23 +369,27 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field: str,
                        mom_m2=m2)
 
 
-def golden_step(st: ResumeState, scal: torch.Tensor, *, field: str, op: str,
+def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
                 steps: int, box, gold_iters: int | None = None,
                 polish: int | None = None) -> ResumeState:
-    """Advance a resume state ``steps`` steps: the kernel's wrapper.
+    """Advance a resume state ``steps`` steps: the kernels' wrapper.
 
-    ``scal`` is :func:`golden_scalars` on the state's device, built with the
-    bracket iterations of the schedule (``golden_schedule(polish,
-    gold_iters)``); its ``offset`` entry makes step numbering global, so k
-    steps then n - k steps equal n steps.  A CPU state runs
-    :func:`golden_step_plain`; a CUDA state launches the kernel or raises.
+    ``field`` is the medium: an analytic field name (kernel
+    ``golden_step``), a ``StratTables`` (``golden_step_strat``) or a
+    ``GridTables`` (``golden_step_grid``).  ``scal`` is
+    :func:`golden_scalars` on the state's device, built with the bracket
+    iterations of the schedule (``golden_schedule(polish, gold_iters)``);
+    its ``offset`` entry makes step numbering global, so k steps then
+    n - k steps equal n steps.  A CPU state runs :func:`golden_step_plain`;
+    a CUDA state launches the kernel or raises.
     """
     if op not in GOLDEN_OPS:
         raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
-    if field not in FUSED_FIELDS:
+    if isinstance(field, str) and field not in FUSED_FIELDS:
         raise ValueError(f"golden kernel supports fields {FUSED_FIELDS}, got {field!r}")
     iters, polish = golden_schedule(polish, gold_iters)
     check_state(st, needs_ang=True, window=False)
+    check_medium(field, st.x.device)
     if (scal.dtype != torch.float32 or scal.device != st.x.device
             or scal.shape != (4 + 3 * iters,) or not scal.is_contiguous()):
         raise ValueError(f"scal must be the contiguous float32 bundle of "
@@ -383,18 +403,19 @@ def golden_step(st: ResumeState, scal: torch.Tensor, *, field: str, op: str,
     if st.x.device.type != "cuda":
         raise ValueError(f"golden_step runs on cpu or cuda, not {st.x.device}")
     out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
+    kernel, suffix, lead, table = kernel_of(field, KERNELS)
     lib = build.library()
     with torch.cuda.device(st.x.device):
-        err = lib.rt_golden_step(
-            FIELD_CODES[field], int(stepper == "curv"),
+        err = getattr(lib, "rt_golden_step" + suffix)(
+            lead, int(stepper == "curv"),
             int(solver == "newton"), int(op in ("op5", "op9")),
             int(st.mom_count is not None), build.pointer_array(st),
             build.pointer_array(out), st.x.shape[0], int(steps),
             scal.data_ptr(), iters, polish, *box, CURV_TOL,
-            *bracket_constants(iters),
+            *bracket_constants(iters), *table,
             torch.cuda.current_stream().cuda_stream)
-    build.check(err, "rt_golden_step")
-    KERNEL.launches += 1
+    build.check(err, "rt_golden_step" + suffix)
+    kernel.launches += 1
     return out
 
 
@@ -405,13 +426,17 @@ def final_from_state(st: ResumeState) -> GoldenFinal:
                        mom_m2=st.mom_m2)
 
 
-def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
-                       steps: int, box, device, with_stats: bool = False,
-                       step_limit=None, gold_iters: int | None = None,
+def golden_trace_final(pos0, theta0, delta_s, gamma, *, field, op: str,
+                       steps: int, box, device, medium=None,
+                       with_stats: bool = False, step_limit=None,
+                       gold_iters: int | None = None,
                        polish: int | None = None) -> GoldenFinal:
     """Run ``steps`` golden/Newton integration steps (golden.py:581).
 
-    ``gamma`` is the anisotropy ratio (op5/op9 fold it to 1);
+    ``field`` is the step's medium (see :func:`golden_step`); ``medium``, a
+    stratified medium (parity or C1), replaces it with its tables, as the
+    JAX wrapper's ``medium=`` does.  ``gamma`` is the anisotropy ratio
+    (op5/op9 fold it to 1);
     ``gold_iters``/``polish`` select the schedule (default: closed-form
     seed + Newton polish; ``polish=0`` the pure f32 reference-parity
     bracket); ``step_limit`` freezes rays after that many steps.
@@ -419,6 +444,8 @@ def golden_trace_final(pos0, theta0, delta_s, gamma, *, field: str, op: str,
     if op not in GOLDEN_OPS:
         raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
     iters, polish = golden_schedule(polish, gold_iters)
+    if medium is not None:
+        field = strat_tables(medium)
     st = initial_state(op, pos0, theta0, gamma, field=field,
                        with_stats=with_stats, device=device)
     scal = golden_scalars(delta_s, gamma,

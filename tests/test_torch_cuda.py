@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+analytic-media kernels and the sampled-media ones (stratified tables and the
+2-D grid, parity and C1).
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -14,6 +16,7 @@ from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 torch = pytest.importorskip("torch")
 
 import raytracing_tpu_torch as rtt  # noqa: E402
+from raytracing_tpu_torch.engine import segmented as seg  # noqa: E402
 from raytracing_tpu_torch.kernels import fisheye as kf  # noqa: E402
 from raytracing_tpu_torch.kernels import fused as kfu  # noqa: E402
 from raytracing_tpu_torch.kernels import golden as kg  # noqa: E402
@@ -111,3 +114,118 @@ def test_wrapper_refuses_mixed_devices(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kfu.fused_step(st._replace(x=st.x.cpu()), field="vert_heterogeneous",
                        op="op1", steps=1, delta_s=ds, step_limit=1, box=box)
+
+
+def _strat_tables(field, family, device):
+    scen = rtt.scenario("interface" if field == "interface" else "vert")
+    build = (rtt.build_stratified_medium if family == "parity"
+             else rtt.build_c1_stratified)
+    med = build(field, scen.box, device=device)
+    box = H.INTERFACE_BOX if field == "interface" else H.VERT_BOX
+    med = rtt.compact_for_trace(med, box, 0.05)
+    return kfu.strat_tables(med)
+
+
+def _grid_tables(family, device):
+    box = rtt.scenario("fisheye").box
+    if family == "parity":
+        med = rtt.build_hermite_medium(
+            rtt.build_grid_medium("fisheye", box, 0.05, device=device))
+    else:
+        med = rtt.build_c1_medium("fisheye", box, 0.05, device=device)
+    return seg.grid_tables(med)
+
+
+MEDIA = [("strat", "interface", "parity"), ("strat", "interface", "c1"),
+         ("strat", "vert_heterogeneous", "parity"),
+         ("strat", "vert_heterogeneous", "c1"),
+         ("grid", "fisheye", "parity"), ("grid", "fisheye", "c1")]
+
+
+def _tables(kind, field, family, device):
+    if kind == "strat":
+        return _strat_tables(field, family, device)
+    return _grid_tables(family, device)
+
+
+@pytest.mark.parametrize("kind,field,family", MEDIA)
+@pytest.mark.parametrize("op", kfu.FUSED_OPS)
+def test_fused_sampled_kernels_match_plain(op, kind, field, family,
+                                           cuda_device):
+    tables = _tables(kind, field, family, cuda_device)
+    pos0, theta0, ds, box = _fan(field)
+    st = kfu.initial_state(op, pos0, theta0, field=tables,
+                           with_stats=kind == "strat", device=cuda_device)
+    kw = dict(field=tables, op=op, steps=120, delta_s=ds, step_limit=120,
+              offset=0.0, box=box)
+    info = kfu.KERNEL_STRAT if kind == "strat" else kfu.KERNEL_GRID
+    before = info.launches
+    got = kfu.fused_step(st, **kw)
+    assert info.launches == before + 1
+    _same(got, kfu.fused_step_plain(st, **kw),
+          2e-4 if op == "op7" or field == "interface" else 1e-5)
+    part = kfu.fused_step(st, **{**kw, "steps": 50})
+    _same(got, kfu.fused_step(part, **{**kw, "steps": 70, "offset": 50.0}), 0.0)
+
+
+@pytest.mark.parametrize("kind,field,family",
+                         [m for m in MEDIA if m[1] != "interface"])
+@pytest.mark.parametrize("op", tuple(kg.GOLDEN_OPS))
+def test_golden_sampled_kernels_match_plain(op, kind, field, family,
+                                            cuda_device):
+    tables = _tables(kind, field, family, cuda_device)
+    pos0, theta0, ds, box = _fan(field)
+    gamma = 3.0 if field == "vert_heterogeneous" else 1.0
+    info = kg.KERNEL_STRAT if kind == "strat" else kg.KERNEL_GRID
+    it, pol = kg.golden_schedule()
+    st = kg.initial_state(op, pos0, theta0, gamma, field=tables,
+                          with_stats=True, device=cuda_device)
+    scal = kg.golden_scalars(ds, gamma, 60, 0.0, it, device=cuda_device)
+    before = info.launches
+    got = kg.golden_step(st, scal, field=tables, op=op, steps=60, box=box)
+    assert info.launches == before + 1
+    _same(got, kg.golden_step_plain(st, scal, field=tables, op=op, steps=60,
+                                    box=box, iters=it, polish=pol), 5e-4)
+
+
+def test_cuda_state_on_a_cpu_medium_raises(cuda_device):
+    tables = _strat_tables("vert_heterogeneous", "parity", "cpu")
+    pos0, theta0, ds, box = _fan("vert_heterogeneous")
+    st = kfu.initial_state("op1", pos0, theta0, field="vert_heterogeneous",
+                           with_stats=False, device=cuda_device)
+    with pytest.raises(ValueError, match="medium table"):
+        kfu.fused_step(st, field=tables, op="op1", steps=1, delta_s=ds,
+                       step_limit=1, box=box)
+
+
+@pytest.mark.parametrize("family", ["parity", "c1"])
+def test_fast_trace_runs_sampled_media_on_the_card(family, cuda_device):
+    vert = rtt.scenario("vert")
+    fish = rtt.scenario("fisheye")
+    if family == "parity":
+        strat = rtt.build_stratified_medium(vert.field, vert.box,
+                                            device=cuda_device)
+        grid = rtt.build_grid_medium("fisheye", fish.box, 0.05,
+                                     device=cuda_device)
+    else:
+        strat = rtt.build_c1_stratified(vert.field, vert.box,
+                                        device=cuda_device)
+        grid = rtt.build_c1_medium("fisheye", fish.box, 0.05,
+                                   device=cuda_device)
+    before = [k.launches for k in (kfu.KERNEL_STRAT, kfu.KERNEL_GRID,
+                                   kg.KERNEL_STRAT, kg.KERNEL_GRID)]
+    kw = dict(delta_s=0.05, pos0=vert.pos0, theta0=vert.theta0,
+              device=cuda_device)
+    f = rtt.fast_trace("op8", vert, strat, stats=True, **kw)
+    g = rtt.fast_trace("op11", vert, strat, stats=True, **kw)
+    kw = dict(delta_s=2 * np.pi / 300, pos0=fish.pos0, theta0=fish.theta0,
+              steps=299, device=cuda_device)
+    h = rtt.fast_trace("op1", fish, grid, **kw)
+    k = rtt.fast_trace("op5", fish, grid, **kw)
+    assert (f.engine, g.engine, h.engine, k.engine) == (
+        "fused-strat", "golden-strat", "grid", "grid")
+    after = [k_.launches for k_ in (kfu.KERNEL_STRAT, kfu.KERNEL_GRID,
+                                    kg.KERNEL_STRAT, kg.KERNEL_GRID)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    for r in (f, g, h, k):
+        assert r.pos.is_cuda and torch.isfinite(r.pos).all()

@@ -1,0 +1,49 @@
+"""The port imports nothing of JAX: every ``raytracing_tpu_torch/**/*.py`` and
+``chip_smoke.py``, parsed with ``ast``, has no ``import`` or ``from ...
+import`` of jax, jaxlib, flax or the JAX package ``raytracing_tpu`` (the
+package or any submodule).  Names in comments and strings do not count."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "raytracing_tpu")
+
+
+def port_files():
+    return sorted((ROOT / "raytracing_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def forbidden_imports(source: str) -> list:
+    """Module names of the forbidden imports in ``source``."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+def test_the_guard_sees_what_it_must():
+    src = ("import jax\nimport jax.numpy as jnp\nfrom jaxlib import x\n"
+           "from flax import struct\nimport raytracing_tpu\n"
+           "from raytracing_tpu.media import grid\n"
+           "import raytracing_tpu_torch\n"
+           "from raytracing_tpu_torch.media import grid as g\n"
+           "# import jax\nx = 'import raytracing_tpu'\n"
+           "from . import fused\n")
+    assert forbidden_imports(src) == [
+        "jax", "jax.numpy", "jaxlib", "flax", "raytracing_tpu",
+        "raytracing_tpu.media"]
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    assert forbidden_imports(path.read_text()) == []

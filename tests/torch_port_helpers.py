@@ -5,6 +5,8 @@ JAX reference and the port see the same numbers.  Torch runs on one thread:
 the suite runs under several pytest-xdist workers, and torch's own thread
 pool would oversubscribe the machine.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -51,3 +53,17 @@ VERT_BOX = (-2.0, -0.5, -2.5, -1.0)
 
 def to_np(t):
     return t.detach().cpu().numpy()
+
+
+def medium_fields(jm) -> dict:
+    """A JAX medium's fields as numpy arrays and Python statics."""
+    return {f.name: (np.asarray(v) if hasattr(v, "shape") else v)
+            for f in dataclasses.fields(jm)
+            for v in (getattr(jm, f.name),)}
+
+
+def port_medium(jm, device="cpu"):
+    """The port's twin of a JAX sampled medium, carried across by interop."""
+    from raytracing_tpu_torch.interop import medium_from_numpy
+    return medium_from_numpy(type(jm).__name__, medium_fields(jm),
+                             device=device)
