@@ -8,7 +8,7 @@ either is missing or any check fails.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
-2. build: the seven CUDA kernels compiled from raytracing_tpu_torch/csrc
+2. build: the nine CUDA kernels compiled from raytracing_tpu_torch/csrc
    (one nvcc a source, all at once), then the reference's sampled media
    built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
@@ -34,16 +34,36 @@ either is missing or any check fails.  Phases, one line or more each:
 7. main shapes: each scenario's and each sampled run's fast_trace result
    (positions, traveltime, `active`) against the kernel's plain version on
    the same inputs at the full shape and step count, and the kernel's time
-   there beside the plain version's and its bound.
+   there beside the plain version's and its bound;
+8. ``[sweep-vs-plain]``: fused_sweep_grid against its plain version (per-ray
+   step sizes and limits) on the reference's full fisheye candidate grid
+   (divisor 303 -> 4, ten turns, one ray a candidate), parity and C1 grids,
+   op1/op6/op7, to the bit; ``[nodes-vs-plain]``: fused_step_nodes on the
+   parity grid's node table, every fused op with and without the stats, at
+   65,536 rays and at most 1,000 steps, to the bit;
+9. the search path: ``[search]`` delta_s_search (engine "fused") for
+   fisheye op1 on the 2-D grid, interface op6, vert op8 and aniso op11 on
+   the stratified tables (the JAX CLI's ``--medium auto``), with the
+   selection beside the reference's calibrated divisor; ``[cli]`` the CLI's
+   search mode; ``[grid_trace]`` at the headline shape (2**20 rays, fisheye
+   op1, 4586 steps); ``[segmented]`` segmented_trace with compaction for
+   interface op6 and aniso op11 at 2**20 rays, and a checkpointed run
+   interrupted and resumed;
+10. the search path's checks: every fused candidate's metric against one
+   batched plain run (per-ray step sizes), the golden search's selected
+   candidate and its neighbours against golden_step_plain; grid_trace
+   against grid_trace_tiled (phase 6's fisheye_grid run) and its plain
+   version, with the kernel's time; segmented_trace against one launch
+   (phase 6's runs) and across the checkpoint, all to the bit.
 
-Phases 4-5 are the analytic main path and phase 6 the sampled one: every
-launch count is set to 0 just before each and read just after, and each
-kernel of that path must have launched; the launches phases 3 and 7 make to
-compare and time a kernel are not counted.  The second-last line is a JSON
-object with one entry per kernel (its launches on its main path, largest
-|dpos| against the plain version, times, and the bound: the larger of its
-FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the last
-line is {"ok": true, "device": {...}}.
+Phases 4-5 are the analytic main path, phase 6 the sampled one and phase 9
+the search path: every launch count is set to 0 just before each and read
+just after, and each kernel of that path must have launched; the launches
+phases 3, 7, 8 and 10 make to compare and time a kernel are not counted.
+The second-last line is a JSON object with one entry per kernel (its
+launches on its main path, largest |dpos| against the plain version, times,
+and the bound: the larger of its FP32 operations over 67 TFLOP/s and its
+bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -239,12 +259,13 @@ def phase_build():
 
 
 def kernel_infos():
-    """The seven kernels' KernelInfos, analytic first."""
+    """The nine kernels' KernelInfos, analytic first."""
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
     return (kf.KERNEL, kfu.KERNEL, kg.KERNEL, kfu.KERNEL_STRAT,
-            kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID)
+            kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID,
+            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES)
 
 
 def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -791,6 +812,419 @@ def phase_sampled_shapes(device, errs, media, runs):
     return times
 
 
+def exact(errs, label, k, p):
+    """A kernel's resume state ``k`` against its plain version's ``p``, to
+    the bit: every field equal.  Prints |dpos|, |dtt| and the active flips;
+    records |dpos| in ``errs``."""
+    dpos = max(float((k.x - p.x).abs().max()), float((k.y - p.y).abs().max()))
+    dtt = float((k.tt - p.tt).abs().max())
+    flips = int((k.active != p.active).sum())
+    same = all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(k, p))
+    errs.pos = max(errs.pos, dpos)
+    print(f"  {label}: |dpos| {dpos:.3e} |dtt| {dtt:.3e} active flips "
+          f"{flips} (bit parity required)", flush=True)
+    if not same:
+        fail(f"{label}: kernel differs from its plain version")
+
+
+def same_final(label, a, b, names=("pos", "traveltime", "dist_sim", "active",
+                                   "mom_count", "mom_mean", "mom_m2")):
+    """Two final bundles (FusedFinal / FastResult / GoldenFinal) equal to the
+    bit in every named field both carry."""
+    worst, flips = 0.0, 0
+    for n in names:
+        x, y = getattr(a, n, None), getattr(b, n, None)
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                fail(f"{label}: {n} present in one result only")
+            continue
+        if x.dtype == torch.bool:
+            flips += int((x != y).sum())
+        elif not torch.equal(x, y):
+            worst = max(worst, float((x - y).abs().max()))
+            if worst == 0.0:      # NaN against NaN, or signed zeros
+                fail(f"{label}: {n} differs")
+    print(f"  {label}: max |d| {worst:.3e}, active flips {flips} "
+          "(bit parity required)", flush=True)
+    if worst or flips:
+        fail(f"{label}: results differ")
+
+
+def sweep_inputs(device):
+    """The reference's full fisheye candidate grid (divisor 303 -> 4, ten
+    turns, buffers sized at divisor + 1) as the search runs it: one ray a
+    candidate at (1, 0) heading pi/2, its step size and step limit."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch.parallel import sweep
+    scen = rtt.scenario("fisheye")
+    divs, ds, tdivs = sweep.candidates(scen)
+    limits = sweep._max_sizes(scen, ds, tdivs, config.N_TURNS) - 1
+    n = len(ds)
+    pos0 = np.tile(np.array([[1.0, 0.0]], np.float32), (n, 1))
+    theta0 = np.full(n, np.pi / 2.0, np.float32)
+    return (scen, divs, pos0, theta0,
+            torch.as_tensor(ds.astype(np.float32), device=device),
+            torch.as_tensor(limits.astype(np.float32), device=device))
+
+
+def visited_cells(run_plain, tables):
+    """Distinct grid cells a plain run of the grid kernel reads: its
+    per-cell evaluator wrapped to record each lookup's row.  A frozen ray
+    still evaluates its (constant) proposed step, so this counts at most
+    one cell a ray more than the kernel reads."""
+    from raytracing_tpu_torch.engine.segmented import _cells
+    from raytracing_tpu_torch.kernels import fused as kfu
+    rows, inner = [], kfu.tile_nag_plain
+
+    def recording(g):
+        nag = inner(g)
+
+        def rec(x, y):
+            ix, iy, _, _ = _cells(x, y, g)
+            rows.append(iy.long() * (g.nx - 1) + ix.long())
+            return nag(x, y)
+        return rec
+
+    kfu.tile_nag_plain = recording
+    try:
+        run_plain()
+    finally:
+        kfu.tile_nag_plain = inner
+    assert rows, "the plain run read no grid cell"
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def phase_sweep_vs_plain(device, media):
+    """fused_sweep_grid against its plain version on the full fisheye
+    candidate grid, parity and C1 grids, op1/op6/op7; times the op1 parity
+    sweep (the search's own launch).  Returns (Errors, times, the plain
+    op1 parity final positions)."""
+    from raytracing_tpu_torch.kernels import fused as kfu
+    errs = Errors()
+    scen, _, pos0, theta0, ds, lim = sweep_inputs(device)
+    steps = int(lim.max())
+    box = tuple(scen.box)
+    print(f"[sweep-vs-plain] {len(ds)} candidates (divisor 303 -> 4, ten "
+          f"turns), up to {steps} steps, one ray each", flush=True)
+    times = plain_pos = None
+    for kind in ("grid", "c1_grid"):
+        tables = kernel_medium(media, kind, scen, 0.0)
+        for op in ("op1", "op6", "op7"):
+            st = kfu.initial_state(op, pos0, theta0, field=tables,
+                                   with_stats=False, device=device)
+            kw = dict(field=tables, op=op, steps=steps, box=box)
+            k_ms, k = cuda_ms(lambda: kfu.fused_sweep_grid(st, ds, lim, **kw),
+                              reps=3)
+
+            def plain(s, n, d=ds, m=lim):
+                return kfu.fused_step_plain(s, steps=n, delta_s=d,
+                                            step_limit=m, offset=0.0,
+                                            **{k_: v for k_, v in kw.items()
+                                               if k_ != "steps"})
+            p_ms, p = cuda_ms(lambda: plain(st, steps))
+            exact(errs, f"fused_sweep_grid {op} {kind}", k, p)
+            print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms",
+                  flush=True)
+            if kind == "grid" and op == "op1":
+                plain_pos = torch.stack([p.x, p.y], -1)
+                ops = ops_per_step(lambda n: plain(head(st), n, ds[:8],
+                                                   lim[:8]))
+                live = float(torch.clamp(torch.round(
+                    k.dsim.double() / ds.double()), max=steps).sum())
+                cells = visited_cells(lambda: plain(st, steps), tables)
+                row = tables.table[0].numel() * tables.table.element_size()
+                nbytes = state_bytes(st, k, [ds, lim]) + cells * row
+                bms, by = bound(ops * live, nbytes)
+                print(f"    fused_sweep_grid bound {bms:.4f} ms ({by}: {ops} "
+                      f"FP32 ops a ray-step, {live:.0f} ray-steps, {cells} "
+                      f"of {tables.table.shape[0]} cells read); the longest "
+                      f"candidate alone is {steps} serial steps", flush=True)
+                times = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                             bound_by=by)
+    return errs, times, plain_pos
+
+
+def phase_nodes_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
+    """fused_step_nodes against its plain version on the parity fisheye
+    grid's node table, every fused op, with and without the stats."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    from raytracing_tpu_torch.engine import fast
+    from raytracing_tpu_torch.engine import segmented as seg
+    from raytracing_tpu_torch.kernels import fused as kfu
+    errs = Errors()
+    rng = np.random.default_rng(2)
+    scen = rtt.scenario("fisheye")
+    nodes = seg.node_tables(fast._as_hermite(media[("grid", "fisheye")]))
+    print(f"[nodes-vs-plain] {rays} rays, at most {cap} steps, reference "
+          "table steps", flush=True)
+    for op in kfu.FUSED_OPS:
+        ds, div = calibrated_with_fallback(op, "fisheye")
+        steps = min(cap, scen.max_size(ds, div, 1) - 1)
+        pos0, theta0 = fan(scen, rays, rng)
+        for stats in (False, True):
+            st = kfu.initial_state(op, pos0, theta0, field=nodes,
+                                   with_stats=stats, device=device)
+            kw = dict(field=nodes, op=op, steps=steps, delta_s=float(ds),
+                      step_limit=steps, offset=0.0, box=tuple(scen.box))
+            exact(errs, f"fused_step_nodes {op} stats={stats} {steps} steps",
+                  kfu.fused_step(st, **kw), kfu.fused_step_plain(st, **kw))
+    return errs
+
+
+#: the searches of the search path: (scenario, medium, op) on the media the
+#: CLI's --medium auto builds
+SEARCHES = (("fisheye", "grid", "op1"), ("interface", "strat", "op6"),
+            ("vert", "strat", "op8"), ("aniso", "strat", "op11"))
+SEGMENT = 256
+
+
+def reference_divisor(op, scen_name):
+    """The reference's calibrated divisor (calibrated.py): the fisheye's
+    ten-turn set (the search's own criterion), SIGMA divisors otherwise."""
+    from raytracing_tpu_torch import calibrated as cal
+    from raytracing_tpu_torch.config import SIGMA
+    if scen_name == "fisheye":
+        return cal.FISHEYE_DIVISOR_N10[op]
+    return round(SIGMA / cal.calibrated(op, scen_name)[0], 2)
+
+
+def phase_search_path(device, media, kernels):
+    """The search path and this slice's other entry points: delta_s_search
+    on the four reference scenarios, the CLI's search mode, grid_trace at
+    the headline shape, and segmented_trace (compaction, and a checkpoint
+    interrupted and resumed).  Returns what the comparisons need."""
+    import tempfile
+
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import cli
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    from raytracing_tpu_torch.engine import fast
+    from raytracing_tpu_torch.engine import segmented as seg
+    from raytracing_tpu_torch.parallel import sweep
+
+    def counted(fn):
+        before = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        delta = {k.name: k.launches - before[k.name] for k in kernels
+                 if k.launches != before[k.name]}
+        return out, secs, delta
+
+    out = {"search": {}}
+    for scen_name, kind, op in SEARCHES:
+        scen = rtt.scenario(scen_name)
+        sr, secs, delta = counted(lambda: sweep.delta_s_search(
+            op, scen, media[(kind, scen_name)], engine="fused",
+            device=device))
+        sel = ("no index" if sr.index is None else
+               f"index {sr.index} divisor {sr.divisor:g}")
+        print(f"[search] {scen_name} {op} on {kind}: {sel} (reference "
+              f"calibrated {reference_divisor(op, scen_name)}), "
+              f"{len(sr.divisors)} candidates, engine={sr.engine}, "
+              f"{secs:.3f} s, launches {delta}", flush=True)
+        out["search"][scen_name] = (sr, kind)
+
+    args = ["--scenario", "fisheye", "--op", "1", "--delta-s", "search",
+            "--device", str(device)]
+    res, secs, delta = counted(lambda: cli.main(args))
+    if res is None:
+        fail("cli: the search mode found no divisor")
+    closure = float(100.0 * torch.linalg.vector_norm(
+        res.final.pos[0] - torch.tensor([1.0, 0.0], device=device))
+        / (2 * math.pi))
+    print(f"[cli] {' '.join(args)}: {secs:.1f} s, display-run closure "
+          f"{closure:.6f} % (bar < 5), launches {delta}", flush=True)
+    if not closure < 5.0 or "fused_sweep_grid" not in delta:
+        fail("cli: the search mode missed its oracle or the sweep kernel")
+
+    scen = rtt.scenario("fisheye")
+    ds, div = calibrated_with_fallback("op1", "fisheye")
+    steps = scen.max_size(ds, div, 1) - 1
+    pos0, theta0 = fan(scen, RAYS_MAIN)
+    med = fast._as_hermite(media[("grid", "fisheye")])
+    g, secs, delta = counted(lambda: seg.grid_trace(
+        "op1", pos0, theta0, float(ds), med, steps=steps,
+        box=tuple(scen.box), device=device))
+    print(f"[grid_trace] fisheye op1 {RAYS_MAIN} rays x {steps} steps in "
+          f"{secs:.3f} s, launches {delta}", flush=True)
+    out["grid_trace"] = (g, med, pos0, theta0, float(ds), steps)
+
+    segs = {}
+    for scen_name, op, stats in (("interface", "op6", False),
+                                 ("aniso", "op11", True)):
+        scen = rtt.scenario(scen_name)
+        ds, div = calibrated_with_fallback(op, scen_name)
+        steps = scen.max_size(ds, div, 1) - 1
+        pos0, theta0 = fan(scen, RAYS_MAIN)
+        med = rtt.compact_for_trace(media[("strat", scen_name)], scen.box, ds)
+        kw = dict(steps=steps, box=tuple(scen.box), medium=med,
+                  segment=SEGMENT, with_stats=stats, gamma=scen.gamma,
+                  device=device)
+        r, secs, delta = counted(lambda: seg.segmented_trace(
+            op, pos0, theta0, float(ds), compact=True, compact_every=2, **kw))
+        print(f"[segmented] {scen_name} {op} strat {RAYS_MAIN} rays x "
+              f"{steps} steps, segment {SEGMENT}, compaction: {secs:.3f} s, "
+              f"launches {delta}, {int(r.active.sum())} rays still live",
+              flush=True)
+        segs[scen_name] = (r, (op, pos0, theta0, float(ds), kw), delta)
+    op, pos0, theta0, ds, kw = segs["interface"][1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.npz"
+        cut = (kw["steps"] // (2 * SEGMENT)) * SEGMENT
+        _, secs1, _ = counted(lambda: seg.segmented_trace(
+            op, pos0, theta0, ds, checkpoint=path, checkpoint_every=4,
+            **{**kw, "steps": cut}))
+        resumed, secs2, _ = counted(lambda: seg.segmented_trace(
+            op, pos0, theta0, ds, checkpoint=path, checkpoint_every=4, **kw))
+    print(f"[segmented] interface op6 checkpointed: {cut} steps then resumed "
+          f"to {kw['steps']} ({secs1:.3f} + {secs2:.3f} s)", flush=True)
+    plain_run = seg.segmented_trace(op, pos0, theta0, ds, **kw)
+    segs["checkpoint"] = (resumed, plain_run)
+    out["segmented"] = segs
+    return out
+
+
+def phase_search_checks(device, errs, times, media, runs, sruns,
+                        sweep_plain_pos):
+    """Hold the search path's results to their references: every search's
+    candidate metrics to the plain versions', grid_trace to
+    grid_trace_tiled (the sampled path's fisheye_grid run) with the
+    kernel's time, segmented_trace to one launch (the sampled path's runs)
+    and across a checkpoint resume."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine import segmented as seg
+    from raytracing_tpu_torch.kernels import fused as kfu
+    from raytracing_tpu_torch.kernels import golden as kg
+    from raytracing_tpu_torch.media.samples import compact_for_trace
+    from raytracing_tpu_torch.parallel import sweep
+
+    print("[search] every candidate's metric against the plain versions'",
+          flush=True)
+    for scen_name, (sr, kind) in runs["search"].items():
+        scen = rtt.scenario(scen_name)
+        n = len(sr.delta_s)
+        if scen.is_fisheye:
+            want = (100.0 / (2.0 * np.pi)) * np.linalg.norm(
+                sweep_plain_pos.cpu().numpy() - [1.0, 0.0], axis=1)
+            checked = list(range(n))
+            got = {"closure_pct": want}
+        else:
+            sizes = sweep._max_sizes(scen, sr.delta_s, None, 1)
+            lim, max_steps = sizes - 1, int(sizes.max()) - 1
+            med = compact_for_trace(media[(kind, scen_name)],
+                                    scen.box, float(np.max(sr.delta_s)))
+            tables = kfu.strat_tables(med)
+            pos0, th, nf = sweep.sweep_fan(scen)
+            golden = sr.op_name in kg.GOLDEN_OPS
+            if golden:
+                # the selected candidate and its neighbours, or the first
+                # three where nothing was selected
+                mid = 1 if sr.index is None else min(max(sr.index, 1), n - 2)
+                checked = [mid - 1, mid, mid + 1]
+            else:
+                checked = list(range(n))
+            got = {k: np.full(n, np.nan) for k in sr.metrics}
+            if golden:
+                it, pol = kg.golden_schedule()
+                for i in checked:
+                    st = kg.initial_state(sr.op_name, pos0, th, scen.gamma,
+                                          field=tables, with_stats=True,
+                                          device=device)
+                    scal = kg.golden_scalars(np.float32(sr.delta_s[i]),
+                                             np.float32(scen.gamma),
+                                             np.float32(lim[i]), 0.0, it,
+                                             device=device)
+                    p = kg.golden_step_plain(st, scal, field=tables,
+                                             op=sr.op_name, steps=max_steps,
+                                             box=tuple(scen.box), iters=it,
+                                             polish=pol)
+                    for k_, v in sweep.candidate_metrics(
+                            scen, th, nf, kg.final_from_state(p)).items():
+                        got[k_][i] = v
+            else:
+                # every candidate at once: nf rays each, per-ray step sizes
+                # and limits
+                ds_r = torch.as_tensor(np.repeat(
+                    sr.delta_s.astype(np.float32), nf), device=device)
+                lim_r = torch.as_tensor(np.repeat(
+                    lim.astype(np.float32), nf), device=device)
+                st = kfu.initial_state(
+                    sr.op_name, np.tile(pos0, (n, 1)), np.tile(th, n),
+                    field=tables, with_stats=scen.is_vert, device=device)
+                p = kfu.fused_step_plain(st, field=tables, op=sr.op_name,
+                                         steps=max_steps, delta_s=ds_r,
+                                         step_limit=lim_r, offset=0.0,
+                                         box=tuple(scen.box))
+                final = kfu.final_from_state(p)
+                for i in checked:
+                    one = type(final)(*(None if t is None
+                                        else t[i * nf:(i + 1) * nf]
+                                        for t in final))
+                    for k_, v in sweep.candidate_metrics(scen, th, nf,
+                                                         one).items():
+                        got[k_][i] = v
+        worst = max(float(np.max(np.abs(np.asarray(sr.metrics[k])[checked]
+                                         - got[k][checked])))
+                    for k in sr.metrics)
+        print(f"  {scen_name} {sr.op_name}: {len(checked)} of {n} candidates "
+              f"against the plain versions, max |d metric| {worst:.3e} "
+              "(equality required)", flush=True)
+        if worst != 0.0:
+            fail(f"search {scen_name}: a candidate metric differs from the "
+                 "plain version's")
+
+    g, med, pos0, theta0, ds, steps = runs["grid_trace"]
+    tiled = sruns["fisheye_grid"][0].res
+    same_final("[grid_trace] grid_trace against grid_trace_tiled (the "
+               "fisheye_grid run)", g, tiled,
+               names=("pos", "traveltime", "dist_sim", "active"))
+    nodes = seg.node_tables(med)
+    st = kfu.initial_state("op1", pos0, theta0, field=nodes,
+                           with_stats=False, device=device)
+    kw = dict(field=nodes, op="op1", delta_s=ds, step_limit=steps,
+              offset=0.0, box=tuple(rtt.scenario("fisheye").box))
+    k_ms, out = cuda_ms(lambda: kfu.fused_step(st, steps=steps, **kw), reps=3)
+    p_ms, p = cuda_ms(lambda: kfu.fused_step_plain(st, steps=steps, **kw))
+    errs["fused_step_nodes"].pos = max(
+        errs["fused_step_nodes"].pos,
+        float((torch.stack([p.x, p.y], -1) - g.pos).abs().max()))
+    same_final("[grid_trace] grid_trace against the plain version",
+               g, kfu.final_from_state(p), names=("pos", "traveltime",
+                                                 "active"))
+    bms, by = timed_bound("fused_step_nodes",
+                          lambda n: kfu.fused_step_plain(head(st), steps=n,
+                                                         **kw),
+                          st, out, nodes, ds, steps)
+    print(f"    fused_step_nodes {k_ms:.3f} ms (fused_step_grid on the same "
+          f"run {times['fused_step_grid']['ms']:.3f} ms), plain "
+          f"{p_ms:.1f} ms", flush=True)
+    times["fused_step_nodes"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                     bound_by=by)
+
+    segs = runs["segmented"]
+    for scen_name, run in (("interface", "interface_strat"),
+                           ("aniso", "golden_strat_op11")):
+        r, (op, pos0, theta0, ds, kw), delta = segs[scen_name]
+        same_final(f"[segmented] {scen_name} {op} with compaction against one "
+                   f"launch ({run})", r, sruns[run][0].res)
+    resumed, uninterrupted = segs["checkpoint"]
+    same_final("[segmented] interface op6 checkpoint-resumed against "
+               "uninterrupted", resumed, uninterrupted)
+    r, (op, pos0, theta0, ds, kw), delta = segs["interface"]
+    seg_ms, _ = cuda_ms(lambda: seg.segmented_trace(
+        op, pos0, theta0, ds, compact=True, compact_every=2, **kw))
+    print(f"    segmented interface op6 with compaction {seg_ms:.3f} ms "
+          f"({delta.get('fused_step_strat', 0)} launches), one launch "
+          f"{times['fused_step_strat']['ms']:.3f} ms, plain "
+          f"{times['fused_step_strat']['plain_ms']:.1f} ms, bound "
+          f"{times['fused_step_strat']['bound_ms']:.3f} ms", flush=True)
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -825,7 +1259,22 @@ def main():
     launches.update(slaunches)
     times.update(phase_main_shapes("cuda", errs, runs))
     times.update(phase_sampled_shapes("cuda", errs, media, sruns))
-    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"[phases 1-7] passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    # this slice: the search path and the other entry points, against
+    # their plain versions and references
+    t_new = time.perf_counter()
+    errs["fused_sweep_grid"], times["fused_sweep_grid"], sweep_pos = \
+        phase_sweep_vs_plain("cuda", media)
+    errs["fused_step_nodes"] = phase_nodes_vs_plain("cuda", media)
+    search_runs, search_launches = main_path(
+        kernels, ("fused_sweep_grid", "fused_step_nodes"),
+        lambda: phase_search_path("cuda", media, kernels))
+    launches.update(search_launches)
+    phase_search_checks("cuda", errs, times, media, search_runs, sruns,
+                        sweep_pos)
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
+          f" (this slice's phases {time.perf_counter() - t_new:.1f} s)",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

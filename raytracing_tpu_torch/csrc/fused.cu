@@ -1,6 +1,6 @@
-// fused_step, fused_step_strat, fused_step_grid: the resumable fused
-// integrator for op1/2/3/4/6/7/8/12, one step loop instantiated on three
-// media (media.cuh).
+// fused_step, fused_step_strat, fused_step_grid, fused_step_nodes and
+// fused_sweep_grid: the resumable fused integrator for op1/2/3/4/6/7/8/12,
+// one step loop instantiated on four media (media.cuh).
 //
 // Replaces raytracing_tpu/kernels/fused.py::_make_kernel (fused.py:336),
 // launched at fused.py:740 for fused_trace_final(_strat) and, in its resume
@@ -9,7 +9,14 @@
 // * fused_step_strat: the 1-D tables of _strat_nag (fused.py:65),
 //   rt_fused_step_strat (row 2s of the kernel table in PERF.md);
 // * fused_step_grid: the 2-D per-cell table of _tile_nag (fused.py:205)
-//   with _hermite_blend or c1_blend, rt_fused_step_grid (row 5).
+//   with _hermite_blend or c1_blend, rt_fused_step_grid (row 5);
+// * fused_step_nodes: the parity Hermite node table of _supercell_nag
+//   (fused.py:151), launched for engine/segmented.py::grid_trace (:1581),
+//   rt_fused_step_nodes (row 7);
+// * fused_sweep_grid: the DELTA_S candidate sweep on the 2-D grid
+//   (engine/segmented.py::_tiled_sweep_segments, :968, _make_kernel's
+//   per_block_scal, fused.py:365-370), rt_fused_sweep_grid (row 6): the
+//   Grid<36|16> loop with a per-ray step size and step limit.
 // The Pallas factory's compile-time arguments (medium, op) are template
 // parameters here; stats is a run-time flag (a uniform branch).
 //
@@ -30,6 +37,16 @@
 // by L1/L2 (the tables are at most 37.5 MB).  A thread leaves its step loop
 // as soon as its ray is frozen (box exit or the step limit) — results are
 // unchanged, since a frozen ray's state never changes again.
+//
+// The sweep is n_cand independent trajectories, one thread a candidate,
+// each reading its own (ds, limit) from two per-ray arrays once before the
+// loop (FusedArgs::ds_ray/limit_ray, null for every other kernel, so the
+// hot loop is the same code).  The TPU form duplicated each candidate over
+// a 1024-lane block with its own window; here a candidate is one ray, and
+// with ~300 candidates the launch fills 2-3 blocks of 132 SMs: the sweep is
+// bound by one thread's serial step latency (the longest candidate's
+// steps), not by FP32 issue or bytes, and nothing in the kernel can change
+// that — the candidates are the only parallelism the search has.
 #include "media.cuh"
 
 namespace rt {
@@ -39,6 +56,9 @@ struct FusedArgs {
   int n, steps, stats;
   float ds, limit, offset, curv_tol;
   float box[4];
+  // per-ray step size and step limit (fused_sweep_grid), or null
+  const float* ds_ray;
+  const float* limit_ray;
 };
 
 template <class Medium, int OP>
@@ -70,13 +90,14 @@ __global__ void __launch_bounds__(kThreads)
     wbx = ld(a.in, WBX, r);
     wby = ld(a.in, WBY, r);
   }
-  const float ds = a.ds;
+  const float ds = a.ds_ray ? a.ds_ray[r] : a.ds;
+  const float limit = a.limit_ray ? a.limit_ray[r] : a.limit;
   float n, gx, gy;
   medium.nag(x, y, n, gx, gy);
 
   for (int i = 0; i < a.steps; ++i) {
     // frozen rays never change again: stop stepping (fused.py:585-592)
-    if (!active || !((float)i + a.offset < a.limit)) break;
+    if (!active || !((float)i + a.offset < limit)) break;
 
     // -- position advance ------------------------------------------------
     float ddx, ddy;
@@ -258,6 +279,8 @@ static FusedArgs fused_args(int stats, void* const* in, void* const* out,
   a.box[1] = limx_s;
   a.box[2] = limy_i;
   a.box[3] = limy_s;
+  a.ds_ray = nullptr;
+  a.limit_ray = nullptr;
   return a;
 }
 
@@ -304,6 +327,36 @@ extern "C" int rt_fused_step_grid(int cell_ch, RT_FUSED_PARAMS,
                                   RT_TABLE_PARAMS, void* stream) {
   if (n <= 0) return 0;
   const rt::FusedArgs a = RT_FUSED_ARGS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cell_ch) {
+    case 36: return rt::launch(op, a, rt::Grid<36>{RT_TABLE}, s);
+    case 16: return rt::launch(op, a, rt::Grid<16>{RT_TABLE}, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// fused_step_nodes: the parity Hermite node table, node_ch = 9; row 7
+extern "C" int rt_fused_step_nodes(int node_ch, RT_FUSED_PARAMS,
+                                   RT_TABLE_PARAMS, void* stream) {
+  if (n <= 0) return 0;
+  if (node_ch != 9) return static_cast<int>(cudaErrorInvalidValue);
+  const rt::FusedArgs a = RT_FUSED_ARGS;
+  return rt::launch(op, a, rt::Nodes{RT_TABLE},
+                    static_cast<cudaStream_t>(stream));
+}
+
+// fused_sweep_grid: fused_step_grid with a per-ray step size and step limit
+// (ds_ray, limit_ray: n floats each, on the card); the scalar ds and limit
+// of RT_FUSED_PARAMS are unread; row 6
+extern "C" int rt_fused_sweep_grid(int cell_ch, RT_FUSED_PARAMS,
+                                   const void* ds_ray, const void* limit_ray,
+                                   RT_TABLE_PARAMS, void* stream) {
+  if (n <= 0) return 0;
+  if (ds_ray == nullptr || limit_ray == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rt::FusedArgs a = RT_FUSED_ARGS;
+  a.ds_ray = static_cast<const float*>(ds_ray);
+  a.limit_ray = static_cast<const float*>(limit_ray);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cell_ch) {
     case 36: return rt::launch(op, a, rt::Grid<36>{RT_TABLE}, s);

@@ -19,12 +19,22 @@
 //   block-shared cell window (fused.py::_tile_nag, :205): every ray reads
 //   its own cell's row from global memory (144 or 64 bytes, float4 loads);
 //   the parity fisheye table (37.5 MB) fits in the H100's 50 MB L2.
+// * Nodes: the parity Hermite grid's node table itself
+//   (media/hermite.py::HermiteGridMedium.nodes, (ny*nx, 9) float32, one row
+//   a node).  It replaces the TPU supercell kernel's per-ray 4x4 node block
+//   (fused.py::_supercell_nag, :151-202; gathered per ray before every
+//   segment of at most 48 steps and resolved by 24 selects a channel): each
+//   evaluation reads the cell's four corner rows straight from the table
+//   (36 bytes each, scalar loads: a node row is not 16-byte aligned) and
+//   applies the same hermite_blend to the same corner values as Grid<36>,
+//   so the two agree to the bit.  The node table is a quarter of the
+//   per-cell table's bytes and needs no per-call rebuild.
 //
 // Every expression keeps the JAX kernels' order of operations, and the
 // cell index follows the same float32 path (clip, floor, min), so the
 // kernels agree to the bit with their plain PyTorch versions
 // (raytracing_tpu_torch/kernels/fused.py: field_fn, strat_nag_plain,
-// tile_nag_plain) under -fmad=false.
+// tile_nag_plain, nodes_nag_plain) under -fmad=false.
 #pragma once
 
 #include "common.cuh"
@@ -118,15 +128,33 @@ struct Strat {
 };
 
 // -- 2-D grid blends ---------------------------------------------------------
-// A cell row's channel ch holds its 4 corners (00, +x, +y, +xy) as one
+// corners(ch) gives channel ch's 4 corner values (00, +x, +y, +xy) as one
 // float4 (x, y, z, w).
+
+// A per-cell row of the _cells36 layout: channel ch is the row's ch-th float4
+struct CellCorners {
+  const float* c;
+  __device__ __forceinline__ float4 operator()(int ch) const {
+    return ldg4(c, ch);
+  }
+};
+
+// Four node rows of the (ny*nx, 9) node table: channel ch is column ch of each
+struct NodeCorners {
+  const float *c00, *c01, *c10, *c11;
+  __device__ __forceinline__ float4 operator()(int ch) const {
+    return make_float4(__ldg(c00 + ch), __ldg(c01 + ch), __ldg(c10 + ch),
+                       __ldg(c11 + ch));
+  }
+};
 
 // bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8):
 // raytracing_tpu/kernels/fused.py::_hermite_blend (:108-148)
-__device__ __forceinline__ void hermite_blend(const float* c, float u, float v,
-                                              float& n, float& gx,
+template <class Corners>
+__device__ __forceinline__ void hermite_blend(const Corners& corners, float u,
+                                              float v, float& n, float& gx,
                                               float& gy) {
-  const float4 z = ldg4(c, 0);
+  const float4 z = corners(0);
   n = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
       v * ((1.0f - u) * z.z + u * z.w);
   const float v2 = v * v;
@@ -145,8 +173,8 @@ __device__ __forceinline__ void hermite_blend(const float* c, float u, float v,
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int ch0 = 1 + 4 * k;
-    const float4 f = ldg4(c, ch0), fv = ldg4(c, ch0 + 1),
-                 fu = ldg4(c, ch0 + 2), fw = ldg4(c, ch0 + 3);
+    const float4 f = corners(ch0), fv = corners(ch0 + 1),
+                 fu = corners(ch0 + 2), fw = corners(ch0 + 3);
     g[k] = (f.x * hv0 + fv.x * gv0 + f.z * hv1 + fv.z * gv1) * hu0 +
            (f.y * hv0 + fv.y * gv0 + f.w * hv1 + fv.w * gv1) * hu1 +
            (fu.x * hv0 + fw.x * gv0 + fu.z * hv1 + fw.z * gv1) * gu0 +
@@ -223,8 +251,27 @@ struct Grid {
     if (CELL_CH == 16) {
       c1_blend(c, u, v, m.inv_hx, m.inv_hy, n, gx, gy);
     } else {
-      hermite_blend(c, u, v, n, gx, gy);
+      hermite_blend(CellCorners{c}, u, v, n, gx, gy);
     }
+  }
+};
+
+// -- the parity Hermite node table (media/hermite.py, fused.py::_supercell_nag)
+struct Nodes {
+  Table m;   // t: the (ny*nx, 9) node table
+  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
+                                      float& gy) const {
+    const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
+    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
+    const float ix = fminf(floorf(fx), (float)(m.nx - 2));
+    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
+    const float u = fx - ix;
+    const float v = fy - iy;
+    const long long node = static_cast<long long>(iy) * m.nx +
+                           static_cast<long long>(ix);
+    const float* c00 = m.t + node * 9;
+    const float* c10 = c00 + static_cast<long long>(m.nx) * 9;
+    hermite_blend(NodeCorners{c00, c00 + 9, c10, c10 + 9}, u, v, n, gx, gy);
   }
 };
 

@@ -91,7 +91,8 @@ def supports(op_name: str, medium) -> bool:
 
 
 def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
-               delta_s, pos0, theta0, device, steps: int | None = None,
+               delta_s, pos0, theta0, device="cuda",
+               steps: int | None = None,
                divisor: int | None = None, n_turns: int = config.N_TURNS,
                precision: str = "standard", stats: bool = False
                ) -> FastResult:

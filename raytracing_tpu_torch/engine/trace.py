@@ -150,7 +150,7 @@ def run_steps(op, st0: RayState, medium, gamma, delta_s, *, max_size: int,
 
 
 def trace(op_name: str, scen: config.ScenarioConfig, medium, *,
-          delta_s: float, device, divisor: int | None = None,
+          delta_s: float, device="cuda", divisor: int | None = None,
           n_turns: int = config.N_TURNS, mode: str = "history",
           dtype=torch.float32, pos0=None, theta0=None,
           step_limit: int | None = None,

@@ -60,6 +60,13 @@ _SIGNATURES = {
     # cell_ch (36 | 16), the same
     "rt_fused_step_grid": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
                            _F, _F, _F, _F, _F, *_TABLE, _P),
+    # node_ch (9), the same
+    "rt_fused_step_nodes": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
+                            _F, _F, _F, _F, _F, *_TABLE, _P),
+    # cell_ch (36 | 16), rt_fused_step's arguments after field, ds_ray,
+    # limit_ray (device), the table, stream
+    "rt_fused_sweep_grid": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
+                            _F, _F, _F, _F, _F, _P, _P, *_TABLE, _P),
     # ch, then rt_golden_step's arguments after field, the table, stream
     "rt_golden_step_strat": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,

@@ -6,20 +6,26 @@ evaluator ``_strat_nag`` (:65), ``_hermite_blend`` (:108), the per-cell
 grid evaluator ``_tile_nag`` (:205) without its window, ``strat_tables``
 (:286), the step of ``_make_kernel`` (:336) in its resume form,
 ``FusedFinal`` (:713), ``fused_trace_final`` (:769) and
-``fused_trace_final_strat`` (:847); and the resume state layout of
-``engine/segmented.py`` (``_initial_comps`` :66, ``_final_from_state`` :99),
-whose launchers (segmented.py:165, :778) chain the same kernel.
+``fused_trace_final_strat`` (:847); the supercell evaluator
+``_supercell_nag`` (:151) on the whole node table, and the per-block scalar
+rows of ``_make_kernel(per_block_scal=True)`` (:365-370, :401-407) as
+per-ray arrays; and the resume state layout of ``engine/segmented.py``
+(``_initial_comps`` :66, ``_final_from_state`` :99), whose launchers
+(segmented.py:165, :778, :968, :1581) chain the same kernel.
 
 The medium is an argument of the step, as JAX's ``nag`` injection
 (``_make_kernel(strat=, tile=)``, fused.py:336-340): ``field`` is an
-analytic field name, a :class:`StratTables` or a :class:`GridTables`, and
-:func:`nag_fn` gives its plain evaluator.  One step loop, ``csrc/fused.cu``,
-is instantiated on the three media (``csrc/media.cuh``), as three kernels
-with their own launch counts: ``fused_step`` (analytic), ``fused_step_strat``
-and ``fused_step_grid``.  :func:`fused_step_plain` is their plain PyTorch
-version, and :func:`fused_step` the wrapper that dispatches on the device of
-the state tensors: a CPU state runs the plain version, a CUDA state launches
-the kernel or raises.
+analytic field name, a :class:`StratTables`, a :class:`GridTables` or a
+:class:`NodeTables`, and :func:`nag_fn` gives its plain evaluator.  One step
+loop, ``csrc/fused.cu``, is instantiated on the four media
+(``csrc/media.cuh``), as kernels with their own launch counts:
+``fused_step`` (analytic), ``fused_step_strat``, ``fused_step_grid`` and
+``fused_step_nodes``, and ``fused_sweep_grid``, the grid loop with a step
+size and a step limit per ray (the DELTA_S candidate sweep).
+:func:`fused_step_plain` is their plain PyTorch version, and
+:func:`fused_step` / :func:`fused_sweep_grid` the wrappers that dispatch on
+the device of the state tensors: a CPU state runs the plain version, a CUDA
+state launches the kernel or raises.
 
 What the TPU kernel carried only for Mosaic is gone: no zeros buffer, the
 active mask is a bool, the scalars are arguments, and the state is plain
@@ -49,8 +55,14 @@ KERNEL_STRAT = build.KernelInfo(
 KERNEL_GRID = build.KernelInfo(
     name="fused_step_grid", source="raytracing_tpu_torch/csrc/fused.cu",
     replaces="raytracing_tpu/kernels/fused.py:205")
-#: the family's kernels by medium: analytic, stratified, grid
-KERNELS = (KERNEL, KERNEL_STRAT, KERNEL_GRID)
+KERNEL_NODES = build.KernelInfo(
+    name="fused_step_nodes", source="raytracing_tpu_torch/csrc/fused.cu",
+    replaces="raytracing_tpu/kernels/fused.py:151")
+KERNEL_SWEEP_GRID = build.KernelInfo(
+    name="fused_sweep_grid", source="raytracing_tpu_torch/csrc/fused.cu",
+    replaces="raytracing_tpu/engine/segmented.py:968")
+#: the family's kernels by medium: analytic, stratified, grid, node table
+KERNELS = (KERNEL, KERNEL_STRAT, KERNEL_GRID, KERNEL_NODES)
 
 _SQRT2 = 1.4142135623730951
 #: curvature-negligibility threshold of the float32 kernels
@@ -121,6 +133,20 @@ class GridTables(NamedTuple):
 
     table: Any       # ((ny - 1) * (nx - 1), cell_ch) float32
     cell_ch: int
+    x0: float
+    y0: float
+    inv_hx: float
+    inv_hy: float
+    nx: int
+    ny: int
+
+
+class NodeTables(NamedTuple):
+    """The parity Hermite grid's node table as the kernels read it
+    (``Nodes`` in csrc/media.cuh): ``HermiteGridMedium.nodes``, one row of
+    9 float32 channels a node (media/hermite.py's layout)."""
+
+    table: Any       # (ny * nx, 9) float32
     x0: float
     y0: float
     inv_hx: float
@@ -225,12 +251,35 @@ def tile_nag_plain(g: GridTables):
     return nag
 
 
+def nodes_nag_plain(t: NodeTables):
+    """n/grad from the node table (fused.py:151-202 ``_supercell_nag``):
+    the cell's four corner node rows gathered directly, blended by
+    :func:`hermite_blend` — the same corner values in the same order as
+    :func:`tile_nag_plain` reads from the per-cell rows."""
+    from raytracing_tpu_torch.engine.segmented import _cells
+
+    def nag(x, y):
+        ix, iy, u, v = _cells(x, y, t)
+        node = iy.long() * t.nx + ix.long()
+        rows = (t.table[node], t.table[node + 1], t.table[node + t.nx],
+                t.table[node + t.nx + 1])
+
+        def corners(ch):
+            return tuple(r[..., ch] for r in rows)
+
+        return hermite_blend(corners, u, v)
+
+    return nag
+
+
 def nag_fn(field):
     """The plain evaluator (x, y) -> (n, gx, gy) of a step's medium."""
     if isinstance(field, StratTables):
         return strat_nag_plain(field)
     if isinstance(field, GridTables):
         return tile_nag_plain(field)
+    if isinstance(field, NodeTables):
+        return nodes_nag_plain(field)
     return field_fn(field)
 
 
@@ -363,12 +412,16 @@ def _outside(x, y, box):
 
 
 def fused_step_plain(st: ResumeState, *, field, op: str, steps: int,
-                     delta_s: float, step_limit: float, offset: float,
+                     delta_s, step_limit, offset: float,
                      box) -> ResumeState:
-    """Plain PyTorch version of the ``fused_step`` kernels (all three media).
+    """Plain PyTorch version of the ``fused_step`` kernels (all media) and
+    of ``fused_sweep_grid``.
 
     The same step (fused.py:430-608) on every ray at once, with a frozen
-    ray's state kept by selects instead of leaving the loop.
+    ray's state kept by selects instead of leaving the loop.  ``delta_s``
+    and ``step_limit`` are Python numbers or (R,) float32 tensors, one
+    value a ray (the sweep); every expression that folds the step size
+    rounds as the kernel's does in either form.
     """
     nag = nag_fn(field)
     second = op in ("op6", "op7", "op8")
@@ -377,9 +430,13 @@ def fused_step_plain(st: ResumeState, *, field, op: str, steps: int,
     window = op == "op7"
     rk4 = op == "op12"
     stats = st.mom_count is not None
-    ds32 = np.float32(delta_s)
-    ds = float(ds32)
-    dsds_half = float(ds32 * ds32 * np.float32(0.5))   # (ds*ds)*0.5 in f32
+    if torch.is_tensor(delta_s):
+        ds = delta_s
+        dsds_half = ds * ds * 0.5
+    else:
+        ds32 = np.float32(delta_s)
+        ds = float(ds32)
+        dsds_half = float(ds32 * ds32 * np.float32(0.5))   # (ds*ds)*0.5 in f32
     x, y, ux, uy, cx, cy, tt, dsim, active = st[:9]
     cnt, mean, m2 = st.mom_count, st.mom_mean, st.mom_m2
     wax, way, wbx, wby = st.wax, st.way, st.wbx, st.wby
@@ -400,7 +457,8 @@ def fused_step_plain(st: ResumeState, *, field, op: str, steps: int,
             u3x, u3y = _rot(ux, uy, h * k3t)
             nd, gdx, gdy = nag(x + h * u2x, y + h * u2y)
             k4t = (u3x * gdy - u3y * gdx) / nd
-            h6 = float(np.float32(h) / np.float32(6.0))
+            h6 = (div_exact(h, 6.0) if torch.is_tensor(h)
+                  else float(np.float32(h) / np.float32(6.0)))
             ddx = h6 * (ux + 2 * u1x + 2 * u2x + u3x)
             ddy = h6 * (uy + 2 * u1y + 2 * u2y + u3y)
             dth = h6 * (k1t + 2 * k2t + 2 * k3t + k4t)
@@ -511,9 +569,9 @@ def check_medium(field, device) -> None:
     it once with ``medium.to(device)``)."""
     if isinstance(field, str):
         return
-    if not isinstance(field, (StratTables, GridTables)):
-        raise ValueError("a step's medium is a field name, StratTables or "
-                         f"GridTables, got {type(field).__name__}")
+    if not isinstance(field, (StratTables, GridTables, NodeTables)):
+        raise ValueError("a step's medium is a field name, StratTables, "
+                         f"GridTables or NodeTables, got {type(field).__name__}")
     t = field.table
     if t.device != device or t.dtype != torch.float32 \
             or not t.is_contiguous():
@@ -524,8 +582,8 @@ def check_medium(field, device) -> None:
 
 def kernel_of(field, kernels):
     """(KernelInfo, entry-point suffix, leading int, table arguments) of a
-    step's medium; ``kernels`` are the (analytic, strat, grid) KernelInfos
-    of a family, the table arguments those of csrc/media.cuh
+    step's medium; ``kernels`` are the (analytic, strat, grid[, nodes])
+    KernelInfos of a family, the table arguments those of csrc/media.cuh
     RT_TABLE_PARAMS."""
     if isinstance(field, StratTables):
         return kernels[1], "_strat", field.ch, (
@@ -533,6 +591,10 @@ def kernel_of(field, kernels):
             field.ny)
     if isinstance(field, GridTables):
         return kernels[2], "_grid", field.cell_ch, (
+            field.table.data_ptr(), field.x0, field.y0, field.inv_hx,
+            field.inv_hy, field.nx, field.ny)
+    if isinstance(field, NodeTables):
+        return kernels[3], "_nodes", 9, (
             field.table.data_ptr(), field.x0, field.y0, field.inv_hx,
             field.inv_hy, field.nx, field.ny)
     return kernels[0], "", FIELD_CODES[field], ()
@@ -543,8 +605,9 @@ def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
     """Advance a resume state ``steps`` steps: the kernels' wrapper.
 
     ``field`` is the medium: an analytic field name (kernel ``fused_step``),
-    a :class:`StratTables` (``fused_step_strat``) or a :class:`GridTables`
-    (``fused_step_grid``).  ``offset`` is the number of steps applied
+    a :class:`StratTables` (``fused_step_strat``), a :class:`GridTables`
+    (``fused_step_grid``) or a :class:`NodeTables` (``fused_step_nodes``).
+    ``offset`` is the number of steps applied
     before this launch (global step numbering: op7's order ramp and
     ``step_limit`` read it), so a run of k steps then n - k steps with
     offset k equals one run of n.  A CPU state runs
@@ -578,8 +641,56 @@ def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
     return out
 
 
+def fused_sweep_grid(st: ResumeState, delta_s, step_limit, *,
+                     field: GridTables, op: str, steps: int,
+                     box) -> ResumeState:
+    """Advance every ray ``steps`` steps, ray r at its own step size
+    ``delta_s[r]`` and frozen after its own ``step_limit[r]`` steps: the
+    ``fused_sweep_grid`` kernel's wrapper (engine/segmented.py:968, one
+    DELTA_S candidate a ray).
+
+    ``delta_s`` and ``step_limit`` are contiguous (R,) float32 tensors on
+    the state's device; ``field`` is a :class:`GridTables`.  A CPU state
+    runs :func:`fused_step_plain` with the per-ray tensors; a CUDA state
+    launches the kernel or raises.
+    """
+    if not isinstance(field, GridTables):
+        raise ValueError("fused_sweep_grid runs on GridTables, got "
+                         f"{type(field).__name__}")
+    if op not in FUSED_OPS:
+        raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
+    check_state(st, needs_ang=False, window=op == "op7")
+    check_medium(field, st.x.device)
+    for name, t in (("delta_s", delta_s), ("step_limit", step_limit)):
+        if (not torch.is_tensor(t) or t.dtype != torch.float32
+                or t.shape != st.x.shape or t.device != st.x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous {tuple(st.x.shape)} "
+                             f"float32 tensor on {st.x.device}")
+    box = tuple(float(v) for v in box)
+    if st.x.device.type == "cpu":
+        return fused_step_plain(st, field=field, op=op, steps=int(steps),
+                                delta_s=delta_s, step_limit=step_limit,
+                                offset=0.0, box=box)
+    if st.x.device.type != "cuda":
+        raise ValueError(f"fused_sweep_grid runs on cpu or cuda, not {st.x.device}")
+    out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
+    _, _, lead, table = kernel_of(field, KERNELS)
+    lib = build.library()
+    with torch.cuda.device(st.x.device):
+        err = lib.rt_fused_sweep_grid(
+            lead, int(op[2:]), int(st.mom_count is not None),
+            build.pointer_array(st), build.pointer_array(out), st.x.shape[0],
+            int(steps), 0.0, 0.0, 0.0, *box, CURV_TOL, delta_s.data_ptr(),
+            step_limit.data_ptr(), *table,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rt_fused_sweep_grid")
+    KERNEL_SWEEP_GRID.launches += 1
+    return out
+
+
 def fused_trace_final(pos0, theta0, delta_s, *, field, op: str,
-                      steps: int, box, device, step_limit=None,
+                      steps: int, box, device="cuda", step_limit=None,
                       with_stats: bool = False) -> FusedFinal:
     """Run ``steps`` fused integration steps; return a :class:`FusedFinal`.
 
@@ -597,7 +708,7 @@ def fused_trace_final(pos0, theta0, delta_s, *, field, op: str,
 
 
 def fused_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
-                            steps: int, box, device, step_limit=None,
+                            steps: int, box, device="cuda", step_limit=None,
                             with_stats: bool = False) -> FusedFinal:
     """Fused integration through a sampled stratified medium (parity or C1;
     fused.py:847): the reference's FITPACK pair (RT_bench.py:435-464)

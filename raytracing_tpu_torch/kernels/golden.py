@@ -42,9 +42,9 @@ import torch
 from raytracing_tpu_torch.config import DELTA_G, GOLD_RATIO, golden_iters
 from raytracing_tpu_torch.kernels import build
 from raytracing_tpu_torch.kernels.fused import (
-    CURV_TOL, FUSED_FIELDS, ResumeState, _kahan, _outside, _vectors,
-    arc_advance, check_medium, check_state, div_exact, kernel_of, nag_fn,
-    rot_small, strat_tables)
+    CURV_TOL, FUSED_FIELDS, NodeTables, ResumeState, _kahan, _outside,
+    _vectors, arc_advance, check_medium, check_state, div_exact, kernel_of,
+    nag_fn, rot_small, strat_tables)
 
 GOLDEN_OPS = {"op5": ("curv", "golden"), "op9": ("t2", "golden"),
               "op10": ("curv", "golden"), "op11": ("t2", "golden"),
@@ -387,6 +387,9 @@ def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
         raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
     if isinstance(field, str) and field not in FUSED_FIELDS:
         raise ValueError(f"golden kernel supports fields {FUSED_FIELDS}, got {field!r}")
+    if isinstance(field, NodeTables):
+        raise ValueError("the golden kernels read no node table: pass the "
+                         "grid's GridTables")
     iters, polish = golden_schedule(polish, gold_iters)
     check_state(st, needs_ang=True, window=False)
     check_medium(field, st.x.device)
@@ -427,7 +430,7 @@ def final_from_state(st: ResumeState) -> GoldenFinal:
 
 
 def golden_trace_final(pos0, theta0, delta_s, gamma, *, field, op: str,
-                       steps: int, box, device, medium=None,
+                       steps: int, box, device="cuda", medium=None,
                        with_stats: bool = False, step_limit=None,
                        gold_iters: int | None = None,
                        polish: int | None = None) -> GoldenFinal:

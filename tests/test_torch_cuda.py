@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-analytic-media kernels and the sampled-media ones (stratified tables and the
-2-D grid, parity and C1).
+analytic-media kernels, the sampled-media ones (stratified tables and the
+2-D grid, parity and C1), the grid sweep (per-ray step sizes) and the
+node-table kernel; and segmented_trace and the DELTA_S search on the card.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -229,3 +230,86 @@ def test_fast_trace_runs_sampled_media_on_the_card(family, cuda_device):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
     for r in (f, g, h, k):
         assert r.pos.is_cuda and torch.isfinite(r.pos).all()
+
+
+def test_fused_sweep_grid_matches_plain(cuda_device):
+    """One ray a candidate, each at its own step size and step limit: the
+    sweep kernel against its plain version to the bit, every fused op, on
+    both grid forms; and each candidate equals its own one-ray launch."""
+    fish = rtt.scenario("fisheye")
+    divs = np.arange(120.0, 20.0, -1.0)
+    ds = torch.tensor(2 * np.pi / divs, dtype=torch.float32,
+                      device=cuda_device)
+    lim = torch.tensor(divs - 1, dtype=torch.float32, device=cuda_device)
+    n = len(divs)
+    pos0 = np.tile(np.array([[1.0, 0.0]]), (n, 1))
+    theta0 = np.full(n, np.pi / 2)
+    for family in ("parity", "c1"):
+        tables = _grid_tables(family, cuda_device)
+        for op in kfu.FUSED_OPS:
+            st = kfu.initial_state(op, pos0, theta0, field=tables,
+                                   with_stats=False, device=cuda_device)
+            before = kfu.KERNEL_SWEEP_GRID.launches
+            got = kfu.fused_sweep_grid(st, ds, lim, field=tables, op=op,
+                                       steps=int(divs.max()), box=fish.box)
+            assert kfu.KERNEL_SWEEP_GRID.launches == before + 1
+            want = kfu.fused_step_plain(st, field=tables, op=op,
+                                        steps=int(divs.max()), delta_s=ds,
+                                        step_limit=lim, offset=0.0,
+                                        box=fish.box)
+            _same(got, want, 0.0)
+            for i in (0, n // 2, n - 1):
+                one = kfu.fused_step(
+                    type(st)(*(None if t is None else t[i:i + 1].contiguous()
+                               for t in st)),
+                    field=tables, op=op, steps=int(divs.max()),
+                    delta_s=float(ds[i]), step_limit=float(lim[i]),
+                    box=fish.box)
+                assert torch.equal(one.x, got.x[i:i + 1])
+                assert torch.equal(one.y, got.y[i:i + 1])
+
+
+@pytest.mark.parametrize("op", kfu.FUSED_OPS)
+def test_fused_step_nodes_matches_plain(op, cuda_device):
+    """The node-table kernel against its plain version to the bit, with
+    and without stats, and against the per-cell grid kernel."""
+    box = rtt.scenario("fisheye").box
+    med = rtt.build_hermite_medium(
+        rtt.build_grid_medium("fisheye", box, 0.05, device=cuda_device))
+    nodes, cells = seg.node_tables(med), seg.grid_tables(med)
+    pos0, theta0, ds, fbox = _fan("fisheye")
+    for stats in (False, True):
+        st = kfu.initial_state(op, pos0, theta0, field=nodes,
+                               with_stats=stats, device=cuda_device)
+        kw = dict(op=op, steps=120, delta_s=ds, step_limit=120, offset=0.0,
+                  box=fbox)
+        before = kfu.KERNEL_NODES.launches
+        got = kfu.fused_step(st, field=nodes, **kw)
+        assert kfu.KERNEL_NODES.launches == before + 1
+        _same(got, kfu.fused_step_plain(st, field=nodes, **kw), 0.0)
+        _same(got, kfu.fused_step(st, field=cells, **kw), 0.0)
+
+
+def test_segmented_trace_and_search_on_the_card(cuda_device):
+    """segmented_trace with compaction equals one launch on the card; a
+    small grid search goes through fused_sweep_grid by default."""
+    from raytracing_tpu_torch.parallel import sweep
+
+    vert = rtt.scenario("vert")
+    pos0, theta0, ds, box = _fan("vert_heterogeneous")
+    one = kfu.fused_trace_final(pos0, theta0, ds, field=vert.field,
+                                op="op8", steps=300, box=box,
+                                device=cuda_device)
+    part = seg.segmented_trace("op8", pos0, theta0, ds, steps=300, box=box,
+                               field=vert.field, segment=32, compact=True,
+                               compact_every=1, device=cuda_device)
+    _same(part, one, 0.0)
+    fish = rtt.scenario("fisheye")
+    grid = rtt.build_grid_medium("fisheye", fish.box, 0.05,
+                                 device=cuda_device)
+    before = kfu.KERNEL_SWEEP_GRID.launches
+    res = sweep.delta_s_search("op1", fish, grid, n_turns=1,
+                               divisors=np.arange(40.0, 15.0, -1.0),
+                               device=cuda_device)
+    assert res.engine == "fused" and res.index is not None
+    assert kfu.KERNEL_SWEEP_GRID.launches == before + 1

@@ -47,3 +47,26 @@ def test_the_guard_sees_what_it_must():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax(path):
     assert forbidden_imports(path.read_text()) == []
+
+
+#: the search path's modules (the guard above parses every port file; this
+#: pins that they exist and that importing them loads no JAX module)
+SEARCH_PATH = ("raytracing_tpu_torch.utils.checkpoint",
+               "raytracing_tpu_torch.parallel.sweep",
+               "raytracing_tpu_torch.cli",
+               "raytracing_tpu_torch.engine.segmented")
+
+
+def test_search_path_modules_import_without_jax():
+    import subprocess
+    import sys
+
+    names = {str(p.relative_to(ROOT)) for p in port_files()}
+    for mod in SEARCH_PATH:
+        assert mod.replace(".", "/") + ".py" in names
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in SEARCH_PATH)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\nassert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
