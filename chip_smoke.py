@@ -8,7 +8,7 @@ either is missing or any check fails.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
-2. build: the nine CUDA kernels compiled from raytracing_tpu_torch/csrc
+2. build: the twelve CUDA kernels compiled from raytracing_tpu_torch/csrc
    (one nvcc a source, all at once), then the reference's sampled media
    built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
@@ -33,8 +33,10 @@ either is missing or any check fails.  Phases, one line or more each:
    reference table's step, each held to its oracle (``[sampled]``);
 7. main shapes: each scenario's and each sampled run's fast_trace result
    (positions, traveltime, `active`) against the kernel's plain version on
-   the same inputs at the full shape and step count, and the kernel's time
-   there beside the plain version's and its bound;
+   the same inputs at the full shape, and the kernel's time there beside
+   the plain version's and its bound; a run of more than 300 steps is
+   compared, and its plain version timed, at 300 steps (a direct launch
+   of the kernel against the plain version, same inputs);
 8. ``[sweep-vs-plain]``: fused_sweep_grid against its plain version (per-ray
    step sizes and limits) on the reference's full fisheye candidate grid
    (divisor 303 -> 4, ten turns, one ray a candidate), parity and C1 grids,
@@ -52,18 +54,40 @@ either is missing or any check fails.  Phases, one line or more each:
 10. the search path's checks: every fused candidate's metric against one
    batched plain run (per-ray step sizes), the golden search's selected
    candidate and its neighbours against golden_step_plain; grid_trace
-   against grid_trace_tiled (phase 6's fisheye_grid run) and its plain
-   version, with the kernel's time; segmented_trace against one launch
-   (phase 6's runs) and across the checkpoint, all to the bit.
+   against grid_trace_tiled (phase 6's fisheye_grid run) and a direct
+   launch of its kernel, that kernel against its plain version at 300
+   steps, with the kernel's time; segmented_trace against one launch
+   (phase 6's runs) and across the checkpoint, all to the bit;
+11. ``[dynamic-vs-plain]``: the three dynamic kernels against
+   dynamic_step_plain at 65,536 rays and at most 1,000 steps, op1/op2/op6/
+   op8 on the analytic fisheye, vert and interface, the parity and C1 vert
+   tables, the parity interface table and the parity and C1 fisheye grids,
+   all 18 state planes to the bit, with a resume check a kernel;
+12. ``[dynamic]`` the dynamic path at 2**20 rays through fast_dynamic: the
+   analytic fisheye op6 for one turn (divisor 4587, the scenario's ray with
+   +-1e-3 rad of jitter), the parity vert table op6 (ds 0.0193, 2000 steps,
+   from (-2, -2) at U[0.05, 1.5]), the parity and C1 fisheye grids op6
+   (4586 steps); then its checks: KMAH 1 after the fisheye's turn on every
+   ray (the float64 scan tier, then the kernel), each run against
+   trace_dynamic at float64 on 4,096 rays at the JAX package's bars (on
+   the sampled media its tangent from torch.func.jvp of the op6 step, not
+   from the kernels' channel evaluators), each run against a direct launch
+   of its kernel at the full shape and against dynamic_step_plain at 2**20
+   rays and at most 300 steps, to the bit, and the kernels' times;
+13. ``[eigenrays]`` on the card at float64: the TL field map of
+   examples/tl_field_map.py with that example's asserts, the Slotnick
+   two-point traveltime, and one ``python -m raytracing_tpu_torch.cli
+   --eigenrays`` run.
 
-Phases 4-5 are the analytic main path, phase 6 the sampled one and phase 9
-the search path: every launch count is set to 0 just before each and read
-just after, and each kernel of that path must have launched; the launches
-phases 3, 7, 8 and 10 make to compare and time a kernel are not counted.
-The second-last line is a JSON object with one entry per kernel (its
-launches on its main path, largest |dpos| against the plain version, times,
-and the bound: the larger of its FP32 operations over 67 TFLOP/s and its
-bytes over 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
+Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
+the search path and phase 12 the dynamic one: every launch count is set to
+0 just before each and read just after, and each kernel of that path must
+have launched; the launches phases 3, 7, 8, 10, 11 and 12's checks make to
+compare and time a kernel are not counted.  The second-last line is a JSON
+object with one entry per kernel (its launches on its main path, largest
+|dpos| against the plain version, times, and the bound: the larger of its
+FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the last
+line is {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -72,12 +96,21 @@ import sys
 import time
 from typing import Any, NamedTuple
 
-import numpy as np
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+#: before numpy and torch are imported: [env] and [done] report the
+#: imports' seconds and the whole run's
+T_IMPORTS = time.perf_counter()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 RAYS_CHECK = 1 << 16
 STEP_CAP = 1000
+#: the depth at which phases 7, 10 (grid_trace) and 12 hold the main
+#: paths' 2**20-ray runs to their plain versions and time those (the
+#: kernels' own times stay at the full step count), so that the whole
+#: script stays well inside its time limit (PERF.md §6)
+MAIN_PLAIN_CAP = 300
 RAYS_MAIN = 1 << 20
 HEADLINE_DIVISOR = 4587
 
@@ -244,7 +277,8 @@ def phase_environment():
     name = torch.cuda.get_device_name(0)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {name} "
-          f"count {torch.cuda.device_count()}", flush=True)
+          f"count {torch.cuda.device_count()}, imports and CUDA start "
+          f"{time.perf_counter() - T_IMPORTS:.1f} s", flush=True)
     print(smi.splitlines()[0], flush=True)
     return name, smi.splitlines()[0]
 
@@ -259,13 +293,15 @@ def phase_build():
 
 
 def kernel_infos():
-    """The nine kernels' KernelInfos, analytic first."""
+    """The twelve kernels' KernelInfos, analytic first, the dynamic three
+    last."""
+    from raytracing_tpu_torch.kernels import dynamic as kd
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
     return (kf.KERNEL, kfu.KERNEL, kg.KERNEL, kfu.KERNEL_STRAT,
             kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID,
-            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES)
+            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS
 
 
 def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -538,7 +574,10 @@ def head(st, n=8):
 def compare_run(device, errs, times, name, r, field):
     """One main-path run's fast_trace result against the plain version of
     its kernel on the same inputs, and the kernel's time there by direct
-    launches (not counted: the path's counts were read before)."""
+    launches (not counted: the path's counts were read before).  A run of
+    more than MAIN_PLAIN_CAP steps is compared, and its plain version
+    timed, at that depth: the kernel launched directly for MAIN_PLAIN_CAP
+    steps (its step limit) against the plain version for as many."""
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
 
@@ -546,17 +585,22 @@ def compare_run(device, errs, times, name, r, field):
     tables = None if isinstance(field, str) else field
     suffix = {type(None): "", kfu.StratTables: "_strat",
               kfu.GridTables: "_grid"}[type(tables)]
+    depth = min(r.steps, MAIN_PLAIN_CAP)
     if r.op in kg.GOLDEN_OPS:
         kernel = "golden_step" + suffix
         it, pol = kg.golden_schedule()
         st = kg.initial_state(r.op, r.pos0, r.theta0, r.scen.gamma,
                               field=field, with_stats=r.stats, device=device)
-        scal = kg.golden_scalars(r.ds, r.scen.gamma, r.steps, 0.0, it,
-                                 device=device)
-        k_ms, out = cuda_ms(lambda: kg.golden_step(
-            st, scal, field=field, op=r.op, steps=r.steps, box=box), reps=3)
+
+        def launch(steps):
+            scal = kg.golden_scalars(r.ds, r.scen.gamma, steps, 0.0, it,
+                                     device=device)
+            return kg.golden_step(st, scal, field=field, op=r.op, steps=steps,
+                                  box=box)
 
         def plain(s, steps):
+            scal = kg.golden_scalars(r.ds, r.scen.gamma, depth, 0.0, it,
+                                     device=device)
             return kg.golden_step_plain(s, scal, field=field, op=r.op,
                                         steps=steps, box=box, iters=it,
                                         polish=pol)
@@ -565,22 +609,30 @@ def compare_run(device, errs, times, name, r, field):
         kernel = "fused_step" + suffix
         st = kfu.initial_state(r.op, r.pos0, r.theta0, field=field,
                                with_stats=r.stats, device=device)
-        kw = dict(field=field, op=r.op, delta_s=r.ds, step_limit=r.steps,
-                  offset=0.0, box=box)
-        k_ms, out = cuda_ms(lambda: kfu.fused_step(st, steps=r.steps, **kw),
-                            reps=3)
+        kw = dict(field=field, op=r.op, delta_s=r.ds, offset=0.0, box=box)
+
+        def launch(steps):
+            return kfu.fused_step(st, steps=steps, step_limit=steps, **kw)
 
         def plain(s, steps):
-            return kfu.fused_step_plain(s, steps=steps, **kw)
+            return kfu.fused_step_plain(s, steps=steps, step_limit=depth,
+                                        **kw)
         interface = r.scen.field == "interface"
         tol = dict(pos_tol=POS_TOL_OP7 if r.op == "op7" or interface
                    else POS_TOL[r.scen.field], tt_rel=TT_REL_TOL)
-    p_ms, p = cuda_ms(lambda: plain(st, r.steps))
+    k_ms, out = cuda_ms(lambda: launch(r.steps), reps=3)
+    p_ms, p = cuda_ms(lambda: plain(st, depth))
+    if depth == r.steps:
+        kpos, ktt, kact = r.res.pos, r.res.traveltime, r.res.active
+    else:
+        k = launch(depth)
+        kpos, ktt, kact = torch.stack([k.x, k.y], -1), k.tt, k.active
     errs[kernel].compare(
-        f"{kernel} {name} {r.op} {st.x.shape[0]} x {r.steps} steps",
-        r.res.pos, torch.stack([p.x, p.y], -1), r.res.traveltime, p.tt,
-        r.res.active, p.active, **tol)
-    print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
+        f"{kernel} {name} {r.op} {st.x.shape[0]} x {depth} of {r.steps} "
+        "steps", kpos, torch.stack([p.x, p.y], -1), ktt, p.tt, kact,
+        p.active, **tol)
+    print(f"    kernel {k_ms:.3f} ms ({r.steps} steps), plain {p_ms:.1f} ms "
+          f"({depth} steps)", flush=True)
     if TIMED_SHAPE[kernel] == name:
         bms, by = timed_bound(kernel, lambda k: plain(head(st), k), st, out,
                               tables, r.ds, r.steps)
@@ -1186,23 +1238,32 @@ def phase_search_checks(device, errs, times, media, runs, sruns,
     nodes = seg.node_tables(med)
     st = kfu.initial_state("op1", pos0, theta0, field=nodes,
                            with_stats=False, device=device)
-    kw = dict(field=nodes, op="op1", delta_s=ds, step_limit=steps,
-              offset=0.0, box=tuple(rtt.scenario("fisheye").box))
-    k_ms, out = cuda_ms(lambda: kfu.fused_step(st, steps=steps, **kw), reps=3)
-    p_ms, p = cuda_ms(lambda: kfu.fused_step_plain(st, steps=steps, **kw))
+    kw = dict(field=nodes, op="op1", delta_s=ds, offset=0.0,
+              box=tuple(rtt.scenario("fisheye").box))
+    depth = min(steps, MAIN_PLAIN_CAP)
+    k_ms, out = cuda_ms(lambda: kfu.fused_step(st, steps=steps,
+                                               step_limit=steps, **kw), reps=3)
+    p_ms, p = cuda_ms(lambda: kfu.fused_step_plain(st, steps=depth,
+                                                   step_limit=depth, **kw))
+    same_final("[grid_trace] grid_trace against a direct launch", g,
+               kfu.final_from_state(out), names=("pos", "traveltime",
+                                                 "active"))
+    k = kfu.fused_step(st, steps=depth, step_limit=depth, **kw)
     errs["fused_step_nodes"].pos = max(
         errs["fused_step_nodes"].pos,
-        float((torch.stack([p.x, p.y], -1) - g.pos).abs().max()))
-    same_final("[grid_trace] grid_trace against the plain version",
-               g, kfu.final_from_state(p), names=("pos", "traveltime",
-                                                 "active"))
+        float(torch.stack([p.x - k.x, p.y - k.y], -1).abs().max()))
+    same_final(f"[grid_trace] its kernel against the plain version, {depth} "
+               f"of {steps} steps", kfu.final_from_state(k),
+               kfu.final_from_state(p), names=("pos", "traveltime", "active"))
     bms, by = timed_bound("fused_step_nodes",
                           lambda n: kfu.fused_step_plain(head(st), steps=n,
+                                                         step_limit=steps,
                                                          **kw),
                           st, out, nodes, ds, steps)
-    print(f"    fused_step_nodes {k_ms:.3f} ms (fused_step_grid on the same "
-          f"run {times['fused_step_grid']['ms']:.3f} ms), plain "
-          f"{p_ms:.1f} ms", flush=True)
+    print(f"    fused_step_nodes {k_ms:.3f} ms ({steps} steps; "
+          f"fused_step_grid on the same run "
+          f"{times['fused_step_grid']['ms']:.3f} ms), plain {p_ms:.1f} ms "
+          f"({depth} steps)", flush=True)
     times["fused_step_nodes"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                                      bound_by=by)
 
@@ -1223,6 +1284,526 @@ def phase_search_checks(device, errs, times, media, runs, sruns,
           f"{times['fused_step_strat']['ms']:.3f} ms, plain "
           f"{times['fused_step_strat']['plain_ms']:.1f} ms, bound "
           f"{times['fused_step_strat']['bound_ms']:.3f} ms", flush=True)
+
+
+# -- the dynamic path (kernels/dynamic.py, engine/dynamic.py, eigenray.py) --
+DYN_OPS = ("op1", "op2", "op6", "op8")
+#: the f64 scan-tier oracle's sample of a main-path fan
+DYN_ORACLE_RAYS = 4096
+# the JAX package's own kernel-against-scan bars (tests/
+# test_dynamic_kernel.py): analytic and stratified :93-100, :136-143 (q and
+# dtheta within 2e-3 of their largest magnitude, KMAH on 99 % of the rays);
+# the tiled grids :272-278 and :331-335 (q and dtheta rtol 5e-5, C1 q 1e-4,
+# atol 1e-6, KMAH equal), which that test holds at its own depth of 400
+# steps on this grid and step (GRID_ORACLE_STEPS): over the whole turn the
+# kernels' rotated unit tangent drifts off unit norm (8.2e-5 after 4587
+# steps), which moves positions 2.6e-4 off the float64 trace, as it moves
+# the kinematic kernels'.  After the fisheye's turn q has refocused to ~0,
+# so its bar is taken relative to |q| over the whole path, and its
+# positions are not barred
+DYN_BARS = {
+    "fisheye": dict(q_rel=2e-3, kmah_share=1.0),
+    "vert_strat": dict(pos=2e-4, tt=2e-4, q_rel=2e-3, dth_rel=2e-3,
+                       kmah_share=0.99),
+    "fisheye_grid": dict(pos=5e-6, q_rtol=5e-5, dth_rtol=5e-5, atol=1e-6,
+                         kmah_share=1.0),
+    "fisheye_c1_grid": dict(pos=5e-6, q_rtol=1e-4, atol=1e-6,
+                            kmah_share=1.0),
+}
+GRID_ORACLE_STEPS = 400
+
+
+def dyn_q(st):
+    return st.dpx * (-st.uy) + st.dpy * st.ux
+
+
+def dyn_exact(label, k, p):
+    """A dynamic kernel's 18 planes against its plain version's, to the
+    bit; prints the largest |d| of pos, tt, q and dtheta and the KMAH
+    mismatches.  Returns |dpos|."""
+    dpos = max(float((k.x - p.x).abs().max()), float((k.y - p.y).abs().max()))
+    dtt = float((k.tt - p.tt).abs().max())
+    dq = float((dyn_q(k) - dyn_q(p)).abs().max())
+    ddth = float((k.dth - p.dth).abs().max())
+    nk = int((k.kmah != p.kmah).sum())
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    print(f"  {label}: |dpos| {dpos:.3e} |dtt| {dtt:.3e} |dq| {dq:.3e} "
+          f"|ddtheta| {ddth:.3e} KMAH mismatches {nk} (bit parity required)",
+          flush=True)
+    if not same:
+        fail(f"{label}: kernel differs from its plain version")
+    return dpos
+
+
+def dyn_inputs(media, kind, scen_name, op, rays, rng, cap):
+    """(scen, ds, steps, pos0, theta0, medium) of one [dynamic-vs-plain]
+    case: the analytic fields at the op's calibrated analytic step, the
+    sampled media at the reference table's step, at most ``cap`` steps."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    scen = rtt.scenario(scen_name)
+    pos0, theta0 = fan(scen, rays, rng)
+    if kind == "analytic":
+        ds, div = calibrated_step(op, scen_name)
+        steps = min(cap, int(div) if scen.is_fisheye
+                    else scen.max_size(ds) - 1)
+        return scen, ds, steps, pos0, theta0, scen.field
+    ds, div = calibrated_with_fallback(op, scen_name)
+    steps = min(cap, scen.max_size(ds, div, 1) - 1)
+    return (scen, float(ds), steps, pos0, theta0,
+            kernel_medium(media, kind, scen, ds))
+
+
+def phase_dynamic_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
+    """The three dynamic kernels against dynamic_step_plain on the card:
+    op1/op2/op6/op8 on the analytic fisheye, vert and interface, the parity
+    and C1 vert tables and the parity interface table, the parity and C1
+    fisheye grids; every plane to the bit, and a resume check a kernel."""
+    from raytracing_tpu_torch.kernels import dynamic as kd
+    rng = np.random.default_rng(3)
+    errs = {k.name: Errors() for k in kd.KERNELS}
+    before = {k.name: k.launches for k in kd.KERNELS}
+    cases = ([("analytic", s) for s in ("fisheye", "vert", "interface")]
+             + [("strat", "vert"), ("c1_strat", "vert"),
+                ("strat", "interface"), ("grid", "fisheye"),
+                ("c1_grid", "fisheye")])
+    name_of = {"analytic": "dynamic_step", "strat": "dynamic_step_strat",
+               "c1_strat": "dynamic_step_strat", "grid": "dynamic_step_grid",
+               "c1_grid": "dynamic_step_grid"}
+    print(f"[dynamic-vs-plain] {rays} rays, at most {cap} steps", flush=True)
+    for op in DYN_OPS:
+        for kind, scen_name in cases:
+            scen, ds, steps, pos0, theta0, tab = dyn_inputs(
+                media, kind, scen_name, op, rays, rng, cap)
+            st = kd.initial_dyn_state(pos0, theta0, device=device)
+            kw = dict(field=tab, op=op, steps=steps, delta_s=ds,
+                      step_limit=steps, offset=0.0, box=tuple(scen.box))
+            name = name_of[kind]
+            dpos = dyn_exact(f"{name} {op} {scen_name} {kind} {steps} steps",
+                             kd.dynamic_step(st, **kw),
+                             kd.dynamic_step_plain(st, **kw))
+            errs[name].pos = max(errs[name].pos, dpos)
+    # resume: k then n - k steps (offset k) equal n steps, one case a kernel
+    for kind, scen_name, op in (("analytic", "fisheye", "op6"),
+                                ("c1_strat", "vert", "op2"),
+                                ("grid", "fisheye", "op8")):
+        scen, ds, steps, pos0, theta0, tab = dyn_inputs(
+            media, kind, scen_name, op, rays, rng, cap)
+        st = kd.initial_dyn_state(pos0, theta0, device=device)
+        kw = dict(field=tab, op=op, delta_s=ds, step_limit=steps,
+                  box=tuple(scen.box))
+        cut = steps // 3
+        resume_check(f"{name_of[kind]} {op} {scen_name} {kind}",
+                     kd.dynamic_step(st, steps=steps, offset=0.0, **kw),
+                     kd.dynamic_step(kd.dynamic_step(st, steps=cut,
+                                                     offset=0.0, **kw),
+                                     steps=steps - cut, offset=float(cut),
+                                     **kw))
+    for k in kd.KERNELS:
+        delta = k.launches - before[k.name]
+        print(f"  {k.name}: {delta} launches in this phase", flush=True)
+        if delta <= 0:
+            fail(f"{k.name} was not launched against its plain version")
+    return errs
+
+
+class DynRun(NamedTuple):
+    """One run of the dynamic main path: its inputs and fast_dynamic's
+    result."""
+
+    scen: Any
+    medium: Any
+    op: str
+    ds: float
+    steps: int
+    pos0: Any
+    theta0: Any
+    res: Any
+
+
+def dyn_main_cases(media, rays):
+    """The dynamic main path's runs at full width (the JAX package's
+    benchmarks/kernel_matrix.py rows dyn_op6, dyn_strat_op6,
+    dyn_tiled_op6): (name, scenario, medium, op, delta_s, steps, pos0,
+    theta0)."""
+    import raytracing_tpu_torch as rtt
+    fish, vert = rtt.scenario("fisheye"), rtt.scenario("vert")
+    # the scenario's one ray resized to 2^20 with +-1e-3 rad of jitter
+    fpos, fth = fan(fish, rays, np.random.default_rng(0))
+    fds = float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
+    # kernel_matrix.py:85-103, :179-186: (-2, -2), angles U[0.05, 1.5]
+    vth = np.random.default_rng(0).uniform(0.05, 1.5, rays).astype(np.float32)
+    vpos = np.full((rays, 2), -2.0, np.float32)
+    return (
+        ("fisheye", fish, rtt.analytic_medium("fisheye"), "op6", fds,
+         HEADLINE_DIVISOR, fpos, fth),
+        ("vert_strat", vert, media[("strat", "vert")], "op6",
+         float(np.float32(0.0193)), 2000, vpos, vth),
+        ("fisheye_grid", fish, media[("grid", "fisheye")], "op6", fds,
+         HEADLINE_DIVISOR - 1, fpos, fth),
+        ("fisheye_c1_grid", fish, media[("c1_grid", "fisheye")], "op6", fds,
+         HEADLINE_DIVISOR - 1, fpos, fth),
+    )
+
+
+def phase_dynamic(device, media, rays=RAYS_MAIN):
+    """The dynamic main path: each run through fast_dynamic at 2^20 rays;
+    returns {run: DynRun}."""
+    import raytracing_tpu_torch as rtt
+    runs = {}
+    for name, scen, med, op, ds, steps, pos0, theta0 in dyn_main_cases(
+            media, rays):
+        t0 = time.perf_counter()
+        res, engine = rtt.fast_dynamic(op, scen, med, delta_s=ds, pos0=pos0,
+                                       theta0=theta0, steps=steps,
+                                       device=device)
+        sync()
+        print(f"[dynamic] {name}: {op} engine={engine} {rays} rays x {steps} "
+              f"steps in {time.perf_counter() - t0:.3f} s", flush=True)
+        runs[name] = DynRun(scen, med, op, ds, steps, pos0, theta0, res)
+    return runs
+
+
+def median_ms(fn, reps=5):
+    """Median device time (ms) of ``fn`` over ``reps`` runs after one
+    warm-up, each timed by CUDA events."""
+    fn()
+    times, out = [], None
+    for _ in range(reps):
+        ms, out = cuda_ms(fn)
+        times.append(ms)
+    return float(np.median(times)), out
+
+
+def dyn_kernel_field(r):
+    """The tables a dynamic main-path run's kernel reads, made as
+    fast_dynamic makes them, and the medium its f64 scan oracle reads (the
+    same float32 values)."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine import fast
+    from raytracing_tpu_torch.engine.segmented import grid_tables
+    from raytracing_tpu_torch.kernels.fused import strat_tables
+    med = r.medium
+    if isinstance(med, rtt.AnalyticMedium):
+        return med.field, med
+    if isinstance(med, fast.STRAT_MEDIA):
+        return strat_tables(rtt.compact_for_trace(med, r.scen.box, r.ds)), med
+    if isinstance(med, rtt.GridMedium):
+        med = fast._as_hermite(med)
+    return grid_tables(med), med
+
+
+def dyn_deviations(label, got, ref, bars, ds, box, q_scale=None):
+    """Print a dynamic result's deviations from its float64 scan oracle and
+    hold them to ``bars`` (absent keys are not barred); False on a miss."""
+    # a ray that grazes the box may leave it one step earlier or later in
+    # float32 than in float64 and freeze a step apart: such rays are
+    # listed and counted (at most ACTIVE_TOL of them, each out of the box
+    # in the float64 run too) and the bars hold on the rest
+    same = (got.dist_sim.double() - ref.dist_sim).abs() < 0.5 * ds
+    flips = int((~same).sum())
+    x, y = ref.pos[:, 0], ref.pos[:, 1]
+    inside = (x >= box[0]) & (x <= box[1]) & (y >= box[2]) & (y <= box[3])
+    for i in torch.nonzero(~same).flatten().tolist():
+        print(f"    ray {i} leaves the box a step apart: dist_sim "
+              f"{float(got.dist_sim[i]):.6f} (float32) against "
+              f"{float(ref.dist_sim[i]):.6f} (float64), float64 end "
+              f"({float(x[i]):.6f}, {float(y[i]):.6f})", flush=True)
+    if bool((inside & ~same).any()):
+        print("    a ray set aside is still in the box in the float64 run",
+              flush=True)
+        return False
+    got = type(got)(*(t[same] for t in got))
+    ref = type(ref)(*(t[same] if torch.is_tensor(t) and t.dim() and
+                      t.shape[0] == len(same) else t for t in ref))
+    dpos = float((got.pos.double() - ref.pos).abs().max())
+    dtt = float((got.traveltime.double() - ref.traveltime).abs().max())
+    dq = (got.q.double() - ref.q).abs()
+    ddth = (got.dtheta.double() - ref.dtheta).abs()
+    share = float((got.kmah == ref.kmah).double().mean())
+    q_scale = float(ref.q.abs().max()) if q_scale is None else q_scale
+    ok = share >= bars.get("kmah_share", 0.0)
+    ok &= flips <= ACTIVE_TOL * len(same)
+    ok &= dpos <= bars.get("pos", math.inf)
+    ok &= dtt <= bars.get("tt", math.inf)
+    ok &= float(dq.max()) <= bars.get("q_rel", math.inf) * q_scale
+    ok &= float(ddth.max()) <= bars.get("dth_rel", math.inf) * float(
+        ref.dtheta.abs().max())
+    atol = bars.get("atol", 0.0)
+    ok &= bool((dq <= atol + bars.get("q_rtol", math.inf)
+                * ref.q.abs()).all())
+    ok &= bool((ddth <= atol + bars.get("dth_rtol", math.inf)
+                * ref.dtheta.abs()).all())
+    print(f"  {label}: |dpos| {dpos:.3e} |dtt| {dtt:.3e} max |dq| "
+          f"{float(dq.max()):.3e} (max |q| {q_scale:.4e}) max |ddtheta| "
+          f"{float(ddth.max()):.3e} KMAH equal on {share:.6f}; {flips} rays "
+          f"leave the box a step apart (bars {bars})", flush=True)
+    return ok
+
+
+def dyn_oracle(device, name, r):
+    """Hold a dynamic main-path run to trace_dynamic at float64 on the card,
+    on every 256th ray, at the JAX package's kernel-against-scan bars; the
+    grid runs at that test's depth (a launch of GRID_ORACLE_STEPS steps on
+    the same rays).  On the sampled media the oracle takes its tangent
+    from torch.func.jvp of the op6 step through the medium's own
+    n_and_grad (HAND_TANGENT off), not from the 9-channel evaluators the
+    kernels and op6's hand step share, so that a wrong table channel
+    cannot pass on both sides; the analytic fisheye keeps the hand step
+    (2.5x faster there), its closed-form channels held to autodiff by the
+    CPU tests and its tangent to the caustic count on every ray."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine import dynamic as edyn
+    from raytracing_tpu_torch.kernels import dynamic as kd
+    sub = slice(None, None, r.pos0.shape[0] // DYN_ORACLE_RAYS)
+    field, med = dyn_kernel_field(r)
+    steps = GRID_ORACLE_STEPS if name.endswith("grid") else r.steps
+    t0 = time.perf_counter()
+    saved, hand = edyn.HAND_TANGENT, isinstance(med, rtt.AnalyticMedium)
+    edyn.HAND_TANGENT = hand
+    try:
+        ref = rtt.trace_dynamic(r.op, r.scen, med, delta_s=r.ds,
+                                device=device, mode="history"
+                                if name == "fisheye" else "metrics",
+                                dtype=torch.float64, pos0=r.pos0[sub],
+                                theta0=r.theta0[sub], max_size=steps + 1,
+                                step_limit=steps)
+    finally:
+        edyn.HAND_TANGENT = saved
+    secs = time.perf_counter() - t0
+    if steps == r.steps:
+        got = type(r.res)(*(t[sub] for t in r.res))
+    else:
+        st = kd.dynamic_step(kd.initial_dyn_state(r.pos0[sub], r.theta0[sub],
+                                                  device=device),
+                             field=field, op=r.op, steps=steps, delta_s=r.ds,
+                             step_limit=steps, box=tuple(r.scen.box))
+        got = kd.final_from_dyn_state(st, med.n(st.x, st.y))
+    # the fisheye's q is held relative to its largest |q| along the path
+    scale = (float(ref.history[..., 4].abs().max()) if name == "fisheye"
+             else None)
+    if not dyn_deviations(
+            f"{name} against trace_dynamic f64 ("
+            f"{'hand' if hand else 'jvp'} tangent), {len(ref.q)} "
+            f"rays x {steps} steps ({secs:.1f} s)", got, ref, DYN_BARS[name],
+            r.ds, tuple(r.scen.box), scale):
+        fail(f"{name}: the dynamic kernel misses its f64 oracle")
+
+
+def phase_dynamic_checks(device, errs, runs):
+    """The dynamic main path's checks: the fisheye caustic count on every
+    ray (f64 scan tier first, then the kernel), each run against
+    trace_dynamic at f64 on 4096 rays, each run's fast_dynamic result
+    against a direct launch of its kernel, the kernel against
+    dynamic_step_plain on the same inputs at 2**20 rays and at most
+    MAIN_PLAIN_CAP steps, and each kernel's time at the full shape.
+    Returns {kernel: times}."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.kernels import dynamic as kd
+    print("[dynamic] checks", flush=True)
+    r = runs["fisheye"]
+    t0 = time.perf_counter()
+    full = rtt.trace_dynamic(r.op, r.scen, r.medium, delta_s=r.ds,
+                             device=device, mode="metrics",
+                             dtype=torch.float64, pos0=r.pos0,
+                             theta0=r.theta0, max_size=r.steps + 1,
+                             step_limit=r.steps)
+    k_scan = int((full.kmah == 1).sum())
+    k_kern = int((r.res.kmah == 1).sum())
+    print(f"  fisheye one turn: KMAH 1 on {k_scan} of {len(full.kmah)} rays "
+          f"(trace_dynamic f64, {time.perf_counter() - t0:.1f} s), on "
+          f"{k_kern} (dynamic_step)", flush=True)
+    del full
+    if k_scan != len(r.res.kmah) or k_kern != len(r.res.kmah):
+        fail("fisheye: a ray does not carry KMAH 1 after the turn")
+    for name, r in runs.items():
+        dyn_oracle(device, name, r)
+
+    times = {}
+    timed = {"fisheye": "dynamic_step", "vert_strat": "dynamic_step_strat",
+             "fisheye_grid": "dynamic_step_grid"}
+    for name, r in runs.items():
+        field, _ = dyn_kernel_field(r)
+        st = kd.initial_dyn_state(r.pos0, r.theta0, device=device)
+        kw = dict(field=field, op=r.op, delta_s=r.ds, offset=0.0,
+                  box=tuple(r.scen.box))
+        depth = min(r.steps, MAIN_PLAIN_CAP)
+        k_ms, out = median_ms(lambda: kd.dynamic_step(
+            st, steps=r.steps, step_limit=r.steps, **kw))
+        p_ms, p = cuda_ms(lambda: kd.dynamic_step_plain(
+            st, steps=depth, step_limit=depth, **kw))
+        kernel = (kd.KERNEL if isinstance(field, str) else kd.KERNEL_STRAT
+                  if isinstance(field, kd.StratTables) else kd.KERNEL_GRID)
+        same_final(f"[dynamic] {name} fast_dynamic against a direct launch",
+                   r.res, kd.final_from_dyn_state(out, r.res.n),
+                   names=("pos", "tangent", "traveltime", "dist_sim",
+                          "active", "q", "dtheta", "kmah"))
+        k = out if depth == r.steps else kd.dynamic_step(
+            st, steps=depth, step_limit=depth, **kw)
+        dpos = dyn_exact(f"[dynamic] {name} {kernel.name} {r.pos0.shape[0]} "
+                         f"rays x {depth} of {r.steps} steps against the "
+                         "plain version", k, p)
+        errs[kernel.name].pos = max(errs[kernel.name].pos, dpos)
+        live = live_ray_steps(out.dsim, r.ds, r.steps)
+        rate = live / (k_ms * 1e-3)
+        print(f"    {kernel.name} {name}: {k_ms:.3f} ms median of 5 "
+              f"({r.steps} steps), {rate:.4e} live ray-steps/s, plain "
+              f"{p_ms:.1f} ms ({depth} steps)", flush=True)
+        bms, by = timed_bound(
+            kernel.name,
+            lambda n: kd.dynamic_step_plain(head(st), steps=n,
+                                            step_limit=r.steps, **kw),
+            st, out, None if isinstance(field, str) else field, r.ds,
+            r.steps)
+        if timed.get(name) == kernel.name:
+            times[kernel.name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                      bound_by=by)
+    return times
+
+
+def munk_profile():
+    """(depth, sound speed) of the TL field map's Munk-style profile
+    (examples/tl_field_map.py), 121 samples, channel axis at depth -1."""
+    depth = np.linspace(-3.0, 0.0, 121)
+    eta = 2.0 * (depth + 1.0)
+    return depth, 1.49 * (1.0 + 0.0057 * (eta - 1.0 + np.exp(-eta)))
+
+
+def cli_eigenrays(device, timeout=600):
+    """``python -m raytracing_tpu_torch.cli --eigenrays`` on the Munk
+    profile written to a temporary .npz, as a process of its own (killed
+    past ``timeout`` seconds); returns (command, exit code, stdout, stderr,
+    seconds)."""
+    import os
+    import tempfile
+    depth, c = munk_profile()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "munk.npz")
+        np.savez(path, samples=c.min() / c, y=depth)
+        cmd = [sys.executable, "-m", "raytracing_tpu_torch.cli",
+               "--medium-file", path, "--family", "c1", "--op", "6",
+               "--delta-s-value", "0.01", "--steps", "800", "--eigenrays",
+               "0", "-1", "--receiver", "4", "-1", "--receiver", "7",
+               "-1.5", "--fan", "-0.3", "0.3", "48", "--box", "-1", "9",
+               "-3", "0", "--omega", "40", "--device", str(device)]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    return (cmd, done.returncode, done.stdout, done.stderr,
+            time.perf_counter() - t0)
+
+
+def phase_eigenrays(device):
+    """The eigenray solver on the card at float64: the TL field map of
+    examples/tl_field_map.py with the example's own asserts, the Slotnick
+    two-point traveltime, and the CLI's --eigenrays run
+    (:func:`cli_eigenrays`)."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine import dynamic as edyn
+
+    traces = []
+    inner = edyn._build_dynamic_fn
+
+    def counting(op_name, max_size, mode, dtype, max_ord=0):
+        traces.append((mode, max_size))
+        return inner(op_name, max_size, mode, dtype, max_ord)
+
+    # the Munk-style profile, source on the channel axis (0, -1)
+    depth, c = munk_profile()
+    medium = rtt.c1_stratified_from_samples(c.min() / c, depth,
+                                            dtype=torch.float64,
+                                            device=device)
+    n_ranges, n_depths = 19, 12
+    ranges = np.linspace(4.0, 40.0, n_ranges)
+    depths = np.linspace(-2.5, -0.2, n_depths)
+    receivers = np.stack(np.meshgrid(ranges, depths, indexing="ij"),
+                         -1).reshape(-1, 2)
+    edyn._build_dynamic_fn = counting
+    try:
+        t0 = time.perf_counter()
+        eig = rtt.find_eigenrays(
+            "op6", medium, source=(0.0, -1.0), receivers=receivers,
+            delta_s=0.01, max_size=int(ranges.max() / 0.01 * 1.2),
+            box=(-1.0, ranges.max() + 2.0, -3.0, 0.0), fan=(-0.3, 0.3, 256),
+            tol=1e-7, device=device)
+        secs = time.perf_counter() - t0
+    finally:
+        edyn._build_dynamic_fn = inner
+    tl_map = rtt.incoherent_tl(eig, n_receivers=len(receivers)).reshape(
+        n_ranges, n_depths)
+    covered = np.isfinite(tl_map)
+    axis_j = int(np.argmin(np.abs(depths + 1.0)))
+    duct_wins = 0
+    for i in range(n_ranges):
+        row = tl_map[i]
+        if np.isfinite(row[axis_j]) and np.isfinite(row).sum() >= 3:
+            duct_wins += row[axis_j] <= np.nanmedian(row)
+    print(f"[eigenrays] TL field map {n_ranges} x {n_depths} receivers, fan "
+          f"256, f64 on {device}: {len(eig.theta0)} arrivals in {secs:.1f} s "
+          f"({covered.mean() * 100:.1f} % of cells reached, bar > 30; "
+          f"{int(np.sum(eig.converged))} converged; channel axis at or below "
+          f"the row median in {duct_wins}/{n_ranges} ranges, bar >= "
+          f"{n_ranges // 2}); scan-tier traces {len(traces)} "
+          f"({', '.join(f'{m} x {n - 1} steps' for m, n in traces[:3])}"
+          f"{', ...' if len(traces) > 3 else ''})", flush=True)
+    if not (covered.mean() > 0.3 and bool(np.all(eig.converged))
+            and duct_wins >= n_ranges // 2):
+        fail("eigenrays: the TL field map misses the example's asserts")
+
+    # the scan tier's cost a step: the aten operations one step dispatches
+    # (each launches at least one kernel), from a 1- and a 2-step crossing
+    # trace of the same fan
+    class _AllOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    scen = rtt.ScenarioConfig(name="custom", key="-", field="", gamma=1.0,
+                              ray_count=256, theta0=np.zeros(1),
+                              pos0=np.zeros((1, 2)), s_max=0.0,
+                              box=(-1.0, 42.0, -3.0, 0.0))
+    counts = []
+    for n in (2, 3):
+        with _AllOps() as m:
+            rtt.trace_crossings_fan(
+                "op6", scen, medium, delta_s=0.01, ranges=ranges,
+                dtype=torch.float64, device=device, max_size=n,
+                pos0=np.tile([[0.0, -1.0]], (256, 1)),
+                theta0=np.linspace(-0.3, 0.3, 256))
+        counts.append(m.n)
+    print(f"  the crossing trace dispatches {counts[1] - counts[0]} aten "
+          "operations a step", flush=True)
+
+    vert = rtt.analytic_medium("vert_heterogeneous")
+    t0 = time.perf_counter()
+    sl = rtt.find_eigenrays("op6", vert, source=(0, 0), receivers=[(3, -1)],
+                            delta_s=0.005, max_size=2000,
+                            box=(-2, 5, -2.5, 1), fan=(-1.2, 0.6, 128),
+                            tol=1e-12, device=device)
+    t_exact = np.arccosh(1 + 4.0 * 10.0 / (2 * 18.0 * 16.0)) / 2.0
+    rel = abs(float(sl.traveltime[0]) / t_exact - 1) if len(sl.theta0) else 1
+    print(f"[eigenrays] Slotnick v = 18 + 2y, (0, 0) -> (3, -1): "
+          f"{len(sl.theta0)} arrival, traveltime {float(sl.traveltime[0]):.15f}"
+          f" against {t_exact:.15f} (rel {rel:.3e}, bar 2e-7), miss "
+          f"{float(sl.y_err[0]):.3e}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (len(sl.theta0) == 1 and bool(sl.converged[0]) and rel < 2e-7):
+        fail("eigenrays: the Slotnick traveltime")
+
+    cmd, code, stdout, stderr, secs = cli_eigenrays(device)
+    out = stdout.strip().splitlines()
+    print(f"[eigenrays] python -m raytracing_tpu_torch.cli "
+          f"{' '.join(cmd[3:])}: exit {code} in {secs:.1f} s", flush=True)
+    for line in out[-8:]:
+        print(f"    {line}", flush=True)
+    if (code != 0 or not any("TL incoherent" in ln for ln in out)
+            or any("WARNING" in ln for ln in out)):
+        fail(f"eigenrays: the CLI run failed: {stderr[-2000:]}")
 
 
 def main_path(kernels, want, run):
@@ -1273,8 +1854,21 @@ def main():
     launches.update(search_launches)
     phase_search_checks("cuda", errs, times, media, search_runs, sruns,
                         sweep_pos)
+    print(f"[phases 1-10] passed in {time.perf_counter() - t_start:.1f} s "
+          f"(the search path's {time.perf_counter() - t_new:.1f} s)",
+          flush=True)
+    # this slice: the dynamic path and the eigenray solver
+    t_dyn = time.perf_counter()
+    errs.update(phase_dynamic_vs_plain("cuda", media))
+    druns, dlaunches = main_path(
+        kernels, ("dynamic_step", "dynamic_step_strat", "dynamic_step_grid"),
+        lambda: phase_dynamic("cuda", media))
+    launches.update(dlaunches)
+    times.update(phase_dynamic_checks("cuda", errs, druns))
+    phase_eigenrays("cuda")
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
-          f" (this slice's phases {time.perf_counter() - t_new:.1f} s)",
+          f" (this slice's phases {time.perf_counter() - t_dyn:.1f} s; "
+          f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
           flush=True)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -3,8 +3,10 @@
 A second package beside the JAX reference ``raytracing_tpu``: the same 2-D
 batched ray tracer (step methods op1-op12, the four reference scenarios,
 the physics oracles, the analytic fields and the reference's sampled media:
-stratified tables and the 2-D spline grid, parity and C1 forms), written as
-plain torch functions on tensors, with the
+stratified tables and the 2-D spline grid, parity and C1 forms; the dynamic
+tier — paraxial spreading, KMAH caustics, amplitudes — and the eigenray
+solver with transmission loss), written as plain torch functions on
+tensors, with the
 JAX package's TPU kernels replaced by CUDA C++ kernels for the H100
 (``csrc/``, built at first use by :mod:`raytracing_tpu_torch.kernels.build`).
 It imports neither jax nor ``raytracing_tpu``.
@@ -18,7 +20,30 @@ from raytracing_tpu_torch.config import (  # noqa: F401
     ScenarioConfig,
     scenario,
 )
-from raytracing_tpu_torch.engine.fast import FastResult, fast_trace  # noqa: F401
+from raytracing_tpu_torch.engine.dynamic import (  # noqa: F401
+    CROSS_COLS,
+    DYN_COLS,
+    CrossingFan,
+    CrossingPick,
+    DynamicResult,
+    spreading_amplitude,
+    trace_crossings_fan,
+    trace_crossings_pick,
+    trace_dynamic,
+    transmission_loss_db,
+)
+from raytracing_tpu_torch.engine.eigenray import (  # noqa: F401
+    Eigenrays,
+    coherent_tl,
+    find_eigenrays,
+    incoherent_tl,
+    pressure,
+)
+from raytracing_tpu_torch.engine.fast import (  # noqa: F401
+    FastResult,
+    fast_dynamic,
+    fast_trace,
+)
 from raytracing_tpu_torch.engine.trace import TraceResult, trace  # noqa: F401
 from raytracing_tpu_torch.media.c1 import (  # noqa: F401
     C1GridMedium,
@@ -32,7 +57,12 @@ from raytracing_tpu_torch.media.hermite import (  # noqa: F401
     HermiteGridMedium,
     build_hermite_medium,
 )
-from raytracing_tpu_torch.media.medium import AnalyticMedium, analytic_medium  # noqa: F401
+from raytracing_tpu_torch.kernels.dynamic import DynFinal  # noqa: F401
+from raytracing_tpu_torch.media.medium import (  # noqa: F401
+    AnalyticMedium,
+    CustomMedium,
+    analytic_medium,
+)
 from raytracing_tpu_torch.media.samples import (  # noqa: F401
     compact_for_trace,
     medium_from_samples,
@@ -55,6 +85,11 @@ from raytracing_tpu_torch.ops.registry import (  # noqa: F401
 __all__ = [
     "DELTA_S", "SIGMA", "ScenarioConfig", "scenario", "TraceResult", "trace",
     "FastResult", "fast_trace", "AnalyticMedium", "analytic_medium",
+    "CustomMedium", "DynamicResult", "DynFinal", "DYN_COLS", "CROSS_COLS",
+    "CrossingFan", "CrossingPick", "trace_dynamic", "trace_crossings_fan",
+    "trace_crossings_pick", "spreading_amplitude", "transmission_loss_db",
+    "fast_dynamic", "Eigenrays", "find_eigenrays", "pressure", "coherent_tl",
+    "incoherent_tl",
     "GridMedium", "StratifiedGridMedium", "HermiteGridMedium", "C1GridMedium",
     "C1StratifiedMedium", "build_grid_medium", "build_stratified_medium",
     "grid_medium_from_samples", "stratified_medium_from_samples",

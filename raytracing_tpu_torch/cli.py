@@ -2,8 +2,8 @@
 
 Port of ``raytracing_tpu/cli.py``: ``op_for_choice`` (cli.py:79),
 ``run_batch`` (:86), ``load_samples_medium`` (:130), ``run_samples_file``
-(:159), ``build_medium`` (:404), ``run_pipeline`` (:419) and ``main``
-(:566) — the reference's main() pipeline (RT_bench.py:961-1547) with its
+(:159), ``run_eigenrays_file`` (:273), ``build_medium`` (:404),
+``run_pipeline`` (:419) and ``main`` (:566) — the reference's main() pipeline (RT_bench.py:961-1547) with its
 three modes: display/validate, search for a suitable DELTA_S
 (``--delta-s search``), and benchmark.  Everything runs on ``--device``
 (default ``cuda``); the search runs through the kernels there.
@@ -11,9 +11,14 @@ three modes: display/validate, search for a suitable DELTA_S
     python -m raytracing_tpu_torch.cli --scenario fisheye --op 1 --delta-s search
     python -m raytracing_tpu_torch.cli --scenario vert --op 8 --benchmark
 
+``--medium-file`` with ``--eigenrays SRC_X SRC_Y`` solves the boundary-value
+problem instead (``run_eigenrays_file``, cli.py:273-333): every fan-resolved
+arrival from the source to each ``--receiver`` through the measured medium
+(float64 tables, on ``--device``), reduced to transmission loss.
+
 Not ported yet, each refused by the parser with its ROADMAP.md item: the
-plots (``--plot static|movie``) and the interactive menus (§1 item 12),
-``--eigenrays`` (item 15) and ``--eigenrays3`` (item 17).
+plots (``--plot static|movie``) and the interactive menus (§1 item 12) and
+``--eigenrays3`` (item 17).
 """
 from __future__ import annotations
 
@@ -28,16 +33,17 @@ import torch
 from raytracing_tpu_torch import config
 from raytracing_tpu_torch.bench import harness
 from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+from raytracing_tpu_torch.engine import eigenray as er
 from raytracing_tpu_torch.engine import oracles
 from raytracing_tpu_torch.engine.fast import STRAT_MEDIA, fast_trace
-from raytracing_tpu_torch.engine.trace import trace
+from raytracing_tpu_torch.engine.trace import _torch_dtype, trace
 from raytracing_tpu_torch.media.medium import analytic_medium
 from raytracing_tpu_torch.media.samples import medium_from_samples
 from raytracing_tpu_torch.media.spline import (
     build_grid_medium, build_stratified_medium)
-from raytracing_tpu_torch.ops.registry import canonical
+from raytracing_tpu_torch.ops.registry import GOLDEN_OPS, canonical
 from raytracing_tpu_torch.parallel.sweep import (
-    _torch_dtype, delta_s_search, delta_s_search_convergence)
+    delta_s_search, delta_s_search_convergence)
 
 BOLD, RESET = "\033[1m", "\033[0m"
 
@@ -233,6 +239,60 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
     return out
 
 
+def run_eigenrays_file(path: str, op_name: str, *, delta_s: float,
+                       steps: int, source, receivers, fan=None, box=None,
+                       gamma: float = 1.0, omega=None,
+                       family: str = "parity", device="cuda", printer=print):
+    """Eigenray arrivals and transmission loss through a measured medium:
+    every fan-resolved ray path from ``source`` to each receiver, with
+    travel time, amplitude and KMAH caustic phase, reduced to per-receiver
+    TL (``engine/eigenray.py``).  The medium's tables are float64."""
+    if op_name in GOLDEN_OPS:
+        raise SystemExit(
+            f"{op_name} uses a golden-section solver whose paraxial "
+            f"tangents vanish (engine/dynamic.py); use a smooth op "
+            f"(op1-op4, op6-op8, op12) or op10n/op11n")
+    medium, default_box, kind = load_samples_medium(
+        path, family, dtype=torch.float64, device=device)
+    box = tuple(box) if box else default_box
+    fan = tuple(fan) if fan else (-0.3, 0.3, 256)
+    receivers = np.atleast_2d(np.asarray(receivers, np.float64))
+    # max_size = steps + 1: --steps counts integration steps, as in the
+    # forward --medium-file path (run_samples_file)
+    eig = er.find_eigenrays(op_name, medium, source=source,
+                            receivers=receivers, delta_s=delta_s,
+                            max_size=int(steps) + 1, box=box, gamma=gamma,
+                            fan=(float(fan[0]), float(fan[1]), int(fan[2])),
+                            device=device)
+    printer(f"\n{kind} ({family}) from {path}")
+    printer(f"eigenrays {op_name}: source ({source[0]:g}, {source[1]:g}), "
+            f"fan [{fan[0]:g}, {fan[1]:g}] x {int(fan[2])}, "
+            f"delta_s {delta_s:g} x {steps} steps")
+    k = len(receivers)
+    itl = er.incoherent_tl(eig, n_receivers=k)
+    ctl = (er.coherent_tl(eig, float(omega), n_receivers=k)
+           if omega is not None else None)
+    printer(f"{'receiver':>18} {'theta0':>11} {'traveltime':>12} "
+            f"{'amplitude':>10} {'kmah':>5} {'miss':>9}")
+    for i, (rx, ry) in enumerate(receivers):
+        e = eig.for_receiver(i)
+        if not len(e.theta0):
+            printer(f"({rx:7.3g}, {ry:6.3g})   no arrivals in the fan")
+            continue
+        for t, tt, a, m, ye in zip(e.theta0, e.traveltime, e.amplitude,
+                                   e.kmah, e.y_err):
+            printer(f"({rx:7.3g}, {ry:6.3g}) {t:+11.6f} {tt:12.6f} "
+                    f"{a:10.4f} {int(m):5d} {ye:+9.1e}")
+        line = f"    TL incoherent {itl[i]:7.2f} dB"
+        if ctl is not None and np.isfinite(ctl[i]):
+            line += f"   coherent {ctl[i]:7.2f} dB (omega {omega:g})"
+        printer(line)
+    n_bad = int(np.sum(~np.asarray(eig.converged)))
+    if n_bad:
+        printer(f"WARNING: {n_bad} arrival(s) above miss tolerance")
+    return eig
+
+
 def run_pipeline(scen, op_name: str, *, delta_s_mode: str = "calibrated",
                  medium_kind: str = "auto", dtype=torch.float32,
                  n_turns: int = config.N_TURNS, do_benchmark: bool = False,
@@ -367,7 +427,16 @@ def main(argv=None):
                    help="trace length for --calibrate")
     g.add_argument("--eigenrays", nargs=2, type=float,
                    metavar=("SRC_X", "SRC_Y"),
-                   help="not ported yet (ROADMAP.md §1 item 15)")
+                   help="solve the boundary-value problem from this source "
+                        "to every --receiver instead of tracing a fan")
+    g.add_argument("--receiver", nargs=2, type=float, action="append",
+                   metavar=("X", "Y"), help="receiver point (repeatable)")
+    g.add_argument("--fan", nargs=3, type=float,
+                   metavar=("TH_LO", "TH_HI", "COUNT"),
+                   help="eigenray search fan (default -0.3 0.3 256)")
+    g.add_argument("--omega", type=float,
+                   help="angular frequency (rad per traveltime unit) for "
+                        "coherent TL")
     g.add_argument("--eigenrays3", nargs=3, type=float,
                    metavar=("SRC_X", "SRC_Y", "SRC_Z"),
                    help="not ported yet (ROADMAP.md §1 item 17)")
@@ -376,13 +445,31 @@ def main(argv=None):
     if args.plot != "none":
         p.error(f"--plot {args.plot}: the plots (viz/plots.py) are not "
                 "ported yet: ROADMAP.md §1 item 12")
-    if args.eigenrays is not None:
-        p.error("--eigenrays: eigenrays are not ported yet: ROADMAP.md §1 "
-                "item 15")
     if args.eigenrays3 is not None:
         p.error("--eigenrays3: the 3-D tier is not ported yet: ROADMAP.md "
                 "§1 item 17")
+    if args.eigenrays is not None and not args.medium_file:
+        p.error("--eigenrays needs --medium-file (measured media; named "
+                "scenarios have analytic eigenray oracles in the tests)")
     device = args.device
+
+    if args.medium_file and args.eigenrays is not None:
+        if args.calibrate is not None:
+            p.error("--eigenrays and --calibrate are mutually exclusive; "
+                    "calibrate first, then pass --delta-s-value")
+        need = [("--op", args.op), ("--delta-s-value", args.delta_s_value),
+                ("--steps", args.steps), ("--receiver", args.receiver)]
+        missing = [f for f, v in need if v is None]
+        if missing:
+            p.error(f"--eigenrays needs {', '.join(missing)}")
+        op = canonical(f"op{int(args.op)}" if args.op.isdigit()
+                       else args.op)
+        return run_eigenrays_file(
+            args.medium_file, op, delta_s=args.delta_s_value,
+            steps=args.steps, source=args.eigenrays,
+            receivers=args.receiver, fan=args.fan, box=args.box,
+            gamma=args.gamma, omega=args.omega, family=args.family,
+            device=device)
 
     if args.medium_file:
         calibrating = args.calibrate is not None

@@ -1,6 +1,12 @@
 // The media the step kernels evaluate: each type has one
 // __device__ nag(x, y, n, gx, gy) giving n and its gradient at (x, y), and
-// the step loops of fused.cu and golden.cu are templates on the type.
+// the step loops of fused.cu and golden.cu are templates on the type.  The
+// analytic, stratified and per-cell grid types also have
+// nag_h(x, y, f[9]): the dynamic kernels' (dynamic.cu) nine channels
+// (n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy) — gn the n channel's own
+// gradient, h the gradient's Jacobian
+// (raytracing_tpu/kernels/dynamic.py: _field_fn_h :78, _strat_nag_h :121,
+// _tile_nag_h :177, _tile_nag_c1_h :290).
 //
 // * Analytic<FIELD>: the closed-form fields
 //   (raytracing_tpu/kernels/fused.py::_field_fn, fused.py:44-62).
@@ -34,7 +40,8 @@
 // cell index follows the same float32 path (clip, floor, min), so the
 // kernels agree to the bit with their plain PyTorch versions
 // (raytracing_tpu_torch/kernels/fused.py: field_fn, strat_nag_plain,
-// tile_nag_plain, nodes_nag_plain) under -fmad=false.
+// tile_nag_plain, nodes_nag_plain; kernels/dynamic.py: field_fn_h,
+// strat_nag_h, tile_nag_h) under -fmad=false.
 #pragma once
 
 #include "common.cuh"
@@ -47,6 +54,10 @@ enum Field { FISHEYE = 0, VERT = 1, INTERFACE = 2 };
 constexpr float kSqrt2 = (float)1.4142135623730951;
 constexpr float kSqrt2m1 = (float)(1.4142135623730951 - 1.0);
 constexpr float kThck = (float)0.005;   // config.THCK_PARAM
+constexpr float kThck2 = (float)(0.005 * 0.005);
+
+// the dynamic kernels' field channels at one point
+enum H9 { HN = 0, HGX, HGY, HGNX, HGNY, HXX, HXY, HYX, HYY };
 
 template <int FIELD>
 struct Analytic {
@@ -70,6 +81,45 @@ struct Analytic {
       gx = 0.0f;
       gy = -kSqrt2m1 * sig * (1.0f - sig) / kThck;
     }
+  }
+
+  // closed-form Hessians (dynamic.py:78-118); the interface's logistic is
+  // the overflow-safe two-branch form of media/fields.py::_sigmoid, both
+  // branches exponentiating -|t|
+  __device__ __forceinline__ void nag_h(float x, float y, float* f) const {
+    if (FIELD == FISHEYE) {
+      const float n = 1.0f / (1.0f + x * x + y * y);
+      const float n2 = n * n;
+      const float c = -2.0f * n2;
+      const float n3_8 = 8.0f * n2 * n;
+      f[HN] = n;
+      f[HGX] = f[HGNX] = c * x;
+      f[HGY] = f[HGNY] = c * y;
+      f[HXX] = c + n3_8 * x * x;
+      f[HXY] = f[HYX] = n3_8 * x * y;
+      f[HYY] = c + n3_8 * y * y;
+      return;
+    }
+    float n, gy, hyy;
+    if (FIELD == VERT) {
+      n = 1.0f / (18.0f + 2.0f * y);
+      const float n2 = n * n;
+      gy = -2.0f * n2;
+      hyy = 8.0f * n2 * n;
+    } else {
+      const float t = y / kThck;
+      const bool pos = t >= 0.0f;
+      const float e = expf(pos ? -t : t);
+      const float sig = pos ? 1.0f / (1.0f + e) : e / (1.0f + e);
+      n = kSqrt2 - kSqrt2m1 * sig;
+      const float d = sig * (1.0f - sig);
+      gy = -kSqrt2m1 * d / kThck;
+      hyy = -kSqrt2m1 * d * (1.0f - 2.0f * sig) / kThck2;
+    }
+    f[HN] = n;
+    f[HGX] = f[HGNX] = f[HXX] = f[HXY] = f[HYX] = 0.0f;
+    f[HGY] = f[HGNY] = gy;
+    f[HYY] = hyy;
   }
 };
 
@@ -124,6 +174,32 @@ struct Strat {
       gy = c0 + uy * (c1 + uy * (c2 + uy * c3));
     }
     gx = 0.0f;
+  }
+
+  // the 9 channels (dynamic.py:121-174): C1 gives the cubic's second
+  // derivative and gn == g; parity the bilinear n's own slope and the
+  // derivative of the cubic gy
+  __device__ __forceinline__ void nag_h(float x, float y, float* f) const {
+    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
+    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
+    const float uy = fy - iy;
+    const float* row = m.t + static_cast<long long>(iy) * 8;
+    const float4 a = ldg4(row, 0);
+    f[HGX] = f[HGNX] = f[HXX] = f[HXY] = f[HYX] = 0.0f;
+    if (CH == 4) {
+      const float c0 = a.x, c1 = a.y, c2 = a.z, c3 = a.w;
+      f[HN] = c0 + uy * (c1 + uy * (c2 + uy * c3));
+      f[HGY] = f[HGNY] = (c1 + uy * (2.0f * c2 + uy * 3.0f * c3)) * m.inv_hy;
+      f[HYY] = (2.0f * c2 + 6.0f * c3 * uy) * (m.inv_hy * m.inv_hy);
+    } else {
+      const float4 b = ldg4(row, 1);
+      const float zlo = a.x, zhi = a.y, c0 = a.z, c1 = a.w, c2 = b.x,
+                  c3 = b.y;
+      f[HN] = (1.0f - uy) * zlo + uy * zhi;
+      f[HGY] = c0 + uy * (c1 + uy * (c2 + uy * c3));
+      f[HYY] = (c1 + uy * (2.0f * c2 + uy * 3.0f * c3)) * m.inv_hy;
+      f[HGNY] = (zhi - zlo) * m.inv_hy;
+    }
   }
 };
 
@@ -206,6 +282,11 @@ __device__ __forceinline__ float hermite1(float c0, float c1, float c2,
   return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
 }
 
+__device__ __forceinline__ Basis hermite_d2basis(float t) {
+  return {12.0f * t - 6.0f, 6.0f * t - 4.0f, -12.0f * t + 6.0f,
+          6.0f * t - 2.0f};
+}
+
 // n and grad n of one bicubic patch: media/c1.py::c1_blend
 __device__ __forceinline__ void c1_blend(const float* c, float u, float v,
                                          float inv_hx, float inv_hy, float& n,
@@ -231,6 +312,71 @@ __device__ __forceinline__ void c1_blend(const float* c, float u, float v,
   gy = gv * inv_hy;
 }
 
+// c1_blend plus the patch's symmetric Hessian: media/c1.py::c1_blend_h, the
+// 9 channels of dynamic.py::_tile_nag_c1_h (gn == g, hyx == hxy)
+__device__ __forceinline__ void c1_blend_h(const float* c, float u, float v,
+                                           float inv_hx, float inv_hy,
+                                           float* h) {
+  const float4 f = ldg4(c, 0), fv = ldg4(c, 1), fu = ldg4(c, 2),
+               fw = ldg4(c, 3);
+  const Basis hv = hermite_basis(v), dv = hermite_dbasis(v),
+              ddv = hermite_d2basis(v);
+  const Basis hu = hermite_basis(u), du = hermite_dbasis(u),
+              ddu = hermite_d2basis(u);
+  auto vblend = [&](const Basis& b) -> Basis {
+    return {hermite1(f.x, fv.x, f.z, fv.z, b),
+            hermite1(fu.x, fw.x, fu.z, fw.z, b),
+            hermite1(f.y, fv.y, f.w, fv.w, b),
+            hermite1(fu.y, fw.y, fu.w, fw.w, b)};
+  };
+  const Basis col = vblend(hv), col_dv = vblend(dv), col_ddv = vblend(ddv);
+  h[HN] = hermite1(col.h0, col.g0, col.h1, col.g1, hu);
+  h[HGX] = h[HGNX] = hermite1(col.h0, col.g0, col.h1, col.g1, du) * inv_hx;
+  h[HGY] = h[HGNY] =
+      hermite1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, hu) * inv_hy;
+  h[HXX] = hermite1(col.h0, col.g0, col.h1, col.g1, ddu) * (inv_hx * inv_hx);
+  h[HXY] = h[HYX] = hermite1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, du) *
+                    (inv_hx * inv_hy);
+  h[HYY] = hermite1(col_ddv.h0, col_ddv.g0, col_ddv.h1, col_ddv.g1, hu) *
+           (inv_hy * inv_hy);
+}
+
+// the parity cell's 9 channels (dynamic.py::_tile_nag_h, :177-287): the
+// bilinear n and its own gradient, the two independent bicubic gradients
+// and their full 2x2 Jacobian (hxy != hyx in general)
+__device__ __forceinline__ void hermite_blend_h(const float* c, float u,
+                                                float v, float inv_hx,
+                                                float inv_hy, float* h) {
+  const float4 z = ldg4(c, 0);
+  h[HN] = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
+          v * ((1.0f - u) * z.z + u * z.w);
+  h[HGNX] = ((1.0f - v) * (z.y - z.x) + v * (z.w - z.z)) * inv_hx;
+  h[HGNY] = ((1.0f - u) * (z.z - z.x) + u * (z.w - z.y)) * inv_hy;
+  const Basis hv = hermite_basis(v), dv = hermite_dbasis(v);
+  const Basis hu = hermite_basis(u), du = hermite_dbasis(u);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int ch0 = 1 + 4 * k;
+    const float4 f = ldg4(c, ch0), fv = ldg4(c, ch0 + 1),
+                 fu = ldg4(c, ch0 + 2), fw = ldg4(c, ch0 + 3);
+    // the corner columns blended along v (value, then d/dv), then across u
+    const float c0 = f.x * hv.h0 + fv.x * hv.g0 + f.z * hv.h1 + fv.z * hv.g1;
+    const float c1 = f.y * hv.h0 + fv.y * hv.g0 + f.w * hv.h1 + fv.w * hv.g1;
+    const float c2 = fu.x * hv.h0 + fw.x * hv.g0 + fu.z * hv.h1 + fw.z * hv.g1;
+    const float c3 = fu.y * hv.h0 + fw.y * hv.g0 + fu.w * hv.h1 + fw.w * hv.g1;
+    const float e0 = f.x * dv.h0 + fv.x * dv.g0 + f.z * dv.h1 + fv.z * dv.g1;
+    const float e1 = f.y * dv.h0 + fv.y * dv.g0 + f.w * dv.h1 + fv.w * dv.g1;
+    const float e2 = fu.x * dv.h0 + fw.x * dv.g0 + fu.z * dv.h1 + fw.z * dv.g1;
+    const float e3 = fu.y * dv.h0 + fw.y * dv.g0 + fu.w * dv.h1 + fw.w * dv.g1;
+    const float val = c0 * hu.h0 + c1 * hu.h1 + c2 * hu.g0 + c3 * hu.g1;
+    const float d_u = c0 * du.h0 + c1 * du.h1 + c2 * du.g0 + c3 * du.g1;
+    const float d_v = e0 * hu.h0 + e1 * hu.h1 + e2 * hu.g0 + e3 * hu.g1;
+    h[HGX + k] = val;                       // gx, gy
+    h[HXX + 2 * k] = d_u * inv_hx;          // hxx, hyx
+    h[HXY + 2 * k] = d_v * inv_hy;          // hxy, hyy
+  }
+}
+
 // -- 2-D grid (engine/segmented.py::_cells, fused.py::_tile_nag) -------------
 template <int CELL_CH>
 struct Grid {
@@ -252,6 +398,23 @@ struct Grid {
       c1_blend(c, u, v, m.inv_hx, m.inv_hy, n, gx, gy);
     } else {
       hermite_blend(CellCorners{c}, u, v, n, gx, gy);
+    }
+  }
+  // the same cell lookup, then the 9 channels of the dynamic kernels
+  __device__ __forceinline__ void nag_h(float x, float y, float* f) const {
+    const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
+    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
+    const float ix = fminf(floorf(fx), (float)(m.nx - 2));
+    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
+    const float u = fx - ix;
+    const float v = fy - iy;
+    const long long cell = static_cast<long long>(iy) * (m.nx - 1) +
+                           static_cast<long long>(ix);
+    const float* c = m.t + cell * CELL_CH;
+    if (CELL_CH == 16) {
+      c1_blend_h(c, u, v, m.inv_hx, m.inv_hy, f);
+    } else {
+      hermite_blend_h(c, u, v, m.inv_hx, m.inv_hy, f);
     }
   }
 };

@@ -16,6 +16,14 @@ the 2-D grid media (:169-205).
   ``HermiteGridMedium``, ``C1GridMedium``): ``engine/segmented.py::
   grid_trace_tiled`` (``"grid"``; JAX says ``"grid-tiled"``).
 
+``fast_dynamic`` (fast.py:366-472) is the dynamic twin: analytic fields,
+stratified tables and 2-D grids go to the three dynamic kernels
+(``kernels/dynamic.py``; engines ``"dynamic-kernel"``,
+``"dynamic-kernel-strat"``, ``"dynamic-kernel-grid"``, JAX says
+``"dynamic-kernel-tiled"`` for the last), every other (op, medium) pair to
+the scan tier's ``trace_dynamic`` on the same device (``"dynamic-scan"``),
+as JAX routes them.
+
 Not ported, on purpose: ``SEGMENT_THRESHOLD`` and the segmented route
 (fast.py:56, 226-307) and the angle sort (fast.py:275-283).  They bound
 Mosaic's compile time and skip frozen TPU blocks; on the card one launch
@@ -31,7 +39,12 @@ from typing import Any, NamedTuple
 import torch
 
 from raytracing_tpu_torch import config
-from raytracing_tpu_torch.engine.segmented import grid_trace_tiled
+from raytracing_tpu_torch.engine.dynamic import trace_dynamic
+from raytracing_tpu_torch.engine.segmented import (
+    grid_trace_dynamic_tiled, grid_trace_tiled)
+from raytracing_tpu_torch.kernels.dynamic import (
+    DYN_FUSED_FIELDS, DYN_FUSED_OPS, DynFinal, dynamic_trace_final,
+    dynamic_trace_final_strat)
 from raytracing_tpu_torch.kernels.fused import (
     FUSED_FIELDS, FUSED_OPS, fused_trace_final, fused_trace_final_strat)
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS, golden_trace_final
@@ -173,3 +186,62 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
                       engine="fused-strat" if strat else "fused",
                       mom_count=f.mom_count, mom_mean=f.mom_mean,
                       mom_m2=f.mom_m2, tangent=f.tangent)
+
+
+def fast_dynamic(op_name: str, scen: config.ScenarioConfig, medium, *,
+                 delta_s, pos0, theta0, device="cuda",
+                 steps: int | None = None, divisor: int | None = None,
+                 n_turns: int = config.N_TURNS):
+    """Metrics-only DYNAMIC trace on ``device``: returns ``(DynFinal,
+    engine)``.
+
+    Routed by (op, medium) before any launch (fast.py:366-472): the smooth
+    ops op1/op2/op6/op8 on an analytic field go to ``dynamic_step``
+    (``"dynamic-kernel"``), on a stratified table (trimmed by
+    ``compact_for_trace``) to ``dynamic_step_strat``
+    (``"dynamic-kernel-strat"``), on a 2-D grid (``GridMedium`` through its
+    cached Hermite form, ``HermiteGridMedium``, ``C1GridMedium``) to
+    ``dynamic_step_grid`` (``"dynamic-kernel-grid"``); golden and Newton
+    ops and any other medium (``CustomMedium``) to the scan tier's
+    ``trace_dynamic`` in metrics mode at float32 (``"dynamic-scan"``): a
+    golden op's tangent is zero almost everywhere, but the scan tier gives
+    it as JAX does.  A sampled medium's tables must lie on ``device``.
+    """
+    op = canonical(op_name)
+    medium = compact_for_trace(medium, scen.box, delta_s)
+    if steps is None:
+        steps = scen.max_size(float(delta_s), divisor, n_turns) - 1
+    box = tuple(scen.box)
+    kw = dict(steps=int(steps), box=box, device=device)
+    if op in DYN_FUSED_OPS:
+        if (isinstance(medium, AnalyticMedium)
+                and medium.field in DYN_FUSED_FIELDS):
+            return (dynamic_trace_final(pos0, theta0, delta_s,
+                                        field=medium.field, op=op, **kw),
+                    "dynamic-kernel")
+        if isinstance(medium, STRAT_MEDIA):
+            return (dynamic_trace_final_strat(pos0, theta0, delta_s, medium,
+                                              op=op, **kw),
+                    "dynamic-kernel-strat")
+        if isinstance(medium, GRID_MEDIA):
+            if isinstance(medium, GridMedium):
+                medium = _as_hermite(medium)
+            return (grid_trace_dynamic_tiled(op, pos0, theta0, delta_s,
+                                             medium, **kw),
+                    "dynamic-kernel-grid")
+
+    d = trace_dynamic(op, scen, medium, delta_s=float(delta_s),
+                      mode="metrics", dtype=torch.float32, device=device,
+                      pos0=pos0, theta0=theta0, max_size=int(steps) + 1,
+                      step_limit=int(steps))
+    tangent = torch.stack([torch.cos(d.angle), torch.sin(d.angle)], dim=-1)
+    # "active" = still inside the box, as the kernels report it: exit_step
+    # alone is ambiguous (a ray exiting at step i == steps also carries
+    # exit_step == steps), so test the final (frozen) position
+    bx = torch.tensor(box, dtype=torch.float32, device=d.pos.device)
+    active = ((d.pos[:, 0] >= bx[0]) & (d.pos[:, 0] <= bx[1])
+              & (d.pos[:, 1] >= bx[2]) & (d.pos[:, 1] <= bx[3]))
+    return (DynFinal(pos=d.pos, tangent=tangent, n=d.n,
+                     traveltime=d.traveltime, dist_sim=d.dist_sim,
+                     active=active, q=d.q, dtheta=d.dtheta, kmah=d.kmah),
+            "dynamic-scan")

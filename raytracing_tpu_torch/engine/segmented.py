@@ -6,7 +6,9 @@ Port of ``raytracing_tpu/engine/segmented.py``: ``_fingerprint``
 (:449), ``grid_sweep_tiled`` (:1011) with ``_tiled_sweep_segments`` (:933)
 as one launch, ``grid_trace_tiled`` (:1129), for the fused and the golden
 family (:749-760), and ``grid_trace`` (:1618) with ``_grid_run_segments``
-(:1556) as one launch.
+(:1556) as one launch, and ``grid_trace_dynamic_tiled`` (:1776-1950, with
+``_dyn_tiled_segments_inner`` :1666-1737) as one launch of the
+``dynamic_step_grid`` kernel.
 
 On the TPU, ``grid_trace_tiled`` Morton-sorts the rays into blocks that
 share a VMEM window of the per-cell table, checks containment with a flag
@@ -21,8 +23,10 @@ port"): no window, sort, containment flag or replay ladder; no
 ``fused_step_grid`` or ``golden_step_grid`` kernel, for any grid of at least
 2x2 nodes.  The same holds for the candidate sweep (one launch of
 ``fused_sweep_grid``, one ray a candidate, no window classes, so no
-candidate ever falls back) and for the supercell path, ``grid_trace`` (one
-launch of ``fused_step_nodes`` on the node table, no per-ray node blocks).
+candidate ever falls back), for the supercell path, ``grid_trace`` (one
+launch of ``fused_step_nodes`` on the node table, no per-ray node blocks),
+and for the dynamic grid path, ``grid_trace_dynamic_tiled`` (one launch of
+``dynamic_step_grid`` on the same per-cell table).
 
 ``segmented_trace`` keeps its segments, because they carry live-ray
 compaction and checkpoints: each segment is one launch of the fused or
@@ -35,6 +39,7 @@ import hashlib
 import numpy as np
 import torch
 
+from raytracing_tpu_torch.kernels import dynamic as kd
 from raytracing_tpu_torch.kernels import fused as kfu
 from raytracing_tpu_torch.kernels import golden as kg
 from raytracing_tpu_torch.kernels.fused import (
@@ -256,11 +261,13 @@ def _check_grid(name: str, medium, kinds) -> None:
                          f"{medium.ny}x{medium.nx}")
 
 
-def grid_tables(medium) -> GridTables:
+def grid_tables(medium, dtype=torch.float32) -> GridTables:
     """The kernels' :class:`GridTables` of a Hermite or C1 grid medium, built
-    on the medium's device from its node table (nothing is uploaded)."""
+    on the medium's device from its node table (nothing is uploaded); the
+    kernels read float32, the dynamic scan tier's closed-form channels
+    (engine/dynamic.py) the working ``dtype``."""
     node_ch = int(medium.nodes.shape[-1])
-    nodes3d = medium.nodes.float().reshape(medium.ny, medium.nx, node_ch)
+    nodes3d = medium.nodes.to(dtype).reshape(medium.ny, medium.nx, node_ch)
     return GridTables(table=_cells36(nodes3d), cell_ch=4 * node_ch,
                       x0=float(medium.x0), y0=float(medium.y0),
                       inv_hx=float(medium.inv_hx),
@@ -366,3 +373,31 @@ def grid_trace(op: str, pos0, theta0, delta_s, medium, *, steps: int, box,
     return fused_trace_final(pos0, theta0, delta_s, field=node_tables(medium),
                              op=op, steps=steps, box=box, device=device,
                              with_stats=with_stats)
+
+
+def grid_trace_dynamic_tiled(op: str, pos0, theta0, delta_s, medium, *,
+                             steps: int, box, device="cuda"):
+    """Dynamic trace through a 2-D sampled-spline medium in one launch of the
+    ``dynamic_step_grid`` kernel: the kinematics, the paraxial tangent and
+    the KMAH count on the per-cell table of :func:`grid_tables`, with the
+    in-cell derivatives of the bilinear n and the full 2x2 Jacobian of the
+    two gradient bicubics (parity, 36 floats a cell) or the patch's
+    Hessian (C1, 16).
+
+    ``medium`` is a :class:`HermiteGridMedium` or :class:`C1GridMedium`
+    held on ``device``, of at least 2x2 nodes; ``op`` one of
+    ``kernels.dynamic.DYN_FUSED_OPS``.  The launch state is JAX's 18-plane
+    resume state from (pos0, theta0) (segmented.py:1844-1850).  Returns a
+    ``DynFinal`` whose ``n`` is ``medium.n`` at the final positions
+    (segmented.py:1945).
+    """
+    if op not in kd.DYN_FUSED_OPS:
+        raise ValueError(f"dynamic tiled kernel supports {kd.DYN_FUSED_OPS}, "
+                         f"got {op!r}")
+    _check_grid("grid_trace_dynamic_tiled", medium,
+                (HermiteGridMedium, C1GridMedium))
+    st = kd.initial_dyn_state(pos0, theta0, device=device)
+    st = kd.dynamic_step(st, field=grid_tables(medium), op=op, steps=steps,
+                         delta_s=delta_s, step_limit=steps, offset=0.0,
+                         box=box)
+    return kd.final_from_dyn_state(st, medium.n(st.x, st.y))

@@ -149,6 +149,14 @@ def run_steps(op, st0: RayState, medium, gamma, delta_s, *, max_size: int,
                        history=hist, n_hist=n_hist)
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {np.dtype(np.float32): torch.float32,
+            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
 def trace(op_name: str, scen: config.ScenarioConfig, medium, *,
           delta_s: float, device="cuda", divisor: int | None = None,
           n_turns: int = config.N_TURNS, mode: str = "history",

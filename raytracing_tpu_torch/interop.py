@@ -16,6 +16,11 @@ interchange format, so neither package imports the other:
   active) [+ count, mean, M2]; fused (x, y, ux, uy, cx, cy, tt, dsim,
   active) [+ count, mean, M2] [+ op7 window wax, way, wbx, wby], with
   ``active`` as 0/1 floats;
+* :func:`dynamic_state_from_numpy` / :func:`dynamic_state_to_numpy` convert
+  the dynamic kernels' state from / to the JAX dynamic tier's 18-component
+  resume list (``engine/segmented.py:1844-1850``: x, y, cx, cy, ux, uy, tt,
+  dsim, active, dpx, dpy, dth, sgn, kmah, kdx, kdy, kdt, ktt), ``active``
+  as 0/1 floats;
 * :func:`medium_from_numpy` builds any of the five sampled media
   (``GridMedium``, ``StratifiedGridMedium``, ``HermiteGridMedium``,
   ``C1GridMedium``, ``C1StratifiedMedium``) from the JAX medium's class
@@ -31,6 +36,7 @@ import torch
 
 from raytracing_tpu_torch.engine.state import RayState
 from raytracing_tpu_torch.engine.trace import TraceResult
+from raytracing_tpu_torch.kernels.dynamic import DynState
 from raytracing_tpu_torch.kernels.fused import ResumeState
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS
 from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
@@ -135,6 +141,23 @@ def resume_state_to_numpy(st: ResumeState, op: str) -> list:
     if op == "op7":
         comps += [st.wax, st.way, st.wbx, st.wby]
     return [c if isinstance(c, np.ndarray) else _to_numpy(c) for c in comps]
+
+
+def dynamic_state_from_numpy(comps, *, device) -> DynState:
+    """A dynamic kernel :class:`DynState` from the JAX dynamic tier's 18
+    components (any shapes; each flattened to (R,) float32)."""
+    if len(comps) != len(DynState._fields):
+        raise ValueError(f"a dynamic state has {len(DynState._fields)} "
+                         f"components, got {len(comps)}")
+    vals = [torch.as_tensor(np.array(c, np.float32).reshape(-1),
+                            device=device) for c in comps]
+    st = DynState(*vals)
+    return st._replace(active=st.active > 0.5)
+
+
+def dynamic_state_to_numpy(st: DynState) -> list:
+    """The JAX dynamic tier's 18-component list of float32 (R,) arrays."""
+    return [_to_numpy(t).astype(np.float32) for t in st]
 
 
 def medium_from_numpy(kind: str, fields: dict, *, device):

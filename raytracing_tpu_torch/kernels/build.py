@@ -74,6 +74,17 @@ _SIGNATURES = {
     "rt_golden_step_grid": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                             _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                             *_TABLE, _P),
+    # field, op, in_planes, out_planes, n, steps, ds, limit, offset,
+    # limx_i, limx_s, limy_i, limy_s, stream (csrc/dynamic.cu)
+    "rt_dynamic_step": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
+                        _F, _F, _F, _F, _P),
+    # ch (6 | 4), then rt_dynamic_step's arguments after field, the table,
+    # stream
+    "rt_dynamic_step_strat": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
+                              _F, _F, _F, _F, *_TABLE, _P),
+    # cell_ch (36 | 16), the same
+    "rt_dynamic_step_grid": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
+                             _F, _F, _F, _F, *_TABLE, _P),
 }
 
 

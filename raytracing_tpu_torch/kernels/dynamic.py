@@ -1,0 +1,506 @@
+"""The dynamic kernels: kinematics plus the paraxial tangent, on every medium.
+
+Port of ``raytracing_tpu/kernels/dynamic.py``: ``DYN_FUSED_FIELDS`` /
+``DYN_FUSED_OPS`` (dynamic.py:71-73), the Hessian evaluators ``_field_fn_h``
+(:78-118), ``_strat_nag_h`` (:121-174), ``_tile_nag_h`` (:177-287) and
+``_tile_nag_c1_h`` (:290-344) as :func:`field_fn_h`, :func:`strat_nag_h`,
+:func:`tile_nag_h` (both grid families, without the TPU window), the step
+loop of ``_make_dynamic_kernel`` (:347-586) in its resume form, ``DynFinal``
+(:589), ``dynamic_trace_final`` (:609) and ``dynamic_trace_final_strat``
+(:680); and the 18-plane resume state of
+``engine/segmented.py::grid_trace_dynamic_tiled`` (:1844-1850), which all
+three kernels here read and write.
+
+Beside the kinematic state, a ray carries d(state)/d(theta0): the position
+tangent (dpx, dpy), the angle tangent dth (the unit tangent's derivative is
+dth times u_perp), the running sign of the spreading q = dpos . u_perp and
+the KMAH caustic count; the tangent accumulators are Kahan-compensated
+(kdx, kdy, kdt) as are the positions (cx, cy) and the traveltime (ktt).
+The field is evaluated once a step, after the move, with its derivatives
+in one 9-channel layout ``(n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy)``:
+``gn`` is the n channel's own gradient, which differs from the ray
+equation's gradient on the parity tables, and the Hessian rows are
+independent (the parity 2-D table fits gx and gy as separate bicubics).
+
+One CUDA step loop (``csrc/dynamic.cu``) serves three media as three
+kernels with their own launch counts: ``dynamic_step`` (analytic fields),
+``dynamic_step_strat`` (stratified tables) and ``dynamic_step_grid`` (2-D
+per-cell tables).  :func:`dynamic_step_plain` is their plain PyTorch
+version and :func:`dynamic_step` the wrapper: a CPU state runs the plain
+version, a CUDA state launches the kernel or raises.  Only the smooth ops
+op1/op2/op6/op8: a golden op's tangent is zero almost everywhere.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from raytracing_tpu_torch.config import THCK_PARAM
+from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.kernels.fused import (
+    GridTables, StratTables, _kahan, _outside, _rot, _vectors, check_medium,
+    div_exact, kernel_of, strat_tables)
+from raytracing_tpu_torch.media.fields import _sigmoid
+
+#: analytic fields with inlined Hessians
+DYN_FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
+#: smooth fused ops whose hand tangent is implemented
+DYN_FUSED_OPS = ("op1", "op2", "op6", "op8")
+
+KERNEL = build.KernelInfo(
+    name="dynamic_step", source="raytracing_tpu_torch/csrc/dynamic.cu",
+    replaces="raytracing_tpu/kernels/dynamic.py:646")
+KERNEL_STRAT = build.KernelInfo(
+    name="dynamic_step_strat", source="raytracing_tpu_torch/csrc/dynamic.cu",
+    replaces="raytracing_tpu/kernels/dynamic.py:722")
+KERNEL_GRID = build.KernelInfo(
+    name="dynamic_step_grid", source="raytracing_tpu_torch/csrc/dynamic.cu",
+    replaces="raytracing_tpu/engine/segmented.py:1702")
+#: the family's kernels by medium: analytic, stratified, grid
+KERNELS = (KERNEL, KERNEL_STRAT, KERNEL_GRID)
+
+_SQRT2 = 1.4142135623730951
+
+
+def _scal(v, dtype) -> float:
+    """A Python constant as the kernel holds it: float32-rounded for float32
+    tables (so the plain version's products round as the kernel's do),
+    unchanged for float64 ones."""
+    return float(np.float32(v)) if dtype == torch.float32 else float(v)
+
+
+def field_fn_h(field: str):
+    """n, its gradient and Hessian of an analytic field, closed form
+    (dynamic.py:78-118), in the 9-channel layout.  The interface uses the
+    overflow-safe two-branch logistic of ``media/fields.py``, not the
+    kinematic kernels' literal one."""
+    if field == "fisheye":
+        def f(x, y):
+            n = 1.0 / (1.0 + x * x + y * y)
+            n2 = n * n
+            c = -2.0 * n2
+            n3_8 = 8.0 * n2 * n
+            gx, gy = c * x, c * y
+            hxx = c + n3_8 * x * x
+            hxy = n3_8 * x * y
+            hyy = c + n3_8 * y * y
+            return n, gx, gy, gx, gy, hxx, hxy, hxy, hyy
+    elif field == "vert_heterogeneous":
+        def f(x, y):
+            n = 1.0 / (18.0 + 2.0 * y)
+            zero = torch.zeros_like(x)
+            n2 = n * n
+            gy = -2.0 * n2
+            return n, zero, gy, zero, gy, zero, zero, zero, 8.0 * n2 * n
+    elif field == "interface":
+        def f(x, y):
+            sig = _sigmoid(div_exact(y, THCK_PARAM))
+            n = _SQRT2 - (_SQRT2 - 1.0) * sig
+            zero = torch.zeros_like(x)
+            d = sig * (1.0 - sig)
+            gy = div_exact(-(_SQRT2 - 1.0) * d, THCK_PARAM)
+            hyy = div_exact(-(_SQRT2 - 1.0) * d * (1.0 - 2.0 * sig),
+                            THCK_PARAM * THCK_PARAM)
+            return n, zero, gy, zero, gy, zero, zero, zero, hyy
+    else:
+        raise ValueError(f"dynamic kernel supports fields {DYN_FUSED_FIELDS},"
+                         f" got {field!r}")
+    return f
+
+
+def strat_nag_h(t: StratTables):
+    """The 9 channels from the stratified rows (dynamic.py:121-174): the C1
+    cubic gives n, dn/dy and d2n/dy2 (gn == g); the parity rows give the
+    bilinear n, its own slope gny = (zhi - zlo) inv_hy, the cubic gy and
+    its derivative.  ``inv_hy`` squared rounds as the kernel's float32
+    product does."""
+    ihy = _scal(t.inv_hy, t.table.dtype)
+    ihy2 = _scal(ihy * ihy, t.table.dtype)
+
+    def nag(x, y):
+        fy = torch.clamp((y - t.y0) * t.inv_hy, 0.0, float(t.ny - 1))
+        iy = torch.clamp(torch.floor(fy), max=float(t.ny - 2))
+        uy = fy - iy
+        row = t.table[iy.long()]
+        zero = torch.zeros_like(x)
+        if t.ch == 4:
+            c0, c1, c2, c3 = (row[..., k] for k in range(4))
+            n = c0 + uy * (c1 + uy * (c2 + uy * c3))
+            gy = (c1 + uy * (2.0 * c2 + uy * 3.0 * c3)) * ihy
+            hyy = (2.0 * c2 + 6.0 * c3 * uy) * ihy2
+            return n, zero, gy, zero, gy, zero, zero, zero, hyy
+        zlo, zhi, c0, c1, c2, c3 = (row[..., k] for k in range(6))
+        n = (1.0 - uy) * zlo + uy * zhi
+        gy = c0 + uy * (c1 + uy * (c2 + uy * c3))
+        hyy = (c1 + uy * (2.0 * c2 + uy * 3.0 * c3)) * ihy
+        gny = (zhi - zlo) * ihy
+        return n, zero, gy, zero, gny, zero, zero, zero, hyy
+
+    return nag
+
+
+def _basis(t):
+    t2 = t * t
+    t3 = t2 * t
+    return (2.0 * t3 - 3.0 * t2 + 1.0, t3 - 2.0 * t2 + t,
+            -2.0 * t3 + 3.0 * t2, t3 - t2)
+
+
+def _dbasis(t):
+    t2 = t * t
+    return (6.0 * t2 - 6.0 * t, 3.0 * t2 - 4.0 * t + 1.0,
+            -6.0 * t2 + 6.0 * t, 3.0 * t2 - 2.0 * t)
+
+
+def tile_nag_h(g: GridTables):
+    """The 9 channels from the per-cell rows of a 2-D grid, read directly
+    (the TPU reads the same row through its window): the parity form
+    (dynamic.py:177-287) gives the bilinear n and its own gradient, the two
+    independent bicubic gradients and their full 2x2 Jacobian; the C1 form
+    (:290-344) the patch's n, gradient and symmetric Hessian
+    (``media.c1.c1_blend_h``)."""
+    from raytracing_tpu_torch.engine.segmented import _cells
+    from raytracing_tpu_torch.media.c1 import c1_blend_h
+
+    ihx, ihy = _scal(g.inv_hx, g.table.dtype), _scal(g.inv_hy, g.table.dtype)
+
+    def nag(x, y):
+        ix, iy, u, v = _cells(x, y, g)
+        row = g.table[iy.long() * (g.nx - 1) + ix.long()]
+
+        def corners(ch):
+            return tuple(row[..., ch * 4 + c] for c in range(4))
+
+        if g.cell_ch == 16:
+            n, gx, gy, hxx, hxy, hyy = c1_blend_h(corners, u, v, ihx, ihy)
+            return n, gx, gy, gx, gy, hxx, hxy, hxy, hyy
+        z00, z01, z10, z11 = corners(0)
+        n = ((1.0 - v) * ((1.0 - u) * z00 + u * z01)
+             + v * ((1.0 - u) * z10 + u * z11))
+        gnx = ((1.0 - v) * (z01 - z00) + v * (z11 - z10)) * ihx
+        gny = ((1.0 - u) * (z10 - z00) + u * (z11 - z01)) * ihy
+        hv, dv, hu, du = _basis(v), _dbasis(v), _basis(u), _dbasis(u)
+
+        def hermite_d(ch0):
+            """(value, d/du, d/dv) of one Hermite surface."""
+            f00, f01, f10, f11 = corners(ch0)
+            fv00, fv01, fv10, fv11 = corners(ch0 + 1)
+            fu00, fu01, fu10, fu11 = corners(ch0 + 2)
+            fw00, fw01, fw10, fw11 = corners(ch0 + 3)
+
+            def cols(w):
+                return (f00 * w[0] + fv00 * w[1] + f10 * w[2] + fv10 * w[3],
+                        f01 * w[0] + fv01 * w[1] + f11 * w[2] + fv11 * w[3],
+                        fu00 * w[0] + fw00 * w[1] + fu10 * w[2] + fw10 * w[3],
+                        fu01 * w[0] + fw01 * w[1] + fu11 * w[2] + fw11 * w[3])
+
+            def across(c, w):
+                return c[0] * w[0] + c[1] * w[2] + c[2] * w[1] + c[3] * w[3]
+
+            c_v = cols(hv)
+            return across(c_v, hu), across(c_v, du), across(cols(dv), hu)
+
+        gx, gx_u, gx_v = hermite_d(1)
+        gy, gy_u, gy_v = hermite_d(5)
+        return (n, gx, gy, gnx, gny, gx_u * ihx, gx_v * ihy, gy_u * ihx,
+                gy_v * ihy)
+
+    return nag
+
+
+def nag_h_fn(field):
+    """The plain 9-channel evaluator (x, y) -> channels of a step's medium."""
+    if isinstance(field, StratTables):
+        return strat_nag_h(field)
+    if isinstance(field, GridTables):
+        return tile_nag_h(field)
+    return field_fn_h(field)
+
+
+class DynState(NamedTuple):
+    """Resumable state of the dynamic kernels, (R,) each: the 18 planes of
+    JAX's resume layout (segmented.py:1844-1850), float32 except ``active``
+    (bool: never left the box).  The field order is ``rt::DSlot`` in
+    csrc/dynamic.cu."""
+
+    x: Any
+    y: Any
+    cx: Any       # Kahan compensation of x
+    cy: Any
+    ux: Any       # unit tangent
+    uy: Any
+    tt: Any
+    dsim: Any
+    active: Any
+    dpx: Any      # d(pos)/d(theta0)
+    dpy: Any
+    dth: Any      # d(angle)/d(theta0)
+    sgn: Any      # running sign of q: -1, 0 (not yet set) or 1
+    kmah: Any     # caustic count, float
+    kdx: Any      # Kahan compensations of dpx, dpy, dth, tt
+    kdy: Any
+    kdt: Any
+    ktt: Any
+
+
+class DynFinal(NamedTuple):
+    """Final kinematic + paraxial state of a dynamic kernel run."""
+
+    pos: Any          # (R, 2)
+    tangent: Any      # (R, 2) unit tangent (cos/sin of the exit angle)
+    n: Any            # (R,)   index at the final position
+    traveltime: Any   # (R,)
+    dist_sim: Any     # (R,)
+    active: Any       # (R,) bool
+    q: Any            # (R,)   transverse spreading dpos . u_perp
+    dtheta: Any       # (R,)   d(angle)/d(theta0)
+    kmah: Any         # (R,) int32 caustic count
+
+    def amplitude(self, n0):
+        from raytracing_tpu_torch.engine.dynamic import spreading_amplitude
+        return spreading_amplitude(self.q, self.n, n0)
+
+
+def initial_dyn_state(pos0, theta0, *, device) -> DynState:
+    """Launch state from (pos0, theta0): the source point fixed (dpos = 0),
+    dth = 1, every compensation and the caustic bookkeeping 0."""
+    x, y, th = _vectors(pos0, theta0, device)
+    zero = torch.zeros_like(x)
+    return DynState(x=x, y=y, cx=zero, cy=zero.clone(), ux=torch.cos(th),
+                    uy=torch.sin(th), tt=zero.clone(), dsim=zero.clone(),
+                    active=torch.ones_like(x, dtype=torch.bool),
+                    dpx=zero.clone(), dpy=zero.clone(),
+                    dth=torch.ones_like(x), sgn=zero.clone(),
+                    kmah=zero.clone(), kdx=zero.clone(), kdy=zero.clone(),
+                    kdt=zero.clone(), ktt=zero.clone())
+
+
+def final_from_dyn_state(st: DynState, n) -> DynFinal:
+    """DynFinal from a state and the index ``n`` at its positions; q is the
+    carried tangent contracted with the exit normal (dynamic.py:663-675)."""
+    return DynFinal(pos=torch.stack([st.x, st.y], dim=-1),
+                    tangent=torch.stack([st.ux, st.uy], dim=-1), n=n,
+                    traveltime=st.tt, dist_sim=st.dsim, active=st.active,
+                    q=st.dpx * (-st.uy) + st.dpy * st.ux, dtheta=st.dth,
+                    kmah=st.kmah.to(torch.int32))
+
+
+def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
+                       delta_s, step_limit, offset: float,
+                       box) -> DynState:
+    """Plain PyTorch version of the three dynamic kernels.
+
+    The step of ``_make_dynamic_kernel`` (dynamic.py:421-540) on every ray
+    at once, a frozen ray kept by selects; the kernels' order of
+    operations, one torch call each, so that on the card the two agree to
+    the bit.  The sign of q is three-valued (0 at 0), as ``jnp.sign``.
+    """
+    nag = nag_h_fn(field)
+    second = op in ("op6", "op8")
+    rk2 = op in ("op2", "op6")
+    ds32 = np.float32(delta_s)
+    ds = float(ds32)
+    dsds_half = float(ds32 * ds32 * np.float32(0.5))
+    half = float(ds32 * np.float32(0.5))
+    (x, y, cx, cy, ux, uy, tt, dsim, active, dpx, dpy, dth, sgn, kmah,
+     kdx, kdy, kdt, ktt) = st
+    f = nag(x, y)
+
+    for i in range(steps):
+        keep = active & (float(np.float32(i) + np.float32(offset))
+                         < step_limit)
+        n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy = f
+        dn = gnx * dpx + gny * dpy
+        dgx = hxx * dpx + hxy * dpy
+        dgy = hyx * dpx + hyy * dpy
+        dux = -dth * uy
+        duy = dth * ux
+
+        # position advance and its tangent
+        if second:
+            gdotu = gx * ux + gy * uy
+            inv_n = 1.0 / n
+            half_fac = dsds_half * inv_n
+            txx = gx - gdotu * ux
+            txy = gy - gdotu * uy
+            ddx = ux * ds + txx * half_fac
+            ddy = uy * ds + txy * half_fac
+            dgdotu = dgx * ux + dgy * uy + gx * dux + gy * duy
+            dtx = dgx - dgdotu * ux - gdotu * dux
+            dty = dgy - dgdotu * uy - gdotu * duy
+            ddpx = dux * ds + (dtx - txx * dn * inv_n) * half_fac
+            ddpy = duy * ds + (dty - txy * dn * inv_n) * half_fac
+        else:
+            ddx = ux * ds
+            ddy = uy * ds
+            ddpx = dux * ds
+            ddpy = duy * ds
+        nx2, cx2 = _kahan(x, cx, ddx)
+        ny2, cy2 = _kahan(y, cy, ddy)
+        dpx2, kdx2 = _kahan(dpx, kdx, ddpx)
+        dpy2, kdy2 = _kahan(dpy, kdy, ddpy)
+
+        f2 = nag(nx2, ny2)
+        n2, gx2, gy2, gnx2, gny2, hxx2, hxy2, hyx2, hyy2 = f2
+        dn2 = gnx2 * dpx2 + gny2 * dpy2
+        dgx2 = hxx2 * dpx2 + hxy2 * dpy2
+        dgy2 = hyx2 * dpx2 + hyy2 * dpy2
+
+        # angle update and its tangent
+        if rk2:
+            inv_n = 1.0 / n
+            inv_n2 = 1.0 / n2
+            cross1 = ux * gy - uy * gx
+            k1 = ds * cross1 * inv_n
+            ux1, uy1 = _rot(ux, uy, k1)
+            cross2 = ux1 * gy2 - uy1 * gx2
+            k2 = ds * cross2 * inv_n2
+            nux, nuy = _rot(ux, uy, (k1 + k2) * 0.5)
+            dcross1 = -dth * (ux * gx + uy * gy) + ux * dgy - uy * dgx
+            dk1 = ds * (dcross1 - cross1 * dn * inv_n) * inv_n
+            dth1 = dth + dk1
+            dcross2 = (-dth1 * (ux1 * gx2 + uy1 * gy2) + ux1 * dgy2
+                       - uy1 * dgx2)
+            dk2 = ds * (dcross2 - cross2 * dn2 * inv_n2) * inv_n2
+            ndth, kdt2 = _kahan(dth, kdt, (dk1 + dk2) * 0.5)
+        else:
+            sx = n * ux + (gx + gx2) * half
+            sy = n * uy + (gy + gy2) * half
+            inv = torch.rsqrt(sx * sx + sy * sy)
+            nux = sx * inv
+            nuy = sy * inv
+            dsx = dn * ux + n * dux + (dgx + dgx2) * half
+            dsy = dn * uy + n * duy + (dgy + dgy2) * half
+            # recomputed fresh each step, not accumulated: no compensation
+            ndth = (dsx * (-nuy) + dsy * nux) * inv
+            kdt2 = kdt
+
+        if second:
+            dist = torch.sqrt(ddx * ddx + ddy * ddy)
+            ntt, ktt2 = _kahan(tt, ktt, dist * (n + n2) * 0.5)
+            ndsim = dsim + dist
+        else:
+            ntt, ktt2 = _kahan(tt, ktt, ds * (n + n2) * 0.5)
+            ndsim = dsim + ds
+
+        # caustic bookkeeping: a sign transition of q
+        q2 = dpx2 * (-nuy) + dpy2 * nux
+        s_new = (q2 > 0).float() - (q2 < 0).float()
+        flip = keep & (sgn != 0.0) & (s_new != 0.0) & (s_new != sgn)
+        kmah = kmah + torch.where(flip, 1.0, 0.0)
+        sgn = torch.where(keep & (s_new != 0.0), s_new, sgn)
+
+        def sel(new, old):
+            return torch.where(keep, new, old)
+
+        active = active & ~(keep & _outside(nx2, ny2, box))
+        x, y, cx, cy = sel(nx2, x), sel(ny2, y), sel(cx2, cx), sel(cy2, cy)
+        ux, uy = sel(nux, ux), sel(nuy, uy)
+        f = tuple(sel(a, b) for a, b in zip(f2, f))
+        tt, dsim, ktt = sel(ntt, tt), sel(ndsim, dsim), sel(ktt2, ktt)
+        dpx, dpy, dth = sel(dpx2, dpx), sel(dpy2, dpy), sel(ndth, dth)
+        kdx, kdy, kdt = sel(kdx2, kdx), sel(kdy2, kdy), sel(kdt2, kdt)
+
+    return DynState(x=x, y=y, cx=cx, cy=cy, ux=ux, uy=uy, tt=tt, dsim=dsim,
+                    active=active, dpx=dpx, dpy=dpy, dth=dth, sgn=sgn,
+                    kmah=kmah, kdx=kdx, kdy=kdy, kdt=kdt, ktt=ktt)
+
+
+def _check_op(op: str) -> None:
+    if op not in DYN_FUSED_OPS:
+        raise ValueError(
+            f"dynamic kernel supports ops {DYN_FUSED_OPS} (the golden ops' "
+            f"tangent is zero a.e. — engine/dynamic.py), got {op!r}")
+
+
+def check_dyn_state(st: DynState) -> None:
+    """Device, dtype, shape and contiguity checks of a dynamic state."""
+    dev, r = st.x.device, st.x.shape[0]
+    for name, t in st._asdict().items():
+        want = torch.bool if name == "active" else torch.float32
+        if (not torch.is_tensor(t) or t.dtype != want or t.shape != (r,)
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"state.{name}: need a contiguous ({r},) {want} "
+                             f"tensor on {dev}")
+
+
+def dynamic_step(st: DynState, *, field, op: str, steps: int, delta_s,
+                 step_limit, offset=0.0, box) -> DynState:
+    """Advance a dynamic state ``steps`` steps: the kernels' wrapper.
+
+    ``field`` is the medium: an analytic field name (kernel
+    ``dynamic_step``), a :class:`StratTables` (``dynamic_step_strat``) or a
+    :class:`GridTables` (``dynamic_step_grid``).  ``offset`` is the number
+    of steps applied before this launch (``step_limit`` reads the global
+    step number), so k steps then n - k with offset k equal n steps.  A CPU
+    state runs :func:`dynamic_step_plain`; a CUDA state launches the
+    kernel.
+    """
+    if isinstance(field, str) and field not in DYN_FUSED_FIELDS:
+        raise ValueError(f"dynamic kernel supports fields {DYN_FUSED_FIELDS},"
+                         f" got {field!r}")
+    if not isinstance(field, (str, StratTables, GridTables)):
+        raise ValueError("a dynamic step's medium is a field name, "
+                         f"StratTables or GridTables, got "
+                         f"{type(field).__name__}")
+    _check_op(op)
+    check_dyn_state(st)
+    check_medium(field, st.x.device)
+    box = tuple(float(v) for v in box)
+    if st.x.device.type == "cpu":
+        return dynamic_step_plain(st, field=field, op=op, steps=int(steps),
+                                  delta_s=delta_s,
+                                  step_limit=float(step_limit),
+                                  offset=float(offset), box=box)
+    if st.x.device.type != "cuda":
+        raise ValueError(f"dynamic_step runs on cpu or cuda, not {st.x.device}")
+    out = DynState(*(torch.empty_like(t) for t in st))
+    kernel, suffix, lead, table = kernel_of(field, KERNELS)
+    lib = build.library()
+    with torch.cuda.device(st.x.device):
+        err = getattr(lib, "rt_dynamic_step" + suffix)(
+            lead, int(op[2:]), build.pointer_array(st),
+            build.pointer_array(out), st.x.shape[0], int(steps),
+            float(delta_s), float(step_limit), float(offset), *box, *table,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rt_dynamic_step" + suffix)
+    kernel.launches += 1
+    return out
+
+
+def _trace_final(pos0, theta0, delta_s, field, op, steps, box, device,
+                 step_limit) -> DynFinal:
+    _check_op(op)
+    st = initial_dyn_state(pos0, theta0, device=device)
+    st = dynamic_step(st, field=field, op=op, steps=steps, delta_s=delta_s,
+                      step_limit=steps if step_limit is None else step_limit,
+                      offset=0.0, box=box)
+    # the kernel carries n = nag(x, y) of the current position; the plain
+    # evaluator gives the same value at the final one
+    return final_from_dyn_state(st, nag_h_fn(field)(st.x, st.y)[0])
+
+
+def dynamic_trace_final(pos0, theta0, delta_s, *, field: str, op: str,
+                        steps: int, box, device="cuda",
+                        step_limit=None) -> DynFinal:
+    """Fused dynamic trace on an analytic field (dynamic.py:609): the
+    kinematics and the paraxial tangent in one launch of ``dynamic_step``.
+    ``step_limit`` (default ``steps``) freezes every ray after that many
+    steps."""
+    if field not in DYN_FUSED_FIELDS:
+        raise ValueError(f"dynamic kernel supports fields {DYN_FUSED_FIELDS},"
+                         f" got {field!r}")
+    return _trace_final(pos0, theta0, delta_s, field, op, steps, box, device,
+                        step_limit)
+
+
+def dynamic_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,
+                              steps: int, box, device="cuda",
+                              step_limit=None) -> DynFinal:
+    """Fused dynamic trace through a stratified medium, parity or C1
+    (dynamic.py:680), held on ``device``: one launch of
+    ``dynamic_step_strat`` on its 1-D cell tables."""
+    return _trace_final(pos0, theta0, delta_s, strat_tables(medium), op,
+                        steps, box, device, step_limit)

@@ -155,15 +155,17 @@ class NodeTables(NamedTuple):
     ny: int
 
 
-def strat_tables(medium) -> StratTables:
+def strat_tables(medium, dtype=torch.float32) -> StratTables:
     """Pack a stratified medium (parity or C1) into :class:`StratTables`, on
-    the medium's device.  The ONE definition the fused and golden wrappers
-    share."""
+    the medium's device.  The ONE definition the fused, golden and dynamic
+    wrappers share; the kernels read float32, the dynamic scan tier's
+    closed-form channels (engine/dynamic.py) the working ``dtype``."""
     if hasattr(medium, "cn"):            # C1StratifiedMedium
-        cells, ch = medium.cn.float(), 4
+        cells, ch = medium.cn.to(dtype), 4
     else:
-        zy = medium.Zy.float()
-        cells = torch.cat([zy[:-1, None], zy[1:, None], medium.cy.float()], 1)
+        zy = medium.Zy.to(dtype)
+        cells = torch.cat([zy[:-1, None], zy[1:, None], medium.cy.to(dtype)],
+                          1)
         ch = 6
     table = cells.new_zeros((medium.ny - 1, 8))
     table[:, :ch] = cells

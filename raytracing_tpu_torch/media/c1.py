@@ -1,8 +1,9 @@
 """Consistent-gradient ("C1") sampled media: n and grad n from ONE spline.
 
 Port of ``raytracing_tpu/media/c1.py``: ``hermite_dbasis`` (c1.py:49),
-``_hermite1`` (:62), ``c1_blend`` (:68), ``C1GridMedium`` (:138),
-``C1StratifiedMedium`` (:188), ``_n_spline_cells`` with scipy (:289),
+``hermite_d2basis`` (:56), ``_hermite1`` (:62), ``c1_blend`` (:68),
+``c1_blend_h`` (:101), ``C1GridMedium`` (:138), ``C1StratifiedMedium``
+(:188), ``_n_spline_cells`` with scipy (:289),
 ``c1_medium_from_samples`` (:305), ``build_c1_medium`` (:331),
 ``compact_c1_stratified`` (:338), ``c1_stratified_from_samples`` (:377) and
 ``build_c1_stratified`` (:394).
@@ -16,8 +17,8 @@ numbers a cell instead of the parity form's 36.  They diverge from
 reference parity on purpose (docs/PARITY.md in the JAX package).
 
 Layout: per-NODE Hermite data of S, ``(f, f_v, f_u, f_vu)`` in
-cell-normalized units, 4 channels a node.  ``c1_blend_h`` (:101) belongs to
-the dynamic kernels and is not ported yet.
+cell-normalized units, 4 channels a node.  ``c1_blend_h`` adds the patch's
+Hessian for the dynamic grid kernel (``kernels/dynamic.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,12 @@ def hermite_dbasis(t):
             -6.0 * t2 + 6.0 * t, 3.0 * t2 - 2.0 * t)
 
 
+def hermite_d2basis(t):
+    """Second derivatives (h00'', h10'', h01'', h11'') of the basis at t."""
+    return (12.0 * t - 6.0, 6.0 * t - 4.0,
+            -12.0 * t + 6.0, 6.0 * t - 2.0)
+
+
 def _hermite1(c, h):
     """Blend one corner-column stack c = (c0, c1) pairs with basis h."""
     h0, g0, h1, g1 = h
@@ -57,27 +64,43 @@ def c1_blend(corners, u, v, inv_hx, inv_hy):
     CUDA kernel (``c1_blend`` in csrc/media.cuh) keeps its order of
     operations.
     """
-    f = corners(0)
-    fv = corners(1)
-    fu = corners(2)
-    fw = corners(3)
     hv, dv = hermite_basis(v), hermite_dbasis(v)
     hu, du = hermite_basis(u), hermite_dbasis(u)
-
-    def vblend(basis):
-        # v-blend each corner COLUMN pair into cubic-in-u Hermite data:
-        # p0/p1 = S at the u=0/1 edges, m0/m1 = dS/du there (functions of v)
-        p0 = _hermite1((f[0], fv[0], f[2], fv[2]), basis)
-        p1 = _hermite1((f[1], fv[1], f[3], fv[3]), basis)
-        m0 = _hermite1((fu[0], fw[0], fu[2], fw[2]), basis)
-        m1 = _hermite1((fu[1], fw[1], fu[3], fw[3]), basis)
-        return p0, m0, p1, m1
-
-    col = vblend(hv)
+    col = _vblend(corners, hv)
     n = _hermite1(col, hu)
     gu = _hermite1(col, du)
-    gv = _hermite1(vblend(dv), hu)
+    gv = _hermite1(_vblend(corners, dv), hu)
     return n, gu * inv_hx, gv * inv_hy
+
+
+def _vblend(corners, basis):
+    """v-blend each corner COLUMN pair of the 4-channel patch into
+    cubic-in-u Hermite data (p0, m0, p1, m1): p0/p1 = S at the u = 0/1
+    edges, m0/m1 = dS/du there (functions of v)."""
+    f, fv, fu, fw = (corners(ch) for ch in range(4))
+    return (_hermite1((f[0], fv[0], f[2], fv[2]), basis),
+            _hermite1((fu[0], fw[0], fu[2], fw[2]), basis),
+            _hermite1((f[1], fv[1], f[3], fv[3]), basis),
+            _hermite1((fu[1], fw[1], fu[3], fw[3]), basis))
+
+
+def c1_blend_h(corners, u, v, inv_hx, inv_hy):
+    """(n, gx, gy, hxx, hxy, hyy): :func:`c1_blend` plus the Hessian of the
+    same bicubic patch, symmetric by construction (c1.py:101-134).  The
+    dynamic grid kernel's plain version (``kernels/dynamic.py``) calls it
+    with float32-exact ``inv_hx``/``inv_hy``, so the products
+    ``inv_hx * inv_hy`` round as the CUDA kernel's do."""
+    hv, dv, ddv = hermite_basis(v), hermite_dbasis(v), hermite_d2basis(v)
+    hu, du, ddu = hermite_basis(u), hermite_dbasis(u), hermite_d2basis(u)
+    col = _vblend(corners, hv)
+    col_dv = _vblend(corners, dv)
+    n = _hermite1(col, hu)
+    gx = _hermite1(col, du) * inv_hx
+    gy = _hermite1(col_dv, hu) * inv_hy
+    hxx = _hermite1(col, ddu) * (inv_hx * inv_hx)
+    hxy = _hermite1(col_dv, du) * (inv_hx * inv_hy)
+    hyy = _hermite1(_vblend(corners, ddv), hu) * (inv_hy * inv_hy)
+    return n, gx, gy, hxx, hxy, hyy
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

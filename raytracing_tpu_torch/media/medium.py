@@ -1,17 +1,20 @@
 """Medium abstraction: everything the integrator needs is ``n_and_grad``.
 
-Port of ``raytracing_tpu/media/medium.py``: ``AnalyticMedium`` (medium.py:30)
-and ``analytic_medium`` (:43).  A medium is a small frozen dataclass with
-one method::
+Port of ``raytracing_tpu/media/medium.py``: ``AnalyticMedium`` (medium.py:30),
+``analytic_medium`` (:43) and ``CustomMedium`` (:49-79).  A medium is a small
+frozen dataclass with one method::
 
     n, (dndx, dndy) = medium.n_and_grad(x, y)
 
-``CustomMedium`` (medium.py:51) is not ported yet: its kernel form
-(``kernels/fused.py::_custom_nag``) is off this slice (ROADMAP.md §2 item 4).
+``CustomMedium`` runs on the scan tiers (``engine/trace.py``,
+``engine/dynamic.py``); its kernel form (``kernels/fused.py::_custom_nag``)
+is not ported (ROADMAP.md §2 item 4), so ``fast_trace`` refuses it.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from raytracing_tpu_torch.media import fields as _fields
 
@@ -34,3 +37,28 @@ def analytic_medium(field: str) -> AnalyticMedium:
     if field not in _fields.FIELDS:
         raise ValueError(f"unknown field {field!r}; have {sorted(_fields.FIELDS)}")
     return AnalyticMedium(field)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CustomMedium:
+    """User-defined medium: any elementwise torch function n(x, y), its
+    gradient by forward-mode autodiff (``torch.func.jvp``), or from a
+    hand-written ``grad_fn(x, y) -> (dndx, dndy)`` where autodiff through
+    the field is ill-conditioned.  A second ``jvp`` (the dynamic tier's
+    tangent) gives the Hessian."""
+
+    n_fn: object                 # callable (x, y) -> n, elementwise
+    grad_fn: object = None       # optional callable (x, y) -> (dndx, dndy)
+
+    def n_and_grad(self, x, y):
+        n = self.n_fn(x, y)
+        if self.grad_fn is not None:
+            return n, self.grad_fn(x, y)
+        ones = torch.ones_like(x)
+        zeros = torch.zeros_like(x)
+        _, dndx = torch.func.jvp(self.n_fn, (x, y), (ones, zeros))
+        _, dndy = torch.func.jvp(self.n_fn, (x, y), (zeros, ones))
+        return n, (dndx, dndy)
+
+    def n(self, x, y):
+        return self.n_fn(x, y)

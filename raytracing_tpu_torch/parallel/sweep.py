@@ -37,7 +37,8 @@ import torch
 
 from raytracing_tpu_torch import config
 from raytracing_tpu_torch.engine import oracles
-from raytracing_tpu_torch.engine.trace import initial_state, run_steps
+from raytracing_tpu_torch.engine.trace import (
+    _torch_dtype, initial_state, run_steps)
 from raytracing_tpu_torch.ops.registry import build_op, canonical
 
 _MESH_TODO = ("sharding a sweep over a device mesh is not ported yet: "
@@ -126,14 +127,6 @@ def find_index_vert(errors, max_dev=config.MAX_MOMENTUM_CV_PCT):
             if all(e < max_dev for e in errors[:i - 1]):
                 return i - 1
     return None
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch or numpy dtype (or its name)."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return {np.dtype(np.float32): torch.float32,
-            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
 def _np(t):

@@ -123,7 +123,6 @@ def test_op_for_choice_matches_jax():
     (["--scenario", "vert", "--plot", "static"], "item 12"),
     (["--scenario", "vert", "--plot", "movie"], "item 12"),
     ([], "item 12"),
-    (["--eigenrays", "0", "0"], "item 15"),
     (["--eigenrays3", "0", "0", "0"], "item 17"),
 ])
 def test_parser_refuses_what_is_not_ported(args, item, capsys):

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 analytic-media kernels, the sampled-media ones (stratified tables and the
 2-D grid, parity and C1), the grid sweep (per-ray step sizes) and the
-node-table kernel; and segmented_trace and the DELTA_S search on the card.
+node-table kernel; segmented_trace and the DELTA_S search on the card; and
+the three dynamic kernels, fast_dynamic and the eigenray solver on the card.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import raytracing_tpu_torch as rtt  # noqa: E402
 from raytracing_tpu_torch.engine import segmented as seg  # noqa: E402
+from raytracing_tpu_torch.kernels import dynamic as kd  # noqa: E402
 from raytracing_tpu_torch.kernels import fisheye as kf  # noqa: E402
 from raytracing_tpu_torch.kernels import fused as kfu  # noqa: E402
 from raytracing_tpu_torch.kernels import golden as kg  # noqa: E402
@@ -313,3 +315,67 @@ def test_segmented_trace_and_search_on_the_card(cuda_device):
                                device=cuda_device)
     assert res.engine == "fused" and res.index is not None
     assert kfu.KERNEL_SWEEP_GRID.launches == before + 1
+
+
+# -- the dynamic kernels ------------------------------------------------------
+DYN_MEDIA = [("analytic", f, None) for f in kd.DYN_FUSED_FIELDS] + [
+    m for m in MEDIA if m != ("strat", "interface", "c1")]
+
+
+def _dyn_field(kind, field, family, device):
+    return field if kind == "analytic" else _tables(kind, field, family,
+                                                    device)
+
+
+@pytest.mark.parametrize("kind,field,family", DYN_MEDIA)
+@pytest.mark.parametrize("op", kd.DYN_FUSED_OPS)
+def test_dynamic_kernels_match_plain(op, kind, field, family, cuda_device):
+    """Each dynamic kernel equals its plain version in all 18 planes to the
+    bit, and k + (n - k) steps equal n."""
+    tab = _dyn_field(kind, field, family, cuda_device)
+    pos0, theta0, ds, box = _fan(field)
+    st = kd.initial_dyn_state(pos0, theta0, device=cuda_device)
+    kw = dict(field=tab, op=op, steps=120, delta_s=ds, step_limit=120,
+              offset=0.0, box=box)
+    info = kd.KERNELS[("analytic", "strat", "grid").index(kind)]
+    before = info.launches
+    got = kd.dynamic_step(st, **kw)
+    assert info.launches == before + 1
+    want = kd.dynamic_step_plain(st, **kw)
+    for name, a, b in zip(kd.DynState._fields, got, want):
+        assert torch.equal(a, b), name
+    part = kd.dynamic_step(st, **{**kw, "steps": 50})
+    two = kd.dynamic_step(part, **{**kw, "steps": 70, "offset": 50.0})
+    for name, a, b in zip(kd.DynState._fields, got, two):
+        assert torch.equal(a, b), name
+
+
+def test_fast_dynamic_and_eigenrays_on_the_card(cuda_device):
+    """fast_dynamic launches the three kernels (golden ops run the scan
+    tier), and the eigenray solver runs on the card at float64."""
+    fish = rtt.scenario("fisheye")
+    vert = rtt.scenario("vert")
+    before = [k.launches for k in kd.KERNELS]
+    fkw = dict(delta_s=2 * np.pi / 300, pos0=fish.pos0, theta0=fish.theta0,
+               steps=299, device=cuda_device)
+    engines = [
+        rtt.fast_dynamic("op6", fish, rtt.analytic_medium("fisheye"),
+                         **fkw)[1],
+        rtt.fast_dynamic("op6", vert, rtt.build_c1_stratified(
+            vert.field, vert.box, device=cuda_device), delta_s=0.05,
+            pos0=vert.pos0, theta0=vert.theta0, device=cuda_device)[1],
+        rtt.fast_dynamic("op6", fish, rtt.build_grid_medium(
+            "fisheye", fish.box, 0.05, device=cuda_device), **fkw)[1],
+        rtt.fast_dynamic("op5", fish, rtt.analytic_medium("fisheye"),
+                         **{**fkw, "steps": 20})[1]]
+    assert engines == ["dynamic-kernel", "dynamic-kernel-strat",
+                       "dynamic-kernel-grid", "dynamic-scan"]
+    assert [k.launches - b for k, b in zip(kd.KERNELS, before)] == [1, 1, 1]
+    eig = rtt.find_eigenrays(
+        "op6", rtt.analytic_medium("vert_heterogeneous"), source=(0, 0),
+        receivers=[(3, -1)], delta_s=0.005, max_size=2000,
+        box=(-2, 5, -2.5, 1), fan=(-1.2, 0.6, 128), tol=1e-12,
+        device=cuda_device)
+    t_exact = np.arccosh(1 + 4.0 * 10.0 / (2 * 18.0 * 16.0)) / 2.0
+    assert len(eig.theta0) == 1 and bool(eig.converged[0])
+    assert abs(eig.traveltime[0] / t_exact - 1) < 2e-7

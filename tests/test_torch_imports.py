@@ -49,12 +49,17 @@ def test_port_file_imports_no_jax(path):
     assert forbidden_imports(path.read_text()) == []
 
 
-#: the search path's modules (the guard above parses every port file; this
-#: pins that they exist and that importing them loads no JAX module)
+#: the search path's modules and the dynamic path's (the guard above parses
+#: every port file; this pins that they exist and that importing them loads
+#: no JAX module)
 SEARCH_PATH = ("raytracing_tpu_torch.utils.checkpoint",
                "raytracing_tpu_torch.parallel.sweep",
                "raytracing_tpu_torch.cli",
-               "raytracing_tpu_torch.engine.segmented")
+               "raytracing_tpu_torch.engine.segmented",
+               "raytracing_tpu_torch.engine.dynamic",
+               "raytracing_tpu_torch.engine.eigenray",
+               "raytracing_tpu_torch.kernels.dynamic",
+               "raytracing_tpu_torch.interop")
 
 
 def test_search_path_modules_import_without_jax():
