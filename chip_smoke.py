@@ -8,7 +8,7 @@ either is missing or any check fails.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
-2. build: the twelve CUDA kernels compiled from raytracing_tpu_torch/csrc
+2. build: the sixteen CUDA kernels compiled from raytracing_tpu_torch/csrc
    (one nvcc a source, all at once), then the reference's sampled media
    built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
@@ -71,19 +71,36 @@ either is missing or any check fails.  Phases, one line or more each:
    ray (the float64 scan tier, then the kernel), each run against
    trace_dynamic at float64 on 4,096 rays at the JAX package's bars (on
    the sampled media its tangent from torch.func.jvp of the op6 step, not
-   from the kernels' channel evaluators), each run against a direct launch
+   from the kernels' channel evaluators; the fisheye's also inside
+   torch.inference_mode(), equal to the bit), each run against a direct launch
    of its kernel at the full shape and against dynamic_step_plain at 2**20
    rays and at most 300 steps, to the bit, and the kernels' times;
 13. ``[eigenrays]`` on the card at float64: the TL field map of
    examples/tl_field_map.py with that example's asserts, the Slotnick
    two-point traveltime, and one ``python -m raytracing_tpu_torch.cli
-   --eigenrays`` run.
+   --eigenrays`` run;
+14. the df32 tier: ``[df32-vs-plain]`` the four df kernels on their five
+   media (the analytic fisheye and vert, the reference's parity and C1
+   fisheye grids split into hi/lo words, the Munk profile) against
+   df_step_plain at 65,536 rays, the analytic fields at most 1,000 steps
+   (vert 500), the tables 200, all 8 planes to the bit, with a resume check
+   each; ``[df32]`` the df32 main path: fast_trace(precision="high") on the
+   fisheye at 2**20 rays for one turn at the headline divisor (median of 5,
+   the one-turn error against the circle, the north-star RMS over ten
+   prefixes read from resumed segments), the ORACLES ten-turn closure
+   (4,096 rays, 45,870 steps), vert at 2**20 rays x 500 steps,
+   df_grid_trace on both grids (256 rays for ten turns, 2**20 for one) and
+   on the Munk profile (2**20 rays, 1,500 steps); then its checks: vert and
+   the profile against the float64 scan tier on 4,096 rays,
+   DfEvalProfile.n_and_grad on the card against the CPU on 2**20 depths,
+   and each kernel's time at its main shape beside its bound.
 
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
-the search path and phase 12 the dynamic one: every launch count is set to
-0 just before each and read just after, and each kernel of that path must
-have launched; the launches phases 3, 7, 8, 10, 11 and 12's checks make to
-compare and time a kernel are not counted.  The second-last line is a JSON
+the search path, phase 12 the dynamic one and phase 14's ``[df32]`` the
+df32 one: every launch count is set to 0 just before each and read just
+after, and each kernel of that path must have launched; the launches
+phases 3, 7, 8, 10, 11, 12's checks and 14's checks make to compare and
+time a kernel are not counted.  The second-last line is a JSON
 object with one entry per kernel (its launches on its main path, largest
 |dpos| against the plain version, times, and the bound: the larger of its
 FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the last
@@ -164,6 +181,8 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
+#: the rays of the head a plain version runs on to count its operations
+HEAD_RAYS = 8
 #: the aten operations that are FP32 arithmetic (one per element)
 _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt", "exp",
           "floor", "clamp", "clamp_min", "clamp_max", "minimum", "maximum",
@@ -171,23 +190,28 @@ _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt", "exp",
 
 
 class _OpCounter(TorchDispatchMode):
-    """Counts the elementwise arithmetic calls a plain version makes."""
+    """Counts the elementwise arithmetic a plain version performs on a head
+    of HEAD_RAYS rays: a call counts the elements it computes a ray (at
+    least 1, so a per-step scalar counts once)."""
 
     def __init__(self):
         super().__init__()
         self.n = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
         if func.overloadpacket.__name__.rstrip("_") in _ARITH:
-            self.n += 1
-        return func(*args, **(kwargs or {}))
+            self.n += (max(1, out.numel() // HEAD_RAYS)
+                       if torch.is_tensor(out) else 1)
+        return out
 
 
 def ops_per_step(plain):
     """FP32 operations a ray-step of a kernel: its plain version, which
-    performs the kernel's operations one torch call each, run for 1 and 2
-    steps (``plain(steps)``) under a counter; selects, gathers and copies
-    are not arithmetic and are not counted."""
+    performs the kernel's operations one torch call each (a call may
+    compute several elements a ray), run on a head of HEAD_RAYS rays for 1
+    and 2 steps (``plain(steps)``) under a counter; selects, gathers and
+    copies are not arithmetic and are not counted."""
     counts = []
     for k in (1, 2):
         with _OpCounter() as c:
@@ -293,15 +317,16 @@ def phase_build():
 
 
 def kernel_infos():
-    """The twelve kernels' KernelInfos, analytic first, the dynamic three
-    last."""
+    """The sixteen kernels' KernelInfos, analytic first, then the dynamic
+    three and the four df32 ones."""
     from raytracing_tpu_torch.kernels import dynamic as kd
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
+    from raytracing_tpu_torch.kernels import df as kdf
     return (kf.KERNEL, kfu.KERNEL, kg.KERNEL, kfu.KERNEL_STRAT,
             kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID,
-            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS
+            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS + kdf.KERNELS
 
 
 def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -472,7 +497,8 @@ def phase_headline(device, errs, rays=RAYS_MAIN, divisor=HEADLINE_DIVISOR):
     # the bound: every ray integrates every step (the fisheye never exits);
     # 4 input and 3 output planes
     ops = ops_per_step(lambda k: kf.fisheye_op1_plain(
-        x[:8], y[:8], torch.cos(th[:8]), torch.sin(th[:8]), ds, k))
+        x[:HEAD_RAYS], y[:HEAD_RAYS], torch.cos(th[:HEAD_RAYS]),
+        torch.sin(th[:HEAD_RAYS]), ds, k))
     bms, by = bound(ops * rays * steps, 7 * 4 * rays)
     print(f"  fisheye_op1 bound {bms:.3f} ms ({by}: {ops} FP32 ops a "
           f"ray-step)", flush=True)
@@ -566,7 +592,7 @@ def timed_bound(kernel, plain, st, out, tables, ds, steps):
     return bms, by
 
 
-def head(st, n=8):
+def head(st, n=HEAD_RAYS):
     """The first ``n`` rays of a resume state (for counting operations)."""
     return type(st)(*(None if t is None else t[:n].contiguous() for t in st))
 
@@ -981,8 +1007,8 @@ def phase_sweep_vs_plain(device, media):
                   flush=True)
             if kind == "grid" and op == "op1":
                 plain_pos = torch.stack([p.x, p.y], -1)
-                ops = ops_per_step(lambda n: plain(head(st), n, ds[:8],
-                                                   lim[:8]))
+                ops = ops_per_step(lambda n: plain(
+                    head(st), n, ds[:HEAD_RAYS], lim[:HEAD_RAYS]))
                 live = float(torch.clamp(torch.round(
                     k.dsim.double() / ds.double()), max=steps).sum())
                 cells = visited_cells(lambda: plain(st, steps), tables)
@@ -1561,16 +1587,30 @@ def dyn_oracle(device, name, r):
     t0 = time.perf_counter()
     saved, hand = edyn.HAND_TANGENT, isinstance(med, rtt.AnalyticMedium)
     edyn.HAND_TANGENT = hand
+    kw = dict(delta_s=r.ds, device=device, mode="history"
+              if name == "fisheye" else "metrics", dtype=torch.float64,
+              pos0=r.pos0[sub], theta0=r.theta0[sub], max_size=steps + 1,
+              step_limit=steps)
     try:
-        ref = rtt.trace_dynamic(r.op, r.scen, med, delta_s=r.ds,
-                                device=device, mode="history"
-                                if name == "fisheye" else "metrics",
-                                dtype=torch.float64, pos0=r.pos0[sub],
-                                theta0=r.theta0[sub], max_size=steps + 1,
-                                step_limit=steps)
+        ref = rtt.trace_dynamic(r.op, r.scen, med, **kw)
+        secs = time.perf_counter() - t0
+        if name == "fisheye":
+            # the same trace inside torch.inference_mode(): the tangent must
+            # not change (ROADMAP.md §3, closed in the df32 slice)
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                inside = rtt.trace_dynamic(r.op, r.scen, med, **kw)
+            same = all(torch.equal(getattr(ref, f), getattr(inside, f))
+                       for f in ("q", "dtheta", "kmah"))
+            print(f"  fisheye under torch.inference_mode(), {len(ref.q)} "
+                  f"rays x {steps} steps ({time.perf_counter() - t1:.1f} s):"
+                  f" q, dtheta, KMAH {'equal' if same else 'DIFFER'} to the "
+                  f"bit; KMAH 1 on {int((inside.kmah == 1).sum())} rays "
+                  f"inside, {int((ref.kmah == 1).sum())} outside", flush=True)
+            if not (same and bool((inside.kmah == 1).all())):
+                fail("fisheye: trace_dynamic differs in inference mode")
     finally:
         edyn.HAND_TANGENT = saved
-    secs = time.perf_counter() - t0
     if steps == r.steps:
         got = type(r.res)(*(t[sub] for t in r.res))
     else:
@@ -1806,6 +1846,345 @@ def phase_eigenrays(device):
         fail(f"eigenrays: the CLI run failed: {stderr[-2000:]}")
 
 
+# -- the df32 tier (kernels/df.py, engine/df_grid.py) -----------------------
+#: depths of [df32-vs-plain]: the analytic fields' plain versions take ~12 ms
+#: a step on the card's host, the tables' ~40-60 ms
+DF_CAP_ANALYTIC = 1000
+DF_CAP_TABLES = 200
+#: the vert runs' depth: from (-2, -2) at U[0.5, 1.3] the rays stay above
+#: -3 for 500 steps (tests/test_df.py:73-95); deeper ones cross the field's
+#: pole at y = -9, which the df tier (no box) would integrate through
+DF_VERT_STEPS = 500
+DF_PROFILE_STEPS = 1500
+DF_TEN_TURNS = 10 * HEADLINE_DIVISOR
+# bars: the one-turn error against the analytic circle (bench.py:682-692),
+# the north-star RMS over ten prefixes (tests/test_df.py:33-56), the
+# ORACLES rows (bench.py:519-567), vert and the profile against the float64
+# scan tier (tests/test_df.py:92-95, tests/test_df_grid.py:162-187)
+DF_BARS = {"one_turn": 6e-7, "rms": 5e-7, "ten_turn": 1e-5, "vert": 1e-6,
+           "grid_ten_turn": 5e-3, "c1_ten_turn": 1e-4, "profile": 2e-7}
+
+
+def df_bound(name, medium, st, steps):
+    """(bound_ms, bound_by) of one df launch of ``steps`` steps on the state
+    ``st``: its operations over every ray-step (the df tier has no box: no
+    ray freezes), counted from its plain version on the state's head (the
+    table media evaluate a row's spline blocks in one call an operation,
+    each element counted); its bytes the eight planes in and out and the
+    medium's packed table once (all of it: the operations bound it either
+    way)."""
+    from raytracing_tpu_torch.kernels import df as kdf
+    few = head(st)
+    ops = ops_per_step(lambda k: kdf.df_step_plain(few, medium, 0.01, k))
+    tables = getattr(medium, "kernel_tables", ())
+    nbytes = 2 * state_bytes(st) + state_bytes(
+        tables if isinstance(tables, tuple) else (tables,))
+    bms, by = bound(ops * st.xh.shape[0] * float(steps), nbytes)
+    print(f"    {name} bound {bms:.3f} ms ({by}: {ops} FP32 ops a ray-step)",
+          flush=True)
+    return bms, by
+
+
+def build_df_media(device):
+    """The split-word media of the reference's grid (DELTA, 511 x 511 fisheye
+    nodes), parity and C1, and the Munk profile, built on the card."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine import df_grid as dg
+    t0 = time.perf_counter()
+    box = rtt.scenario("fisheye").box
+    depth, c = munk_profile()
+    media = {"grid": dg.build_df_grid_medium("fisheye", box, device=device),
+             "c1": dg.build_df_c1_medium("fisheye", box, device=device),
+             "profile": dg.df_c1_profile_from_samples(c.min() / c, depth,
+                                                      device=device)}
+    print(f"[df32] split-word media built in {time.perf_counter() - t0:.1f} "
+          "s: the parity and C1 fisheye grids (511 x 511), the Munk profile",
+          flush=True)
+    return media
+
+
+def df_launch(kind, rays, rng):
+    """(pos0, theta0, delta_s) of a df run: the fisheye's one ray with
+    +-1e-3 rad of jitter (the tables' too), vert from (-2, -2) at
+    U[0.5, 1.3], the profile's rays near the Munk channel's axis at
+    U[-0.08, 0.08] rad (they stay between depth -3 and 0)."""
+    import raytracing_tpu_torch as rtt
+    if kind == "vert_heterogeneous":
+        return (np.full((rays, 2), -2.0),
+                rng.uniform(0.5, 1.3, rays).astype(np.float32).astype(
+                    np.float64), float(np.float32(0.0193)))
+    if kind == "profile":
+        return (np.stack([np.zeros(rays), -1.0 + rng.uniform(-0.2, 0.2,
+                                                             rays)], -1),
+                rng.uniform(-0.08, 0.08, rays), float(np.float32(0.01)))
+    pos0, theta0 = fan(rtt.scenario("fisheye"), rays, rng)
+    return pos0, theta0, float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
+
+
+def df_state(kind, pos0, theta0, device):
+    from raytracing_tpu_torch.engine import df_grid as dg
+    from raytracing_tpu_torch.kernels import df as kdf
+    if kind in kdf.DF_FIELDS:
+        return kdf.initial_df_state(pos0, theta0, device=device)
+    return dg.split_state(pos0, theta0, device=device)
+
+
+def df_exact(label, k, p):
+    """A df kernel's 8 planes against its plain version's, to the bit;
+    prints the largest |dpos| (hi + lo).  Returns it."""
+    from raytracing_tpu_torch.kernels import df as kdf
+    dpos = float((kdf.df_positions(k) - kdf.df_positions(p)).abs().max())
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    print(f"  {label}: |dpos| {dpos:.3e}, all 8 planes "
+          f"{'equal' if same else 'DIFFER'} (bit parity required)",
+          flush=True)
+    if not same:
+        fail(f"{label}: kernel differs from its plain version")
+    return dpos
+
+
+def phase_df_vs_plain(device, media, rays=RAYS_CHECK):
+    """The four df kernels on their five media against df_step_plain at
+    65,536 rays (jitter from numpy seed 0), the analytic fields at most
+    DF_CAP_ANALYTIC steps (vert DF_VERT_STEPS), the tables DF_CAP_TABLES;
+    every plane to the bit, and k + (n - k) steps against n.  Returns
+    {kernel: Errors}."""
+    from raytracing_tpu_torch.kernels import df as kdf
+    rng = np.random.default_rng(0)
+    errs = {k.name: Errors() for k in kdf.KERNELS}
+    before = {k.name: k.launches for k in kdf.KERNELS}
+    print(f"[df32-vs-plain] {rays} rays, the analytic fields at most "
+          f"{DF_CAP_ANALYTIC} steps, the tables {DF_CAP_TABLES}", flush=True)
+    for kind, name in (("fisheye", "df_step"),
+                       ("vert_heterogeneous", "df_step"),
+                       ("grid", "df_step_grid"), ("c1", "df_step_c1"),
+                       ("profile", "df_step_profile")):
+        medium = media.get(kind, kind)
+        pos0, theta0, ds = df_launch(kind, rays, rng)
+        steps = (DF_VERT_STEPS if kind == "vert_heterogeneous"
+                 else DF_CAP_ANALYTIC if kind in kdf.DF_FIELDS
+                 else DF_CAP_TABLES)
+        st = df_state(kind, pos0, theta0, device)
+        k_ms, k = cuda_ms(lambda: kdf.df_step(st, medium, ds, steps))
+        p_ms, p = cuda_ms(lambda: kdf.df_step_plain(st, medium, ds, steps))
+        dpos = df_exact(f"{name} {kind} {steps} steps (kernel {k_ms:.3f} "
+                        f"ms, plain {p_ms:.1f} ms)", k, p)
+        errs[name].pos = max(errs[name].pos, dpos)
+        cut = steps // 3
+        resume_check(f"{name} {kind}", k, kdf.df_step(
+            kdf.df_step(st, medium, ds, cut), medium, ds, steps - cut))
+    for k in kdf.KERNELS:
+        delta = k.launches - before[k.name]
+        print(f"  {k.name}: {delta} launches in this phase", flush=True)
+        if delta <= 0:
+            fail(f"{k.name} was not launched against its plain version")
+    return errs
+
+
+class DfRun(NamedTuple):
+    """One run of the df32 main path: its kernel, its medium (a field name
+    or a split-word medium), the launch state the entry point built, its
+    step and depth, its launch inputs, and the positions it returned."""
+
+    kernel: str
+    medium: Any
+    st: Any
+    ds: float
+    steps: int
+    pos0: Any
+    theta0: Any
+    pos: Any
+
+
+def phase_df(device, media, rays=RAYS_MAIN):
+    """The df32 main path through the entry points users call:
+    fast_trace(precision="high") on the fisheye (one turn at the headline
+    divisor, the headline's fan, timed) and on vert, df_trace for the
+    ORACLES ten-turn closure, df_grid_trace on the parity and C1 fisheye
+    grids (ten turns at 256 rays, one turn at 2^20) and on the Munk
+    profile; each held to its oracle.  Returns {run: DfRun} of the 2^20-ray
+    runs."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.kernels import df as kdf
+    fish = rtt.scenario("fisheye")
+    ds = float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
+    pos0, theta0 = fan(fish, rays)
+    kw = dict(delta_s=ds, pos0=pos0, theta0=theta0, divisor=HEADLINE_DIVISOR,
+              n_turns=1, precision="high", device=device)
+    med = rtt.analytic_medium("fisheye")
+    f_ms, res = median_ms(lambda: rtt.fast_trace("op12", fish, med, **kw))
+    steps = fish.max_size(ds, HEADLINE_DIVISOR, 1) - 1
+    sarc = steps * ds
+    err = float(np.linalg.norm(res.pos[0].cpu().numpy()
+                               - [math.cos(sarc), math.sin(sarc)]))
+    print(f"[df32] fast_trace op12 fisheye precision='high': engine="
+          f"{res.engine}, {rays} rays x {steps} steps in {f_ms:.3f} ms "
+          f"(median of 5 after a warm-up, CUDA events), ray 0's one-turn "
+          f"error against the circle {err:.3e} (bar {DF_BARS['one_turn']})",
+          flush=True)
+    if res.engine != "df32" or not err < DF_BARS["one_turn"]:
+        fail("df32: the one-turn fisheye trace")
+    # fast_trace launches from the float32 position and angle
+    runs = {"fisheye": DfRun("df_step", "fisheye", kdf.initial_df_state(
+        pos0.astype(np.float32), theta0.astype(np.float32), device=device),
+        ds, steps, pos0, theta0, res.pos)}
+    # the north-star RMS: ten evenly spaced prefixes of the same turn, each
+    # read from the state of a resumed segment
+    st = runs["fisheye"].st
+    done, sq = 0, []
+    for frac in range(1, 11):
+        n = HEADLINE_DIVISOR * frac // 10
+        st = kdf.df_step(st, "fisheye", ds, n - done)
+        done = n
+        p = kdf.df_positions(st)[0].cpu().numpy()
+        sq.append(np.linalg.norm(p - [math.cos(n * ds), math.sin(n * ds)])
+                  ** 2)
+    rms = float(np.sqrt(np.mean(sq)))
+    print(f"  north-star RMS over 10 prefixes of the turn {rms:.3e} (bar "
+          f"{DF_BARS['rms']})", flush=True)
+    ten = kdf.df_trace(pos0[:4096], theta0[:4096], ds, steps=DF_TEN_TURNS,
+                       device=device)
+    closure = float(np.linalg.norm(ten[0].cpu().numpy() - [1.0, 0.0]))
+    print(f"  df32_10turn_closure_abs: 4096 rays x {DF_TEN_TURNS} steps, "
+          f"{closure:.3e} (bar {DF_BARS['ten_turn']})", flush=True)
+    if not (rms < DF_BARS["rms"] and closure < DF_BARS["ten_turn"]):
+        fail("df32: the north-star RMS or the ten-turn closure")
+
+    rng = np.random.default_rng(0)
+    vpos, vth, vds = df_launch("vert_heterogeneous", rays, rng)
+    vres = rtt.fast_trace("op12", rtt.scenario("vert"),
+                          rtt.analytic_medium("vert_heterogeneous"),
+                          delta_s=vds, pos0=vpos, theta0=vth,
+                          steps=DF_VERT_STEPS, precision="high",
+                          device=device)
+    print(f"[df32] fast_trace op12 vert precision='high': engine="
+          f"{vres.engine}, {rays} rays x {DF_VERT_STEPS} steps", flush=True)
+    if vres.engine != "df32":
+        fail("df32: vert did not run the df32 kernel")
+    runs["vert"] = DfRun("df_step", "vert_heterogeneous",
+                         kdf.initial_df_state(vpos.astype(np.float32),
+                                              vth.astype(np.float32),
+                                              device=device),
+                         vds, DF_VERT_STEPS, vpos, vth, vres.pos)
+
+    for kind, bar in (("grid", "grid_ten_turn"), ("c1", "c1_ten_turn")):
+        t0 = time.perf_counter()
+        p10 = rtt.df_grid_trace(pos0[:256], theta0[:256], ds, media[kind],
+                                steps=DF_TEN_TURNS, device=device)
+        sync()
+        gerr = float(np.linalg.norm(p10[0].cpu().numpy() - [1.0, 0.0]))
+        one = rtt.df_grid_trace(pos0, theta0, ds, media[kind], steps=steps,
+                                device=device)
+        sync()
+        print(f"[df32] df_grid_trace {kind}: 256 rays x {DF_TEN_TURNS} steps"
+              f" closure {gerr:.3e} (bar {DF_BARS[bar]}), then {rays} rays "
+              f"x {steps} steps, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if not gerr < DF_BARS[bar]:
+            fail(f"df32: the {kind} ten-turn closure")
+        runs[kind] = DfRun(f"df_step_{kind}", media[kind],
+                           df_state(kind, pos0, theta0, device), ds, steps,
+                           pos0, theta0, one)
+    ppos, pth, pds = df_launch("profile", rays, rng)
+    pres = rtt.df_grid_trace(ppos, pth, pds, media["profile"],
+                             steps=DF_PROFILE_STEPS, device=device)
+    sync()
+    print(f"[df32] df_grid_trace Munk profile: {rays} rays x "
+          f"{DF_PROFILE_STEPS} steps at {pds}", flush=True)
+    runs["profile"] = DfRun("df_step_profile", media["profile"],
+                            df_state("profile", ppos, pth, device), pds,
+                            DF_PROFILE_STEPS, ppos, pth, pres)
+    return runs
+
+
+def phase_df_checks(device, errs, runs):
+    """The df32 main path's checks: vert and the Munk profile against the
+    float64 scan tier (every 256th ray), DfEvalProfile on the card against
+    the CPU; then each 2^20-ray run's result against a direct launch of its
+    kernel on the same launch state (every ray to the bit), that kernel
+    against df_step_plain at min(steps, MAIN_PLAIN_CAP) steps (all 8 planes
+    to the bit), and each kernel's time at its main shape beside its bound
+    and its plain version's there.  Returns ({kernel: times}, the seconds
+    of those comparisons)."""
+    import dataclasses
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.kernels import df as kdf
+    print("[df32] checks", flush=True)
+    v = runs["vert"]
+    sub = slice(None, None, v.pos0.shape[0] // DYN_ORACLE_RAYS)
+    big = dataclasses.replace(rtt.scenario("vert"),
+                              box=(-1e9, 1e9, -1e9, 1e9))
+    ref = rtt.trace("op12", big, rtt.analytic_medium("vert_heterogeneous"),
+                    delta_s=v.ds, max_size=v.steps + 1, mode="metrics",
+                    dtype=torch.float64, pos0=v.pos0[sub],
+                    theta0=v.theta0[sub], device=device)
+    verr = float((v.pos[sub] - ref.final.pos).norm(dim=1).max())
+    pr = runs["profile"]
+    depth, c = munk_profile()
+    chan = dataclasses.replace(rtt.scenario("vert"), name="profile",
+                               gamma=1.0, box=(-1e6, 1e6, -3.0, 0.0))
+    pref = rtt.trace("op12", chan, rtt.c1_stratified_from_samples(
+        c.min() / c, depth, dtype=torch.float64, device=device),
+        delta_s=pr.ds, max_size=pr.steps + 1, mode="metrics",
+        dtype=torch.float64, pos0=pr.pos0[sub], theta0=pr.theta0[sub],
+        device=device)
+    perr = float((pr.pos[sub] - pref.final.pos).abs().max())
+    print(f"  vert against the float64 op12 scan tier, {len(ref.final.pos)} "
+          f"rays x {v.steps} steps: max |dpos| {verr:.3e} (bar "
+          f"{DF_BARS['vert']}); the Munk profile, {len(pref.final.pos)} rays"
+          f" x {pr.steps} steps: {perr:.3e} (bar {DF_BARS['profile']})",
+          flush=True)
+    if not (verr < DF_BARS["vert"] and perr < DF_BARS["profile"]):
+        fail("df32: vert or the profile against the float64 scan tier")
+
+    y = np.random.default_rng(9).uniform(-3.2, 0.2, RAYS_MAIN)
+    x = np.zeros_like(y)
+    card = rtt.df_eval_profile_medium(c.min() / c, depth, device=device)
+    host = rtt.df_eval_profile_medium(c.min() / c, depth, device="cpu")
+    a = card.n_and_grad(torch.as_tensor(x, device=device),
+                        torch.as_tensor(y, device=device))
+    b = host.n_and_grad(torch.as_tensor(x), torch.as_tensor(y))
+    same = all(torch.equal(u.cpu(), v) for u, v in ((a[0], b[0]),
+                                                    (a[1][0], b[1][0]),
+                                                    (a[1][1], b[1][1])))
+    print(f"  DfEvalProfile.n_and_grad on {RAYS_MAIN} depths: the card's "
+          f"{'equals' if same else 'DIFFERS from'} the CPU's, every value",
+          flush=True)
+    if not same:
+        fail("df32: DfEvalProfile differs between the card and the CPU")
+
+    # vert shares df_step with the fisheye, whose run is the timed one
+    times, t0 = {}, time.perf_counter()
+    for name, r in runs.items():
+        rays, fisheye = r.st.xh.shape[0], name == "fisheye"
+        k_ms, out = (median_ms if fisheye else cuda_ms)(
+            lambda: kdf.df_step(r.st, r.medium, r.ds, r.steps))
+        direct = torch.equal(kdf.df_positions(out), r.pos)
+        print(f"  {name}: the entry point's {rays} rays x {r.steps} steps "
+              f"{'equal' if direct else 'DIFFER from'} a direct launch of "
+              f"{r.kernel}, every ray to the bit", flush=True)
+        if not direct:
+            fail(f"df32 {name}: the main path differs from its kernel")
+        depth = min(r.steps, MAIN_PLAIN_CAP)
+        p_ms, p = cuda_ms(lambda: kdf.df_step_plain(r.st, r.medium, r.ds,
+                                                    depth))
+        k = out if depth == r.steps else kdf.df_step(r.st, r.medium, r.ds,
+                                                     depth)
+        dpos = df_exact(f"[df32] {name} {r.kernel} {rays} rays x {depth} of "
+                        f"{r.steps} steps against the plain version", k, p)
+        errs[r.kernel].pos = max(errs[r.kernel].pos, dpos)
+        rate = rays * r.steps / (k_ms * 1e-3)
+        print(f"    {r.kernel} {name}: {k_ms:.3f} ms ({r.steps} steps, "
+              f"{'median of 5' if fisheye else 'one run'}), {rate:.4e} "
+              f"ray-steps/s; plain {p_ms:.1f} ms ({depth} steps)",
+              flush=True)
+        if name != "vert":
+            bms, by = df_bound(r.kernel, r.medium, r.st, r.steps)
+            times[r.kernel] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                   bound_by=by)
+    return times, time.perf_counter() - t0
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -1866,10 +2245,22 @@ def main():
     launches.update(dlaunches)
     times.update(phase_dynamic_checks("cuda", errs, druns))
     phase_eigenrays("cuda")
+    # this slice: the df32 tier
+    t_df = time.perf_counter()
+    df_media = build_df_media("cuda")
+    errs.update(phase_df_vs_plain("cuda", df_media))
+    dfruns, dflaunches = main_path(
+        kernels, ("df_step", "df_step_grid", "df_step_c1", "df_step_profile"),
+        lambda: phase_df("cuda", df_media))
+    launches.update(dflaunches)
+    df_times, df_main_secs = phase_df_checks("cuda", errs, dfruns)
+    times.update(df_times)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
-          f" (this slice's phases {time.perf_counter() - t_dyn:.1f} s; "
-          f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
-          flush=True)
+          f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
+          f"phase's {time.perf_counter() - t_df:.1f} s, of which its 2^20-ray"
+          f" runs against direct launches and the plain version "
+          f"{df_main_secs:.1f} s; {time.perf_counter() - T_IMPORTS:.1f} s "
+          "with the imports)", flush=True)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

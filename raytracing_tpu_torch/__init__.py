@@ -5,8 +5,9 @@ batched ray tracer (step methods op1-op12, the four reference scenarios,
 the physics oracles, the analytic fields and the reference's sampled media:
 stratified tables and the 2-D spline grid, parity and C1 forms; the dynamic
 tier — paraxial spreading, KMAH caustics, amplitudes — and the eigenray
-solver with transmission loss), written as plain torch functions on
-tensors, with the
+solver with transmission loss; the df32 precision tier, double-word float32
+on the analytic fields and on split-word sampled media), written as plain
+torch functions on tensors, with the
 JAX package's TPU kernels replaced by CUDA C++ kernels for the H100
 (``csrc/``, built at first use by :mod:`raytracing_tpu_torch.kernels.build`).
 It imports neither jax nor ``raytracing_tpu``.
@@ -19,6 +20,13 @@ from raytracing_tpu_torch.config import (  # noqa: F401
     SIGMA,
     ScenarioConfig,
     scenario,
+)
+from raytracing_tpu_torch.engine.df_grid import (  # noqa: F401
+    df_c1_medium_from_samples,
+    df_c1_profile_from_samples,
+    df_eval_profile_medium,
+    df_grid_medium_from_samples,
+    df_grid_trace,
 )
 from raytracing_tpu_torch.engine.dynamic import (  # noqa: F401
     CROSS_COLS,
@@ -96,5 +104,7 @@ __all__ = [
     "build_hermite_medium", "build_c1_medium", "build_c1_stratified",
     "c1_medium_from_samples", "c1_stratified_from_samples",
     "medium_from_samples", "compact_for_trace",
+    "df_c1_medium_from_samples", "df_c1_profile_from_samples",
+    "df_eval_profile_medium", "df_grid_medium_from_samples", "df_grid_trace",
     "ALIASES", "ANISO_OPS", "EXTENSION_OPS", "OP_NAMES",
 ]

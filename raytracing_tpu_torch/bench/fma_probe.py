@@ -3,6 +3,7 @@ profiles of the main paths.
 
     python -m raytracing_tpu_torch.bench.fma_probe [--reps 5]
         [--parent-csrc DIR] [--profile PATH] [--profile-sampled PATH]
+    python -m raytracing_tpu_torch.bench.fma_probe --sass [PATTERN]
 
 Needs one CUDA device and nvcc.  By default it compares the build the
 package uses (``-fmad=false``) with ``-fmad=true``; with ``--parent-csrc``
@@ -26,11 +27,22 @@ Chrome trace to PATH and prints the device time of each kernel and copy.
 seven runs of chip_smoke.py's sampled phase through ``fast_trace``, media
 built on the card beforehand), and prints the wall time of the traced
 window and the share of it in which the card was idle.
+
+``--sass [PATTERN]`` only builds the package's library and reports, for
+every kernel whose mangled name contains PATTERN (default ``df_kernel``),
+its registers and spill bytes from ptxas (``-Xptxas -v``, the build's log)
+and its count of SASS instructions and of FFMA (fused multiply-add)
+instructions among them (``cuobjdump -sass``); each FFMA line is written
+with the instructions before it to ``sass-ffma-<digest>.txt`` beside the
+library in ``_build/``, so that what issues it (the IEEE division's
+refinement, or a contraction) can be read.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import re
+import shutil
 import statistics
 import subprocess
 
@@ -229,6 +241,59 @@ def profile_sampled_path(device, path):
     traced(main_path, path, wall=True)
 
 
+def _demangle(names):
+    tool = shutil.which("cu++filt") or str(
+        Path(build._nvcc()).parent / "cu++filt")
+    try:
+        out = subprocess.run([tool, *names], capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+    return out if len(out) == len(names) else list(names)
+
+
+def sass_report(pattern: str) -> None:
+    """Registers, spills, SASS instructions and FFMAs of each kernel whose
+    mangled name contains ``pattern`` (module docstring)."""
+    lib = build.build()
+    log = (build.BUILD_DIR / f"ptxas-{build.source_digest()}.log").read_text()
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)'?", line)
+        if m:
+            entry = m.group(1)
+        elif entry and ("registers" in line or "spill" in line):
+            usage.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    tool = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn, recent, ffma_lines = {}, None, [], []
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn, recent = m.group(1), []
+            counts[fn] = [0, 0]
+            continue
+        if fn is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            continue
+        counts[fn][0] += 1
+        if "FFMA" in line and pattern in fn:
+            counts[fn][1] += 1
+            ffma_lines.append(f"{fn}\n" + "\n".join(recent[-6:] + [line]))
+        recent.append(line.strip())
+    names = sorted(n for n in set(counts) | set(usage) if pattern in n)
+    print(f"[sass] {lib.name}: {len(names)} kernels matching {pattern!r}",
+          flush=True)
+    for name, pretty in zip(names, _demangle(names)):
+        instr, ffma = counts.get(name, [0, 0])
+        print(f"  {pretty}: {' | '.join(usage.get(name, ['no ptxas line']))}"
+              f"; {instr} SASS instructions, {ffma} FFMA", flush=True)
+    (build.BUILD_DIR / f"sass-ffma-{build.source_digest()}.txt").write_text(
+        "\n\n".join(ffma_lines) + "\n")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -239,9 +304,16 @@ def main(argv=None):
                     help="also trace the analytic main path to this trace")
     ap.add_argument("--profile-sampled", metavar="PATH",
                     help="also trace the sampled main path to this trace")
+    ap.add_argument("--sass", metavar="PATTERN", nargs="?",
+                    const="df_kernel",
+                    help="only report registers, spills and FFMAs of the "
+                         "kernels whose name contains PATTERN")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fma_probe: needs a CUDA device")
+    if args.sass:
+        sass_report(args.sass)
+        return 0
     own = ("fmad=false", build.load(build.build()))
     if args.parent_csrc is not None:
         analytic = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step")

@@ -217,7 +217,7 @@ def _build_dynamic_fn(op_name: str, max_size: int, mode: str, dtype,
     hand = HAND_TANGENT and op_name == "op6"
     windowed = op.uses_window
 
-    def run(pos0, theta0, medium, gamma, delta_s, step_limit, box, aux=None):
+    def _run(pos0, theta0, medium, gamma, delta_s, step_limit, box, aux):
         limx_i, limx_s, limy_i, limy_s = box
         r = theta0.shape[0]
         nag_jvp = _medium_jvp(medium, dtype) if hand else None
@@ -237,6 +237,13 @@ def _build_dynamic_fn(op_name: str, max_size: int, mode: str, dtype,
         # d(launch)/d(theta0): the point-source paraxial basis
         pt0, dpt0 = torch.func.jvp(launch, (theta0,),
                                    (torch.ones_like(theta0),))
+        if not bool((dpt0[_ANG] == 1).all()):
+            raise RuntimeError(
+                "torch.func.jvp returned no launch tangent (d theta / d "
+                "theta0 != 1) with grad mode "
+                f"{torch.is_grad_enabled()} and inference mode "
+                f"{torch.is_inference_mode_enabled()}: the dynamic tier "
+                "cannot run in this autograd mode")
         if windowed:
             pt0 += (pos0[:, None, :].expand(r, 4, 2).clone(),)
             dpt0 += (torch.zeros_like(pt0[_WIN]),)
@@ -439,7 +446,24 @@ def _build_dynamic_fn(op_name: str, max_size: int, mode: str, dtype,
                              exit_step=exit_step, q=qf, dtheta=dpt[_ANG],
                              kmah=kmah, n0=n_src, history=hist)
 
+    def run(pos0, theta0, medium, gamma, delta_s, step_limit, box, aux=None):
+        # torch.func.jvp may record no tangent inside torch.inference_mode()
+        # (torch 2.11 on the card counted KMAH 0 on every ray there): the
+        # trace runs with inference mode off, on ordinary copies of any
+        # inference tensors it is handed
+        with torch.inference_mode(False):
+            return _run(_ordinary(pos0), _ordinary(theta0), medium, gamma,
+                        delta_s, step_limit, box, _ordinary(aux))
+
     return run
+
+
+def _ordinary(a):
+    """``a`` (a tensor, a tuple of them or None) with every inference
+    tensor replaced by an ordinary copy, made outside inference mode."""
+    if isinstance(a, tuple):
+        return tuple(_ordinary(t) for t in a)
+    return a.clone() if torch.is_tensor(a) and a.is_inference() else a
 
 
 def _launch_args(scen, delta_s, dtype, device, pos0, theta0, step_limit,

@@ -29,8 +29,14 @@ Not ported, on purpose: ``SEGMENT_THRESHOLD`` and the segmented route
 Mosaic's compile time and skip frozen TPU blocks; on the card one launch
 covers every trace length, and each thread stops stepping once its ray is
 frozen, which gives the same results.  No medium falls back to the scan
-tier; ``CustomMedium`` (and any other medium) and ``precision="high"``
-raise NotImplementedError naming the ROADMAP.md item that ports them.
+tier; ``CustomMedium`` (and any other medium) raises NotImplementedError
+naming the ROADMAP.md item that ports it.
+
+``precision="high"`` (fast.py:141-162) routes op12 on the analytic fisheye
+and vert fields to the df32 kernel (``kernels/df.py``, engine ``"df32"``):
+float64 positions from double-word float32 arithmetic, all rays active, no
+traveltime or ``dist_sim``; any other op or medium raises JAX's
+``ValueError``, and so does ``stats=True`` (no Welford tracker).
 """
 from __future__ import annotations
 
@@ -42,11 +48,13 @@ from raytracing_tpu_torch import config
 from raytracing_tpu_torch.engine.dynamic import trace_dynamic
 from raytracing_tpu_torch.engine.segmented import (
     grid_trace_dynamic_tiled, grid_trace_tiled)
+from raytracing_tpu_torch.kernels.df import DF_FIELDS, df_trace
 from raytracing_tpu_torch.kernels.dynamic import (
     DYN_FUSED_FIELDS, DYN_FUSED_OPS, DynFinal, dynamic_trace_final,
     dynamic_trace_final_strat)
 from raytracing_tpu_torch.kernels.fused import (
-    FUSED_FIELDS, FUSED_OPS, fused_trace_final, fused_trace_final_strat)
+    FUSED_FIELDS, FUSED_OPS, _vectors, fused_trace_final,
+    fused_trace_final_strat)
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS, golden_trace_final
 from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
 from raytracing_tpu_torch.media.hermite import (
@@ -86,7 +94,8 @@ class FastResult(NamedTuple):
     traveltime: Any  # (R,)
     dist_sim: Any    # (R,)
     active: Any      # (R,) bool: still inside the box
-    engine: str      # "fused" | "golden" | "fused-strat" | "golden-strat" | "grid"
+    engine: str      # "fused" | "golden" | "fused-strat" | "golden-strat" |
+    #                  "grid" | "df32"
     mom_count: Any = None   # Welford p_x tracker (stats=True)
     mom_mean: Any = None
     mom_m2: Any = None
@@ -117,13 +126,14 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
     are never uploaded here.  ``stats=True`` fills the Welford tracker of
     p_x (RT_bench.py:1352-1360); it needs an x-independent medium, where p_x
     is an invariant: a stratified table (as in JAX) or an analytic field of
-    :data:`STATS_FIELDS`, and raises on 2-D grids.
+    :data:`STATS_FIELDS`, and raises on 2-D grids.  ``precision="high"``
+    runs op12 through the df32 kernel (module docstring).
     """
     op = canonical(op_name)
     if precision == "high":
-        raise NotImplementedError(
-            "precision='high' (the df32 RK4 kernel, kernels/df.py) is not "
-            "ported yet: ROADMAP.md §1 item 16 and §2 item 10")
+        return _fast_trace_df(op, scen, medium, delta_s=delta_s, pos0=pos0,
+                              theta0=theta0, device=device, steps=steps,
+                              divisor=divisor, n_turns=n_turns, stats=stats)
     if precision != "standard":
         raise ValueError(f"precision must be 'standard' or 'high', got {precision!r}")
     # trim stratified tables to their reachable, nontrivial window exactly
@@ -186,6 +196,31 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
                       engine="fused-strat" if strat else "fused",
                       mom_count=f.mom_count, mom_mean=f.mom_mean,
                       mom_m2=f.mom_m2, tangent=f.tangent)
+
+
+def _fast_trace_df(op, scen, medium, *, delta_s, pos0, theta0, device,
+                   steps, divisor, n_turns, stats) -> FastResult:
+    """``precision="high"`` (fast.py:141-162): op12 on an analytic field of
+    :data:`DF_FIELDS` through the df32 kernel (``df_step``, engine
+    ``"df32"``), one launch; float64 positions, no traveltime, no box."""
+    if stats:
+        raise ValueError("stats=True has no df32 path: the df32 kernel "
+                         "carries no Welford tracker")
+    if op != "op12":
+        raise ValueError("precision='high' uses the df32 RK4 kernel; "
+                         f"pass op12 (got {op!r})")
+    if not (isinstance(medium, AnalyticMedium)
+            and medium.field in DF_FIELDS):
+        raise ValueError(f"df32 kernel supports analytic {DF_FIELDS}")
+    if steps is None:
+        steps = scen.max_size(float(delta_s), divisor, n_turns) - 1
+    x, y, th = _vectors(pos0, theta0, device)
+    pos = df_trace(torch.stack([x, y], dim=-1), th, delta_s, steps=int(steps),
+                   field=medium.field, device=device)
+    return FastResult(pos=pos, traveltime=None, dist_sim=None,
+                      active=torch.ones(pos.shape[0], dtype=torch.bool,
+                                        device=pos.device),
+                      engine="df32")
 
 
 def fast_dynamic(op_name: str, scen: config.ScenarioConfig, medium, *,

@@ -23,9 +23,15 @@ interchange format, so neither package imports the other:
   as 0/1 floats;
 * :func:`medium_from_numpy` builds any of the five sampled media
   (``GridMedium``, ``StratifiedGridMedium``, ``HermiteGridMedium``,
-  ``C1GridMedium``, ``C1StratifiedMedium``) from the JAX medium's class
-  name, its arrays as numpy and its static fields, so both packages trace
-  the same tables.
+  ``C1GridMedium``, ``C1StratifiedMedium``) and the four df32 media
+  (``DfGridMedium``, ``DfC1Medium``, ``DfC1Profile``, ``DfEvalProfile``,
+  whose ``prof`` comes as a nested dict of its ``DfC1Profile``'s fields)
+  from the JAX medium's class name, its arrays as numpy and its static
+  fields, so both packages trace the same tables;
+* :func:`df_state_from_numpy` builds the df32 kernels' 8-plane
+  :class:`~raytracing_tpu_torch.kernels.df.DfState` from the JAX df tier's
+  resume tuple (``kernels/df.py:326-329``: xh, xl, yh, yl, uxh, uxl, uyh,
+  uyl).
 """
 from __future__ import annotations
 
@@ -36,6 +42,9 @@ import torch
 
 from raytracing_tpu_torch.engine.state import RayState
 from raytracing_tpu_torch.engine.trace import TraceResult
+from raytracing_tpu_torch.engine.df_grid import (
+    DfC1Medium, DfC1Profile, DfEvalProfile, DfGridMedium)
+from raytracing_tpu_torch.kernels.df import DfState
 from raytracing_tpu_torch.kernels.dynamic import DynState
 from raytracing_tpu_torch.kernels.fused import ResumeState
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS
@@ -46,7 +55,10 @@ from raytracing_tpu_torch.media.spline import GridMedium, StratifiedGridMedium
 #: the sampled media by class name, the same in both packages
 MEDIUM_CLASSES = {cls.__name__: cls for cls in (
     GridMedium, StratifiedGridMedium, HermiteGridMedium, C1GridMedium,
-    C1StratifiedMedium)}
+    C1StratifiedMedium, DfGridMedium, DfC1Medium, DfC1Profile,
+    DfEvalProfile)}
+#: fields that hold a medium of their own, by the class they hold
+_NESTED = {"prof": "DfC1Profile"}
 
 
 def _to_numpy(t):
@@ -160,6 +172,16 @@ def dynamic_state_to_numpy(st: DynState) -> list:
     return [_to_numpy(t).astype(np.float32) for t in st]
 
 
+def df_state_from_numpy(comps, *, device) -> DfState:
+    """A df32 :class:`DfState` from the JAX df tier's 8 components (any
+    shapes; each flattened to (R,) float32)."""
+    if len(comps) != len(DfState._fields):
+        raise ValueError(f"a df state has {len(DfState._fields)} components, "
+                         f"got {len(comps)}")
+    return DfState(*(torch.as_tensor(np.array(c, np.float32).reshape(-1),
+                                     device=device) for c in comps))
+
+
 def medium_from_numpy(kind: str, fields: dict, *, device):
     """The port's sampled medium of class name ``kind`` from a dict of its
     fields: arrays (numpy, e.g. ``np.asarray`` of a JAX medium's tables)
@@ -176,7 +198,9 @@ def medium_from_numpy(kind: str, fields: dict, *, device):
                 raise ValueError(f"{kind} needs field {f.name!r}")
             continue
         v = fields[f.name]
-        if isinstance(v, np.ndarray):
+        if isinstance(v, dict):   # a medium within the medium
+            v = medium_from_numpy(_NESTED[f.name], v, device=device)
+        elif isinstance(v, np.ndarray):
             # a writable copy: JAX's exported arrays are read-only
             v = torch.as_tensor(np.array(v), device=device)
         vals[f.name] = v

@@ -41,6 +41,9 @@ _F = ctypes.c_float
 #: a sampled medium's table and geometry: table, x0, y0, inv_hx, inv_hy,
 #: nx, ny (csrc/media.cuh RT_TABLE_PARAMS)
 _TABLE = (_P, _F, _F, _F, _F, _I, _I)
+#: a split-word medium's geometry: the (hi, lo) words of x0, y0, 1/hx,
+#: 1/hy, then nx, ny (csrc/df.cu RT_DF_GEOMETRY)
+_DF_GEOMETRY = (_F,) * 8 + (_I, _I)
 #: C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
     # x, y, ux, uy, out_x, out_y, out_tt, n, steps, ds, stream
@@ -85,6 +88,16 @@ _SIGNATURES = {
     # cell_ch (36 | 16), the same
     "rt_dynamic_step_grid": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
                              _F, _F, _F, _F, *_TABLE, _P),
+    # field, in_planes, out_planes, n, steps, ds, stream (csrc/df.cu)
+    "rt_df_step": (_I, _P, _P, _I, _I, _F, _P),
+    # in_planes, out_planes, n, steps, ds, nodes, cells, x0h, x0l, y0h, y0l,
+    # ihxh, ihxl, ihyh, ihyl, nx, ny, stream
+    "rt_df_step_grid": (_P, _P, _I, _I, _F, _P, _P, *_DF_GEOMETRY, _P),
+    # the same without nodes
+    "rt_df_step_c1": (_P, _P, _I, _I, _F, _P, *_DF_GEOMETRY, _P),
+    # in_planes, out_planes, n, steps, ds, cells, y0h, y0l, ihyh, ihyl, ny,
+    # stream
+    "rt_df_step_profile": (_P, _P, _I, _I, _F, _P, _F, _F, _F, _F, _I, _P),
 }
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 analytic-media kernels, the sampled-media ones (stratified tables and the
 2-D grid, parity and C1), the grid sweep (per-ray step sizes) and the
-node-table kernel; segmented_trace and the DELTA_S search on the card; and
-the three dynamic kernels, fast_dynamic and the eigenray solver on the card.
+node-table kernel; segmented_trace and the DELTA_S search on the card; the
+three dynamic kernels, fast_dynamic and the eigenray solver on the card;
+and the four df32 kernels on their five media, with the df32 entry points.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -18,7 +19,9 @@ from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 torch = pytest.importorskip("torch")
 
 import raytracing_tpu_torch as rtt  # noqa: E402
+from raytracing_tpu_torch.engine import df_grid as tdg  # noqa: E402
 from raytracing_tpu_torch.engine import segmented as seg  # noqa: E402
+from raytracing_tpu_torch.kernels import df as kdf  # noqa: E402
 from raytracing_tpu_torch.kernels import dynamic as kd  # noqa: E402
 from raytracing_tpu_torch.kernels import fisheye as kf  # noqa: E402
 from raytracing_tpu_torch.kernels import fused as kfu  # noqa: E402
@@ -379,3 +382,87 @@ def test_fast_dynamic_and_eigenrays_on_the_card(cuda_device):
     t_exact = np.arccosh(1 + 4.0 * 10.0 / (2 * 18.0 * 16.0)) / 2.0
     assert len(eig.theta0) == 1 and bool(eig.converged[0])
     assert abs(eig.traveltime[0] / t_exact - 1) < 2e-7
+
+
+# -- the df32 kernels ---------------------------------------------------------
+DF_MEDIA = kdf.DF_FIELDS + ("grid", "c1", "profile")
+
+
+def _df_case(kind, device):
+    """(medium, launch state, delta_s) of one df32 kernel test: the analytic
+    fields from their launch state, the split-word media (the coarse
+    fisheye grids, the Munk profile) from their split one."""
+    box = rtt.scenario("fisheye").box
+    fish = H.fisheye_df_fan(R, jitter=0.2, seed=2)
+    if kind in kdf.DF_FIELDS:
+        (pos0, theta0), ds = ((fish, 2 * np.pi / 300) if kind == "fisheye"
+                              else (H.fan_vert(np.random.default_rng(2), R),
+                                    0.0193))
+        return kind, kdf.initial_df_state(pos0, theta0, device=device), ds
+    if kind == "profile":
+        med = tdg.df_c1_profile_from_samples(*H.munk_profile(), device=device)
+        (pos0, theta0), ds = H.channel_fan(R, seed=2), 0.01
+    else:
+        build = (tdg.build_df_grid_medium if kind == "grid"
+                 else tdg.build_df_c1_medium)
+        med = build("fisheye", box, 0.05, device=device)
+        (pos0, theta0), ds = fish, 2 * np.pi / 300
+    return med, tdg.split_state(pos0, theta0, device=device), ds
+
+
+@pytest.mark.parametrize("kind", DF_MEDIA)
+def test_df_kernels_match_plain(kind, cuda_device):
+    """Each df32 kernel equals its plain version in all 8 planes to the bit,
+    and k + (n - k) steps equal n."""
+    med, st, ds = _df_case(kind, cuda_device)
+    info = kdf.KERNELS[0 if kind in kdf.DF_FIELDS
+                       else ("grid", "c1", "profile").index(kind) + 1]
+    before = info.launches
+    got = kdf.df_step(st, med, ds, 60)
+    assert info.launches == before + 1
+    want = kdf.df_step_plain(st, med, ds, 60)
+    for name, a, b in zip(kdf.DfState._fields, got, want):
+        assert torch.equal(a, b), name
+    two = kdf.df_step(kdf.df_step(st, med, ds, 25), med, ds, 35)
+    for name, a, b in zip(kdf.DfState._fields, got, two):
+        assert torch.equal(a, b), name
+
+
+def test_df_entry_points_on_the_card(cuda_device):
+    """fast_trace(precision="high") and df_grid_trace launch the df32
+    kernels; DfEvalProfile evaluates on the card as on the CPU, bit for bit;
+    trace_dynamic gives the same tangent inside torch.inference_mode()."""
+    fish = rtt.scenario("fisheye")
+    pos0, theta0 = H.fisheye_df_fan(R, jitter=0.01)
+    before = [k.launches for k in kdf.KERNELS]
+    res = rtt.fast_trace("op12", fish, rtt.analytic_medium("fisheye"),
+                         delta_s=2 * np.pi / 300, pos0=pos0, theta0=theta0,
+                         divisor=300, n_turns=1, precision="high",
+                         device=cuda_device)
+    assert res.engine == "df32" and res.pos.dtype == torch.float64
+    for kind in ("grid", "c1", "profile"):
+        med, _, ds = _df_case(kind, cuda_device)
+        rtt.df_grid_trace(pos0[:64], theta0[:64], ds, med, steps=30,
+                          segment=16, device=cuda_device)
+    assert [k.launches - b for k, b in zip(kdf.KERNELS, before)] == [
+        1, 2, 2, 2]
+    samples, depth = H.munk_profile()
+    y = np.random.default_rng(5).uniform(-3.2, 0.2, 1 << 16)
+    x = np.zeros_like(y)
+    on_card = rtt.df_eval_profile_medium(samples, depth, device=cuda_device)
+    on_cpu = rtt.df_eval_profile_medium(samples, depth, device="cpu")
+    a = on_card.n_and_grad(torch.as_tensor(x, device=cuda_device),
+                           torch.as_tensor(y, device=cuda_device))
+    b = on_cpu.n_and_grad(torch.as_tensor(x), torch.as_tensor(y))
+    assert torch.equal(a[0].cpu(), b[0])
+    assert torch.equal(a[1][1].cpu(), b[1][1])
+    kw = dict(delta_s=2 * np.pi / 300, device=cuda_device, mode="metrics",
+              dtype=torch.float64, pos0=pos0[:256], theta0=theta0[:256],
+              max_size=301)
+    out = rtt.trace_dynamic("op6", fish, rtt.analytic_medium("fisheye"), **kw)
+    with torch.inference_mode():
+        inside = rtt.trace_dynamic("op6", fish,
+                                   rtt.analytic_medium("fisheye"), **kw)
+    for f in ("q", "dtheta", "kmah"):
+        assert torch.equal(getattr(out, f), getattr(inside, f)), f
+    assert bool((out.kmah == 1).all())

@@ -342,3 +342,74 @@ def test_bad_mode_and_amplitude_helpers():
     assert (np.diff(H.to_np(tl)) > 0).all()
     assert np.isfinite(float(tdyn.transmission_loss_db(
         torch.tensor(0.0), torch.tensor(1.0), torch.tensor(1.0))))
+
+
+def test_inference_mode_gives_the_same_tangent():
+    """trace_dynamic, fast_dynamic's scan route and find_eigenrays give the
+    same q, dtheta and KMAH inside torch.inference_mode() as outside, to
+    the bit (the tangent is computed with inference mode off, on ordinary
+    copies of inference tensors): the float64 fisheye fan for one turn
+    (KMAH 1 on every ray), op2's torch.func.jvp tangent on a C1 profile
+    built inside inference mode, and an eigenray through it."""
+    fish = rtt.scenario("fisheye")
+    pos0, theta0 = fisheye_fan(r=32)
+    kw = dict(delta_s=2 * np.pi / 200, device="cpu", mode="metrics",
+              dtype=torch.float64, pos0=pos0, theta0=theta0, max_size=201)
+    out = tdyn.trace_dynamic("op6", fish, rtt.analytic_medium("fisheye"),
+                             **kw)
+    samples, depth = H.munk_profile()
+    cfg = dict(name="custom", key="-", field="", gamma=1.0, ray_count=8,
+               theta0=np.zeros(1), pos0=np.zeros((1, 2)), s_max=0.0,
+               box=(-1.0, 42.0, -3.0, 0.0))
+    ch_pos, ch_th = H.channel_fan(8)
+    ckw = dict(delta_s=0.01, device="cpu", mode="metrics",
+               dtype=torch.float64, pos0=ch_pos, theta0=ch_th, max_size=120)
+    ekw = dict(source=(0.0, -1.0), receivers=[(1.0, -1.0)], delta_s=0.01,
+               max_size=150, box=(-1.0, 2.0, -3.0, 0.0), fan=(-0.1, 0.1, 9),
+               device="cpu")
+    prof = rtt.c1_stratified_from_samples(samples, depth, device="cpu",
+                                          dtype=torch.float64)
+    c_out = tdyn.trace_dynamic("op2", rtt.ScenarioConfig(**cfg), prof, **ckw)
+    e_out = rtt.find_eigenrays("op6", prof, **ekw)
+    f_out, engine = rtt.fast_dynamic(
+        "op5", fish, rtt.analytic_medium("fisheye"), delta_s=0.05,
+        pos0=pos0[:4], theta0=theta0[:4], steps=10, device="cpu")
+    with torch.inference_mode():
+        inside = tdyn.trace_dynamic(
+            "op6", fish, rtt.analytic_medium("fisheye"),
+            **{**kw, "pos0": torch.as_tensor(pos0),
+               "theta0": torch.as_tensor(theta0)})
+        iprof = rtt.c1_stratified_from_samples(samples, depth, device="cpu",
+                                               dtype=torch.float64)
+        c_in = tdyn.trace_dynamic("op2", rtt.ScenarioConfig(**cfg), iprof,
+                                  **ckw)
+        e_in = rtt.find_eigenrays("op6", iprof, **ekw)
+        f_in, _ = rtt.fast_dynamic(
+            "op5", fish, rtt.analytic_medium("fisheye"), delta_s=0.05,
+            pos0=pos0[:4], theta0=theta0[:4], steps=10, device="cpu")
+    assert engine == "dynamic-scan"
+    for a, b in ((out, inside), (c_out, c_in), (f_out, f_in)):
+        for f in ("q", "dtheta", "kmah"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert bool((out.kmah == 1).all())
+    assert len(e_out.theta0) >= 1
+    np.testing.assert_array_equal(np.asarray(e_out.q), np.asarray(e_in.q))
+    np.testing.assert_array_equal(np.asarray(e_out.kmah),
+                                  np.asarray(e_in.kmah))
+
+
+def test_a_missing_launch_tangent_raises(monkeypatch):
+    """Where torch.func.jvp records no tangent, the dynamic tier raises,
+    naming the autograd mode, rather than count no caustic."""
+    def no_tangent(fn, primals, tangents):
+        out = fn(*primals)
+        return out, tuple(torch.zeros_like(t) for t in out)
+
+    monkeypatch.setattr(torch.func, "jvp", no_tangent)
+    pos0, theta0 = fisheye_fan(r=4)
+    with pytest.raises(RuntimeError, match="inference mode False"):
+        tdyn.trace_dynamic("op6", rtt.scenario("fisheye"),
+                           rtt.analytic_medium("fisheye"),
+                           delta_s=0.05, device="cpu", mode="metrics",
+                           dtype=torch.float64, pos0=pos0, theta0=theta0,
+                           max_size=4)

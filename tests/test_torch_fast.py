@@ -101,8 +101,10 @@ def test_fast_trace_refuses_what_it_does_not_port():
     scen = rtt.scenario("vert")
     kw = dict(delta_s=0.1, pos0=scen.pos0, theta0=scen.theta0, device="cpu")
     med = rtt.analytic_medium("vert_heterogeneous")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.fast_trace("op12", scen, med, precision="high", **kw)
+    # precision="high" is ported (the df32 tier): it runs, and refuses
+    # what its kernel does not take (tests/test_torch_df.py)
+    assert rtt.fast_trace("op12", scen, med, precision="high", steps=3,
+                          **kw).engine == "df32"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtt.fast_trace("op6", scen, object(), **kw)
     with pytest.raises(ValueError, match="precision"):

@@ -109,8 +109,10 @@ def test_fast_trace_refusals_on_sampled_media():
         rtt.fast_trace("op6", fish, grid, stats=True, **kw)
     with pytest.raises(ValueError, match="unknown op"):
         rtt.fast_trace("op99", fish, grid, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.fast_trace("op6", fish, grid, precision="high", **kw)
+    # precision="high" is ported: the df32 kernel takes op12 on an analytic
+    # field only, and refuses a sampled medium with JAX's ValueError
+    with pytest.raises(ValueError, match="df32 kernel supports analytic"):
+        rtt.fast_trace("op12", fish, grid, precision="high", **kw)
     res = rtt.fast_trace("op6", fish, grid, **kw)
     assert res.engine == "grid" and torch.isfinite(res.pos).all()
 

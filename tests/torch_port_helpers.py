@@ -67,3 +67,40 @@ def port_medium(jm, device="cpu"):
     from raytracing_tpu_torch.interop import medium_from_numpy
     return medium_from_numpy(type(jm).__name__, medium_fields(jm),
                              device=device)
+
+
+def fisheye_df_fan(r, jitter=0.0, seed=0):
+    """The fisheye's one launch ray (1, 0) at pi/2, repeated ``r`` times,
+    with uniform jitter of +-``jitter`` rad on the angle."""
+    rng = np.random.default_rng(seed)
+    return (np.tile([[1.0, 0.0]], (r, 1)),
+            np.pi / 2 + rng.uniform(-jitter, jitter, r))
+
+
+def munk_profile():
+    """(samples, depth) of a Munk-style channel (axis at depth -1), 121
+    samples on [-3, 0]: the refractive index c_min / c of
+    examples/tl_field_map.py's sound speed."""
+    depth = np.linspace(-3.0, 0.0, 121)
+    eta = 2.0 * (depth + 1.0)
+    c = 1.49 * (1.0 + 0.0057 * (eta - 1.0 + np.exp(-eta)))
+    return c.min() / c, depth
+
+
+def channel_fan(r, seed=0):
+    """Rays launched near the Munk channel's axis at small angles: they stay
+    trapped between depth -3 and 0 (the df tier has no box)."""
+    rng = np.random.default_rng(seed)
+    return (np.stack([np.zeros(r), -1.0 + rng.uniform(-0.2, 0.2, r)], -1),
+            rng.uniform(-0.08, 0.08, r))
+
+
+def port_df_medium(jm, device="cpu"):
+    """The port's twin of a JAX df32 medium (``DfGridMedium``,
+    ``DfC1Medium``, ``DfC1Profile``, ``DfEvalProfile``), carried across by
+    interop; a ``DfEvalProfile``'s profile goes as a nested dict."""
+    from raytracing_tpu_torch.interop import medium_from_numpy
+    fields = medium_fields(jm)
+    if "prof" in fields:
+        fields["prof"] = medium_fields(fields["prof"])
+    return medium_from_numpy(type(jm).__name__, fields, device=device)
