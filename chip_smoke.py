@@ -8,9 +8,9 @@ either is missing or any check fails.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
-2. build: the sixteen CUDA kernels compiled from raytracing_tpu_torch/csrc
-   (one nvcc a source, all at once), then the reference's sampled media
-   built on the card (``[media]``);
+2. build: the sixteen CUDA kernels of the main library compiled from
+   raytracing_tpu_torch/csrc (one nvcc a source, all at once), then the
+   reference's sampled media built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
    the card, for every (op, field) it serves, at 65,536 rays (each
    scenario's launch fan resized, with jitter from numpy seed 0) at the
@@ -93,14 +93,36 @@ either is missing or any check fails.  Phases, one line or more each:
    on the Munk profile (2**20 rays, 1,500 steps); then its checks: vert and
    the profile against the float64 scan tier on 4,096 rays,
    DfEvalProfile.n_and_grad on the card against the CPU on 2**20 depths,
-   and each kernel's time at its main shape beside its bound.
+   and each kernel's time at its main shape beside its bound;
+15. user-defined media (kernels/custom.py): ``[custom]`` traces four
+   CustomMediums and builds the libraries of the fused and golden loops on
+   them (every op on the fisheye field by dual numbers and on the interface
+   logistic with a hand grad_fn, aniso op11; one nvcc each, all at once);
+   ``[custom-vs-plain]`` both custom kernels against their plain versions
+   at 65,536 rays, every fused op and every golden op (and the bracket
+   parity and coarse bracket + polish schedules) on both media, at most
+   1,000 steps, every plane to the bit, with resume checks; the
+   ``[custom]`` main path through fast_trace at 2**20 rays: the fisheye
+   for one turn at the headline divisor (closure, and the analytic
+   fused_step on the same fan), the interface (Snell), aniso op11 and
+   JAX's test field (tests/test_fast.py:143, 1,000 steps; its build is
+   timed as a user's first call); then its checks: each run against a
+   direct launch of its kernel (aniso's with the Welford tracker, for its
+   momentum CV) and against its plain version at 300 steps, every plane to
+   the bit, with the kernels' times and bounds.
+
+The kernel-against-plain phases (3, 8's nodes, 15's ``[custom-vs-plain]``)
+replay their plain versions' steps from a CUDA graph
+(raytracing_tpu_torch/bench/replay.py), equal to the eager loop to the bit;
+the main shapes' plain versions run eagerly, as their times are reported.
 
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
-the search path, phase 12 the dynamic one and phase 14's ``[df32]`` the
-df32 one: every launch count is set to 0 just before each and read just
-after, and each kernel of that path must have launched; the launches
-phases 3, 7, 8, 10, 11, 12's checks and 14's checks make to compare and
-time a kernel are not counted.  The second-last line is a JSON
+the search path, phase 12 the dynamic one, phase 14's ``[df32]`` the df32
+one and phase 15's ``[custom]`` the custom one: every launch count is set
+to 0 just before each and read just after, and each kernel of that path
+must have launched; the launches phases 3, 7, 8, 10, 11, 12's checks,
+14's checks, 15's ``[custom-vs-plain]`` and 15's checks make to compare
+and time a kernel are not counted.  The second-last line is a JSON
 object with one entry per kernel (its launches on its main path, largest
 |dpos| against the plain version, times, and the bound: the larger of its
 FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the last
@@ -130,7 +152,6 @@ STEP_CAP = 1000
 MAIN_PLAIN_CAP = 300
 RAYS_MAIN = 1 << 20
 HEADLINE_DIVISOR = 4587
-
 # kernel-against-plain tolerances: the JAX package's own kernel-against-scan
 # bars for the same op and field (tests/test_kernels.py:24-27,
 # tests/test_fused.py:31-83, tests/test_golden_kernel.py:36-41)
@@ -186,7 +207,8 @@ HEAD_RAYS = 8
 #: the aten operations that are FP32 arithmetic (one per element)
 _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt", "exp",
           "floor", "clamp", "clamp_min", "clamp_max", "minimum", "maximum",
-          "abs", "cos", "sin", "gt", "lt", "ge", "le", "eq", "ne"}
+          "abs", "cos", "sin", "gt", "lt", "ge", "le", "eq", "ne", "tan",
+          "tanh", "atan", "atan2", "log", "log1p", "expm1"}
 
 
 class _OpCounter(TorchDispatchMode):
@@ -317,8 +339,9 @@ def phase_build():
 
 
 def kernel_infos():
-    """The sixteen kernels' KernelInfos, analytic first, then the dynamic
-    three and the four df32 ones."""
+    """The eighteen kernels' KernelInfos, analytic first, then the dynamic
+    three, the four df32 ones and the two custom-medium ones."""
+    from raytracing_tpu_torch.kernels import custom as kc
     from raytracing_tpu_torch.kernels import dynamic as kd
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
@@ -326,12 +349,14 @@ def kernel_infos():
     from raytracing_tpu_torch.kernels import df as kdf
     return (kf.KERNEL, kfu.KERNEL, kg.KERNEL, kfu.KERNEL_STRAT,
             kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID,
-            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS + kdf.KERNELS
+            kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS + kdf.KERNELS \
+        + (kc.KERNEL_FUSED, kc.KERNEL_GOLDEN)
 
 
 def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
     """Every kernel against its plain version; returns {kernel: Errors}."""
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
@@ -373,7 +398,7 @@ def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
             kw = dict(field=field, op=op, steps=steps, delta_s=ds,
                       step_limit=steps, offset=0.0, box=tuple(scen.box))
             k = kfu.fused_step(st, **kw)
-            p = kfu.fused_step_plain(st, **kw)
+            p = replay.fused_plain(st, **kw)
             tol = POS_TOL_OP7 if op == "op7" else POS_TOL[field]
             errs["fused_step"].compare(
                 f"fused_step {op} {field} {steps} steps",
@@ -401,8 +426,8 @@ def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
         scal = kg.golden_scalars(ds, scen.gamma, steps, 0.0, it, device=device)
         k = kg.golden_step(st, scal, field=field, op=op, steps=steps,
                            box=scen.box, gold_iters=it, polish=pol)
-        p = kg.golden_step_plain(st, scal, field=field, op=op, steps=steps,
-                                 box=tuple(scen.box), iters=it, polish=pol)
+        p = replay.golden_plain(st, scal, field=field, op=op, steps=steps,
+                                box=tuple(scen.box), iters=it, polish=pol)
         errs["golden_step"].compare(
             f"golden_step {op} {field} iters={it} polish={pol} {steps} steps",
             torch.stack([k.x, k.y], -1), torch.stack([p.x, p.y], -1),
@@ -715,6 +740,7 @@ def phase_sampled_kernel_vs_plain(device, media, rays=RAYS_CHECK,
     """The four sampled-media kernels against their plain versions on the
     card; returns {kernel: Errors}."""
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.calibrated import calibrated_with_fallback
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
@@ -748,7 +774,7 @@ def phase_sampled_kernel_vs_plain(device, media, rays=RAYS_CHECK,
             kw = dict(field=tab, op=op, steps=steps, delta_s=ds,
                       step_limit=steps, offset=0.0, box=tuple(scen.box))
             k = kfu.fused_step(st, **kw)
-            p = kfu.fused_step_plain(st, **kw)
+            p = replay.fused_plain(st, **kw)
             tol = (POS_TOL_OP7 if op == "op7" or scen_name == "interface"
                    else POS_TOL[scen.field])
             name = "fused_step_strat" if strat else "fused_step_grid"
@@ -772,9 +798,9 @@ def phase_sampled_kernel_vs_plain(device, media, rays=RAYS_CHECK,
                                      device=device)
             k = kg.golden_step(st, scal, field=tab, op=op, steps=steps,
                                box=scen.box)
-            p = kg.golden_step_plain(st, scal, field=tab, op=op, steps=steps,
-                                     box=tuple(scen.box), iters=it,
-                                     polish=pol)
+            p = replay.golden_plain(st, scal, field=tab, op=op,
+                                    steps=steps, box=tuple(scen.box),
+                                    iters=it, polish=pol)
             name = "golden_step_strat" if strat else "golden_step_grid"
             errs[name].compare(
                 f"{name} {op} {scen_name} {kind} gamma {scen.gamma} "
@@ -1028,6 +1054,7 @@ def phase_nodes_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
     """fused_step_nodes against its plain version on the parity fisheye
     grid's node table, every fused op, with and without the stats."""
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.calibrated import calibrated_with_fallback
     from raytracing_tpu_torch.engine import fast
     from raytracing_tpu_torch.engine import segmented as seg
@@ -1048,7 +1075,7 @@ def phase_nodes_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
             kw = dict(field=nodes, op=op, steps=steps, delta_s=float(ds),
                       step_limit=steps, offset=0.0, box=tuple(scen.box))
             exact(errs, f"fused_step_nodes {op} stats={stats} {steps} steps",
-                  kfu.fused_step(st, **kw), kfu.fused_step_plain(st, **kw))
+                  kfu.fused_step(st, **kw), replay.fused_plain(st, **kw))
     return errs
 
 
@@ -2185,6 +2212,367 @@ def phase_df_checks(device, errs, runs):
     return times, time.perf_counter() - t0
 
 
+# -- user-defined media (kernels/custom.py) -----------------------------------
+#: the interface field's width (config.THCK_PARAM)
+THCK = 0.005
+SQRT2 = math.sqrt(2.0)
+#: the [custom] fisheye run against the analytic fused_step on the same fan:
+#: the dual-number gradient of 1/(1 + x^2 + y^2) rounds as the analytic
+#: field's closed form does (both are -2 fl(fl(n n) x)), so the two are
+#: expected to agree to the bit; the bar is the fused kernel's own fisheye
+#: bar against the scan tier
+CUSTOM_FISHEYE_BAR = POS_TOL["fisheye"]
+
+
+def _sigmoid_n(x, y):
+    return SQRT2 - (SQRT2 - 1.0) * torch.sigmoid(y / THCK)
+
+
+def _sigmoid_grad(x, y):
+    s = torch.sigmoid(y / THCK)
+    return torch.zeros_like(x), -(SQRT2 - 1.0) * s * (1.0 - s) / THCK
+
+
+def custom_media():
+    """The [custom] phase's media, written as CustomMediums in torch: the
+    reference's fisheye and vert fields by dual numbers, its interface
+    logistic with a hand grad_fn (the ill-conditioned case CustomMedium's
+    docstring names), and the JAX package's own test field
+    (tests/test_fast.py:151)."""
+    import raytracing_tpu_torch as rtt
+    return {
+        "fisheye": rtt.CustomMedium(lambda x, y: 1.0 / (1.0 + x * x + y * y)),
+        "interface": rtt.CustomMedium(_sigmoid_n, grad_fn=_sigmoid_grad),
+        "aniso": rtt.CustomMedium(lambda x, y: 1.0 / (18.0 + 2.0 * y)),
+        "jax_test": rtt.CustomMedium(
+            lambda x, y: 1.2 + 0.1 * torch.sin(x) * torch.cos(y)),
+    }
+
+
+#: golden schedules of [custom-vs-plain] beyond the default: (op, bracket
+#: iterations, polish), the bracket-parity mode and the coarse bracket +
+#: polish, as phase 3 runs them
+CUSTOM_SCHEDULES = (("op5", None, 0), ("op10", None, 0), ("op9", None, 0),
+                    ("op11", 12, 2))
+
+
+def phase_custom_build(device, media):
+    """Trace the [custom] media and build their kernels' libraries, every
+    nvcc at once: every fused op and golden variant on the fisheye (dual)
+    and interface (grad_fn) media, and the aniso op11 loop.  The JAX test
+    field's op6 library is left to its first fast_trace call, which times a
+    user's first call."""
+    from raytracing_tpu_torch.kernels import custom
+    t0 = time.perf_counter()
+    fields = {k: custom.trace_custom(m) for k, m in media.items()}
+    specs = (custom.specs_of(fields["fisheye"], "fused")
+             + custom.specs_of(fields["fisheye"], "golden")
+             + custom.specs_of(fields["interface"], "fused")
+             + custom.specs_of(fields["interface"], "golden")
+             + [(fields["aniso"], "golden", "op11")])
+    secs = custom.build_libraries(specs)
+    wall = time.perf_counter() - t0
+    name = {id(f): k for k, f in fields.items()}
+    for (f, family, op), sec in sorted(secs.items(), key=lambda kv: kv[1]):
+        print(f"  nvcc {name[id(f)]} {family} {op}: {sec:.1f} s", flush=True)
+    for key, family, op in (("fisheye", "fused", "op6"),
+                            ("aniso", "golden", "op11")):
+        info = [ln.split(":", 1)[-1].strip() for ln in custom.build_log(
+            fields[key], family, op).splitlines()
+            if "registers" in ln or "stack frame" in ln]
+        print(f"  ptxas {key} {family} {op}: {'; '.join(info)}", flush=True)
+    print(f"[custom] traced {len(fields)} media "
+          f"({', '.join(f'{k} {sum(f.ops().values())} ops' for k, f in fields.items())}"
+          f") and built {len(secs)} libraries, all nvcc at once, in "
+          f"{wall:.1f} s (slowest {max(secs.values(), default=0):.1f} s)",
+          flush=True)
+    return fields
+
+
+def phase_custom_vs_plain(device, fields, rays=RAYS_CHECK, cap=STEP_CAP):
+    """The two custom kernels against their plain versions at 65,536 rays:
+    every fused op and every golden op (default schedule, then
+    CUSTOM_SCHEDULES) on the fisheye (dual) and interface (grad_fn) media,
+    at the op's calibrated analytic step capped at STEP_CAP, every plane to
+    the bit; a k + (n - k) resume check each.  Returns {kernel: Errors}."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.kernels import custom
+    from raytracing_tpu_torch.kernels import fused as kfu
+    from raytracing_tpu_torch.kernels import golden as kg
+    rng = np.random.default_rng(2)
+    errs = {"fused_step_custom": Errors(), "golden_step_custom": Errors()}
+    infos = (custom.KERNEL_FUSED, custom.KERNEL_GOLDEN)
+    before = {k.name: k.launches for k in infos}
+    t0 = time.perf_counter()
+    print(f"[custom-vs-plain] {rays} rays, at most {cap} steps, the fisheye "
+          "(dual numbers) and interface (grad_fn) media", flush=True)
+
+    def inputs(scen_name, op):
+        scen = rtt.scenario(scen_name)
+        ds, div = calibrated_step(op, scen_name)
+        steps = min(cap, int(div) if scen.is_fisheye
+                    else scen.max_size(ds) - 1)
+        pos0, theta0 = fan(scen, rays, rng)
+        return scen, ds, steps, pos0, theta0
+
+    for scen_name in ("fisheye", "interface"):
+        field, stats = fields[scen_name], scen_name != "fisheye"
+        for op in kfu.FUSED_OPS:
+            scen, ds, steps, pos0, theta0 = inputs(scen_name, op)
+            st = kfu.initial_state(op, pos0, theta0, field=field,
+                                   with_stats=stats, device=device)
+            kw = dict(field=field, op=op, steps=steps, delta_s=ds,
+                      step_limit=steps, offset=0.0, box=tuple(scen.box))
+            exact(errs["fused_step_custom"],
+                  f"fused_step_custom {op} {scen_name} {steps} steps",
+                  kfu.fused_step(st, **kw), replay.fused_plain(st, **kw))
+        cases = ([(op, None, None) for op in kg.GOLDEN_OPS]
+                 + list(CUSTOM_SCHEDULES))
+        for op, iters, polish in cases:
+            scen, ds, steps, pos0, theta0 = inputs(scen_name, op)
+            it, pol = kg.golden_schedule(polish, iters)
+            st = kg.initial_state(op, pos0, theta0, scen.gamma, field=field,
+                                  with_stats=stats, device=device)
+            scal = kg.golden_scalars(ds, scen.gamma, steps, 0.0, it,
+                                     device=device)
+            exact(errs["golden_step_custom"],
+                  f"golden_step_custom {op} {scen_name} iters={it} "
+                  f"polish={pol} {steps} steps",
+                  kg.golden_step(st, scal, field=field, op=op, steps=steps,
+                                 box=scen.box, gold_iters=it, polish=pol),
+                  replay.golden_plain(st, scal, field=field, op=op,
+                                      steps=steps, box=tuple(scen.box),
+                                      iters=it, polish=pol))
+
+    # resume: k steps then n - k (offset k) against n steps
+    scen, ds, steps, pos0, theta0 = inputs("fisheye", "op7")
+    field = fields["fisheye"]
+    st = kfu.initial_state("op7", pos0, theta0, field=field,
+                           with_stats=False, device=device)
+    kw = dict(field=field, op="op7", delta_s=ds, step_limit=steps,
+              box=tuple(scen.box))
+    cut = steps // 3
+    resume_check("fused_step_custom op7 fisheye",
+                 kfu.fused_step(st, steps=steps, offset=0.0, **kw),
+                 kfu.fused_step(kfu.fused_step(st, steps=cut, offset=0.0,
+                                               **kw),
+                                steps=steps - cut, offset=float(cut), **kw))
+    scen, ds, steps, pos0, theta0 = inputs("interface", "op11")
+    field = fields["interface"]
+    it, pol = kg.golden_schedule()
+    st = kg.initial_state("op11", pos0, theta0, scen.gamma, field=field,
+                          with_stats=True, device=device)
+    cut = steps // 3
+
+    def run(s, n, off):
+        scal = kg.golden_scalars(ds, scen.gamma, steps, off, it,
+                                 device=device)
+        return kg.golden_step(s, scal, field=field, op="op11", steps=n,
+                              box=scen.box)
+
+    resume_check("golden_step_custom op11 interface", run(st, steps, 0.0),
+                 run(run(st, cut, 0.0), steps - cut, float(cut)))
+    for k in infos:
+        delta = k.launches - before[k.name]
+        print(f"  {k.name}: {delta} launches in this phase", flush=True)
+        if delta <= 0:
+            fail(f"{k.name} was not launched against its plain version")
+    print(f"[custom-vs-plain] {time.perf_counter() - t0:.1f} s", flush=True)
+    return errs
+
+
+class CustomRun(NamedTuple):
+    """One run of the [custom] main path: its medium, scenario, op, step and
+    depth, its launch inputs, and fast_trace's result."""
+
+    medium: Any
+    scen: Any
+    op: str
+    ds: float
+    steps: int
+    pos0: Any
+    theta0: Any
+    res: Any
+
+
+def phase_custom(device, media, rays=RAYS_MAIN):
+    """The custom main path: four reference scenarios written as
+    CustomMediums through fast_trace at 2**20 rays, each held to its
+    oracle (the aniso run's momentum CV in phase_custom_checks, from a
+    direct launch with the Welford tracker, which fast_trace refuses on a
+    custom medium).  Returns {run: CustomRun}."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch.engine import oracles
+    runs = {}
+
+    def run(name, scen, op, ds, steps, pos0, theta0, engine):
+        t0 = time.perf_counter()
+        res = rtt.fast_trace(op, scen, media[name], delta_s=ds, pos0=pos0,
+                             theta0=theta0, steps=steps, device=device)
+        sync()
+        print(f"[custom] {name} {op} engine={res.engine} {rays} rays x "
+              f"{steps} steps in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        if res.engine != engine:
+            fail(f"custom {name}: engine {res.engine}, not {engine}")
+        runs[name] = CustomRun(media[name], scen, op, ds, steps, pos0,
+                               theta0, res)
+        return res
+
+    # the fisheye for one turn at the headline divisor; every ray but the
+    # first with +-1e-3 rad of jitter
+    fish = rtt.scenario("fisheye")
+    ds = 2.0 * math.pi / HEADLINE_DIVISOR
+    steps = fish.max_size(ds, HEADLINE_DIVISOR, 1) - 1
+    pos0, theta0 = fan(fish, rays, np.random.default_rng(3))
+    theta0[0] = np.float32(math.pi / 2.0)
+    res = run("fisheye", fish, "op6", ds, steps, pos0, theta0,
+              "fused-custom")
+    closure = float(100.0 * torch.linalg.vector_norm(
+        res.pos[0] - torch.tensor([1.0, 0.0], device=device)) / (2 * math.pi))
+    ana = rtt.fast_trace("op6", fish, rtt.analytic_medium("fisheye"),
+                         delta_s=ds, pos0=pos0, theta0=theta0, steps=steps,
+                         device=device)
+    dpos = float((res.pos - ana.pos).abs().max())
+    print(f"  fisheye one-turn closure {closure:.4f} % (bar < 5); against "
+          f"the analytic fused_step on the same fan max |dpos| {dpos:.3e} "
+          f"(bar {CUSTOM_FISHEYE_BAR})", flush=True)
+    if not (closure < 5.0 and dpos <= CUSTOM_FISHEYE_BAR):
+        fail("custom fisheye: closure or the analytic kernel")
+
+    iface = rtt.scenario("interface")
+    ds = config.SIGMA / 5.0
+    pos0, theta0 = fan(iface, rays)
+    res = run("interface", iface, "op6", ds, iface.max_size(ds) - 1, pos0,
+              theta0, "fused-custom")
+    errs_deg = oracles.snell_errors_from_tangent(res.tangent, iface.theta0)
+    print(f"  interface (grad_fn) Snell error mean {errs_deg.mean():.4f} deg "
+          f"(bar < 0.2) max {errs_deg.max():.4f} deg (bar < 0.8)", flush=True)
+    if not (errs_deg.mean() < 0.2 and errs_deg.max() < 0.8):
+        fail("custom interface: Snell oracle")
+
+    aniso = rtt.scenario("aniso")
+    ds = config.SIGMA / 1.2
+    pos0, theta0 = fan(aniso, rays)
+    run("aniso", aniso, "op11", ds, aniso.max_size(ds) - 1, pos0, theta0,
+        "golden-custom")
+
+    # the JAX package's test field and launch (tests/test_fast.py:143-162)
+    # at 2**20 rays; its library's build is a user's first call
+    t0 = time.perf_counter()
+    pos0 = np.tile(np.array([[0.2, -0.1]], np.float32), (rays, 1))
+    theta0 = np.linspace(0.0, np.pi, rays).astype(np.float32)
+    run("jax_test", fish, "op6", 0.01, 1000, pos0, theta0, "fused-custom")
+    print(f"  jax_test: a user's first call (trace, nvcc, load, launch) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def phase_custom_checks(device, errs, runs):
+    """The custom main path's checks: each 2**20-ray run against a direct
+    launch of its kernel on the launch state fast_trace built (every ray to
+    the bit; the aniso one with the Welford tracker, for its momentum CV),
+    that kernel against its plain version at min(steps, MAIN_PLAIN_CAP)
+    steps (every plane to the bit), and the kernel's time at the full shape
+    beside its plain version's and its bound.  Returns {kernel: times}."""
+    from raytracing_tpu_torch.engine import oracles
+    from raytracing_tpu_torch.kernels import custom
+    from raytracing_tpu_torch.kernels import fused as kfu
+    from raytracing_tpu_torch.kernels import golden as kg
+    print("[custom] checks", flush=True)
+    times, t0 = {}, time.perf_counter()
+    for name, r in runs.items():
+        field = custom.trace_custom(r.medium)
+        box = tuple(r.scen.box)
+        depth = min(r.steps, MAIN_PLAIN_CAP)
+        golden = r.op in kg.GOLDEN_OPS
+        if golden:
+            kernel = "golden_step_custom"
+            it, pol = kg.golden_schedule()
+            st = kg.initial_state(r.op, r.pos0, r.theta0, r.scen.gamma,
+                                  field=field, with_stats=True,
+                                  device=device)
+
+            def launch(s, n):
+                scal = kg.golden_scalars(r.ds, r.scen.gamma, n, 0.0, it,
+                                         device=device)
+                return kg.golden_step(s, scal, field=field, op=r.op,
+                                      steps=n, box=box)
+
+            def plain(s, n):
+                scal = kg.golden_scalars(r.ds, r.scen.gamma, n, 0.0, it,
+                                         device=device)
+                return kg.golden_step_plain(s, scal, field=field, op=r.op,
+                                            steps=n, box=box, iters=it,
+                                            polish=pol)
+        else:
+            kernel = "fused_step_custom"
+            st = kfu.initial_state(r.op, r.pos0, r.theta0, field=field,
+                                   with_stats=False, device=device)
+
+            def launch(s, n):
+                return kfu.fused_step(s, field=field, op=r.op, steps=n,
+                                      delta_s=r.ds, step_limit=n,
+                                      offset=0.0, box=box)
+
+            def plain(s, n):
+                return kfu.fused_step_plain(s, field=field, op=r.op,
+                                            steps=n, delta_s=r.ds,
+                                            step_limit=n, offset=0.0,
+                                            box=box)
+        k_ms, out = cuda_ms(lambda: launch(st, r.steps), reps=3)
+        direct = (torch.equal(torch.stack([out.x, out.y], -1), r.res.pos)
+                  and torch.equal(out.tt, r.res.traveltime)
+                  and torch.equal(out.dsim, r.res.dist_sim)
+                  and torch.equal(out.active, r.res.active))
+        print(f"  {name}: fast_trace's {st.x.shape[0]} rays x {r.steps} "
+              f"steps {'equal' if direct else 'DIFFER from'} a direct launch "
+              f"of {kernel}, every ray to the bit", flush=True)
+        if not direct:
+            fail(f"custom {name}: the main path differs from its kernel")
+        if golden:
+            nf = len(r.scen.theta0)
+            cv = oracles.momentum_cv_pct_from_welford(
+                out.mom_count[:nf], out.mom_mean[:nf], out.mom_m2[:nf])
+            avg = float(np.mean(cv[1:-1]))
+            print(f"  {name} {r.op} momentum CV {avg:.6f} % (bar < 0.05), "
+                  "from the direct launch's Welford tracker", flush=True)
+            if not avg < 0.05:
+                fail(f"custom {name}: momentum CV oracle")
+        p_ms, p = cuda_ms(lambda: plain(st, depth))
+        k = out if depth == r.steps else launch(st, depth)
+        exact(errs[kernel], f"[custom] {name} {kernel} {st.x.shape[0]} rays x "
+              f"{depth} of {r.steps} steps against the plain version", k, p)
+        rate = st.x.shape[0] * r.steps / (k_ms * 1e-3)
+        print(f"    {kernel} {name}: {k_ms:.3f} ms ({r.steps} steps, mean "
+              f"of 3), {rate:.4e} ray-steps/s; plain {p_ms:.1f} ms ({depth} "
+              "steps)", flush=True)
+        if name in ("fisheye", "aniso"):
+            # the same shape on the analytic field the custom one rounds as
+            # (fisheye; aniso is vert's field), through the main library
+            ana = "fisheye" if name == "fisheye" else "vert_heterogeneous"
+            a_ms, a_out = cuda_ms(lambda: (
+                kg.golden_step(st, kg.golden_scalars(
+                    r.ds, r.scen.gamma, r.steps, 0.0, it, device=device),
+                    field=ana, op=r.op, steps=r.steps, box=box) if golden
+                else kfu.fused_step(st, field=ana, op=r.op, steps=r.steps,
+                                    delta_s=r.ds, step_limit=r.steps,
+                                    offset=0.0, box=box)), reps=3)
+            same = all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(out, a_out))
+            print(f"    the analytic {ana} kernel at the same shape: "
+                  f"{a_ms:.3f} ms, every plane "
+                  f"{'equal' if same else 'DIFFERENT'}", flush=True)
+            bms, by = timed_bound(kernel, lambda n: plain(head(st), n), st,
+                                  out, None, r.ds, r.steps)
+            times[kernel] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                 bound_by=by)
+    print(f"[custom] checks {time.perf_counter() - t0:.1f} s", flush=True)
+    return times
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -2205,9 +2593,16 @@ def main():
     phase_build()
     kernels = kernel_infos()
 
+    t3 = time.perf_counter()
     errs = phase_kernel_vs_plain("cuda")
+    t3_analytic = time.perf_counter() - t3
     media = build_sampled_media("cuda")
+    t3s = time.perf_counter()
     errs.update(phase_sampled_kernel_vs_plain("cuda", media))
+    print(f"[phase 3] kernel-vs-plain {t3_analytic:.1f} s, sampled-vs-plain "
+          f"{time.perf_counter() - t3s:.1f} s (plain versions replayed "
+          "from CUDA graphs)",
+          flush=True)
     # the analytic main path, then the sampled one, counts from zero each
     (times, runs), launches = main_path(
         kernels, ("fisheye_op1", "fused_step", "golden_step"),
@@ -2255,12 +2650,24 @@ def main():
     launches.update(dflaunches)
     df_times, df_main_secs = phase_df_checks("cuda", errs, dfruns)
     times.update(df_times)
+    # this slice: user-defined media in the fused and golden kernels
+    t_cu = time.perf_counter()
+    cmedia = custom_media()
+    cfields = phase_custom_build("cuda", cmedia)
+    errs.update(phase_custom_vs_plain("cuda", cfields))
+    curuns, culaunches = main_path(
+        kernels, ("fused_step_custom", "golden_step_custom"),
+        lambda: phase_custom("cuda", cmedia))
+    launches.update(culaunches)
+    times.update(phase_custom_checks("cuda", errs, curuns))
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
           f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
-          f"phase's {time.perf_counter() - t_df:.1f} s, of which its 2^20-ray"
+          f"phase's {t_cu - t_df:.1f} s, of which its 2^20-ray"
           f" runs against direct launches and the plain version "
-          f"{df_main_secs:.1f} s; {time.perf_counter() - T_IMPORTS:.1f} s "
-          "with the imports)", flush=True)
+          f"{df_main_secs:.1f} s; the custom phase's "
+          f"{time.perf_counter() - t_cu:.1f} s; "
+          f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

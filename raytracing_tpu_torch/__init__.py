@@ -6,10 +6,12 @@ the physics oracles, the analytic fields and the reference's sampled media:
 stratified tables and the 2-D spline grid, parity and C1 forms; the dynamic
 tier — paraxial spreading, KMAH caustics, amplitudes — and the eigenray
 solver with transmission loss; the df32 precision tier, double-word float32
-on the analytic fields and on split-word sampled media), written as plain
-torch functions on tensors, with the
-JAX package's TPU kernels replaced by CUDA C++ kernels for the H100
-(``csrc/``, built at first use by :mod:`raytracing_tpu_torch.kernels.build`).
+on the analytic fields and on split-word sampled media; user-defined
+media, ``CustomMedium``, traced into kernels of their own), written as
+plain torch functions on tensors, with the JAX package's TPU kernels
+replaced by CUDA C++ kernels for the H100 (``csrc/``, built at first use by
+:mod:`raytracing_tpu_torch.kernels.build`; a custom medium's by
+:mod:`raytracing_tpu_torch.kernels.custom`).
 It imports neither jax nor ``raytracing_tpu``.
 """
 

@@ -3,8 +3,8 @@
 Port of ``raytracing_tpu/engine/fast.py``: ``_as_hermite`` and its LRU
 cache (fast.py:31-51), ``FastResult`` (:59), ``supports`` (:85) and
 ``fast_trace`` (:99), with its routing of the analytic fields, the
-stratified tables (compaction and the stats check, :128-139, :309-329) and
-the 2-D grid media (:169-205).
+stratified tables (compaction and the stats check, :128-139, :309-329), the
+2-D grid media (:169-205) and user-defined media (:330-343).
 
 * Analytic fields: fused ops to ``kernels/fused.py``, golden and Newton ops
   to ``kernels/golden.py`` (engines ``"fused"``, ``"golden"``).
@@ -15,6 +15,13 @@ the 2-D grid media (:169-205).
 * 2-D grids (``GridMedium`` through its cached Hermite form,
   ``HermiteGridMedium``, ``C1GridMedium``): ``engine/segmented.py::
   grid_trace_tiled`` (``"grid"``; JAX says ``"grid-tiled"``).
+* ``CustomMedium``: traced once into the kernels' form
+  (``kernels/custom.py``), golden and Newton ops to the golden loop, the
+  fused ops to the fused loop, each instantiated on the medium in a library
+  of its own (``"golden-custom"``, ``"fused-custom"``), one launch a trace.
+  A field outside the emitter's table raises ValueError before any launch.
+  ``stats=True`` raises too: JAX's custom branches carry no Welford
+  tracker (fast.py:330-343).
 
 ``fast_dynamic`` (fast.py:366-472) is the dynamic twin: analytic fields,
 stratified tables and 2-D grids go to the three dynamic kernels
@@ -29,8 +36,9 @@ Not ported, on purpose: ``SEGMENT_THRESHOLD`` and the segmented route
 Mosaic's compile time and skip frozen TPU blocks; on the card one launch
 covers every trace length, and each thread stops stepping once its ray is
 frozen, which gives the same results.  No medium falls back to the scan
-tier; ``CustomMedium`` (and any other medium) raises NotImplementedError
-naming the ROADMAP.md item that ports it.
+tier: any other medium raises NotImplementedError.  JAX sends a custom
+trace longer than ``SEGMENT_THRESHOLD`` to the scan tier (fast.py:226-231),
+a Mosaic compile guard; here it is one launch at every length.
 
 ``precision="high"`` (fast.py:141-162) routes op12 on the analytic fisheye
 and vert fields to the df32 kernel (``kernels/df.py``, engine ``"df32"``):
@@ -54,12 +62,12 @@ from raytracing_tpu_torch.kernels.dynamic import (
     dynamic_trace_final_strat)
 from raytracing_tpu_torch.kernels.fused import (
     FUSED_FIELDS, FUSED_OPS, _vectors, fused_trace_final,
-    fused_trace_final_strat)
+    fused_trace_final_custom, fused_trace_final_strat)
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS, golden_trace_final
 from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
 from raytracing_tpu_torch.media.hermite import (
     HermiteGridMedium, build_hermite_medium)
-from raytracing_tpu_torch.media.medium import AnalyticMedium
+from raytracing_tpu_torch.media.medium import AnalyticMedium, CustomMedium
 from raytracing_tpu_torch.media.samples import compact_for_trace
 from raytracing_tpu_torch.media.spline import GridMedium, StratifiedGridMedium
 from raytracing_tpu_torch.ops.registry import canonical
@@ -95,7 +103,7 @@ class FastResult(NamedTuple):
     dist_sim: Any    # (R,)
     active: Any      # (R,) bool: still inside the box
     engine: str      # "fused" | "golden" | "fused-strat" | "golden-strat" |
-    #                  "grid" | "df32"
+    #                  "fused-custom" | "golden-custom" | "grid" | "df32"
     mom_count: Any = None   # Welford p_x tracker (stats=True)
     mom_mean: Any = None
     mom_m2: Any = None
@@ -107,7 +115,7 @@ def supports(op_name: str, medium) -> bool:
     op = canonical(op_name)
     if not (op in FUSED_OPS or op in GOLDEN_OPS):
         return False
-    if isinstance(medium, STRAT_MEDIA + GRID_MEDIA):
+    if isinstance(medium, STRAT_MEDIA + GRID_MEDIA + (CustomMedium,)):
         return True
     return isinstance(medium, AnalyticMedium) and medium.field in FUSED_FIELDS
 
@@ -141,10 +149,14 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
     medium = compact_for_trace(medium, scen.box, delta_s)
     strat = isinstance(medium, STRAT_MEDIA)
     grid = isinstance(medium, GRID_MEDIA)
-    if not (strat or grid or isinstance(medium, AnalyticMedium)):
+    custom = isinstance(medium, CustomMedium)
+    if not (strat or grid or custom or isinstance(medium, AnalyticMedium)):
         raise NotImplementedError(
-            f"fast_trace on {type(medium).__name__} is not ported yet: "
-            "CustomMedium is ROADMAP.md §2 item 4")
+            f"fast_trace has no kernel for {type(medium).__name__}, and no "
+            "medium falls back to the scan tier (ROADMAP.md §3)")
+    if stats and custom:
+        raise ValueError("stats=True has no CustomMedium path: JAX's custom "
+                         "kernels carry no Welford tracker (fast.py:330-343)")
     if not supports(op, medium):
         on = (f"field {medium.field!r}" if isinstance(medium, AnalyticMedium)
               else type(medium).__name__)
@@ -171,8 +183,11 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
         return FastResult(pos=f.pos, traveltime=f.traveltime,
                           dist_sim=f.dist_sim, active=f.active, engine="grid",
                           tangent=f.tangent)
+    # JAX's order (fast.py:309-355): the tables, the custom media, the
+    # analytic fields; golden before fused in each
+    kind = "-strat" if strat else "-custom" if custom else ""
     if op in GOLDEN_OPS:
-        kw = (dict(field=None, medium=medium) if strat
+        kw = (dict(field=None, medium=medium) if strat or custom
               else dict(field=medium.field))
         g = golden_trace_final(pos0, theta0, delta_s, scen.gamma, op=op,
                                steps=int(steps), box=box, device=device,
@@ -180,20 +195,23 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
         tangent = torch.stack([torch.cos(g.angle), torch.sin(g.angle)], dim=-1)
         return FastResult(pos=g.pos, traveltime=g.traveltime,
                           dist_sim=g.dist_sim, active=g.active,
-                          engine="golden-strat" if strat else "golden",
+                          engine="golden" + kind,
                           mom_count=g.mom_count, mom_mean=g.mom_mean,
                           mom_m2=g.mom_m2, tangent=tangent)
     if strat:
         f = fused_trace_final_strat(pos0, theta0, delta_s, medium, op=op,
                                     steps=int(steps), box=box, device=device,
                                     with_stats=stats)
+    elif custom:
+        f = fused_trace_final_custom(pos0, theta0, delta_s, medium=medium,
+                                     op=op, steps=int(steps), box=box,
+                                     device=device)
     else:
         f = fused_trace_final(pos0, theta0, delta_s, field=medium.field,
                               op=op, steps=int(steps), box=box, device=device,
                               with_stats=stats)
     return FastResult(pos=f.pos, traveltime=f.traveltime, dist_sim=f.dist_sim,
-                      active=f.active,
-                      engine="fused-strat" if strat else "fused",
+                      active=f.active, engine="fused" + kind,
                       mom_count=f.mom_count, mom_mean=f.mom_mean,
                       mom_m2=f.mom_m2, tangent=f.tangent)
 

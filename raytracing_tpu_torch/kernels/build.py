@@ -57,6 +57,10 @@ _SIGNATURES = {
     # curv_tol, cos_c0, sin_c0, cos_d0, sin_d0, cos_m, sin_m, l_final, stream
     "rt_golden_step": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # rt_fused_step's arguments after field (a generated custom-medium
+    # library, kernels/custom.py: one op on one medium)
+    "rt_fused_step_custom": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
+                             _F, _F, _F, _F, _F, _P),
     # ch (6 | 4), then rt_fused_step's arguments after field, the table, stream
     "rt_fused_step_strat": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
                             _F, _F, _F, _F, _F, *_TABLE, _P),
@@ -70,6 +74,11 @@ _SIGNATURES = {
     # limit_ray (device), the table, stream
     "rt_fused_sweep_grid": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
                             _F, _F, _F, _F, _F, _P, _P, *_TABLE, _P),
+    # rt_golden_step's arguments after field (a generated custom-medium
+    # library: one variant on one medium)
+    "rt_golden_step_custom": (_I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                              _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                              _F, _P),
     # ch, then rt_golden_step's arguments after field, the table, stream
     "rt_golden_step_strat": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
@@ -179,7 +188,13 @@ def build(flags=NVCC_FLAGS, csrc=CSRC) -> Path:
     return lib
 
 
-def load(path: Path, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+#: the entry points a generated custom-medium library has (kernels/custom.py)
+CUSTOM_ENTRIES = ("rt_fused_step_custom", "rt_golden_step_custom")
+#: the entry points of the library built from csrc/*.cu
+MAIN_ENTRIES = tuple(n for n in _SIGNATURES if n not in CUSTOM_ENTRIES)
+
+
+def load(path: Path, names=MAIN_ENTRIES) -> ctypes.CDLL:
     """A built library, loaded, with the signatures of its entry points
     ``names`` set."""
     lib = ctypes.CDLL(str(path))

@@ -461,7 +461,7 @@ def dynamic_step(st: DynState, *, field, op: str, steps: int, delta_s,
     lib = build.library()
     with torch.cuda.device(st.x.device):
         err = getattr(lib, "rt_dynamic_step" + suffix)(
-            lead, int(op[2:]), build.pointer_array(st),
+            *lead, int(op[2:]), build.pointer_array(st),
             build.pointer_array(out), st.x.shape[0], int(steps),
             float(delta_s), float(step_limit), float(offset), *box, *table,
             torch.cuda.current_stream().cuda_stream)

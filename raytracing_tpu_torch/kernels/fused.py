@@ -14,14 +14,17 @@ per-ray arrays; and the resume state layout of ``engine/segmented.py``
 (segmented.py:165, :778, :968, :1581) chain the same kernel.
 
 The medium is an argument of the step, as JAX's ``nag`` injection
-(``_make_kernel(strat=, tile=)``, fused.py:336-340): ``field`` is an
-analytic field name, a :class:`StratTables`, a :class:`GridTables` or a
-:class:`NodeTables`, and :func:`nag_fn` gives its plain evaluator.  One step
-loop, ``csrc/fused.cu``, is instantiated on the four media
-(``csrc/media.cuh``), as kernels with their own launch counts:
-``fused_step`` (analytic), ``fused_step_strat``, ``fused_step_grid`` and
-``fused_step_nodes``, and ``fused_sweep_grid``, the grid loop with a step
-size and a step limit per ray (the DELTA_S candidate sweep).
+(``_make_kernel(strat=, tile=, custom=)``, fused.py:336-340): ``field`` is
+an analytic field name, a :class:`StratTables`, a :class:`GridTables`, a
+:class:`NodeTables` or a traced ``CustomMedium``
+(``kernels/custom.py::CustomField``), and :func:`nag_fn` gives its plain
+evaluator.  One step loop, ``csrc/fused.cuh``, is instantiated on the four
+media (``csrc/media.cuh``) in ``csrc/fused.cu``, as kernels with their own
+launch counts: ``fused_step`` (analytic), ``fused_step_strat``,
+``fused_step_grid`` and ``fused_step_nodes``, and ``fused_sweep_grid``, the
+grid loop with a step size and a step limit per ray (the DELTA_S candidate
+sweep); and on a custom medium in a library generated for it
+(``fused_step_custom``; ``fused_trace_final_custom``, fused.py:809).
 :func:`fused_step_plain` is their plain PyTorch version, and
 :func:`fused_step` / :func:`fused_sweep_grid` the wrappers that dispatch on
 the device of the state tensors: a CPU state runs the plain version, a CUDA
@@ -40,6 +43,9 @@ import torch
 
 from raytracing_tpu_torch.config import THCK_PARAM, gold_tol
 from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.kernels.custom import (
+    KERNEL_FUSED as KERNEL_CUSTOM, CustomField, custom_nag_plain, library_for,
+    trace_custom)
 
 FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
 FUSED_OPS = ("op1", "op2", "op3", "op4", "op6", "op7", "op8", "op12")
@@ -276,6 +282,8 @@ def nodes_nag_plain(t: NodeTables):
 
 def nag_fn(field):
     """The plain evaluator (x, y) -> (n, gx, gy) of a step's medium."""
+    if isinstance(field, CustomField):
+        return custom_nag_plain(field)
     if isinstance(field, StratTables):
         return strat_nag_plain(field)
     if isinstance(field, GridTables):
@@ -568,12 +576,14 @@ def check_state(st: ResumeState, *, needs_ang: bool, window: bool) -> None:
 def check_medium(field, device) -> None:
     """A sampled medium's table must lie, as contiguous float32, on the
     state's device: a medium held on the CPU never meets a CUDA state (move
-    it once with ``medium.to(device)``)."""
-    if isinstance(field, str):
+    it once with ``medium.to(device)``).  A field name or a
+    :class:`~raytracing_tpu_torch.kernels.custom.CustomField` has no table."""
+    if isinstance(field, (str, CustomField)):
         return
     if not isinstance(field, (StratTables, GridTables, NodeTables)):
         raise ValueError("a step's medium is a field name, StratTables, "
-                         f"GridTables or NodeTables, got {type(field).__name__}")
+                         "GridTables, NodeTables or CustomField, got "
+                         f"{type(field).__name__}")
     t = field.table
     if t.device != device or t.dtype != torch.float32 \
             or not t.is_contiguous():
@@ -582,24 +592,30 @@ def check_medium(field, device) -> None:
                          ".to(device)")
 
 
-def kernel_of(field, kernels):
-    """(KernelInfo, entry-point suffix, leading int, table arguments) of a
+def kernel_of(field, kernels, custom=None):
+    """(KernelInfo, entry-point suffix, leading ints, table arguments) of a
     step's medium; ``kernels`` are the (analytic, strat, grid[, nodes])
-    KernelInfos of a family, the table arguments those of csrc/media.cuh
-    RT_TABLE_PARAMS."""
+    KernelInfos of a family and ``custom`` its CustomField kernel (None
+    where the family has none), the table arguments those of
+    csrc/media.cuh RT_TABLE_PARAMS.  A CustomField's entry point takes no
+    leading int: its library holds one loop."""
+    if isinstance(field, CustomField):
+        if custom is None:
+            raise ValueError("this kernel family has no CustomMedium form")
+        return custom, "_custom", (), ()
     if isinstance(field, StratTables):
-        return kernels[1], "_strat", field.ch, (
+        return kernels[1], "_strat", (field.ch,), (
             field.table.data_ptr(), 0.0, field.y0, 0.0, field.inv_hy, 0,
             field.ny)
     if isinstance(field, GridTables):
-        return kernels[2], "_grid", field.cell_ch, (
+        return kernels[2], "_grid", (field.cell_ch,), (
             field.table.data_ptr(), field.x0, field.y0, field.inv_hx,
             field.inv_hy, field.nx, field.ny)
     if isinstance(field, NodeTables):
-        return kernels[3], "_nodes", 9, (
+        return kernels[3], "_nodes", (9,), (
             field.table.data_ptr(), field.x0, field.y0, field.inv_hx,
             field.inv_hy, field.nx, field.ny)
-    return kernels[0], "", FIELD_CODES[field], ()
+    return kernels[0], "", (FIELD_CODES[field],), ()
 
 
 def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
@@ -608,7 +624,9 @@ def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
 
     ``field`` is the medium: an analytic field name (kernel ``fused_step``),
     a :class:`StratTables` (``fused_step_strat``), a :class:`GridTables`
-    (``fused_step_grid``) or a :class:`NodeTables` (``fused_step_nodes``).
+    (``fused_step_grid``), a :class:`NodeTables` (``fused_step_nodes``) or
+    a traced ``CustomMedium``, :class:`CustomField` (``fused_step_custom``,
+    from the field's own library, built on first use).
     ``offset`` is the number of steps applied
     before this launch (global step numbering: op7's order ramp and
     ``step_limit`` read it), so a run of k steps then n - k steps with
@@ -628,17 +646,18 @@ def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
                                 offset=float(offset), box=box)
     if st.x.device.type != "cuda":
         raise ValueError(f"fused_step runs on cpu or cuda, not {st.x.device}")
+    kernel, suffix, lead, table = kernel_of(field, KERNELS, KERNEL_CUSTOM)
+    fn, name = (library_for(field, "fused", op) if suffix == "_custom" else
+                (getattr(build.library(), "rt_fused_step" + suffix),
+                 "rt_fused_step" + suffix))
     out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
-    kernel, suffix, lead, table = kernel_of(field, KERNELS)
-    lib = build.library()
     with torch.cuda.device(st.x.device):
-        err = getattr(lib, "rt_fused_step" + suffix)(
-            lead, int(op[2:]), int(st.mom_count is not None),
-            build.pointer_array(st), build.pointer_array(out), st.x.shape[0],
-            int(steps), float(delta_s), float(step_limit), float(offset),
-            *box, CURV_TOL, *table,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "rt_fused_step" + suffix)
+        err = fn(*lead, int(op[2:]), int(st.mom_count is not None),
+                 build.pointer_array(st), build.pointer_array(out),
+                 st.x.shape[0], int(steps), float(delta_s), float(step_limit),
+                 float(offset), *box, CURV_TOL, *table,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, name)
     kernel.launches += 1
     return out
 
@@ -681,7 +700,7 @@ def fused_sweep_grid(st: ResumeState, delta_s, step_limit, *,
     lib = build.library()
     with torch.cuda.device(st.x.device):
         err = lib.rt_fused_sweep_grid(
-            lead, int(op[2:]), int(st.mom_count is not None),
+            *lead, int(op[2:]), int(st.mom_count is not None),
             build.pointer_array(st), build.pointer_array(out), st.x.shape[0],
             int(steps), 0.0, 0.0, 0.0, *box, CURV_TOL, delta_s.data_ptr(),
             step_limit.data_ptr(), *table,
@@ -707,6 +726,18 @@ def fused_trace_final(pos0, theta0, delta_s, *, field, op: str,
                     step_limit=steps if step_limit is None else step_limit,
                     offset=0.0, box=box)
     return final_from_state(st)
+
+
+def fused_trace_final_custom(pos0, theta0, delta_s, *, medium, op: str,
+                             steps: int, box, device="cuda", step_limit=None,
+                             with_stats: bool = False) -> FusedFinal:
+    """Fused integration through a user-defined ``CustomMedium``
+    (fused.py:809): the medium traced once (``kernels/custom.py``) and read
+    by the ``fused_step_custom`` kernel, its library built on first use.
+    Same contract as :func:`fused_trace_final`."""
+    return fused_trace_final(pos0, theta0, delta_s, field=trace_custom(medium),
+                             op=op, steps=steps, box=box, device=device,
+                             step_limit=step_limit, with_stats=with_stats)
 
 
 def fused_trace_final_strat(pos0, theta0, delta_s, medium, *, op: str,

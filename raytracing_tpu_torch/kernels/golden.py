@@ -20,11 +20,14 @@ Every step minimizes the momentum-impulse cost (RT_bench.py:573-600,
   rotations; with ``polish=0`` it is the reference-parity mode.
 
 The medium is an argument of the step, as in JAX (golden.py:162, the strat
-injection :520-527 and the tile injection :491-518): ``field`` is an
-analytic field name, a ``StratTables`` or a ``GridTables``
-(kernels/fused.py).  The step loop of ``csrc/golden.cu`` is instantiated on
-the three media as three kernels with their own launch counts
-(``golden_step``, ``golden_step_strat``, ``golden_step_grid``);
+injection :520-527, the tile injection :491-518 and the custom one
+:620-651): ``field`` is an analytic field name, a ``StratTables``, a
+``GridTables`` (kernels/fused.py) or a traced ``CustomMedium``
+(``kernels/custom.py::CustomField``).  The step loop of ``csrc/golden.cuh``
+is instantiated on the three media in ``csrc/golden.cu`` as three kernels
+with their own launch counts (``golden_step``, ``golden_step_strat``,
+``golden_step_grid``), and on a custom medium in a library generated for it
+(``golden_step_custom``);
 :func:`golden_step_plain` is their plain PyTorch version and
 :func:`golden_step` the wrapper that dispatches on the device of the
 state.  Both take the cost's first and
@@ -41,10 +44,13 @@ import torch
 
 from raytracing_tpu_torch.config import DELTA_G, GOLD_RATIO, golden_iters
 from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.kernels.custom import (
+    KERNEL_GOLDEN as KERNEL_CUSTOM, library_for, trace_custom)
 from raytracing_tpu_torch.kernels.fused import (
     CURV_TOL, FUSED_FIELDS, NodeTables, ResumeState, _kahan, _outside,
     _vectors, arc_advance, check_medium, check_state, div_exact, kernel_of,
     nag_fn, rot_small, strat_tables)
+from raytracing_tpu_torch.media.medium import CustomMedium
 
 GOLDEN_OPS = {"op5": ("curv", "golden"), "op9": ("t2", "golden"),
               "op10": ("curv", "golden"), "op11": ("t2", "golden"),
@@ -375,8 +381,10 @@ def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
     """Advance a resume state ``steps`` steps: the kernels' wrapper.
 
     ``field`` is the medium: an analytic field name (kernel
-    ``golden_step``), a ``StratTables`` (``golden_step_strat``) or a
-    ``GridTables`` (``golden_step_grid``).  ``scal`` is
+    ``golden_step``), a ``StratTables`` (``golden_step_strat``), a
+    ``GridTables`` (``golden_step_grid``) or a traced ``CustomMedium``,
+    ``CustomField`` (``golden_step_custom``, from the field's own library,
+    built on first use).  ``scal`` is
     :func:`golden_scalars` on the state's device, built with the bracket
     iterations of the schedule (``golden_schedule(polish, gold_iters)``);
     its ``offset`` entry makes step numbering global, so k steps then
@@ -405,19 +413,19 @@ def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
                                  polish=polish)
     if st.x.device.type != "cuda":
         raise ValueError(f"golden_step runs on cpu or cuda, not {st.x.device}")
+    kernel, suffix, lead, table = kernel_of(field, KERNELS, KERNEL_CUSTOM)
+    fn, name = (library_for(field, "golden", op) if suffix == "_custom" else
+                (getattr(build.library(), "rt_golden_step" + suffix),
+                 "rt_golden_step" + suffix))
     out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
-    kernel, suffix, lead, table = kernel_of(field, KERNELS)
-    lib = build.library()
     with torch.cuda.device(st.x.device):
-        err = getattr(lib, "rt_golden_step" + suffix)(
-            lead, int(stepper == "curv"),
-            int(solver == "newton"), int(op in ("op5", "op9")),
-            int(st.mom_count is not None), build.pointer_array(st),
-            build.pointer_array(out), st.x.shape[0], int(steps),
-            scal.data_ptr(), iters, polish, *box, CURV_TOL,
-            *bracket_constants(iters), *table,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "rt_golden_step" + suffix)
+        err = fn(*lead, int(stepper == "curv"), int(solver == "newton"),
+                 int(op in ("op5", "op9")), int(st.mom_count is not None),
+                 build.pointer_array(st), build.pointer_array(out),
+                 st.x.shape[0], int(steps), scal.data_ptr(), iters, polish,
+                 *box, CURV_TOL, *bracket_constants(iters), *table,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, name)
     kernel.launches += 1
     return out
 
@@ -437,8 +445,9 @@ def golden_trace_final(pos0, theta0, delta_s, gamma, *, field, op: str,
     """Run ``steps`` golden/Newton integration steps (golden.py:581).
 
     ``field`` is the step's medium (see :func:`golden_step`); ``medium``, a
-    stratified medium (parity or C1), replaces it with its tables, as the
-    JAX wrapper's ``medium=`` does.  ``gamma`` is the anisotropy ratio
+    stratified medium (parity or C1) or a ``CustomMedium``, replaces it
+    with its tables or its traced form, as the JAX wrapper's ``medium=``
+    does (golden.py:620-651).  ``gamma`` is the anisotropy ratio
     (op5/op9 fold it to 1);
     ``gold_iters``/``polish`` select the schedule (default: closed-form
     seed + Newton polish; ``polish=0`` the pure f32 reference-parity
@@ -448,7 +457,8 @@ def golden_trace_final(pos0, theta0, delta_s, gamma, *, field, op: str,
         raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
     iters, polish = golden_schedule(polish, gold_iters)
     if medium is not None:
-        field = strat_tables(medium)
+        field = (trace_custom(medium) if isinstance(medium, CustomMedium)
+                 else strat_tables(medium))
     st = initial_state(op, pos0, theta0, gamma, field=field,
                        with_stats=with_stats, device=device)
     scal = golden_scalars(delta_s, gamma,

@@ -7,8 +7,12 @@ frozen dataclass with one method::
     n, (dndx, dndy) = medium.n_and_grad(x, y)
 
 ``CustomMedium`` runs on the scan tiers (``engine/trace.py``,
-``engine/dynamic.py``); its kernel form (``kernels/fused.py::_custom_nag``)
-is not ported (ROADMAP.md §2 item 4), so ``fast_trace`` refuses it.
+``engine/dynamic.py``) and, through ``fast_trace``, in the fused and golden
+CUDA kernels: ``kernels/custom.py`` (the port of
+``kernels/fused.py::_custom_nag``) traces ``n_fn`` (and ``grad_fn``) into
+elementwise operations and emits them into a kernel of the medium's own.
+``fast_dynamic`` keeps it on the scan tier (``"dynamic-scan"``), as JAX
+does.
 """
 from __future__ import annotations
 
@@ -45,7 +49,11 @@ class CustomMedium:
     gradient by forward-mode autodiff (``torch.func.jvp``), or from a
     hand-written ``grad_fn(x, y) -> (dndx, dndy)`` where autodiff through
     the field is ill-conditioned.  A second ``jvp`` (the dynamic tier's
-    tangent) gives the Hessian."""
+    tangent) gives the Hessian.  The kernels take a field built from the
+    operations of ``kernels/custom.py``'s ``RULES`` (forward mode in the
+    kernel when there is no ``grad_fn``); ``fast_trace`` raises ValueError,
+    before any launch, for any other.  Hashed by identity: the kernels'
+    traced form is cached per medium object."""
 
     n_fn: object                 # callable (x, y) -> n, elementwise
     grad_fn: object = None       # optional callable (x, y) -> (dndx, dndy)

@@ -3,7 +3,10 @@ analytic-media kernels, the sampled-media ones (stratified tables and the
 2-D grid, parity and C1), the grid sweep (per-ray step sizes) and the
 node-table kernel; segmented_trace and the DELTA_S search on the card; the
 three dynamic kernels, fast_dynamic and the eigenray solver on the card;
-and the four df32 kernels on their five media, with the df32 entry points.
+the four df32 kernels on their five media, with the df32 entry points;
+the custom-medium kernels (a CustomMedium traced into its own library) and
+fast_trace on a CustomMedium; and the plain versions replayed from a CUDA
+graph against their eager loops.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -21,6 +24,8 @@ torch = pytest.importorskip("torch")
 import raytracing_tpu_torch as rtt  # noqa: E402
 from raytracing_tpu_torch.engine import df_grid as tdg  # noqa: E402
 from raytracing_tpu_torch.engine import segmented as seg  # noqa: E402
+from raytracing_tpu_torch.bench import replay  # noqa: E402
+from raytracing_tpu_torch.kernels import custom as kc  # noqa: E402
 from raytracing_tpu_torch.kernels import df as kdf  # noqa: E402
 from raytracing_tpu_torch.kernels import dynamic as kd  # noqa: E402
 from raytracing_tpu_torch.kernels import fisheye as kf  # noqa: E402
@@ -466,3 +471,142 @@ def test_df_entry_points_on_the_card(cuda_device):
     for f in ("q", "dtheta", "kmah"):
         assert torch.equal(getattr(out, f), getattr(inside, f)), f
     assert bool((out.kmah == 1).all())
+
+
+def _custom_media():
+    """A dual-number field and a grad_fn field (the interface logistic)."""
+    sq2, thck = 1.4142135623730951, 0.005
+
+    def grad(x, y):
+        s = torch.sigmoid(y / thck)
+        return torch.zeros_like(x), -(sq2 - 1.0) * s * (1.0 - s) / thck
+
+    return {"fisheye": rtt.CustomMedium(
+                lambda x, y: 1.2 + 0.1 * torch.sin(x) * torch.cos(y)),
+            "interface": rtt.CustomMedium(
+                lambda x, y: sq2 - (sq2 - 1.0) * torch.sigmoid(y / thck),
+                grad_fn=grad)}
+
+
+def _planes_equal(a, b):
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("field", ("fisheye", "interface"))
+def test_custom_kernels_match_plain(field, cuda_device):
+    """The generated fused (op6, op7) and golden (op11, op5 in the
+    bracket-parity schedule) kernels equal their plain version to the bit."""
+    pos0, theta0, ds, box = _fan(field)
+    cf = kc.trace_custom(_custom_media()[field])
+    for op in ("op6", "op7"):
+        st = kfu.initial_state(op, pos0, theta0, field=cf,
+                               with_stats=field != "fisheye",
+                               device=cuda_device)
+        kw = dict(field=cf, op=op, steps=120, delta_s=ds, step_limit=120,
+                  offset=0.0, box=box)
+        before = kc.KERNEL_FUSED.launches
+        got = kfu.fused_step(st, **kw)
+        assert kc.KERNEL_FUSED.launches == before + 1
+        _planes_equal(got, kfu.fused_step_plain(st, **kw))
+    for op, polish in (("op11", None), ("op5", 0)):
+        it, pol = kg.golden_schedule(polish)
+        st = kg.initial_state(op, pos0, theta0, 1.0, field=cf,
+                              with_stats=True, device=cuda_device)
+        scal = kg.golden_scalars(ds, 1.0, 60, 0.0, it, device=cuda_device)
+        before = kc.KERNEL_GOLDEN.launches
+        got = kg.golden_step(st, scal, field=cf, op=op, steps=60, box=box,
+                             gold_iters=it, polish=pol)
+        assert kc.KERNEL_GOLDEN.launches == before + 1
+        _planes_equal(got, kg.golden_step_plain(st, scal, field=cf, op=op,
+                                                steps=60, box=box, iters=it,
+                                                polish=pol))
+
+
+#: one field a primitive of kernels/custom.py (dual numbers): the kernel
+#: calls the libdevice function PyTorch's CUDA kernel calls
+PRIMITIVE_FIELDS = {
+    "sin": lambda x, y: 1.5 + 0.1 * torch.sin(3.0 * x + y),
+    "cos": lambda x, y: 1.5 + 0.1 * torch.cos(x * y + 2.0),
+    "tan": lambda x, y: 1.5 + 0.1 * torch.tan(0.3 * x - 0.2 * y),
+    "tanh": lambda x, y: 1.5 + 0.1 * torch.tanh(2.0 * x + y),
+    "atan": lambda x, y: 1.5 + 0.1 * torch.atan(3.0 * x - y),
+    "atan2": lambda x, y: 1.5 + 0.1 * torch.atan2(y, x + 2.5),
+    "exp": lambda x, y: 1.5 + 0.1 * torch.exp(0.5 * x - y),
+    "expm1": lambda x, y: 1.5 + 0.1 * torch.expm1(x * y),
+    "log": lambda x, y: 1.5 + 0.1 * torch.log(x + 3.0 + y * y),
+    "log1p": lambda x, y: 1.5 + 0.1 * torch.log1p(x * x + y * y),
+    "sqrt_rsqrt": lambda x, y: torch.sqrt(x + 3.0) * torch.rsqrt(y + 3.0),
+    "sigmoid": lambda x, y: 1.5 - 0.4 * torch.sigmoid(y / 0.05),
+    "div_pow": lambda x, y: ((x + 3.0) / (y + 4.0) + x / 7.0 + y ** 2
+                             + (x + 3.0) ** -0.5 + (y + 3.0) ** -2),
+    "selects": lambda x, y: (6.0 + torch.where(x > y, x * 0.5, y)
+                             + torch.clamp(x, -0.5, 0.5) + abs(y - 0.2)
+                             + torch.minimum(x, y) + torch.maximum(x, y)),
+}
+
+
+def test_custom_primitives_match_plain(cuda_device):
+    """Every primitive of the rule table through the fused op6 kernel for
+    50 steps on 3,000 rays against its plain version, every plane to the
+    bit (the libraries built together, one nvcc each)."""
+    fields = {k: kc.trace_custom(rtt.CustomMedium(f))
+              for k, f in PRIMITIVE_FIELDS.items()}
+    kc.build_libraries([(f, "fused", "op6") for f in fields.values()])
+    rng = np.random.default_rng(5)
+    pos0 = rng.uniform(-1.0, 1.0, (R, 2))
+    theta0 = rng.uniform(0.0, 2.0 * np.pi, R)
+    box = (-1.5, 1.5, -1.5, 1.5)
+    for name, cf in fields.items():
+        st = kfu.initial_state("op6", pos0, theta0, field=cf,
+                               with_stats=False, device=cuda_device)
+        kw = dict(field=cf, op="op6", steps=50, delta_s=0.01, step_limit=50,
+                  offset=0.0, box=box)
+        _planes_equal(kfu.fused_step(st, **kw), kfu.fused_step_plain(st, **kw))
+
+
+def test_fast_trace_custom_on_the_card(cuda_device):
+    """One launch a trace, the engines JAX names, and the refusals."""
+    scen = rtt.scenario("aniso")
+    med = rtt.CustomMedium(lambda x, y: 1.0 / (18.0 + 2.0 * y))
+    kw = dict(delta_s=0.05, pos0=scen.pos0, theta0=scen.theta0,
+              device=cuda_device)
+    for op, engine, info in (("op11", "golden-custom", kc.KERNEL_GOLDEN),
+                             ("op6", "fused-custom", kc.KERNEL_FUSED)):
+        before = info.launches
+        res = rtt.fast_trace(op, scen, med, **kw)
+        assert res.engine == engine and info.launches == before + 1
+        ref = rtt.fast_trace(op, scen, rtt.analytic_medium(scen.field), **kw)
+        assert torch.equal(res.pos, ref.pos)   # the same rounding as vert's
+    with pytest.raises(ValueError, match="stats"):
+        rtt.fast_trace("op11", scen, med, stats=True, **kw)
+    with pytest.raises(ValueError, match="erf"):
+        rtt.fast_trace("op6", scen, rtt.CustomMedium(
+            lambda x, y: 1.0 + torch.erf(y)), **kw)
+
+
+@pytest.mark.parametrize("field", ("interface", "vert_heterogeneous"))
+def test_replayed_plain_equals_eager(field, cuda_device):
+    """The plain versions replayed from a CUDA graph (bench/replay.py)
+    equal their eager loops to the bit: golden op11 (default schedule) and
+    op5 (bracket parity), and op7 with its order ramp from offsets 0 and
+    1; a step limit below the step count."""
+    pos0, theta0, ds, box = _fan(field)
+    for op, polish in (("op11", None), ("op5", 0)):
+        it, pol = kg.golden_schedule(polish)
+        st = kg.initial_state(op, pos0, theta0, 3.0, field=field,
+                              with_stats=True, device=cuda_device)
+        scal = kg.golden_scalars(ds, 3.0, 30, 0.0, it, device=cuda_device)
+        kw = dict(field=field, op=op, steps=40, box=box, iters=it,
+                  polish=pol)
+        _planes_equal(replay.golden_plain(st, scal, **kw),
+                      kg.golden_step_plain(st, scal, **kw))
+    st = kfu.initial_state("op7", pos0, theta0, field=field, with_stats=True,
+                           device=cuda_device)
+    for offset in (0.0, 1.0):
+        kw = dict(field=field, op="op7", steps=40, delta_s=ds,
+                  step_limit=35, offset=offset, box=box)
+        _planes_equal(replay.fused_plain(st, **kw),
+                      kfu.fused_step_plain(st, **kw))

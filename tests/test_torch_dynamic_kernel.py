@@ -327,10 +327,10 @@ def test_fast_dynamic_routes_like_jax():
     _, eng = rtt.fast_dynamic("op6", tscen, custom, delta_s=ds, pos0=pos0,
                               theta0=theta0, steps=5, device="cpu")
     assert eng == "dynamic-scan"
-    # the kinematic kernels have no custom form yet
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rtt.fast_trace("op6", tscen, custom, delta_s=ds, pos0=pos0,
-                       theta0=theta0, steps=5, device="cpu")
+    # the kinematic kernels take the custom medium (kernels/custom.py)
+    res = rtt.fast_trace("op6", tscen, custom, delta_s=ds, pos0=pos0,
+                         theta0=theta0, steps=5, device="cpu")
+    assert res.engine == "fused-custom"
 
 
 def test_dynamic_kernels_reject_golden_and_unknown():
