@@ -8,7 +8,7 @@ either is missing or any check fails.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
-2. build: the sixteen CUDA kernels of the main library compiled from
+2. build: the eighteen CUDA kernels of the main library compiled from
    raytracing_tpu_torch/csrc (one nvcc a source, all at once), then the
    reference's sampled media built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
@@ -109,19 +109,41 @@ either is missing or any check fails.  Phases, one line or more each:
    timed as a user's first call); then its checks: each run against a
    direct launch of its kernel (aniso's with the Welford tracker, for its
    momentum CV) and against its plain version at 300 steps, every plane to
-   the bit, with the kernels' times and bounds.
+   the bit, with the kernels' times and bounds;
+16. the 3-D kinematic tier (kernels/fused3d.py, engine/tiled3.py): the
+   benchmark's 71^3-node sampled fisheye built and uploaded;
+   ``[3d-vs-plain]`` both 3-D kernels against fused3d_step_plain at 65,536
+   rays and at most 1,000 steps, every op on the three analytic fields and
+   on the grid (a tilted and a dispersed fan), all 12 planes to the bit,
+   with a resume check each; ``[3d]`` the 3-D main path through
+   fast_trace3 at 2**20 rays: the fisheye for one turn on a fan of tilted
+   planes (closure), vert op8 and interface op6 in a box some rays leave,
+   the grid3 fisheye (one turn, against the analytic run), a dispersed
+   grid3 fan, and the benchmark's shapes fused3d_op6 and tiled3_grid_op6
+   (kernel_matrix.py:191-232); the scan route (Stratified3D: engine
+   "scan3d", and trace3d(stats=True)'s horizontal slowness CV at 4,096
+   rays, float64), trace3d history at 256 rays, divisor 303 (closure and
+   the Bouguer drift, bench.py:574-591), and delta_s_search_convergence3;
+   then ``[3d-shapes]``: each run against a direct launch of its kernel
+   (every ray to the bit) and that kernel against its plain version at
+   min(steps, 300) steps (all 12 planes), with the kernel's time, its bound
+   and, for the grid, the row-read HBM estimate (256 bytes a live ray-step
+   over 3.35 TB/s: not a bound, since rows the L2 holds cost no HBM read).
 
-The kernel-against-plain phases (3, 8's nodes, 15's ``[custom-vs-plain]``)
+The kernel-against-plain phases (3, 8's nodes, 15's ``[custom-vs-plain]``,
+16's ``[3d-vs-plain]``)
 replay their plain versions' steps from a CUDA graph
 (raytracing_tpu_torch/bench/replay.py), equal to the eager loop to the bit;
 the main shapes' plain versions run eagerly, as their times are reported.
 
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
 the search path, phase 12 the dynamic one, phase 14's ``[df32]`` the df32
-one and phase 15's ``[custom]`` the custom one: every launch count is set
+one, phase 15's ``[custom]`` the custom one and phase 16's ``[3d]`` the
+3-D one: every launch count is set
 to 0 just before each and read just after, and each kernel of that path
 must have launched; the launches phases 3, 7, 8, 10, 11, 12's checks,
-14's checks, 15's ``[custom-vs-plain]`` and 15's checks make to compare
+14's checks, 15's ``[custom-vs-plain]``, 15's checks, 16's
+``[3d-vs-plain]`` and ``[3d-shapes]`` make to compare
 and time a kernel are not counted.  The second-last line is a JSON
 object with one entry per kernel (its launches on its main path, largest
 |dpos| against the plain version, times, and the bound: the larger of its
@@ -212,9 +234,10 @@ _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt", "exp",
 
 
 class _OpCounter(TorchDispatchMode):
-    """Counts the elementwise arithmetic a plain version performs on a head
-    of HEAD_RAYS rays: a call counts the elements it computes a ray (at
-    least 1, so a per-step scalar counts once)."""
+    """Counts the elementwise floating-point arithmetic a plain version
+    performs on a head of HEAD_RAYS rays: a call with a floating-point
+    tensor operand counts the elements it computes a ray (at least 1, so a
+    per-step scalar counts once); integer index arithmetic is not counted."""
 
     def __init__(self):
         super().__init__()
@@ -222,7 +245,9 @@ class _OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__.rstrip("_") in _ARITH:
+        if (func.overloadpacket.__name__.rstrip("_") in _ARITH
+                and any(torch.is_tensor(a) and a.is_floating_point()
+                        for a in args)):
             self.n += (max(1, out.numel() // HEAD_RAYS)
                        if torch.is_tensor(out) else 1)
         return out
@@ -339,18 +364,20 @@ def phase_build():
 
 
 def kernel_infos():
-    """The eighteen kernels' KernelInfos, analytic first, then the dynamic
-    three, the four df32 ones and the two custom-medium ones."""
+    """The twenty kernels' KernelInfos, analytic first, then the dynamic
+    three, the four df32 ones, the two custom-medium ones and the two 3-D
+    ones."""
     from raytracing_tpu_torch.kernels import custom as kc
     from raytracing_tpu_torch.kernels import dynamic as kd
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
+    from raytracing_tpu_torch.kernels import fused3d as kf3
     from raytracing_tpu_torch.kernels import golden as kg
     from raytracing_tpu_torch.kernels import df as kdf
     return (kf.KERNEL, kfu.KERNEL, kg.KERNEL, kfu.KERNEL_STRAT,
             kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID,
             kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS + kdf.KERNELS \
-        + (kc.KERNEL_FUSED, kc.KERNEL_GOLDEN)
+        + (kc.KERNEL_FUSED, kc.KERNEL_GOLDEN) + kf3.KERNELS
 
 
 def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -920,7 +947,8 @@ def exact(errs, label, k, p):
     """A kernel's resume state ``k`` against its plain version's ``p``, to
     the bit: every field equal.  Prints |dpos|, |dtt| and the active flips;
     records |dpos| in ``errs``."""
-    dpos = max(float((k.x - p.x).abs().max()), float((k.y - p.y).abs().max()))
+    dpos = max(float((getattr(k, c) - getattr(p, c)).abs().max())
+               for c in ("x", "y", "z") if hasattr(k, c))
     dtt = float((k.tt - p.tt).abs().max())
     flips = int((k.active != p.active).sum())
     same = all(a is None and b is None or torch.equal(a, b)
@@ -1374,7 +1402,8 @@ def dyn_exact(label, k, p):
     """A dynamic kernel's 18 planes against its plain version's, to the
     bit; prints the largest |d| of pos, tt, q and dtheta and the KMAH
     mismatches.  Returns |dpos|."""
-    dpos = max(float((k.x - p.x).abs().max()), float((k.y - p.y).abs().max()))
+    dpos = max(float((getattr(k, c) - getattr(p, c)).abs().max())
+               for c in ("x", "y", "z") if hasattr(k, c))
     dtt = float((k.tt - p.tt).abs().max())
     dq = float((dyn_q(k) - dyn_q(p)).abs().max())
     ddth = float((k.dth - p.dth).abs().max())
@@ -2573,6 +2602,305 @@ def phase_custom_checks(device, errs, runs):
     return times
 
 
+# -- the 3-D kinematic tier (kernels/fused3d.py, engine/tiled3.py) ----------
+#: one turn of the fisheye's unit circle (benchmarks/kernel_matrix.py:194)
+DIV3 = 600
+BOX3 = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
+#: the benchmark's grid3 axis: 71 nodes at pitch 0.05
+#: (benchmarks/kernel_matrix.py:220-224); its per-cell table is 87.8 MB
+AX3 = np.arange(-1.75, 1.7501, 0.05)
+#: the sampled fisheye's one-turn positions against the analytic kernel's
+#: on the same fan: JAX's sampled-fisheye bar (tests/test_grid3.py:185)
+GRID3_DEV_BAR = 2e-4
+#: the horizontal-slowness CV bar (%) of the stratified scan route: the
+#: reference's 0.05 % in 3-D (tests/test_trace3d.py:109)
+CV3_BAR = 0.05
+#: HBM bytes one grid3 evaluation reads when its row is not cached
+ROW3_BYTES = 256
+
+
+def grid3_medium(device):
+    """The benchmark's sampled 3-D fisheye (71^3 nodes), built on the host
+    and uploaded to ``device``."""
+    import raytracing_tpu_torch as rtt
+    X, Y, Z = np.meshgrid(AX3, AX3, AX3, indexing="ij")
+    return rtt.c1_medium3_from_samples(
+        1.0 / (1.0 + X ** 2 + Y ** 2 + Z ** 2), AX3, AX3, AX3, device=device)
+
+
+def fan3(kind, rays, seed):
+    """(pos0, dir0, delta_s, steps, box) of the 3-D runs: ``tilted`` the
+    fisheye's ray (1, 0, 0) launched in planes tilted by [0, 1] rad (every
+    ray distinct; one turn); ``matrix`` the benchmark's 2^20 identical rays
+    (kernel_matrix.py:191-194); ``vert`` and ``interface`` random points
+    and directions in a box that some rays leave; ``dispersed`` points
+    all over the grid with random directions, so that the rays read rows
+    all over the 87.8 MB table."""
+    rng = np.random.default_rng(seed)
+    if kind in ("tilted", "matrix"):
+        if kind == "tilted":
+            tilt = np.linspace(0.0, 1.0, rays)
+            d = np.stack([np.zeros(rays), np.cos(tilt), np.sin(tilt)], -1)
+        else:
+            d = np.tile([[0.0, 1.0, 1e-3]], (rays, 1))
+        return (np.tile([[1.0, 0.0, 0.0]], (rays, 1)).astype(np.float32),
+                d.astype(np.float32), 2.0 * math.pi / DIV3, DIV3, BOX3)
+    if kind == "dispersed":
+        return (rng.uniform(-1.4, 1.4, (rays, 3)).astype(np.float32),
+                rng.normal(size=(rays, 3)).astype(np.float32),
+                2.0 * math.pi / DIV3, DIV3, BOX3)
+    pos0 = rng.uniform(-1.0, 1.0, (rays, 3))
+    ds, steps, box = 0.01, 200, (-2.0, 2.0, -2.0, 2.0, -2.0, 2.0)
+    if kind == "interface":
+        pos0[:, 1] = rng.uniform(-0.05, 0.05, rays)
+        ds, steps = 0.002, 1000
+    return (pos0.astype(np.float32),
+            rng.normal(size=(rays, 3)).astype(np.float32), ds, steps, box)
+
+
+def phase_3d_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):
+    """Both 3-D kernels against fused3d_step_plain (replayed,
+    bench/replay.py) at 65,536 rays, at most 1,000 steps, all 12 planes to
+    the bit: fused3d_step every op on each field, fused3d_step_grid every
+    op on the 71^3 sampled fisheye; a resume check each.  Returns {kernel:
+    Errors}."""
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    from raytracing_tpu_torch.kernels import fused3d as kf3
+    errs = {k.name: Errors() for k in kf3.KERNELS}
+    before = {k.name: k.launches for k in kf3.KERNELS}
+    t0 = time.perf_counter()
+    print(f"[3d-vs-plain] {rays} rays, at most {cap} steps", flush=True)
+    g3 = grid3_tables(gmed)
+    cases = ([(f, kind, "fused3d_step") for f, kind in (
+        ("fisheye", "tilted"), ("vert_heterogeneous", "vert"),
+        ("interface", "interface"))]
+        + [(g3, "tilted", "fused3d_step_grid"),
+           (g3, "dispersed", "fused3d_step_grid")])
+    for seed, (field, kind, kernel) in enumerate(cases):
+        pos0, dir0, ds, steps, box = fan3(kind, rays, seed)
+        steps = min(cap, steps)
+        st = kf3.initial_state3(pos0, dir0, device=device)
+        name = field if isinstance(field, str) else f"grid3 {kind}"
+        for op in kf3.FUSED3_OPS:
+            kw = dict(field=field, op=op, steps=steps, delta_s=ds,
+                      step_limit=steps, offset=0.0, box=box)
+            exact(errs[kernel], f"{kernel} {op} {name} {steps} steps",
+                  kf3.fused3d_step(st, **kw), replay.fused3d_plain(st, **kw))
+        # resume: k steps then n - k (offset k) against n steps
+        kw = dict(field=field, op="op8", delta_s=ds, step_limit=steps,
+                  box=box)
+        cut = steps // 3
+        resume_check(f"{kernel} op8 {name}",
+                     kf3.fused3d_step(st, steps=steps, offset=0.0, **kw),
+                     kf3.fused3d_step(kf3.fused3d_step(
+                         st, steps=cut, offset=0.0, **kw),
+                         steps=steps - cut, offset=float(cut), **kw))
+    for k in kf3.KERNELS:
+        delta = k.launches - before[k.name]
+        print(f"  {k.name}: {delta} launches in this phase", flush=True)
+        if delta <= 0:
+            fail(f"{k.name} was not launched against its plain version")
+    print(f"[3d-vs-plain] {time.perf_counter() - t0:.1f} s", flush=True)
+    return errs
+
+
+class Run3(NamedTuple):
+    """One 2^20-ray run of the [3d] main path: its medium (a field name or
+    the grid3 medium), op, launch and fast_trace3's result."""
+
+    medium: Any
+    op: str
+    pos0: Any
+    dir0: Any
+    ds: float
+    steps: int
+    box: Any
+    res: Any
+
+
+def phase_3d(device, gmed, rays=RAYS_MAIN):
+    """The [3d] main path, every run through the entry points a user calls:
+    fast_trace3 at 2^20 rays on the analytic fisheye (one turn, tilted fan,
+    closure), vert op8 and interface op6 (some rays leave the box), the
+    71^3 sampled fisheye (one turn, tilted fan; against the analytic run)
+    and on a dispersed fan, the benchmark's two shapes (fused3d_op6,
+    tiled3_grid_op6) with ray-steps/s; the scan route (Stratified3D of the
+    vert field: engine "scan3d", and trace3d(stats=True)'s horizontal
+    slowness CV at 4,096 rays); trace3d history at 256 rays, divisor 303,
+    closure and the Bouguer drift (bench.py:574-591); and
+    delta_s_search_convergence3 on tests/test_trace3d.py:214-221's inputs.
+    Returns {run: Run3}."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.parallel.sweep import delta_s_search_convergence3
+    runs = {}
+    t0 = time.perf_counter()
+
+    def run(name, medium, op, kind, seed, engine):
+        pos0, dir0, ds, steps, box = fan3(kind, rays, seed)
+        med = (rtt.analytic_medium3(medium) if isinstance(medium, str)
+               else medium)
+        t1 = time.perf_counter()
+        res, eng = rtt.fast_trace3(op, med, pos0=pos0, dir0=dir0, delta_s=ds,
+                                   steps=steps, box=box, device=device)
+        sync()
+        secs = time.perf_counter() - t1
+        live = int(res.active.sum())
+        print(f"[3d] {name} {op} engine={eng} {rays} rays x {steps} steps in "
+              f"{secs:.3f} s ({rays * steps / secs:.4e} ray-steps/s with the "
+              f"host), {live} rays never left the box", flush=True)
+        if eng != engine:
+            fail(f"3d {name}: engine {eng}, not {engine}")
+        if not bool(torch.isfinite(res.pos).all()):
+            fail(f"3d {name}: non-finite positions")
+        runs[name] = Run3(medium, op, pos0, dir0, ds, steps, box, res)
+        return res
+
+    res = run("fisheye", "fisheye", "op6", "tilted", 0, "fused3d")
+    p0 = torch.tensor([1.0, 0.0, 0.0], device=device)
+    closure = float(100.0 * torch.linalg.vector_norm(res.pos - p0, dim=-1)
+                    .max() / (2.0 * math.pi))
+    print(f"  fisheye one-turn closure, worst of {rays} tilted planes "
+          f"{closure:.6f} % (bar < 5, ORACLES trace3d_closure_pct)",
+          flush=True)
+    if not closure < 5.0:
+        fail("3d fisheye closure")
+    run("vert", "vert_heterogeneous", "op8", "vert", 1, "fused3d")
+    run("interface", "interface", "op6", "interface", 2, "fused3d")
+    gres = run("grid3", gmed, "op6", "tilted", 0, "grid3")
+    gclosure = float(100.0 * torch.linalg.vector_norm(gres.pos - p0, dim=-1)
+                     .max() / (2.0 * math.pi))
+    dev = float((gres.pos - res.pos).abs().max())
+    print(f"  grid3 (71^3 nodes) one-turn closure {gclosure:.6f} % (bar < 5);"
+          f" against the analytic run on the same fan max |dpos| {dev:.3e} "
+          f"(bar {GRID3_DEV_BAR})", flush=True)
+    if not (gclosure < 5.0 and dev < GRID3_DEV_BAR):
+        fail("3d grid3 closure or its distance from the analytic run")
+    run("grid3_dispersed", gmed, "op6", "dispersed", 3, "grid3")
+    run("fused3d_op6", "fisheye", "op6", "matrix", 0, "fused3d")
+    run("tiled3_grid_op6", gmed, "op6", "matrix", 0, "grid3")
+
+    # the scan route: x-independent media lift through Stratified3D
+    strat = rtt.Stratified3D(rtt.analytic_medium("vert_heterogeneous"))
+    rng = np.random.default_rng(4)
+    n_scan = 4096
+    dir0 = np.stack([rng.uniform(0.2, 0.9, n_scan),
+                     -rng.uniform(0.3, 0.9, n_scan),
+                     rng.uniform(0.2, 0.6, n_scan)], -1)
+    pos0 = np.zeros((n_scan, 3))
+    t1 = time.perf_counter()
+    _, eng = rtt.fast_trace3("op8", strat, pos0=pos0, dir0=dir0,
+                             delta_s=0.01, steps=400,
+                             box=(-9.0, 9.0, -8.0, 8.0, -9.0, 9.0),
+                             device=device)
+    tr = rtt.trace3d("op8", strat, pos0=pos0, dir0=dir0, delta_s=0.01,
+                     steps=400, mode="metrics", stats=True,
+                     dtype=torch.float64, device=device)
+    cv = float(np.nanmax(tr.horizontal_slowness_cv_pct()))
+    print(f"  Stratified3D(vert) op8 engine={eng}; trace3d(stats=True) "
+          f"float64 {n_scan} rays x 400 steps: horizontal-slowness CV "
+          f"{cv:.6f} % (bar < {CV3_BAR}) in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    if eng != "scan3d" or not cv < CV3_BAR:
+        fail("3d scan route: engine or the slowness oracle")
+
+    # the ORACLES rows of bench.py:574-591, on the card
+    tilt = np.resize(np.linspace(0.0, 1.0, 8), 256)
+    p3 = np.tile([[1.0, 0.0, 0.0]], (256, 1))
+    d3 = np.stack([np.zeros(256), np.cos(tilt), np.sin(tilt)], -1)
+    r3 = rtt.trace3d("op6", rtt.analytic_medium3("fisheye"), pos0=p3,
+                     dir0=d3, delta_s=2 * np.pi / 303, steps=303,
+                     dtype=torch.float32, mode="history", device=device)
+    clo3 = float(np.linalg.norm(r3.final.pos.cpu().numpy() - p3,
+                                axis=1).max()) / (2 * np.pi) * 100
+    b = rtt.bouguer_invariant(r3)
+    bdrift = float(np.abs(b - b[:1]).max())
+    print(f"  trace3d history 256 rays, divisor 303: closure {clo3:.6f} % "
+          f"(bar < 5), Bouguer drift {bdrift:.3e} (bar < 1e-3)", flush=True)
+    if not (clo3 < 5.0 and bdrift < 1e-3):
+        fail("3d trace3d oracles")
+
+    # the 3-D Richardson calibration (tests/test_trace3d.py:214-221)
+    r8 = 8
+    tilt8 = np.linspace(0, 0.5, r8)
+    t1 = time.perf_counter()
+    sr = delta_s_search_convergence3(
+        "op6", rtt.analytic_medium3("fisheye"),
+        pos0=np.tile([[1.0, 0, 0]], (r8, 1)),
+        dir0=np.stack([np.zeros(r8), np.cos(tilt8), np.sin(tilt8)], -1),
+        arc_length=2 * np.pi, tol=1e-4, device=device)
+    print(f"  delta_s_search_convergence3 op6 fisheye: index {sr.index}, "
+          f"delta_s {sr.delta_s_selected}, halving error "
+          f"{sr.metrics['halving_err'][sr.index]:.3e} (tol 1e-4), "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    if sr.index is None:
+        fail("3d calibration selected nothing")
+    print(f"[3d] main path {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def phase_3d_checks(device, errs, runs, gmed):
+    """The [3d] runs' checks: each 2^20-ray run against a direct launch of
+    its kernel on the launch state fast_trace3 built (every ray to the
+    bit), that kernel against fused3d_step_plain at min(steps,
+    MAIN_PLAIN_CAP) steps (all 12 planes to the bit), and its time beside
+    the plain version's and its bounds: the rule's (FP32 operations counted
+    from the plain version, the state planes and the table once) and, for
+    the grid, the row-read HBM estimate (256 bytes a live ray-step over
+    HBM's rate; not a bound, as rows read from the L2 cost no HBM bytes).  Returns ({kernel: times}, seconds)."""
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    from raytracing_tpu_torch.kernels import fused3d as kf3
+    print("[3d-shapes] each 2^20-ray run against a direct launch and the "
+          "plain version, same inputs", flush=True)
+    times, t0 = {}, time.perf_counter()
+    timed = {"fisheye": "fused3d_step", "grid3": "fused3d_step_grid"}
+    t_ms, g3 = cuda_ms(lambda: grid3_tables(gmed), reps=3)
+    print(f"  grid3_tables (the {g3.table.numel() * 4 / 1e6:.1f} MB per-cell "
+          f"table, built each fast_trace3 call): {t_ms:.3f} ms", flush=True)
+    for name, r in runs.items():
+        field = r.medium if isinstance(r.medium, str) else g3
+        kernel = "fused3d_step" if isinstance(field, str) else \
+            "fused3d_step_grid"
+        st = kf3.initial_state3(r.pos0, r.dir0, device=device)
+        depth = min(r.steps, MAIN_PLAIN_CAP)
+        kw = dict(field=field, op=r.op, delta_s=r.ds, offset=0.0, box=r.box)
+        k_ms, out = cuda_ms(lambda: kf3.fused3d_step(
+            st, steps=r.steps, step_limit=r.steps, **kw), reps=3)
+        same_final(
+            f"{name}: fast_trace3's {st.x.shape[0]} rays x {r.steps} steps "
+            f"against a direct launch of {kernel}",
+            r.res, kf3.final_from_state3(out),
+            names=("pos", "tangent", "traveltime", "dist_sim", "active"))
+        p_ms, p = cuda_ms(lambda: kf3.fused3d_step_plain(
+            st, steps=depth, step_limit=float(depth), **kw))
+        k = out if depth == r.steps else kf3.fused3d_step(
+            st, steps=depth, step_limit=depth, **kw)
+        exact(errs[kernel], f"[3d] {name} {kernel} {st.x.shape[0]} rays x "
+              f"{depth} of {r.steps} steps against the plain version", k, p)
+        live = live_ray_steps(out.dsim, r.ds, r.steps)
+        print(f"    {kernel} {name}: {k_ms:.3f} ms ({r.steps} steps, mean of "
+              f"3), {st.x.shape[0] * r.steps / (k_ms * 1e-3):.4e} "
+              f"ray-steps/s ({live:.4e} live); plain {p_ms:.1f} ms "
+              f"({depth} steps)", flush=True)
+        if kernel == "fused3d_step_grid":
+            row_ms = 1e3 * ROW3_BYTES * live / PEAK_BYTES
+            print(f"    row-read HBM estimate {row_ms:.3f} ms ({ROW3_BYTES} "
+                  "bytes a live ray-step over 3.35 TB/s, were no row "
+                  "cached; not a bound)",
+                  flush=True)
+        bms, by = timed_bound(
+            kernel, lambda n: kf3.fused3d_step_plain(
+                head(st), steps=n, step_limit=float(n), **kw),
+            st, out, None if isinstance(field, str) else field, r.ds,
+            r.steps)
+        if timed.get(name) == kernel:
+            times[kernel] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                 bound_by=by)
+    secs = time.perf_counter() - t0
+    print(f"[3d-shapes] {secs:.1f} s", flush=True)
+    return times, secs
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -2660,14 +2988,27 @@ def main():
         lambda: phase_custom("cuda", cmedia))
     launches.update(culaunches)
     times.update(phase_custom_checks("cuda", errs, curuns))
+    # this slice: the 3-D kinematic tier
+    t_3d = time.perf_counter()
+    gmed = grid3_medium("cuda")
+    print(f"[3d] grid3 medium {gmed.nz}x{gmed.ny}x{gmed.nx} nodes built and "
+          f"uploaded in {time.perf_counter() - t_3d:.1f} s", flush=True)
+    errs.update(phase_3d_vs_plain("cuda", gmed))
+    runs3, launches3 = main_path(
+        kernels, ("fused3d_step", "fused3d_step_grid"),
+        lambda: phase_3d("cuda", gmed))
+    launches.update(launches3)
+    times3, secs3 = phase_3d_checks("cuda", errs, runs3, gmed)
+    times.update(times3)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
           f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
           f"phase's {t_cu - t_df:.1f} s, of which its 2^20-ray"
           f" runs against direct launches and the plain version "
           f"{df_main_secs:.1f} s; the custom phase's "
-          f"{time.perf_counter() - t_cu:.1f} s; "
-          f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
-          flush=True)
+          f"{t_3d - t_cu:.1f} s; the 3-D phase's "
+          f"{time.perf_counter() - t_3d:.1f} s, of which [3d-shapes] "
+          f"{secs3:.1f} s; {time.perf_counter() - T_IMPORTS:.1f} s with the "
+          "imports)", flush=True)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

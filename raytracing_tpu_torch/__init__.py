@@ -7,7 +7,10 @@ stratified tables and the 2-D spline grid, parity and C1 forms; the dynamic
 tier — paraxial spreading, KMAH caustics, amplitudes — and the eigenray
 solver with transmission loss; the df32 precision tier, double-word float32
 on the analytic fields and on split-word sampled media; user-defined
-media, ``CustomMedium``, traced into kernels of their own), written as
+media, ``CustomMedium``, traced into kernels of their own; and the 3-D
+kinematic tier: ``trace3d`` and ``fast_trace3`` on the analytic 3-D
+fields, lifted and user-defined 3-D media and tri-Hermite sampled 3-D
+grids), written as
 plain torch functions on tensors, with the JAX package's TPU kernels
 replaced by CUDA C++ kernels for the H100 (``csrc/``, built at first use by
 :mod:`raytracing_tpu_torch.kernels.build`; a custom medium's by
@@ -53,8 +56,14 @@ from raytracing_tpu_torch.engine.fast import (  # noqa: F401
     FastResult,
     fast_dynamic,
     fast_trace,
+    fast_trace3,
 )
 from raytracing_tpu_torch.engine.trace import TraceResult, trace  # noqa: F401
+from raytracing_tpu_torch.engine.trace3d import (  # noqa: F401
+    Trace3Result,
+    bouguer_invariant,
+    trace3d,
+)
 from raytracing_tpu_torch.media.c1 import (  # noqa: F401
     C1GridMedium,
     C1StratifiedMedium,
@@ -62,6 +71,16 @@ from raytracing_tpu_torch.media.c1 import (  # noqa: F401
     build_c1_stratified,
     c1_medium_from_samples,
     c1_stratified_from_samples,
+)
+from raytracing_tpu_torch.media.fields3d import (  # noqa: F401
+    Analytic3D,
+    Custom3D,
+    Stratified3D,
+    analytic_medium3,
+)
+from raytracing_tpu_torch.media.grid3 import (  # noqa: F401
+    C1Grid3Medium,
+    c1_medium3_from_samples,
 )
 from raytracing_tpu_torch.media.hermite import (  # noqa: F401
     HermiteGridMedium,
@@ -109,4 +128,7 @@ __all__ = [
     "df_c1_medium_from_samples", "df_c1_profile_from_samples",
     "df_eval_profile_medium", "df_grid_medium_from_samples", "df_grid_trace",
     "ALIASES", "ANISO_OPS", "EXTENSION_OPS", "OP_NAMES",
+    "Trace3Result", "trace3d", "bouguer_invariant", "fast_trace3",
+    "C1Grid3Medium", "c1_medium3_from_samples", "Analytic3D", "Custom3D",
+    "Stratified3D", "analytic_medium3",
 ]

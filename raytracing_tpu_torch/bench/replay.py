@@ -1,7 +1,8 @@
 """CUDA-graph replay of the plain versions' steps, for comparing kernels
 with their plain versions on the card in less time.
 
-A plain version (``fused_step_plain``, ``golden_step_plain``) performs one
+A plain version (``fused_step_plain``, ``golden_step_plain``,
+``fused3d_step_plain``) performs one
 torch call an operation, so on the card its time is the host's dispatch of
 some hundreds of small kernels a step.  :func:`replay_steps` captures one
 step, with its output copied back into the input buffers, in a
@@ -14,7 +15,8 @@ versions read the step number in two places: the step limit
 and no step after it changes the state) and op7's order ramp (global steps
 1 and 2 differ from the rest).  :func:`fused_plain` and
 :func:`golden_plain` run the steps where those differ eagerly and replay
-only a run of steps over which they are constant.
+only a run of steps over which they are constant; :func:`fused3d_plain`
+has no order ramp, so it replays every step before the limit.
 """
 from __future__ import annotations
 
@@ -83,3 +85,17 @@ def golden_plain(st, scal, *, field, op: str, steps: int, box, iters: int,
         lambda s: golden_step_plain(s, host, field=field, op=op, steps=1,
                                     box=box, iters=iters, polish=polish),
         st, live_steps(steps, offset, limit))
+
+
+def fused3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
+                  offset: float, box):
+    """``fused3d_step_plain`` with the same arguments, its steps before the
+    step limit replayed from a CUDA graph (the steps after it change
+    nothing); equal to it to the bit."""
+    from raytracing_tpu_torch.kernels.fused3d import fused3d_step_plain
+
+    return replay_steps(
+        lambda s: fused3d_step_plain(s, field=field, op=op, steps=1,
+                                     delta_s=delta_s, step_limit=step_limit,
+                                     offset=float(offset), box=box),
+        st, live_steps(steps, offset, float(step_limit)))

@@ -18,7 +18,8 @@ arrival from the source to each ``--receiver`` through the measured medium
 
 Not ported yet, each refused by the parser with its ROADMAP.md item: the
 plots (``--plot static|movie``) and the interactive menus (§1 item 12) and
-``--eigenrays3`` (item 17).
+``--eigenrays3`` (item 17, step 17b: the 3-D dynamic tier and eigenray
+solver; the 3-D kinematic tier is ported, ``fast_trace3``).
 """
 from __future__ import annotations
 
@@ -439,15 +440,16 @@ def main(argv=None):
                         "coherent TL")
     g.add_argument("--eigenrays3", nargs=3, type=float,
                    metavar=("SRC_X", "SRC_Y", "SRC_Z"),
-                   help="not ported yet (ROADMAP.md §1 item 17)")
+                   help="not ported yet (ROADMAP.md §1 item 17, step 17b)")
     args = p.parse_args(argv)
 
     if args.plot != "none":
         p.error(f"--plot {args.plot}: the plots (viz/plots.py) are not "
                 "ported yet: ROADMAP.md §1 item 12")
     if args.eigenrays3 is not None:
-        p.error("--eigenrays3: the 3-D tier is not ported yet: ROADMAP.md "
-                "§1 item 17")
+        p.error("--eigenrays3: the 3-D eigenray solver and the 3-D dynamic "
+                "tier are not ported yet: ROADMAP.md §1 item 17, step 17b "
+                "(dynamic rays and eigenrays)")
     if args.eigenrays is not None and not args.medium_file:
         p.error("--eigenrays needs --medium-file (measured media; named "
                 "scenarios have analytic eigenray oracles in the tests)")

@@ -40,6 +40,16 @@ tier: any other medium raises NotImplementedError.  JAX sends a custom
 trace longer than ``SEGMENT_THRESHOLD`` to the scan tier (fast.py:226-231),
 a Mosaic compile guard; here it is one launch at every length.
 
+``fast_trace3`` (fast.py:601-690) is the 3-D twin, metrics only: the
+vector ops on the analytic 3-D fields go to ``fused3d_step``
+(``"fused3d"``), on a ``C1Grid3Medium`` of at least 5 cells an axis to
+``fused3d_step_grid`` through ``engine/tiled3.py::grid3_trace_tiled``
+(``"grid3"``; JAX says ``"grid3-tiled"``), every other medium
+(``Custom3D``, ``Stratified3D``, a smaller grid) to the 3-D scan tier
+``trace3d`` at float32 (``"scan3d"``).  One launch a trace: JAX's
+dispersed-batch fallback to the scan tier and its
+``_guard_grid3_scan_fallback`` have nothing to catch here.
+
 ``precision="high"`` (fast.py:141-162) routes op12 on the analytic fisheye
 and vert fields to the df32 kernel (``kernels/df.py``, engine ``"df32"``):
 float64 positions from double-word float32 arithmetic, all rays active, no
@@ -56,6 +66,8 @@ from raytracing_tpu_torch import config
 from raytracing_tpu_torch.engine.dynamic import trace_dynamic
 from raytracing_tpu_torch.engine.segmented import (
     grid_trace_dynamic_tiled, grid_trace_tiled)
+from raytracing_tpu_torch.engine.tiled3 import grid3_trace_tiled
+from raytracing_tpu_torch.engine.trace3d import canonical3, trace3d
 from raytracing_tpu_torch.kernels.df import DF_FIELDS, df_trace
 from raytracing_tpu_torch.kernels.dynamic import (
     DYN_FUSED_FIELDS, DYN_FUSED_OPS, DynFinal, dynamic_trace_final,
@@ -63,8 +75,12 @@ from raytracing_tpu_torch.kernels.dynamic import (
 from raytracing_tpu_torch.kernels.fused import (
     FUSED_FIELDS, FUSED_OPS, _vectors, fused_trace_final,
     fused_trace_final_custom, fused_trace_final_strat)
+from raytracing_tpu_torch.kernels.fused3d import (
+    FUSED3_FIELDS, FUSED3_OPS, Fused3Final, fused3d_trace_final)
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS, golden_trace_final
 from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
+from raytracing_tpu_torch.media.fields3d import Analytic3D
+from raytracing_tpu_torch.media.grid3 import C1Grid3Medium
 from raytracing_tpu_torch.media.hermite import (
     HermiteGridMedium, build_hermite_medium)
 from raytracing_tpu_torch.media.medium import AnalyticMedium, CustomMedium
@@ -298,3 +314,44 @@ def fast_dynamic(op_name: str, scen: config.ScenarioConfig, medium, *,
                      traveltime=d.traveltime, dist_sim=d.dist_sim,
                      active=active, q=d.q, dtheta=d.dtheta, kmah=d.kmah),
             "dynamic-scan")
+
+
+def fast_trace3(method: str, medium, *, pos0, dir0, delta_s, steps: int,
+                box, device="cuda"):
+    """Metrics-only 3-D trace on ``device``: returns ``(Fused3Final,
+    engine)`` with engine ``"fused3d"``, ``"grid3"`` or ``"scan3d"``
+    (module docstring).  ``pos0``/``dir0`` are (R, 3), any R; ``box`` the 6
+    faces (x0, x1, y0, y1, z0, z1).  ``active`` means "never left the box"
+    on every route: on the scan route it is the containment of the final
+    position, since the scan tier's own flag also folds in the step budget
+    (fast.py:680-686).  JAX's ``block_rays`` and ``interpret`` are gone.
+    """
+    method = canonical3(method)
+    if box is None or len(tuple(box)) != 6:
+        raise ValueError(f"fast_trace3 needs a 6-face box, got {box!r}")
+    box = tuple(float(b) for b in box)
+    if method in FUSED3_OPS:
+        if isinstance(medium, Analytic3D) and medium.field in FUSED3_FIELDS:
+            return (fused3d_trace_final(pos0, dir0, delta_s,
+                                        field=medium.field, op=method,
+                                        steps=int(steps), box=box,
+                                        device=device),
+                    "fused3d")
+        if (isinstance(medium, C1Grid3Medium) and medium.nx - 1 >= 5
+                and medium.ny - 1 >= 5 and medium.nz - 1 >= 5):
+            return (grid3_trace_tiled(method, pos0, dir0, delta_s, medium,
+                                      steps=int(steps), box=box,
+                                      device=device),
+                    "grid3")
+    t = trace3d(method, medium, pos0=pos0, dir0=dir0,
+                delta_s=float(delta_s), steps=int(steps), box=box,
+                mode="metrics", dtype=torch.float32, device=device)
+    st = t.final
+    p = st.pos
+    active = ((p[:, 0] >= box[0]) & (p[:, 0] <= box[1])
+              & (p[:, 1] >= box[2]) & (p[:, 1] <= box[3])
+              & (p[:, 2] >= box[4]) & (p[:, 2] <= box[5]))
+    return (Fused3Final(pos=st.pos, tangent=st.unitv,
+                        traveltime=st.traveltime, dist_sim=st.dist_sim,
+                        active=active),
+            "scan3d")

@@ -21,9 +21,14 @@ interchange format, so neither package imports the other:
   resume list (``engine/segmented.py:1844-1850``: x, y, cx, cy, ux, uy, tt,
   dsim, active, dpx, dpy, dth, sgn, kmah, kdx, kdy, kdt, ktt), ``active``
   as 0/1 floats;
-* :func:`medium_from_numpy` builds any of the five sampled media
+* :func:`fused3_state_from_numpy` / :func:`fused3_state_to_numpy` convert
+  the fused 3-D kernels' 12-plane state from / to the JAX tiled3 tier's
+  component list (``engine/tiled3.py:375-377``: x, y, z, cx, cy, cz, ux,
+  uy, uz, tt, dsim, active), ``active`` as 0/1 floats;
+* :func:`medium_from_numpy` builds any of the six sampled media
   (``GridMedium``, ``StratifiedGridMedium``, ``HermiteGridMedium``,
-  ``C1GridMedium``, ``C1StratifiedMedium``) and the four df32 media
+  ``C1GridMedium``, ``C1StratifiedMedium``, the 3-D ``C1Grid3Medium``) and
+  the four df32 media
   (``DfGridMedium``, ``DfC1Medium``, ``DfC1Profile``, ``DfEvalProfile``,
   whose ``prof`` comes as a nested dict of its ``DfC1Profile``'s fields)
   from the JAX medium's class name, its arrays as numpy and its static
@@ -47,16 +52,18 @@ from raytracing_tpu_torch.engine.df_grid import (
 from raytracing_tpu_torch.kernels.df import DfState
 from raytracing_tpu_torch.kernels.dynamic import DynState
 from raytracing_tpu_torch.kernels.fused import ResumeState
+from raytracing_tpu_torch.kernels.fused3d import Fused3State
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS
 from raytracing_tpu_torch.media.c1 import C1GridMedium, C1StratifiedMedium
+from raytracing_tpu_torch.media.grid3 import C1Grid3Medium
 from raytracing_tpu_torch.media.hermite import HermiteGridMedium
 from raytracing_tpu_torch.media.spline import GridMedium, StratifiedGridMedium
 
 #: the sampled media by class name, the same in both packages
 MEDIUM_CLASSES = {cls.__name__: cls for cls in (
     GridMedium, StratifiedGridMedium, HermiteGridMedium, C1GridMedium,
-    C1StratifiedMedium, DfGridMedium, DfC1Medium, DfC1Profile,
-    DfEvalProfile)}
+    C1StratifiedMedium, C1Grid3Medium, DfGridMedium, DfC1Medium,
+    DfC1Profile, DfEvalProfile)}
 #: fields that hold a medium of their own, by the class they hold
 _NESTED = {"prof": "DfC1Profile"}
 
@@ -180,6 +187,22 @@ def df_state_from_numpy(comps, *, device) -> DfState:
                          f"got {len(comps)}")
     return DfState(*(torch.as_tensor(np.array(c, np.float32).reshape(-1),
                                      device=device) for c in comps))
+
+
+def fused3_state_from_numpy(comps, *, device) -> Fused3State:
+    """A fused 3-D kernel :class:`Fused3State` from the JAX tiled3 tier's 12
+    components (any shapes; each flattened to (R,) float32)."""
+    if len(comps) != len(Fused3State._fields):
+        raise ValueError(f"a 3-D state has {len(Fused3State._fields)} "
+                         f"components, got {len(comps)}")
+    st = Fused3State(*(torch.as_tensor(np.array(c, np.float32).reshape(-1),
+                                       device=device) for c in comps))
+    return st._replace(active=st.active > 0.5)
+
+
+def fused3_state_to_numpy(st: Fused3State) -> list:
+    """The JAX tiled3 tier's 12-component list of float32 (R,) arrays."""
+    return [_to_numpy(t).astype(np.float32) for t in st]
 
 
 def medium_from_numpy(kind: str, fields: dict, *, device):

@@ -97,6 +97,13 @@ _SIGNATURES = {
     # cell_ch (36 | 16), the same
     "rt_dynamic_step_grid": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
                              _F, _F, _F, _F, *_TABLE, _P),
+    # field, op, in_planes, out_planes, n, steps, ds, limit, offset, the
+    # box's 6 faces, stream (csrc/fused3d.cu)
+    "rt_fused3d_step": (_I, _I, _P, _P, _I, _I, _F, _F, _F, *(_F,) * 6, _P),
+    # rt_fused3d_step's arguments after field, then the per-cell table, x0,
+    # y0, z0, inv_hx, inv_hy, inv_hz, nx, ny, nz, stream
+    "rt_fused3d_step_grid": (_I, _P, _P, _I, _I, _F, _F, _F, *(_F,) * 6,
+                             _P, *(_F,) * 6, _I, _I, _I, _P),
     # field, in_planes, out_planes, n, steps, ds, stream (csrc/df.cu)
     "rt_df_step": (_I, _P, _P, _I, _I, _F, _P),
     # in_planes, out_planes, n, steps, ds, nodes, cells, x0h, x0l, y0h, y0l,

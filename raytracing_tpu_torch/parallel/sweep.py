@@ -20,17 +20,19 @@ Two tiers, as in JAX:
   candidates on a 2-D grid run all at once through ``grid_sweep_tiled``
   (the ``fused_sweep_grid`` kernel, one ray a candidate).
 
+``delta_s_search_convergence3`` (:624) calibrates the 3-D tier's step the
+same way, through the port's ``engine/trace3d.py::trace3d``.
+
 Not ported: sharding the candidates over a mesh (``mesh=``, ROADMAP.md §1
-item 18), ``delta_s_search_convergence3`` (the 3-D tier, item 17) and the
-padding of the launch fan to a kernel block (``rays``, ``block_rays``):
-the kernels mask the ragged edge, and the metrics read only the fan's
-first rays.
+item 18) and the padding of the launch fan to a kernel block (``rays``,
+``block_rays``): the kernels mask the ragged edge, and the metrics read
+only the fan's first rays.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -550,9 +552,42 @@ def _richardson_search(final_pos, candidates, arc_length, tol, *,
                           else None))
 
 
-def delta_s_search_convergence3(method: str, medium, **kwargs) -> Any:
-    """The 3-D tier's Richardson calibration (sweep.py:624): not ported yet,
-    it needs the 3-D tracer (ROADMAP.md §1 item 17)."""
-    raise NotImplementedError(
-        "delta_s_search_convergence3 needs the 3-D tier, which is not "
-        "ported yet: ROADMAP.md §1 item 17")
+def delta_s_search_convergence3(method: str, medium, *, pos0, dir0,
+                                arc_length: float, box=None,
+                                candidates: np.ndarray | None = None,
+                                tol: float = 1e-4, dtype=np.float32,
+                                device="cuda") -> SweepResult:
+    """Richardson step calibration for the 3-D tier (sweep.py:624).
+
+    The 3-D twin of :func:`delta_s_search_convergence`: a candidate step
+    passes when halving it moves no final position by more than ``tol``
+    over ``arc_length``.  3-D media have no reference oracle table, so
+    self-convergence is the calibration.  Every trace runs through the
+    port's ``trace3d`` in metrics mode on ``device`` at ``dtype``; the
+    half-step trace of each candidate is reused as the next candidate's
+    full-step trace on the default halving grid.
+    """
+    from raytracing_tpu_torch.engine.trace3d import canonical3, trace3d
+
+    method = canonical3(method)
+    if not (np.isfinite(arc_length) and arc_length > 0):
+        raise ValueError(f"arc_length must be finite and > 0, "
+                         f"got {arc_length}")
+    if candidates is None:
+        candidates = arc_length / (50 * 2 ** np.arange(8))
+    candidates = np.asarray(candidates, np.float64)
+    if np.any(np.diff(candidates) >= 0):
+        raise ValueError("candidates must descend (coarse -> fine)")
+    dtype = np.dtype(dtype)
+    pos0 = np.asarray(pos0, dtype)
+    dir0 = np.asarray(dir0, dtype)
+
+    def final_pos(ds: float, steps: int) -> np.ndarray:
+        out = trace3d(method, medium, pos0=pos0, dir0=dir0, delta_s=ds,
+                      steps=int(steps), box=box, mode="metrics",
+                      dtype=dtype, device=device)
+        return _np(out.final.pos)
+
+    return _richardson_search(final_pos, candidates, arc_length, tol,
+                              scenario="custom3d", op_name=method,
+                              dtype=dtype)

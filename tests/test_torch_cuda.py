@@ -5,8 +5,9 @@ node-table kernel; segmented_trace and the DELTA_S search on the card; the
 three dynamic kernels, fast_dynamic and the eigenray solver on the card;
 the four df32 kernels on their five media, with the df32 entry points;
 the custom-medium kernels (a CustomMedium traced into its own library) and
-fast_trace on a CustomMedium; and the plain versions replayed from a CUDA
-graph against their eager loops.
+fast_trace on a CustomMedium; the plain versions replayed from a CUDA
+graph against their eager loops; and the fused 3-D kernels (analytic and
+grid3) with fast_trace3's routes.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -30,6 +31,7 @@ from raytracing_tpu_torch.kernels import df as kdf  # noqa: E402
 from raytracing_tpu_torch.kernels import dynamic as kd  # noqa: E402
 from raytracing_tpu_torch.kernels import fisheye as kf  # noqa: E402
 from raytracing_tpu_torch.kernels import fused as kfu  # noqa: E402
+from raytracing_tpu_torch.kernels import fused3d as kf3  # noqa: E402
 from raytracing_tpu_torch.kernels import golden as kg  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -610,3 +612,65 @@ def test_replayed_plain_equals_eager(field, cuda_device):
                   step_limit=35, offset=offset, box=box)
         _planes_equal(replay.fused_plain(st, **kw),
                       kfu.fused_step_plain(st, **kw))
+
+
+# -- the fused 3-D kernels (csrc/fused3d.cu) ----------------------------------
+
+def _fan3(r=R, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-0.8, 0.8, (r, 3)).astype(np.float32),
+            rng.normal(size=(r, 3)).astype(np.float32))
+
+
+def _grid3(device):
+    ax = np.linspace(-1.6, 1.6, 14)
+    Z, Y, X = np.meshgrid(ax, ax, ax, indexing="ij")
+    return rtt.c1_medium3_from_samples(1.0 / (1.0 + X ** 2 + Y ** 2 + Z ** 2),
+                                       ax, ax, ax, device=device)
+
+
+@pytest.mark.parametrize("field", kf3.FUSED3_FIELDS + ("grid",))
+@pytest.mark.parametrize("op", kf3.FUSED3_OPS)
+def test_fused3d_kernels_match_plain(op, field, cuda_device):
+    """fused3d_step (analytic fields) and fused3d_step_grid (a 14^3-node
+    grid3 table) against fused3d_step_plain on the card, every plane to
+    the bit, rays leaving the box on the way; and resume: 40 then 80 steps
+    equal 120."""
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    pos0, dir0 = _fan3()
+    if field == "interface":
+        pos0[:, 1] *= 0.05
+    med = grid3_tables(_grid3(cuda_device)) if field == "grid" else field
+    st = kf3.initial_state3(pos0, dir0, device=cuda_device)
+    box = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
+    kw = dict(field=med, op=op, delta_s=0.01, step_limit=110.0, box=box)
+    kernel = (kf3.KERNEL_GRID if field == "grid" else kf3.KERNEL)
+    before = kernel.launches
+    out = kf3.fused3d_step(st, steps=120, offset=0.0, **kw)
+    assert kernel.launches == before + 1
+    _planes_equal(out, replay.fused3d_plain(st, steps=120, offset=0.0, **kw))
+    assert 0 < int((~out.active).sum()) < R
+    two = kf3.fused3d_step(kf3.fused3d_step(st, steps=40, offset=0.0, **kw),
+                           steps=80, offset=40.0, **kw)
+    _planes_equal(out, two)
+
+
+def test_fast_trace3_runs_on_the_card(cuda_device):
+    """fast_trace3's three routes on the card, each against the same call
+    on the CPU within 1e-5 (not to the bit: PyTorch's CPU sqrt is not
+    correctly rounded, the card's is)."""
+    pos0, dir0 = _fan3(r=512)
+    box = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
+    kw = dict(pos0=pos0, dir0=dir0, delta_s=0.01, steps=150, box=box)
+    for med_cpu, med_gpu, engine in (
+            (rtt.analytic_medium3("fisheye"), rtt.analytic_medium3("fisheye"),
+             "fused3d"),
+            (_grid3("cpu"), _grid3(cuda_device), "grid3"),
+            (rtt.Stratified3D(rtt.analytic_medium("vert_heterogeneous")),
+             rtt.Stratified3D(rtt.analytic_medium("vert_heterogeneous")),
+             "scan3d")):
+        g, eng = rtt.fast_trace3("op6", med_gpu, device=cuda_device, **kw)
+        c, _ = rtt.fast_trace3("op6", med_cpu, device="cpu", **kw)
+        assert eng == engine and g.pos.device.type == "cuda"
+        assert float((g.pos.cpu() - c.pos).abs().max()) <= 1e-5
+        assert torch.equal(g.active.cpu(), c.active)

@@ -62,16 +62,35 @@ SEARCH_PATH = ("raytracing_tpu_torch.utils.checkpoint",
                "raytracing_tpu_torch.interop")
 
 
-def test_search_path_modules_import_without_jax():
+def _import_without_jax(modules):
+    """The modules exist, and importing them in a fresh process loads no
+    JAX module."""
     import subprocess
     import sys
 
     names = {str(p.relative_to(ROOT)) for p in port_files()}
-    for mod in SEARCH_PATH:
+    for mod in modules:
         assert mod.replace(".", "/") + ".py" in names
-    code = ("import sys\n" + "".join(f"import {m}\n" for m in SEARCH_PATH)
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\nprint(bad)\nassert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_search_path_modules_import_without_jax():
+    _import_without_jax(SEARCH_PATH)
+
+
+#: the 3-D kinematic tier's modules (fast.py routes fast_trace3)
+PATH_3D = ("raytracing_tpu_torch.media.fields3d",
+           "raytracing_tpu_torch.media.grid3",
+           "raytracing_tpu_torch.engine.trace3d",
+           "raytracing_tpu_torch.engine.tiled3",
+           "raytracing_tpu_torch.kernels.fused3d",
+           "raytracing_tpu_torch.engine.fast")
+
+
+def test_3d_modules_import_without_jax():
+    _import_without_jax(PATH_3D)

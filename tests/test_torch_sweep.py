@@ -328,7 +328,5 @@ def test_search_refuses_what_is_not_ported():
     med = rtt.analytic_medium("fisheye")
     with pytest.raises(NotImplementedError, match="item 18"):
         tsw.delta_s_search("op1", scen, med, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tsw.delta_s_search_convergence3("op6", None)
     with pytest.raises(ValueError, match="engine"):
         tsw.delta_s_search("op1", scen, med, engine="pallas", device="cpu")
