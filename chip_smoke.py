@@ -8,7 +8,7 @@ either is missing or any check fails.  Phases, one line or more each:
 
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
-2. build: the eighteen CUDA kernels of the main library compiled from
+2. build: the twenty CUDA kernels of the main library compiled from
    raytracing_tpu_torch/csrc (one nvcc a source, all at once), then the
    reference's sampled media built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
@@ -130,20 +130,45 @@ either is missing or any check fails.  Phases, one line or more each:
    and, for the grid, the row-read HBM estimate (256 bytes a live ray-step
    over 3.35 TB/s: not a bound, since rows the L2 holds cost no HBM read).
 
+17. the 3-D dynamic tier (kernels/dynamic3d.py, engine/dynamic3d.py,
+   engine/eigenray3d.py): ``[dyn3-vs-plain]`` both 3-D dynamic kernels
+   against dynamic3d_step_plain at 65,536 rays and at most 1,000 steps,
+   every op on the three analytic fields (the fisheye's tilted fan through
+   its focus, JAX's vert and interface launches), op1 and op6 on the 71^3
+   grid with a tilted and a dispersed fan, all 25 planes to the bit, with a
+   resume check each; ``[dyn3]`` the eighth main path through
+   fast_dynamic3 at 2**20 rays: dyn3_op6 and dyn3_tiled_op6
+   (kernel_matrix.py:191-244), the tilted fan for one turn on the fisheye
+   and on the grid (against each other), vert op8, interface op6 and the
+   dispersed grid fan; the scan route on the card at float64 (the
+   homogeneous Custom3D's det Q = 25 and TL, the astigmatic waveguide's
+   KMAH, the tier's ms a step); then its checks: each run against a direct
+   launch of its kernel (every ray to the bit), that kernel against its
+   plain version at min(steps, 300) steps (all 25 planes), against
+   trace_dynamic3 at float64 on a 4,096-ray head at the JAX tests' depths
+   and bars (DYN3_BARS), each kernel's time, plain time (eager, the timed
+   runs), bound and for the grid the row-read HBM estimate;
+   ``[eigenrays3]`` find_eigenrays3 at float64 on the card: the
+   homogeneous arrival, the eddy's out-of-plane arrival, and one
+   ``python -m raytracing_tpu_torch.cli --eigenrays3`` run on the Munk
+   profile lifted to 3-D.
+
 The kernel-against-plain phases (3, 8's nodes, 15's ``[custom-vs-plain]``,
-16's ``[3d-vs-plain]``)
+16's ``[3d-vs-plain]``, 17's ``[dyn3-vs-plain]`` and the [dyn3] checks)
 replay their plain versions' steps from a CUDA graph
 (raytracing_tpu_torch/bench/replay.py), equal to the eager loop to the bit;
 the main shapes' plain versions run eagerly, as their times are reported.
 
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
 the search path, phase 12 the dynamic one, phase 14's ``[df32]`` the df32
-one, phase 15's ``[custom]`` the custom one and phase 16's ``[3d]`` the
-3-D one: every launch count is set
+one, phase 15's ``[custom]`` the custom one, phase 16's ``[3d]`` the
+3-D one and phase 17's ``[dyn3]`` the 3-D dynamic one: every launch count
+is set
 to 0 just before each and read just after, and each kernel of that path
 must have launched; the launches phases 3, 7, 8, 10, 11, 12's checks,
 14's checks, 15's ``[custom-vs-plain]``, 15's checks, 16's
-``[3d-vs-plain]`` and ``[3d-shapes]`` make to compare
+``[3d-vs-plain]`` and ``[3d-shapes]``, 17's ``[dyn3-vs-plain]`` and
+``[dyn3]`` checks make to compare
 and time a kernel are not counted.  The second-last line is a JSON
 object with one entry per kernel (its launches on its main path, largest
 |dpos| against the plain version, times, and the bound: the larger of its
@@ -364,11 +389,12 @@ def phase_build():
 
 
 def kernel_infos():
-    """The twenty kernels' KernelInfos, analytic first, then the dynamic
-    three, the four df32 ones, the two custom-medium ones and the two 3-D
-    ones."""
+    """The twenty-two kernels' KernelInfos, analytic first, then the
+    dynamic three, the four df32 ones, the two custom-medium ones, the two
+    3-D ones and the two 3-D dynamic ones."""
     from raytracing_tpu_torch.kernels import custom as kc
     from raytracing_tpu_torch.kernels import dynamic as kd
+    from raytracing_tpu_torch.kernels import dynamic3d as kd3
     from raytracing_tpu_torch.kernels import fisheye as kf
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import fused3d as kf3
@@ -377,7 +403,7 @@ def kernel_infos():
     return (kf.KERNEL, kfu.KERNEL, kg.KERNEL, kfu.KERNEL_STRAT,
             kg.KERNEL_STRAT, kfu.KERNEL_GRID, kg.KERNEL_GRID,
             kfu.KERNEL_SWEEP_GRID, kfu.KERNEL_NODES) + kd.KERNELS + kdf.KERNELS \
-        + (kc.KERNEL_FUSED, kc.KERNEL_GOLDEN) + kf3.KERNELS
+        + (kc.KERNEL_FUSED, kc.KERNEL_GOLDEN) + kf3.KERNELS + kd3.KERNELS
 
 
 def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -2901,6 +2927,442 @@ def phase_3d_checks(device, errs, runs, gmed):
     return times, secs
 
 
+# -- the 3-D dynamic tier (kernels/dynamic3d.py, engine/dynamic3d.py) -------
+#: the kernel-against-float64-scan checks of [dyn3], at the JAX tests' own
+#: depths and bars: the analytic fisheye (tests/test_dynamic_kernel3.py:
+#: 62-84, 500 steps of its 600-step turn, and the focus locator of :115-131
+#: within 2 steps there), vert and the interface (:86-112, their 250-step
+#: launches), the grid (tests/test_dynamic_tiled3.py:107-136, 300 steps:
+#: positions and traveltime 1e-5, det Q's 95th-percentile relative error
+#: 1e-3, KMAH and the locator equal) and a dispersed batch on it (the 50
+#: steps of tests/test_tiled3.py's dispersed batch at the same bars).
+#: Step 300 of a 600-step turn is the fisheye's antipodal point focus,
+#: where det Q has collapsed to ~1e-7 of its size, so on the grid, as in
+#: the 2-D dynamic checks (DYN_BARS), det Q's error is taken relative to
+#: |det Q|'s largest value along the ray
+DYN3_BARS = {
+    "fisheye": dict(depth=500, pos=1e-5, tt=3e-5, det_rtol=5e-5,
+                    det_atol=1e-8, locator=2),
+    "field": dict(depth=250, pos=2e-4, det_rtol=2e-4, det_atol=1e-6,
+                  locator=2),
+    "grid": dict(depth=300, pos=1e-5, tt=1e-5, det_p95=1e-3, locator=0),
+    "dispersed": dict(depth=50, pos=1e-5, tt=1e-5, det_p95=1e-3, locator=0),
+}
+#: a ray whose float64 |det Q| came within this share of its largest value
+#: passed through a focus deeper than float32 resolves (the fisheye's point
+#: foci: ~1e-7 and below): there the sign of det Q and the step of its
+#: minimum are the rounding's, not the integrator's, so KMAH and the
+#: locator are held on every other ray, and on these printed
+DYN3_FOCUS_FLOOR = 1e-6
+DYN3_ORACLE_RAYS = 4096
+#: the JAX launches of vert op8 and interface op6
+#: (tests/test_dynamic_kernel3.py:92-99)
+DYN3_FIELD_LAUNCH = {
+    "vert": ((0.0, -1.0, 0.0), (-2.0, 5.0, -2.5, 1.0, -2.0, 2.0)),
+    "interface": ((-2.0, -2.0, 0.0), (-2.0, 20.0, -2.0, 4.0, -4.0, 4.0)),
+}
+
+
+def fan3_dyn(kind, rays, seed):
+    """(pos0, dir0, delta_s, steps, box) of the [dyn3] runs: the 3-D
+    phase's fans (``tilted``, ``matrix``, ``dispersed``: one turn of 600
+    steps) and JAX's ``vert`` and ``interface`` launches (directions at
+    [0.1, 0.9] rad with a 0.01 z-component, 250 steps of 0.01)."""
+    if kind not in DYN3_FIELD_LAUNCH:
+        return fan3(kind, rays, seed)
+    pos, box = DYN3_FIELD_LAUNCH[kind]
+    a = np.linspace(0.1, 0.9, rays)
+    return (np.tile([pos], (rays, 1)).astype(np.float32),
+            np.stack([np.cos(a), np.sin(a), np.full(rays, 0.01)],
+                     -1).astype(np.float32), 0.01, 250, box)
+
+
+def dyn3_exact(label, k, p):
+    """A 3-D dynamic kernel's 25 planes against its plain version's, to the
+    bit; prints the largest |d| of pos, tt and det Q and the KMAH
+    mismatches.  Returns |dpos|."""
+    from raytracing_tpu_torch.kernels.dynamic3d import detq3
+    dpos = max(float((getattr(k, c) - getattr(p, c)).abs().max())
+               for c in ("x", "y", "z"))
+    dtt = float((k.tt - p.tt).abs().max())
+    ddet = float((detq3(k) - detq3(p)).abs().max())
+    nk = int((k.kmah != p.kmah).sum())
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    print(f"  {label}: |dpos| {dpos:.3e} |dtt| {dtt:.3e} |ddetQ| {ddet:.3e} "
+          f"KMAH mismatches {nk} (bit parity required)", flush=True)
+    if not same:
+        fail(f"{label}: kernel differs from its plain version")
+    return dpos
+
+
+def dyn3_medium(name, gmed):
+    """(kernel field, medium, engine) of a [dyn3] run by its name."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    field = {"dyn3_op6": "fisheye", "fisheye": "fisheye",
+             "vert": "vert_heterogeneous", "interface": "interface"}.get(name)
+    if field is not None:
+        return field, rtt.analytic_medium3(field), "dynamic3-kernel"
+    return grid3_tables(gmed), gmed, "dynamic3-kernel-grid"
+
+
+def phase_dyn3_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):
+    """Both 3-D dynamic kernels against dynamic3d_step_plain (replayed,
+    bench/replay.py) at 65,536 rays, at most 1,000 steps, all 25 planes to
+    the bit: dynamic3d_step every op on each analytic field (the fisheye's
+    tilted fan through its focus, JAX's vert and interface launches),
+    dynamic3d_step_grid op1 and op6 on the 71^3 grid with a tilted and a
+    dispersed fan; a resume check each.  Returns {kernel: Errors}."""
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    from raytracing_tpu_torch.kernels import dynamic3d as kd3
+    errs = {k.name: Errors() for k in kd3.KERNELS}
+    before = {k.name: k.launches for k in kd3.KERNELS}
+    t0 = time.perf_counter()
+    print(f"[dyn3-vs-plain] {rays} rays, at most {cap} steps", flush=True)
+    g3 = grid3_tables(gmed)
+    cases = ([(f, kind, "dynamic3d_step", kd3.DYN3_FUSED_OPS)
+              for f, kind in (("fisheye", "tilted"),
+                              ("vert_heterogeneous", "vert"),
+                              ("interface", "interface"))]
+             + [(g3, kind, "dynamic3d_step_grid", ("op1", "op6"))
+                for kind in ("tilted", "dispersed")])
+    for seed, (field, kind, kernel, ops) in enumerate(cases):
+        pos0, dir0, ds, steps, box = fan3_dyn(kind, rays, seed)
+        steps = min(cap, steps)
+        st = kd3.initial_dyn3_state(pos0, dir0, device=device)
+        name = field if isinstance(field, str) else f"grid3 {kind}"
+        for op in ops:
+            kw = dict(field=field, op=op, steps=steps, delta_s=ds,
+                      step_limit=steps, offset=0.0, box=box)
+            k = kd3.dynamic3d_step(st, **kw)
+            errs[kernel].pos = max(errs[kernel].pos, dyn3_exact(
+                f"{kernel} {op} {name} {steps} steps", k,
+                replay.dynamic3d_plain(st, **kw)))
+        kw = dict(field=field, op="op6", delta_s=ds, step_limit=steps,
+                  box=box)
+        cut = steps // 3
+        resume_check(f"{kernel} op6 {name}",
+                     kd3.dynamic3d_step(st, steps=steps, offset=0.0, **kw),
+                     kd3.dynamic3d_step(kd3.dynamic3d_step(
+                         st, steps=cut, offset=0.0, **kw),
+                         steps=steps - cut, offset=float(cut), **kw))
+    for k in kd3.KERNELS:
+        delta = k.launches - before[k.name]
+        print(f"  {k.name}: {delta} launches in this phase", flush=True)
+        if delta <= 0:
+            fail(f"{k.name} was not launched against its plain version")
+    print(f"[dyn3-vs-plain] {time.perf_counter() - t0:.1f} s", flush=True)
+    return errs
+
+
+def phase_dyn3(device, gmed, rays=RAYS_MAIN):
+    """The [dyn3] main path, every run through fast_dynamic3 at 2^20 rays:
+    the benchmark's dyn3_op6 (kernel_matrix.py:191-213: identical rays, one
+    turn of the fisheye), the tilted fan for one turn (the point focus),
+    vert op8 and interface op6 (JAX's launches), dyn3_tiled_op6 (the same
+    rays on the 71^3 grid, kernel_matrix.py:234-244), the grid on the
+    tilted and the dispersed fan; then the scan route on the card: the
+    homogeneous Custom3D (det Q = 25, TL = 20 log10 5 at float64,
+    tests/test_dynamic3d.py:24-35) and the astigmatic Stratified3D
+    waveguide (KMAH = det Q's sign changes >= 2, :63-75), with the float64
+    scan tier's ms a step.  Returns {run: Run3}."""
+    import raytracing_tpu_torch as rtt
+    runs, t0 = {}, time.perf_counter()
+
+    def run(name, op, kind, seed):
+        pos0, dir0, ds, steps, box = fan3_dyn(kind, rays, seed)
+        _, med, engine = dyn3_medium(name, gmed)
+        t1 = time.perf_counter()
+        res, eng = rtt.fast_dynamic3(op, med, pos0=pos0, dir0=dir0,
+                                     delta_s=ds, steps=steps, box=box,
+                                     device=device)
+        sync()
+        secs = time.perf_counter() - t1
+        kmah = torch.bincount(res.kmah.long()).tolist()
+        print(f"[dyn3] {name} {op} engine={eng} {rays} rays x {steps} steps "
+              f"in {secs:.3f} s, {int(res.active.sum())} rays never left "
+              f"the box, rays by KMAH 0, 1, ...: {kmah}, min |det Q| "
+              f"{float(res.min_absdet.max()):.3e} at steps "
+              f"{int(res.min_absdet_step.min())}-"
+              f"{int(res.min_absdet_step.max())}", flush=True)
+        if eng != engine:
+            fail(f"dyn3 {name}: engine {eng}, not {engine}")
+        if not (bool(torch.isfinite(res.pos).all())
+                and bool(torch.isfinite(res.detq).all())):
+            fail(f"dyn3 {name}: non-finite positions or det Q")
+        runs[name] = Run3(name, op, pos0, dir0, ds, steps, box, res)
+        return res
+
+    run("dyn3_op6", "op6", "matrix", 0)
+    fres = run("fisheye", "op6", "tilted", 0)
+    run("vert", "op8", "vert", 1)
+    run("interface", "op6", "interface", 2)
+    run("dyn3_tiled_op6", "op6", "matrix", 0)
+    gres = run("grid3", "op6", "tilted", 0)
+    dev = float((gres.pos - fres.pos).abs().max())
+    print(f"  grid3 (71^3 nodes) against the analytic run on the tilted fan, "
+          f"one turn: max |dpos| {dev:.3e} (bar 5e-5)", flush=True)
+    if not dev < 5e-5:
+        fail("dyn3: the grid run's distance from the analytic run")
+    run("grid3_dispersed", "op6", "dispersed", 3)
+
+    # the scan route on the card at float64
+    homog = rtt.Custom3D(lambda x, y, z: torch.ones_like(x))
+    d = np.array([[1.0, 2.0, 2.0], [0.0, 0.0, 1.0], [3.0, -4.0, 0.0]])
+    h = rtt.trace_dynamic3("op6", homog, pos0=np.zeros((3, 3)), dir0=d,
+                           delta_s=0.1, steps=50, device=device)
+    det_err = float((h.detq - 25.0).abs().max())
+    tl_err = float((h.transmission_loss_db() - 20.0 * math.log10(5.0))
+                   .abs().max())
+    _, eng = rtt.fast_dynamic3("op6", homog, pos0=np.zeros((3, 3)), dir0=d,
+                               delta_s=0.1, steps=50,
+                               box=(-9.0, 9.0) * 3, device=device)
+    print(f"  Custom3D homogeneous (engine={eng}): trace_dynamic3 float64 "
+          f"|det Q - 25| {det_err:.3e}, |TL - 20 log10 5| {tl_err:.3e} "
+          f"(bars 1e-9), KMAH {h.kmah.tolist()}", flush=True)
+    if not (eng == "dynamic3-scan" and det_err < 1e-9 and tl_err < 1e-9
+            and int(h.kmah.abs().sum()) == 0):
+        fail("dyn3: the homogeneous scan-route oracle")
+    guide = rtt.Stratified3D(rtt.CustomMedium(
+        lambda x, y: 1.5 - 0.5 * y * y + 0.0 * x))
+    t1 = time.perf_counter()
+    w = rtt.trace_dynamic3("op6", guide, pos0=np.zeros((1, 3)),
+                           dir0=np.array([[math.cos(0.3), math.sin(0.3),
+                                           0.0]]),
+                           delta_s=0.02, steps=1500, device=device)
+    per_step = (time.perf_counter() - t1) / 1500 * 1e3
+    hdet = w.history[:, 0, 5].cpu().numpy()
+    changes = int(np.sum(np.sign(hdet[1:-1]) * np.sign(hdet[2:]) < 0))
+    print(f"  Stratified3D waveguide float64, 1500 steps: KMAH "
+          f"{int(w.kmah[0])}, det Q sign changes {changes} (equal, >= 2); "
+          f"the float64 scan tier {per_step:.2f} ms a step (one ray, "
+          "history)", flush=True)
+    if not (changes >= 2 and int(w.kmah[0]) == changes):
+        fail("dyn3: the astigmatic waveguide's KMAH")
+    print(f"[dyn3] main path {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def dyn3_oracle(device, r, kernel_field, medium):
+    """One [dyn3] run's kernel against trace_dynamic3 at float64 on a
+    4,096-ray head, at its DYN3_BARS depth and bars."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.kernels import dynamic3d as kd3
+    kind = ("dispersed" if r.medium.endswith("dispersed") else "grid"
+            if not isinstance(kernel_field, str) else "fisheye"
+            if kernel_field == "fisheye" else "field")
+    b = DYN3_BARS[kind]
+    n, depth = DYN3_ORACLE_RAYS, min(DYN3_BARS[kind]["depth"], r.steps)
+    st = kd3.initial_dyn3_state(r.pos0[:n], r.dir0[:n], device=device)
+    k = kd3.dynamic3d_step(st, field=kernel_field, op=r.op, steps=depth,
+                           delta_s=r.ds, step_limit=depth, offset=0.0,
+                           box=r.box)
+    t0 = time.perf_counter()
+    s = rtt.trace_dynamic3(r.op, medium, pos0=r.pos0[:n].astype(np.float64),
+                           dir0=r.dir0[:n].astype(np.float64),
+                           delta_s=float(np.float32(r.ds)), steps=depth,
+                           box=r.box, mode="history", device=device)
+    secs = time.perf_counter() - t0
+    kpos = torch.stack([k.x, k.y, k.z], -1).double()
+    dpos = float((kpos - s.pos).abs().max())
+    dtt = float((k.tt.double() - s.traveltime).abs().max())
+    kdet = kd3.detq3(k).double()
+    scale = s.history[..., 5].abs().amax(0)
+    focus = (s.history[1:, :, 5].abs().amin(0) < DYN3_FOCUS_FLOOR * scale)
+    kmah_off = k.kmah.long() != s.kmah.long()
+    loc_off = ((k.minstep.long() - s.min_absdet_step.long()).abs()
+               > b["locator"])
+    ok = (dpos <= b["pos"] and dtt <= b.get("tt", float("inf"))
+          and not bool(((kmah_off | loc_off) & ~focus).any()))
+    if "det_rtol" in b:
+        excess = float(((kdet - s.detq).abs()
+                        - (b["det_atol"] + b["det_rtol"] * s.detq.abs()))
+                       .max())
+        det_line = f"det Q excess over rtol {b['det_rtol']} / atol " \
+                   f"{b['det_atol']} {excess:.3e} (<= 0)"
+        ok = ok and excess <= 0.0
+    else:
+        rel = ((kdet - s.detq).abs() / scale).cpu().numpy()
+        p95 = float(np.percentile(rel, 95))
+        det_line = (f"det Q p95 relative to its path maximum {p95:.3e} (bar "
+                    f"{b['det_p95']})")
+        ok = ok and p95 < b["det_p95"]
+    print(f"    oracle {r.medium} {n} rays x {depth} steps against "
+          f"trace_dynamic3 float64 ({secs:.1f} s): |dpos| {dpos:.3e} (bar "
+          f"{b['pos']}), |dtt| {dtt:.3e}, {det_line}; on the "
+          f"{int((~focus).sum())} rays clear of a focus below float32's "
+          f"resolution KMAH mismatches {int((kmah_off & ~focus).sum())}, "
+          f"locator steps off by > {b['locator']} "
+          f"{int((loc_off & ~focus).sum())} (both 0 required); on the other "
+          f"{int(focus.sum())} {int((kmah_off & focus).sum())} and "
+          f"{int((loc_off & focus).sum())}", flush=True)
+    if not ok:
+        fail(f"dyn3 {r.medium}: the kernel against the float64 scan tier")
+
+
+def phase_dyn3_checks(device, errs, runs, gmed):
+    """The [dyn3] runs' checks: each 2^20-ray run against a direct launch of
+    its kernel (every ray to the bit), that kernel against its plain
+    version (replayed) at min(steps, MAIN_PLAIN_CAP) steps (all 25 planes),
+    the kernel against the float64 scan tier on a head (dyn3_oracle), and
+    the kernels' times: median of 5 by CUDA events, the plain version's
+    eager time for the timed runs (dyn3_op6, dyn3_tiled_op6), the bound and
+    for the grid the row-read HBM estimate.  Returns {kernel: times}."""
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.kernels import dynamic3d as kd3
+    print("[dyn3] checks: each 2^20-ray run against a direct launch, the "
+          "plain version and the float64 scan tier", flush=True)
+    times, t0 = {}, time.perf_counter()
+    timed = {"dyn3_op6": "dynamic3d_step",
+             "dyn3_tiled_op6": "dynamic3d_step_grid"}
+    for name, r in runs.items():
+        field, medium, _ = dyn3_medium(name, gmed)
+        kernel = "dynamic3d_step" if isinstance(field, str) else \
+            "dynamic3d_step_grid"
+        st = kd3.initial_dyn3_state(r.pos0, r.dir0, device=device)
+        depth = min(r.steps, MAIN_PLAIN_CAP)
+        kw = dict(field=field, op=r.op, delta_s=r.ds, offset=0.0, box=r.box)
+        k_ms, out = median_ms(lambda: kd3.dynamic3d_step(
+            st, steps=r.steps, step_limit=r.steps, **kw))
+        same_final(f"[dyn3] {name}: fast_dynamic3's {st.x.shape[0]} rays x "
+                   f"{r.steps} steps against a direct launch of {kernel}",
+                   r.res, kd3.final_from_dyn3_state(out, r.res.n),
+                   names=("pos", "tangent", "traveltime", "dist_sim",
+                          "active", "detq", "kmah", "min_absdet",
+                          "min_absdet_step"))
+        k = out if depth == r.steps else kd3.dynamic3d_step(
+            st, steps=depth, step_limit=depth, **kw)
+        errs[kernel].pos = max(errs[kernel].pos, dyn3_exact(
+            f"[dyn3] {name} {kernel} {st.x.shape[0]} rays x {depth} of "
+            f"{r.steps} steps against the plain version (replayed)", k,
+            replay.dynamic3d_plain(st, steps=depth, step_limit=depth, **kw)))
+        live = live_ray_steps(out.dsim, r.ds, r.steps)
+        rate = st.x.shape[0] * r.steps / (k_ms * 1e-3)
+        line = (f"    {kernel} {name}: {k_ms:.3f} ms median of 5 "
+                f"({r.steps} steps), {rate:.4e} ray-steps/s ({live:.4e} "
+                "live)")
+        p_ms = None
+        if timed.get(name) == kernel:
+            p_ms, _ = cuda_ms(lambda: kd3.dynamic3d_step_plain(
+                st, steps=depth, step_limit=float(depth), **kw))
+            line += f"; plain {p_ms:.1f} ms ({depth} steps, eager)"
+        print(line, flush=True)
+        if kernel == "dynamic3d_step_grid":
+            row_ms = 1e3 * ROW3_BYTES * live / PEAK_BYTES
+            print(f"    row-read HBM estimate {row_ms:.3f} ms ({ROW3_BYTES} "
+                  "bytes a live ray-step over 3.35 TB/s, were no row "
+                  "cached; not a bound)", flush=True)
+        bms, by = timed_bound(
+            kernel, lambda n: kd3.dynamic3d_step_plain(
+                head(st), steps=n, step_limit=float(n), **kw),
+            st, out, None if isinstance(field, str) else field, r.ds,
+            r.steps)
+        if p_ms is not None:
+            times[kernel] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                 bound_by=by)
+        dyn3_oracle(device, r, field, medium)
+    secs = time.perf_counter() - t0
+    print(f"[dyn3] checks {secs:.1f} s", flush=True)
+    return times
+
+
+def cli_eigenrays3(device, timeout=300):
+    """``python -m raytracing_tpu_torch.cli --eigenrays3`` on the Munk
+    profile (:func:`munk_profile`) lifted to 3-D, source on the channel
+    axis, three receivers off the source plane, a 9 x 9 fan and 800 steps
+    of 0.01, as a process of its own (killed past ``timeout`` seconds);
+    returns (command, exit code, stdout, stderr, seconds)."""
+    import os
+    import tempfile
+    depth, c = munk_profile()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "munk.npz")
+        np.savez(path, samples=c.min() / c, y=depth)
+        cmd = [sys.executable, "-m", "raytracing_tpu_torch.cli",
+               "--medium-file", path, "--family", "c1", "--op", "6",
+               "--delta-s-value", "0.01", "--steps", "800",
+               "--eigenrays3", "0", "-1", "0",
+               "--receiver3", "4", "-1", "0.3",
+               "--receiver3", "6", "-1.3", "-0.4",
+               "--receiver3", "7", "-0.8", "0.6",
+               "--fan3", "-0.3", "0.3", "9", "-0.3", "0.3", "9",
+               "--omega", "40", "--device", str(device)]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    return (cmd, done.returncode, done.stdout, done.stderr,
+            time.perf_counter() - t0)
+
+
+def phase_eigenrays3(device):
+    """The 3-D eigenray solver on the card at float64: the homogeneous
+    single arrival (tests/test_eigenray3d.py:27-42) and the eddy's
+    out-of-plane arrival (:72-91), each with the JAX test's asserts, and
+    the CLI's --eigenrays3 run (:func:`cli_eigenrays3`): exit 0, at least
+    one converged arrival a receiver, finite TL.  Returns its seconds."""
+    import raytracing_tpu_torch as rtt
+    t0 = time.perf_counter()
+    r = np.array([3.0, 1.0, -0.5])
+    eig = rtt.find_eigenrays3(
+        "op1", rtt.Custom3D(lambda x, y, z: torch.ones_like(x)),
+        source=(0, 0, 0), receivers=[r], delta_s=0.02, max_size=250,
+        box=(-1, 5, -3, 3, -3, 3), fan=(-0.5, 0.5, 17, -0.5, 0.5, 17),
+        device=device)
+    d = float(np.linalg.norm(r))
+    ok = (len(eig.traveltime) == 1 and bool(eig.converged[0])
+          and float(np.abs(eig.dir0[0] - r / d).max()) < 1e-12
+          and abs(eig.traveltime[0] - d) < 1e-12
+          and abs(eig.amplitude[0] - 1 / d) < 2e-6 and eig.miss[0] < 1e-12
+          and int(eig.kmah[0]) == 0
+          and bool(np.isfinite(rtt.incoherent_tl(eig, n_receivers=1)).all()))
+    print(f"[eigenrays3] homogeneous (0, 0, 0) -> (3, 1, -0.5): "
+          f"{len(eig.traveltime)} arrival, traveltime "
+          f"{float(eig.traveltime[0]):.15f} (exact {d:.15f}), amplitude "
+          f"{float(eig.amplitude[0]):.9f} (1/d {1 / d:.9f}), miss "
+          f"{float(eig.miss[0]):.3e}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not ok:
+        fail("eigenrays3: the homogeneous arrival")
+
+    def eddy(x, y, z):
+        bump = torch.exp(-((x - 5.0) ** 2 + (z - 1.0) ** 2) / 4.0)
+        return (1.3 - 0.02 * torch.tanh(y)) * (1.0 - 5e-3 * bump)
+
+    t1 = time.perf_counter()
+    recv = np.array([12.0, 0.5, 0.8])
+    e = rtt.find_eigenrays3("op6", rtt.Custom3D(eddy), source=(0, 0, 0),
+                            receivers=[recv], delta_s=0.02, max_size=900,
+                            box=(-1, 15, -6, 6, -6, 6),
+                            fan=(-0.3, 0.3, 15, -0.3, 0.3, 15),
+                            device=device)
+    bend = float(np.abs(e.dir0[:, 2] - (recv / np.linalg.norm(recv))[2])
+                 .max()) if len(e.traveltime) else 0.0
+    print(f"[eigenrays3] eddy (0, 0, 0) -> (12, 0.5, 0.8): "
+          f"{len(e.traveltime)} arrival(s), miss {e.miss.tolist()}, "
+          f"traveltime {e.traveltime.tolist()}, out-of-plane launch "
+          f"correction {bend:.3e} (> 1e-4), "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    if not (len(e.traveltime) >= 1 and bool(np.all(e.converged))
+            and bool(np.all(e.miss < 1e-7)) and bend > 1e-4):
+        fail("eigenrays3: the eddy arrival")
+
+    cmd, code, stdout, stderr, secs = cli_eigenrays3(device)
+    out = stdout.strip().splitlines()
+    print(f"[eigenrays3] python -m raytracing_tpu_torch.cli "
+          f"{' '.join(cmd[3:])}: exit {code} in {secs:.1f} s", flush=True)
+    for line in out[-10:]:
+        print(f"    {line}", flush=True)
+    rows = [ln for ln in out if ln.startswith("(") and "no arrivals" not in ln]
+    tls = [float(ln.split()[2]) for ln in out if "TL incoherent" in ln]
+    if (code != 0 or len(tls) != 3 or not all(math.isfinite(t) for t in tls)
+            or len({ln.split(")")[0] for ln in rows}) != 3
+            or any(abs(float(ln.split()[-1])) > 1e-6 for ln in rows)):
+        fail(f"eigenrays3: the CLI run failed: {stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -3000,15 +3462,30 @@ def main():
     launches.update(launches3)
     times3, secs3 = phase_3d_checks("cuda", errs, runs3, gmed)
     times.update(times3)
+    # this slice: the 3-D dynamic tier and the 3-D eigenray solver
+    t_d3 = time.perf_counter()
+    errs.update(phase_dyn3_vs_plain("cuda", gmed))
+    t_d3_main = time.perf_counter()
+    druns3, dlaunches3 = main_path(
+        kernels, ("dynamic3d_step", "dynamic3d_step_grid"),
+        lambda: phase_dyn3("cuda", gmed))
+    launches.update(dlaunches3)
+    times.update(phase_dyn3_checks("cuda", errs, druns3, gmed))
+    eig3_secs = phase_eigenrays3("cuda")
+    print(f"[phase 17] the 3-D dynamic phase {time.perf_counter() - t_d3:.1f}"
+          f" s: [dyn3-vs-plain] {t_d3_main - t_d3:.1f} s, [eigenrays3] "
+          f"{eig3_secs:.1f} s", flush=True)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
           f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
           f"phase's {t_cu - t_df:.1f} s, of which its 2^20-ray"
           f" runs against direct launches and the plain version "
           f"{df_main_secs:.1f} s; the custom phase's "
           f"{t_3d - t_cu:.1f} s; the 3-D phase's "
-          f"{time.perf_counter() - t_3d:.1f} s, of which [3d-shapes] "
-          f"{secs3:.1f} s; {time.perf_counter() - T_IMPORTS:.1f} s with the "
-          "imports)", flush=True)
+          f"{t_d3 - t_3d:.1f} s, of which [3d-shapes] "
+          f"{secs3:.1f} s; the 3-D dynamic phase's "
+          f"{time.perf_counter() - t_d3:.1f} s; "
+          f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],

@@ -8,9 +8,10 @@ tier — paraxial spreading, KMAH caustics, amplitudes — and the eigenray
 solver with transmission loss; the df32 precision tier, double-word float32
 on the analytic fields and on split-word sampled media; user-defined
 media, ``CustomMedium``, traced into kernels of their own; and the 3-D
-kinematic tier: ``trace3d`` and ``fast_trace3`` on the analytic 3-D
-fields, lifted and user-defined 3-D media and tri-Hermite sampled 3-D
-grids), written as
+kinematic and dynamic tiers: ``trace3d``, ``fast_trace3``,
+``trace_dynamic3``, ``fast_dynamic3`` and the 3-D eigenray solver on the
+analytic 3-D fields, lifted and user-defined 3-D media and tri-Hermite
+sampled 3-D grids), written as
 plain torch functions on tensors, with the JAX package's TPU kernels
 replaced by CUDA C++ kernels for the H100 (``csrc/``, built at first use by
 :mod:`raytracing_tpu_torch.kernels.build`; a custom medium's by
@@ -45,6 +46,10 @@ from raytracing_tpu_torch.engine.dynamic import (  # noqa: F401
     trace_dynamic,
     transmission_loss_db,
 )
+from raytracing_tpu_torch.engine.dynamic3d import (  # noqa: F401
+    Dynamic3Result,
+    trace_dynamic3,
+)
 from raytracing_tpu_torch.engine.eigenray import (  # noqa: F401
     Eigenrays,
     coherent_tl,
@@ -52,9 +57,14 @@ from raytracing_tpu_torch.engine.eigenray import (  # noqa: F401
     incoherent_tl,
     pressure,
 )
+from raytracing_tpu_torch.engine.eigenray3d import (  # noqa: F401
+    Eigenrays3,
+    find_eigenrays3,
+)
 from raytracing_tpu_torch.engine.fast import (  # noqa: F401
     FastResult,
     fast_dynamic,
+    fast_dynamic3,
     fast_trace,
     fast_trace3,
 )
@@ -87,6 +97,7 @@ from raytracing_tpu_torch.media.hermite import (  # noqa: F401
     build_hermite_medium,
 )
 from raytracing_tpu_torch.kernels.dynamic import DynFinal  # noqa: F401
+from raytracing_tpu_torch.kernels.dynamic3d import Dyn3Final  # noqa: F401
 from raytracing_tpu_torch.media.medium import (  # noqa: F401
     AnalyticMedium,
     CustomMedium,
@@ -131,4 +142,6 @@ __all__ = [
     "Trace3Result", "trace3d", "bouguer_invariant", "fast_trace3",
     "C1Grid3Medium", "c1_medium3_from_samples", "Analytic3D", "Custom3D",
     "Stratified3D", "analytic_medium3",
+    "Dynamic3Result", "trace_dynamic3", "Eigenrays3", "find_eigenrays3",
+    "Dyn3Final", "fast_dynamic3",
 ]

@@ -2,7 +2,7 @@
 with their plain versions on the card in less time.
 
 A plain version (``fused_step_plain``, ``golden_step_plain``,
-``fused3d_step_plain``) performs one
+``fused3d_step_plain``, ``dynamic3d_step_plain``) performs one
 torch call an operation, so on the card its time is the host's dispatch of
 some hundreds of small kernels a step.  :func:`replay_steps` captures one
 step, with its output copied back into the input buffers, in a
@@ -16,7 +16,10 @@ and no step after it changes the state) and op7's order ramp (global steps
 1 and 2 differ from the rest).  :func:`fused_plain` and
 :func:`golden_plain` run the steps where those differ eagerly and replay
 only a run of steps over which they are constant; :func:`fused3d_plain`
-has no order ramp, so it replays every step before the limit.
+has no order ramp, so it replays every step before the limit.  The 3-D
+dynamic step reads its global step number in the focus locator too (the
+past-source guard and the recorded step), so :func:`dynamic3d_plain`
+keeps it in a device tensor that the captured step advances.
 """
 from __future__ import annotations
 
@@ -24,10 +27,13 @@ import numpy as np
 import torch
 
 
-def replay_steps(step, st, steps: int):
+def replay_steps(step, st, steps: int, before_replay=None):
     """``steps`` applications of ``step(state) -> state`` to the CUDA state
     ``st`` (a NamedTuple of tensors and None), by one capture and
-    ``steps`` replays; a new state, ``st`` is not changed."""
+    ``steps`` replays; a new state, ``st`` is not changed.
+    ``before_replay()``, if given, runs after the capture and before the
+    first replay (to reset what the warm-up step changed outside the
+    state)."""
     if steps <= 0:
         return st
     static = type(st)(*(None if t is None else t.clone() for t in st))
@@ -42,6 +48,8 @@ def replay_steps(step, st, steps: int):
         for dst, src in zip(static, out):
             if dst is not None:
                 dst.copy_(src)
+    if before_replay is not None:
+        before_replay()
     for _ in range(steps):
         graph.replay()
     return type(st)(*(None if t is None else t.clone() for t in static))
@@ -99,3 +107,26 @@ def fused3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
                                      delta_s=delta_s, step_limit=step_limit,
                                      offset=float(offset), box=box),
         st, live_steps(steps, offset, float(step_limit)))
+
+
+def dynamic3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
+                    offset: float, box):
+    """``dynamic3d_step_plain`` with the same arguments, its steps before the
+    step limit replayed from a CUDA graph (the steps after it change
+    nothing); equal to it to the bit.  The global step index is a float32
+    device tensor that the captured step advances by 1, from ``offset``
+    (exact in float32 for every step count below 2**24)."""
+    from raytracing_tpu_torch.kernels.dynamic3d import dynamic3d_plain_step
+
+    gi = torch.zeros((), dtype=torch.float32, device=st.x.device)
+
+    def step(s):
+        out = dynamic3d_plain_step(s, gi, field=field, op=op,
+                                   delta_s=delta_s, step_limit=step_limit,
+                                   box=box)
+        gi.add_(1.0)
+        return out
+
+    return replay_steps(step, st, live_steps(steps, offset, float(step_limit)),
+                        before_replay=lambda: gi.fill_(float(np.float32(
+                            offset))))

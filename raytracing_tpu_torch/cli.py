@@ -2,7 +2,8 @@
 
 Port of ``raytracing_tpu/cli.py``: ``op_for_choice`` (cli.py:79),
 ``run_batch`` (:86), ``load_samples_medium`` (:130), ``run_samples_file``
-(:159), ``run_eigenrays_file`` (:273), ``build_medium`` (:404),
+(:159), ``run_eigenrays_file`` (:273), ``run_eigenrays3_file`` (:336),
+``samples_is_profile`` (:397), ``build_medium`` (:404),
 ``run_pipeline`` (:419) and ``main`` (:566) — the reference's main() pipeline (RT_bench.py:961-1547) with its
 three modes: display/validate, search for a suitable DELTA_S
 (``--delta-s search``), and benchmark.  Everything runs on ``--device``
@@ -15,11 +16,13 @@ three modes: display/validate, search for a suitable DELTA_S
 problem instead (``run_eigenrays_file``, cli.py:273-333): every fan-resolved
 arrival from the source to each ``--receiver`` through the measured medium
 (float64 tables, on ``--device``), reduced to transmission loss.
+``--eigenrays3 SRC_X SRC_Y SRC_Z`` with ``--receiver3`` (and ``--fan3``)
+lifts a 1-D profile to a ``Stratified3D`` and solves in 3-D
+(``run_eigenrays3_file``, cli.py:336-394, ``engine/eigenray3d.py``); a 2-D
+grid file is refused, as JAX refuses it.
 
 Not ported yet, each refused by the parser with its ROADMAP.md item: the
-plots (``--plot static|movie``) and the interactive menus (§1 item 12) and
-``--eigenrays3`` (item 17, step 17b: the 3-D dynamic tier and eigenray
-solver; the 3-D kinematic tier is ported, ``fast_trace3``).
+plots (``--plot static|movie``) and the interactive menus (§1 item 12).
 """
 from __future__ import annotations
 
@@ -35,9 +38,12 @@ from raytracing_tpu_torch import config
 from raytracing_tpu_torch.bench import harness
 from raytracing_tpu_torch.calibrated import calibrated_with_fallback
 from raytracing_tpu_torch.engine import eigenray as er
+from raytracing_tpu_torch.engine.eigenray3d import find_eigenrays3
 from raytracing_tpu_torch.engine import oracles
 from raytracing_tpu_torch.engine.fast import STRAT_MEDIA, fast_trace
 from raytracing_tpu_torch.engine.trace import _torch_dtype, trace
+from raytracing_tpu_torch.engine.trace3d import canonical3
+from raytracing_tpu_torch.media.fields3d import Stratified3D
 from raytracing_tpu_torch.media.medium import analytic_medium
 from raytracing_tpu_torch.media.samples import medium_from_samples
 from raytracing_tpu_torch.media.spline import (
@@ -294,6 +300,61 @@ def run_eigenrays_file(path: str, op_name: str, *, delta_s: float,
     return eig
 
 
+def run_eigenrays3_file(path: str, op_name: str, *, delta_s: float,
+                        steps: int, source, receivers, fan=None, box=None,
+                        omega=None, family: str = "parity", device="cuda",
+                        printer=print):
+    """3-D eigenray arrivals and TL through a measured PROFILE medium: the
+    profile (float64 tables) lifts to a ``Stratified3D`` and
+    ``engine/eigenray3d.py::find_eigenrays3`` Gauss-Newtons a two-angle
+    launch grid onto each (x, y, z) receiver."""
+    method = canonical3(op_name)
+    medium2d, default_box, kind = load_samples_medium(
+        path, family, dtype=torch.float64, device=device)
+    if not samples_is_profile(medium2d):
+        raise SystemExit("--eigenrays3 lifts 1-D PROFILES (n = n(y)); this "
+                         "file holds a 2-D grid — use --eigenrays for the "
+                         "planar pipeline")
+    medium = Stratified3D(medium2d)
+    box = tuple(box) if box else (-1e30, 1e30, default_box[2],
+                                  default_box[3], -1e30, 1e30)
+    fan = tuple(fan) if fan else (-0.3, 0.3, 25, -0.3, 0.3, 25)
+    receivers = np.atleast_2d(np.asarray(receivers, np.float64))
+    eig = find_eigenrays3(
+        method, medium, source=tuple(source), receivers=receivers,
+        delta_s=delta_s, max_size=int(steps), box=box,
+        fan=(float(fan[0]), float(fan[1]), int(fan[2]),
+             float(fan[3]), float(fan[4]), int(fan[5])), device=device)
+    printer(f"\n{kind} ({family}) from {path}, lifted to 3-D")
+    printer(f"eigenrays3 {method}: source ({source[0]:g}, {source[1]:g}, "
+            f"{source[2]:g}), fan {int(fan[2])}x{int(fan[5])}, "
+            f"delta_s {delta_s:g} x {steps} steps")
+    k = len(receivers)
+    itl = er.incoherent_tl(eig, n_receivers=k)
+    ctl = (er.coherent_tl(eig, float(omega), n_receivers=k)
+           if omega is not None else None)
+    printer(f"{'receiver':>26} {'traveltime':>12} {'amplitude':>10} "
+            f"{'kmah':>5} {'miss':>9}")
+    for i, (rx, ry, rz) in enumerate(receivers):
+        e = eig.for_receiver(i)
+        if not len(e.traveltime):
+            printer(f"({rx:7.3g}, {ry:6.3g}, {rz:6.3g})  no arrivals")
+            continue
+        for tt, a, m, ye in zip(e.traveltime, e.amplitude, e.kmah, e.miss):
+            printer(f"({rx:7.3g}, {ry:6.3g}, {rz:6.3g}) {tt:12.6f} "
+                    f"{a:10.4f} {int(m):5d} {ye:+9.1e}")
+        line = f"    TL incoherent {itl[i]:7.2f} dB"
+        if ctl is not None and np.isfinite(ctl[i]):
+            line += f"   coherent {ctl[i]:7.2f} dB (omega {omega:g})"
+        printer(line)
+    return eig
+
+
+def samples_is_profile(medium) -> bool:
+    """Whether a medium loaded from a samples file is a 1-D profile."""
+    return isinstance(medium, STRAT_MEDIA)
+
+
 def run_pipeline(scen, op_name: str, *, delta_s_mode: str = "calibrated",
                  medium_kind: str = "auto", dtype=torch.float32,
                  n_turns: int = config.N_TURNS, do_benchmark: bool = False,
@@ -440,20 +501,41 @@ def main(argv=None):
                         "coherent TL")
     g.add_argument("--eigenrays3", nargs=3, type=float,
                    metavar=("SRC_X", "SRC_Y", "SRC_Z"),
-                   help="not ported yet (ROADMAP.md §1 item 17, step 17b)")
+                   help="3-D boundary-value arrivals from this source to "
+                        "every --receiver3 (the profile lifts to a 3-D "
+                        "stratified medium)")
+    g.add_argument("--receiver3", nargs=3, type=float, action="append",
+                   metavar=("X", "Y", "Z"),
+                   help="3-D receiver point (repeatable)")
+    g.add_argument("--fan3", nargs=6, type=float,
+                   metavar=("A_LO", "A_HI", "NA", "B_LO", "B_HI", "NB"),
+                   help="3-D eigenray launch grid around the source->mean-"
+                        "receiver direction (default -0.3 0.3 25 x2)")
     args = p.parse_args(argv)
 
     if args.plot != "none":
         p.error(f"--plot {args.plot}: the plots (viz/plots.py) are not "
                 "ported yet: ROADMAP.md §1 item 12")
-    if args.eigenrays3 is not None:
-        p.error("--eigenrays3: the 3-D eigenray solver and the 3-D dynamic "
-                "tier are not ported yet: ROADMAP.md §1 item 17, step 17b "
-                "(dynamic rays and eigenrays)")
     if args.eigenrays is not None and not args.medium_file:
         p.error("--eigenrays needs --medium-file (measured media; named "
                 "scenarios have analytic eigenray oracles in the tests)")
+    if args.eigenrays3 is not None and not args.medium_file:
+        p.error("--eigenrays3 needs --medium-file (a measured 1-D profile)")
     device = args.device
+
+    if args.medium_file and args.eigenrays3 is not None:
+        need = [("--op", args.op), ("--delta-s-value", args.delta_s_value),
+                ("--steps", args.steps), ("--receiver3", args.receiver3)]
+        missing = [f for f, v in need if v is None]
+        if missing:
+            p.error(f"--eigenrays3 needs {', '.join(missing)}")
+        op = canonical(f"op{int(args.op)}" if args.op.isdigit()
+                       else args.op)
+        return run_eigenrays3_file(
+            args.medium_file, op, delta_s=args.delta_s_value,
+            steps=args.steps, source=args.eigenrays3,
+            receivers=args.receiver3, fan=args.fan3, omega=args.omega,
+            family=args.family, device=device)
 
     if args.medium_file and args.eigenrays is not None:
         if args.calibrate is not None:

@@ -2,7 +2,9 @@
 // the op, and its two media: the analytic 3-D fields (Analytic3<FIELD>) and
 // a C1Grid3Medium's per-cell table (Grid3).  fused3d.cu instantiates it in
 // the kernels fused3d_step and fused3d_step_grid; what they compute, and
-// what bounds them, is described at the top of fused3d.cu.
+// what bounds them, is described at the top of fused3d.cu.  Each medium
+// also has nag_h, n with its gradient and Hessian, which the 3-D dynamic
+// loop (dynamic3d.cuh) reads.
 //
 // Every function here is __host__ __device__ (RT_HD) and includes no CUDA
 // header, so the whole per-ray loop (run3) also compiles for the host with
@@ -42,6 +44,13 @@ enum Field3 { FISHEYE3 = 0, VERT3 = 1, INTERFACE3 = 2 };
 constexpr float kSqrt2 = (float)1.4142135623730951;
 constexpr float kSqrt2m1 = (float)(1.4142135623730951 - 1.0);
 constexpr float kThck = (float)0.005;   // config.THCK_PARAM
+constexpr float kThck2 = (float)(0.005 * 0.005);
+
+// n, grad n and the symmetric Hessian at one point: what nag_h gives the
+// dynamic loop (raytracing_tpu/kernels/dynamic3d.py's eval_h contract)
+struct H3 {
+  float n, gx, gy, gz, hxx, hxy, hxz, hyy, hyz, hzz;
+};
 
 template <int FIELD>
 struct Analytic3 {
@@ -68,6 +77,44 @@ struct Analytic3 {
       gz = 0.0f;
     }
   }
+
+  // closed-form Hessians (kernels/dynamic3d.py::_field3_fn_h, :76-111);
+  // the interface's logistic is the overflow-safe two-branch form of
+  // media/fields.py::_sigmoid, both branches exponentiating -|t|
+  RT_HD void nag_h(float x, float y, float z, H3& h) const {
+    h.gx = h.gz = h.hxx = h.hxy = h.hxz = h.hyz = h.hzz = 0.0f;
+    if (FIELD == FISHEYE3) {
+      const float n = 1.0f / (1.0f + x * x + y * y + z * z);
+      const float n2 = n * n;
+      const float c = -2.0f * n2;
+      const float n3_8 = 8.0f * n2 * n;
+      h.n = n;
+      h.gx = c * x;
+      h.gy = c * y;
+      h.gz = c * z;
+      h.hxx = c + n3_8 * x * x;
+      h.hxy = n3_8 * x * y;
+      h.hxz = n3_8 * x * z;
+      h.hyy = c + n3_8 * y * y;
+      h.hyz = n3_8 * y * z;
+      h.hzz = c + n3_8 * z * z;
+    } else if (FIELD == VERT3) {
+      const float n = 1.0f / (18.0f + 2.0f * y);
+      const float n2 = n * n;
+      h.n = n;
+      h.gy = -2.0f * n2;
+      h.hyy = 8.0f * n2 * n;
+    } else {
+      const float t = y / kThck;
+      const bool pos = t >= 0.0f;
+      const float e = expf(pos ? -t : t);
+      const float sig = pos ? 1.0f / (1.0f + e) : e / (1.0f + e);
+      const float d = sig * (1.0f - sig);
+      h.n = kSqrt2 - kSqrt2m1 * sig;
+      h.gy = -kSqrt2m1 * d / kThck;
+      h.hyy = -kSqrt2m1 * d * (1.0f - 2.0f * sig) / kThck2;
+    }
+  }
 };
 
 // -- the tri-Hermite per-cell table (fused3d.py::_tile_nag3, :223-262) -------
@@ -86,6 +133,11 @@ RT_HD Basis3 hermite_dbasis3(float t) {
   const float t2 = t * t;
   return {6.0f * t2 - 6.0f * t, 3.0f * t2 - 4.0f * t + 1.0f,
           -6.0f * t2 + 6.0f * t, 3.0f * t2 - 2.0f * t};
+}
+// and its second derivative (media/c1.py::hermite_d2basis)
+RT_HD Basis3 hermite_d2basis3(float t) {
+  return {12.0f * t - 6.0f, 6.0f * t - 4.0f, -12.0f * t + 6.0f,
+          6.0f * t - 2.0f};
 }
 // c0*h0 + c1*g0 + c2*h1 + c3*g1 (media/c1.py::_hermite1)
 RT_HD float herm1(float c0, float c1, float c2, float c3, const Basis3& b) {
@@ -135,21 +187,23 @@ struct Grid3 {
   float x0, y0, z0, inv_hx, inv_hy, inv_hz;
   int nx, ny, nz;
 
-  RT_HD void nag(float x, float y, float z, float& n, float& gx, float& gy,
-                 float& gz) const {
+  // the cell of (x, y, z): its 64 floats into v, the in-cell offsets
+  RT_HD void cell(float x, float y, float z, float* v, float& ux, float& uy,
+                  float& uz) const {
     const float fx = clamp3((x - x0) * inv_hx, (float)(nx - 1));
     const float fy = clamp3((y - y0) * inv_hy, (float)(ny - 1));
     const float fz = clamp3((z - z0) * inv_hz, (float)(nz - 1));
     const float ix = fminf(floorf(fx), (float)(nx - 2));
     const float iy = fminf(floorf(fy), (float)(ny - 2));
     const float iz = fminf(floorf(fz), (float)(nz - 2));
-    const float ux = fx - ix, uy = fy - iy, uz = fz - iz;
-    const long long cell =
+    ux = fx - ix;
+    uy = fy - iy;
+    uz = fz - iz;
+    const long long c =
         (static_cast<long long>(iz) * (ny - 1) + static_cast<long long>(iy)) *
             (nx - 1) +
         static_cast<long long>(ix);
-    const float* row = t + cell * 64;
-    float v[64];
+    const float* row = t + c * 64;
 #ifdef __CUDA_ARCH__
     const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
@@ -163,6 +217,12 @@ struct Grid3 {
 #else
     for (int k = 0; k < 64; ++k) v[k] = row[k];
 #endif
+  }
+
+  RT_HD void nag(float x, float y, float z, float& n, float& gx, float& gy,
+                 float& gz) const {
+    float v[64], ux, uy, uz;
+    cell(x, y, z, v, ux, uy, uz);
     // media/grid3.py::blend3: the value w-collapse gives n, gx and gy
     // (media/c1.py::c1_blend), the derivative w-collapse's value gz
     const Basis3 hv = hermite_basis3(uy), dv = hermite_dbasis3(uy);
@@ -177,6 +237,41 @@ struct Grid3 {
     wblend(v, hermite_dbasis3(uz), q);
     const Basis3 col_dw = vblend3(q, hv);
     gz = herm1(col_dw.h0, col_dw.g0, col_dw.h1, col_dw.g1, hu) * inv_hz;
+  }
+
+  // media/grid3.py::blend3_h (kernels/dynamic3d.py::_tile_nag3_h,
+  // :386-397), the row read once: the value w-collapse through the 2-D
+  // Hessian blend (media/c1.py::c1_blend_h) gives n, gx, gy, hxx, hxy, hyy;
+  // the derivative collapse through the full gradient blend gz, hxz, hyz
+  // (times inv_hz); the second-derivative collapse's value hzz
+  RT_HD void nag_h(float x, float y, float z, H3& h) const {
+    float v[64], ux, uy, uz;
+    cell(x, y, z, v, ux, uy, uz);
+    const Basis3 hv = hermite_basis3(uy), dv = hermite_dbasis3(uy);
+    const Basis3 hu = hermite_basis3(ux), du = hermite_dbasis3(ux);
+    float q[4][4];
+    wblend(v, hermite_basis3(uz), q);
+    const Basis3 col = vblend3(q, hv);
+    const Basis3 col_dv = vblend3(q, dv);
+    h.n = herm1(col.h0, col.g0, col.h1, col.g1, hu);
+    h.gx = herm1(col.h0, col.g0, col.h1, col.g1, du) * inv_hx;
+    h.gy = herm1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, hu) * inv_hy;
+    const Basis3 ddu = hermite_d2basis3(ux);
+    h.hxx = herm1(col.h0, col.g0, col.h1, col.g1, ddu) * (inv_hx * inv_hx);
+    h.hxy = herm1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, du) *
+            (inv_hx * inv_hy);
+    const Basis3 col_ddv = vblend3(q, hermite_d2basis3(uy));
+    h.hyy = herm1(col_ddv.h0, col_ddv.g0, col_ddv.h1, col_ddv.g1, hu) *
+            (inv_hy * inv_hy);
+    wblend(v, hermite_dbasis3(uz), q);
+    const Basis3 cw = vblend3(q, hv);
+    const Basis3 cw_dv = vblend3(q, dv);
+    h.gz = herm1(cw.h0, cw.g0, cw.h1, cw.g1, hu) * inv_hz;
+    h.hxz = herm1(cw.h0, cw.g0, cw.h1, cw.g1, du) * inv_hx * inv_hz;
+    h.hyz = herm1(cw_dv.h0, cw_dv.g0, cw_dv.h1, cw_dv.g1, hu) * inv_hy * inv_hz;
+    wblend(v, hermite_d2basis3(uz), q);
+    const Basis3 cww = vblend3(q, hv);
+    h.hzz = herm1(cww.h0, cww.g0, cww.h1, cww.g1, hu) * (inv_hz * inv_hz);
   }
 };
 

@@ -50,6 +50,17 @@ vector ops on the analytic 3-D fields go to ``fused3d_step``
 dispersed-batch fallback to the scan tier and its
 ``_guard_grid3_scan_fallback`` have nothing to catch here.
 
+``fast_dynamic3`` (fast.py:506-595) is the 3-D dynamic twin, metrics
+only: the vector ops on the analytic 3-D fields go to ``dynamic3d_step``
+(``"dynamic3-kernel"``), on a ``C1Grid3Medium`` of at least 5 cells an
+axis to ``dynamic3d_step_grid`` through
+``engine/tiled3.py::grid3_trace_dynamic_tiled`` (``"dynamic3-kernel-grid"``;
+JAX says ``"dynamic3-kernel-tiled"``), every other medium (``Custom3D``,
+``Stratified3D``, a smaller grid) to the 3-D dynamic scan tier
+``trace_dynamic3`` at float32 (``"dynamic3-scan"``).  One launch a trace:
+JAX's ``try/except`` around the launch and its dispersed-batch fallback
+have nothing to catch here.
+
 ``precision="high"`` (fast.py:141-162) routes op12 on the analytic fisheye
 and vert fields to the df32 kernel (``kernels/df.py``, engine ``"df32"``):
 float64 positions from double-word float32 arithmetic, all rays active, no
@@ -64,14 +75,18 @@ import torch
 
 from raytracing_tpu_torch import config
 from raytracing_tpu_torch.engine.dynamic import trace_dynamic
+from raytracing_tpu_torch.engine.dynamic3d import trace_dynamic3
 from raytracing_tpu_torch.engine.segmented import (
     grid_trace_dynamic_tiled, grid_trace_tiled)
-from raytracing_tpu_torch.engine.tiled3 import grid3_trace_tiled
+from raytracing_tpu_torch.engine.tiled3 import (
+    grid3_trace_dynamic_tiled, grid3_trace_tiled)
 from raytracing_tpu_torch.engine.trace3d import canonical3, trace3d
 from raytracing_tpu_torch.kernels.df import DF_FIELDS, df_trace
 from raytracing_tpu_torch.kernels.dynamic import (
     DYN_FUSED_FIELDS, DYN_FUSED_OPS, DynFinal, dynamic_trace_final,
     dynamic_trace_final_strat)
+from raytracing_tpu_torch.kernels.dynamic3d import (
+    DYN3_FUSED_FIELDS, DYN3_FUSED_OPS, Dyn3Final, dynamic3d_trace_final)
 from raytracing_tpu_torch.kernels.fused import (
     FUSED_FIELDS, FUSED_OPS, _vectors, fused_trace_final,
     fused_trace_final_custom, fused_trace_final_strat)
@@ -347,11 +362,52 @@ def fast_trace3(method: str, medium, *, pos0, dir0, delta_s, steps: int,
                 delta_s=float(delta_s), steps=int(steps), box=box,
                 mode="metrics", dtype=torch.float32, device=device)
     st = t.final
-    p = st.pos
-    active = ((p[:, 0] >= box[0]) & (p[:, 0] <= box[1])
-              & (p[:, 1] >= box[2]) & (p[:, 1] <= box[3])
-              & (p[:, 2] >= box[4]) & (p[:, 2] <= box[5]))
     return (Fused3Final(pos=st.pos, tangent=st.unitv,
                         traveltime=st.traveltime, dist_sim=st.dist_sim,
-                        active=active),
+                        active=_inside3(st.pos, box)),
             "scan3d")
+
+
+def _inside3(p, box):
+    """Containment of (R, 3) positions in the 6-face box."""
+    return ((p[:, 0] >= box[0]) & (p[:, 0] <= box[1])
+            & (p[:, 1] >= box[2]) & (p[:, 1] <= box[3])
+            & (p[:, 2] >= box[4]) & (p[:, 2] <= box[5]))
+
+
+def fast_dynamic3(method: str, medium, *, pos0, dir0, delta_s, steps: int,
+                  box, device="cuda"):
+    """Metrics-only 3-D DYNAMIC trace on ``device``: returns ``(Dyn3Final,
+    engine)`` with engine ``"dynamic3-kernel"``, ``"dynamic3-kernel-grid"``
+    or ``"dynamic3-scan"`` (module docstring).  ``pos0``/``dir0`` are (R,
+    3), any R; ``box`` the 6 faces.  ``active`` means "never left the box"
+    on every route: on the scan route it is the containment of the final
+    position (fast.py:587-591).  JAX's ``block_rays`` and ``interpret`` are
+    gone.
+    """
+    method = canonical3(method)
+    if box is None or len(tuple(box)) != 6:
+        raise ValueError(f"fast_dynamic3 needs a 6-face box, got {box!r}")
+    box = tuple(float(b) for b in box)
+    kw = dict(steps=int(steps), box=box, device=device)
+    if method in DYN3_FUSED_OPS:
+        if (isinstance(medium, Analytic3D)
+                and medium.field in DYN3_FUSED_FIELDS):
+            return (dynamic3d_trace_final(pos0, dir0, delta_s,
+                                          field=medium.field, op=method,
+                                          **kw),
+                    "dynamic3-kernel")
+        if (isinstance(medium, C1Grid3Medium) and medium.nx - 1 >= 5
+                and medium.ny - 1 >= 5 and medium.nz - 1 >= 5):
+            return (grid3_trace_dynamic_tiled(method, pos0, dir0, delta_s,
+                                              medium, **kw),
+                    "dynamic3-kernel-grid")
+    d = trace_dynamic3(method, medium, pos0=pos0, dir0=dir0,
+                       delta_s=float(delta_s), mode="metrics",
+                       dtype=torch.float32, **kw)
+    return (Dyn3Final(pos=d.pos, tangent=d.unitv, traveltime=d.traveltime,
+                      dist_sim=d.dist_sim, active=_inside3(d.pos, box),
+                      detq=d.detq, kmah=d.kmah, n=d.n,
+                      min_absdet=d.min_absdet,
+                      min_absdet_step=d.min_absdet_step),
+            "dynamic3-scan")

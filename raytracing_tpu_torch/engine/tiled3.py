@@ -1,11 +1,13 @@
 """The kernel tier for sampled 3-D (tri-Hermite grid3) media, GPU form.
 
 Port of ``raytracing_tpu/engine/tiled3.py``: ``_cells64`` (tiled3.py:102),
-the checks of ``_prep_tiled3`` (:307) and ``grid3_trace_tiled`` (:346).
-Every ray reads its own cell's 64-float row of the whole per-cell table in
-the ``fused3d_step_grid`` kernel (``kernels/fused3d.py``), as the 2-D grid
-kernel does, so a trace is one launch and the result is in the caller's
-ray order.
+the checks of ``_prep_tiled3`` (:307), ``grid3_trace_tiled`` (:346) and its
+dynamic twin ``grid3_trace_dynamic_tiled`` (:513).  Every ray reads its own
+cell's 64-float row of the whole per-cell table, in the
+``fused3d_step_grid`` kernel (``kernels/fused3d.py``) or, with the patch's
+Hessian and the two launch tangents, the ``dynamic3d_step_grid`` kernel
+(``kernels/dynamic3d.py``), as the 2-D grid kernels do, so a trace is one
+launch and the result is in the caller's ray order.
 
 Not ported, on purpose (ROADMAP.md §1, "Not to port"): the Morton sort
 (``_morton_key3``, ``_sort_perm3``), the drift-placed block windows and
@@ -17,14 +19,15 @@ cells in a TPU core's VMEM.  So are the arguments that steer them,
 ``segment``, ``block_rays``, ``tile_shape``, ``refreshes_per_round``,
 ``sort`` and ``interpret``; no batch is too dispersed, and nothing raises
 JAX's ``RuntimeError`` for one.  ``mesh=`` raises NotImplementedError
-(ROADMAP.md §1 item 18).  The dynamic twin ``grid3_trace_dynamic_tiled``
-is ROADMAP.md §2 item 16.
+(ROADMAP.md §1 item 18).
 """
 from __future__ import annotations
 
 import torch
 
 from raytracing_tpu_torch.engine.trace3d import canonical3
+from raytracing_tpu_torch.kernels.dynamic3d import (
+    Dyn3Final, dynamic3d_step, final_from_dyn3_state, initial_dyn3_state)
 from raytracing_tpu_torch.kernels.fused3d import (
     FUSED3_OPS, Fused3Final, Grid3Tables, final_from_state3,
     fused3d_step, initial_state3)
@@ -97,3 +100,28 @@ def grid3_trace_tiled(method: str, pos0, dir0, delta_s, medium, *,
                       steps=int(steps), delta_s=delta_s,
                       step_limit=int(steps), offset=0.0, box=tuple(box))
     return final_from_state3(st)
+
+
+def grid3_trace_dynamic_tiled(method: str, pos0, dir0, delta_s, medium, *,
+                              steps: int, box, device="cuda",
+                              mesh=None) -> Dyn3Final:
+    """Kernel-tier DYNAMIC tracing through a sampled tri-Hermite 3-D medium
+    (tiled3.py:513): one launch of ``dynamic3d_step_grid`` on ``device``,
+    both launch tangents with the exact Hessian of the same tricubic patch.
+
+    Point-source launch (dpos = 0, du = the transverse frame of
+    engine/dynamic3d._transverse_frame), so ``detq``, ``kmah`` and the
+    focus locator match ``trace_dynamic3``'s metrics.  ``n`` at the exit
+    point is the medium's own evaluation there (``n_and_grad3``, as JAX,
+    :578).  Returns a :class:`kernels.dynamic3d.Dyn3Final` in the caller's
+    ray order.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    op = _prep_tiled3(method, medium, box=tuple(box),
+                      fname="grid3_trace_dynamic_tiled")
+    st = initial_dyn3_state(pos0, dir0, device=device)
+    st = dynamic3d_step(st, field=grid3_tables(medium), op=op,
+                        steps=int(steps), delta_s=delta_s,
+                        step_limit=int(steps), offset=0.0, box=tuple(box))
+    return final_from_dyn3_state(st, medium.n_and_grad3(st.x, st.y, st.z)[0])

@@ -25,6 +25,11 @@ interchange format, so neither package imports the other:
   the fused 3-D kernels' 12-plane state from / to the JAX tiled3 tier's
   component list (``engine/tiled3.py:375-377``: x, y, z, cx, cy, cz, ux,
   uy, uz, tt, dsim, active), ``active`` as 0/1 floats;
+* :func:`dyn3_state_from_numpy` / :func:`dyn3_state_to_numpy` convert the
+  3-D dynamic kernels' 25-plane state from / to the JAX tiled3 tier's
+  dynamic component list (``DYN3_TILE_STATE``, ``engine/tiled3.py:
+  555-566``: x, y, z, ux, uy, uz, dpa, dua, dpb, dub (3 each), tt, dsim,
+  active, sgn, kmah, mind, minstep), ``active`` as 0/1 floats;
 * :func:`medium_from_numpy` builds any of the six sampled media
   (``GridMedium``, ``StratifiedGridMedium``, ``HermiteGridMedium``,
   ``C1GridMedium``, ``C1StratifiedMedium``, the 3-D ``C1Grid3Medium``) and
@@ -51,6 +56,7 @@ from raytracing_tpu_torch.engine.df_grid import (
     DfC1Medium, DfC1Profile, DfEvalProfile, DfGridMedium)
 from raytracing_tpu_torch.kernels.df import DfState
 from raytracing_tpu_torch.kernels.dynamic import DynState
+from raytracing_tpu_torch.kernels.dynamic3d import Dyn3State
 from raytracing_tpu_torch.kernels.fused import ResumeState
 from raytracing_tpu_torch.kernels.fused3d import Fused3State
 from raytracing_tpu_torch.kernels.golden import GOLDEN_OPS
@@ -202,6 +208,24 @@ def fused3_state_from_numpy(comps, *, device) -> Fused3State:
 
 def fused3_state_to_numpy(st: Fused3State) -> list:
     """The JAX tiled3 tier's 12-component list of float32 (R,) arrays."""
+    return [_to_numpy(t).astype(np.float32) for t in st]
+
+
+def dyn3_state_from_numpy(comps, *, device) -> Dyn3State:
+    """A 3-D dynamic kernel :class:`Dyn3State` from the JAX tiled3 tier's
+    25 dynamic components (any shapes; each flattened to (R,) float32)."""
+    if len(comps) != len(Dyn3State._fields):
+        raise ValueError(f"a 3-D dynamic state has "
+                         f"{len(Dyn3State._fields)} components, got "
+                         f"{len(comps)}")
+    st = Dyn3State(*(torch.as_tensor(np.array(c, np.float32).reshape(-1),
+                                     device=device) for c in comps))
+    return st._replace(active=st.active > 0.5)
+
+
+def dyn3_state_to_numpy(st: Dyn3State) -> list:
+    """The JAX tiled3 tier's 25-component dynamic list of float32 (R,)
+    arrays."""
     return [_to_numpy(t).astype(np.float32) for t in st]
 
 

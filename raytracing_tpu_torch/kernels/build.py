@@ -104,6 +104,14 @@ _SIGNATURES = {
     # y0, z0, inv_hx, inv_hy, inv_hz, nx, ny, nz, stream
     "rt_fused3d_step_grid": (_I, _P, _P, _I, _I, _F, _F, _F, *(_F,) * 6,
                              _P, *(_F,) * 6, _I, _I, _I, _P),
+    # field, op, in_planes, out_planes, n, steps, ds, limit, offset, the
+    # box's 6 faces, stream (csrc/dynamic3d.cu, the 25 planes of Dyn3State)
+    "rt_dynamic3d_step": (_I, _I, _P, _P, _I, _I, _F, _F, _F, *(_F,) * 6,
+                          _P),
+    # rt_dynamic3d_step's arguments after field, then the grid3 table and
+    # geometry of rt_fused3d_step_grid, stream
+    "rt_dynamic3d_step_grid": (_I, _P, _P, _I, _I, _F, _F, _F, *(_F,) * 6,
+                               _P, *(_F,) * 6, _I, _I, _I, _P),
     # field, in_planes, out_planes, n, steps, ds, stream (csrc/df.cu)
     "rt_df_step": (_I, _P, _P, _I, _I, _F, _P),
     # in_planes, out_planes, n, steps, ds, nodes, cells, x0h, x0l, y0h, y0l,

@@ -135,19 +135,25 @@ def tile_nag3_plain(t: Grid3Tables):
     ``media.grid3.blend3`` (the w-collapse in ``_tile_cell_locate3``'s
     summation order, :322-328, then the 2-D C1 blend)."""
     def nag(x, y, z):
-        fx = torch.clamp((x - t.x0) * t.inv_hx, 0.0, float(t.nx - 1))
-        fy = torch.clamp((y - t.y0) * t.inv_hy, 0.0, float(t.ny - 1))
-        fz = torch.clamp((z - t.z0) * t.inv_hz, 0.0, float(t.nz - 1))
-        ix = torch.clamp(torch.floor(fx), max=float(t.nx - 2))
-        iy = torch.clamp(torch.floor(fy), max=float(t.ny - 2))
-        iz = torch.clamp(torch.floor(fz), max=float(t.nz - 2))
-        cell = ((iz.long() * (t.ny - 1) + iy.long()) * (t.nx - 1)
-                + ix.long())
-        row = t.table[cell]
-        return blend3(lambda ch, k: row[..., ch * 8 + k], fx - ix, fy - iy,
-                      fz - iz, t.inv_hx, t.inv_hy, t.inv_hz)
+        row, ux, uy, uz = cell_row3(t, x, y, z)
+        return blend3(lambda ch, k: row[..., ch * 8 + k], ux, uy, uz,
+                      t.inv_hx, t.inv_hy, t.inv_hz)
 
     return nag
+
+
+def cell_row3(t: Grid3Tables, x, y, z):
+    """(row, ux, uy, uz): each query's 64-float cell row and its in-cell
+    offsets, the cell located by JAX's clip/floor/min sequence in float32
+    (fused3d.py:284-293)."""
+    fx = torch.clamp((x - t.x0) * t.inv_hx, 0.0, float(t.nx - 1))
+    fy = torch.clamp((y - t.y0) * t.inv_hy, 0.0, float(t.ny - 1))
+    fz = torch.clamp((z - t.z0) * t.inv_hz, 0.0, float(t.nz - 1))
+    ix = torch.clamp(torch.floor(fx), max=float(t.nx - 2))
+    iy = torch.clamp(torch.floor(fy), max=float(t.ny - 2))
+    iz = torch.clamp(torch.floor(fz), max=float(t.nz - 2))
+    cell = ((iz.long() * (t.ny - 1) + iy.long()) * (t.nx - 1) + ix.long())
+    return t.table[cell], fx - ix, fy - iy, fz - iz
 
 
 def nag3_fn(field):
@@ -301,8 +307,10 @@ def fused3d_step_plain(st: Fused3State, *, field, op: str, steps: int,
                        uz=uz, tt=tt, dsim=dsim, active=active)
 
 
-def check_state3(st: Fused3State) -> None:
-    """Device, dtype, shape and contiguity checks of a 3-D resume state."""
+def check_state3(st) -> None:
+    """Device, dtype, shape and contiguity checks of a 3-D resume state (a
+    :class:`Fused3State` or a ``kernels/dynamic3d.py::Dyn3State``: float32
+    planes and a bool ``active``)."""
     dev = st.x.device
     r = st.x.shape[0]
     for name, t in st._asdict().items():

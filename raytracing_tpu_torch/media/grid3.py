@@ -29,7 +29,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from raytracing_tpu_torch.media.c1 import _hermite1, _vblend, hermite_dbasis
+from raytracing_tpu_torch.media.c1 import (
+    _hermite1, _vblend, c1_blend, c1_blend_h, hermite_d2basis,
+    hermite_dbasis)
 from raytracing_tpu_torch.media.hermite import hermite_basis
 from raytracing_tpu_torch.media.spline import (
     TableMedium, _check_axis, _promoted, _upload)
@@ -66,22 +68,52 @@ def blend3(val, ux, uy, uz, inv_hx, inv_hy, inv_hz):
     (kernels/fused3d.py::tile_nag3_plain), which therefore agree to the bit;
     csrc/fused3d.cuh (``Grid3::nag``) keeps its order.
     """
-    def wblend(basis):
-        q = tuple(
-            tuple(_hermite1((val(b, k), val(b + 4, k), val(b, k + 4),
-                             val(b + 4, k + 4)), basis) for k in range(4))
-            for b in _CH2D)
-        return q.__getitem__
-
     hv, dv = hermite_basis(uy), hermite_dbasis(uy)
     hu, du = hermite_basis(ux), hermite_dbasis(ux)
-    q = wblend(hermite_basis(uz))
+    q = _wblend(val, hermite_basis(uz))
     col = _vblend(q, hv)
     n = _hermite1(col, hu)
     gx = _hermite1(col, du) * inv_hx
     gy = _hermite1(_vblend(q, dv), hu) * inv_hy
-    gz = _hermite1(_vblend(wblend(hermite_dbasis(uz)), hv), hu) * inv_hz
+    gz = _hermite1(_vblend(_wblend(val, hermite_dbasis(uz)), hv), hu) * inv_hz
     return n, gx, gy, gz
+
+
+def _wblend(val, basis):
+    """The w-collapse of the patch's 64 values with the 1-D basis ``basis``
+    in w: a 2-D corner accessor ``q(ch2d) -> (c00, c01, c10, c11)`` of the
+    channels (f, f_v, f_u, f_vu) that media/c1.c1_blend reads."""
+    q = tuple(
+        tuple(_hermite1((val(b, k), val(b + 4, k), val(b, k + 4),
+                         val(b + 4, k + 4)), basis) for k in range(4))
+        for b in _CH2D)
+    return q.__getitem__
+
+
+def blend3_h(val, ux, uy, uz, inv_hx, inv_hy, inv_hz):
+    """(n, gx, gy, gz, hxx, hxy, hxz, hyy, hyz, hzz): :func:`blend3` plus
+    the symmetric Hessian of the same tricubic patch
+    (kernels/dynamic3d.py:355-397, ``_tile_nag3_h``).
+
+    Three w-collapses of the 64 values: the value collapse through the 2-D
+    Hessian blend (media/c1.c1_blend_h) gives n, gx, gy, hxx, hxy, hyy; the
+    derivative collapse through the full gradient blend gives gz, hxz, hyz
+    (each times ``inv_hz``); the second-derivative collapse's value gives
+    hzz (times ``inv_hz * inv_hz``).  n and the gradient equal
+    :func:`blend3`'s to the bit.  One definition serves the scan tier's
+    corner gather (engine/dynamic3d.py) and the dynamic grid3 kernel's row
+    read (kernels/dynamic3d.py::tile_nag3_h_plain); csrc/fused3d.cuh
+    (``Grid3::nag_h``) keeps its order.
+    """
+    n, gx, gy, hxx, hxy, hyy = c1_blend_h(_wblend(val, hermite_basis(uz)),
+                                          ux, uy, inv_hx, inv_hy)
+    gzv, hxzv, hyzv = c1_blend(_wblend(val, hermite_dbasis(uz)), ux, uy,
+                               inv_hx, inv_hy)
+    hzz = _hermite1(_vblend(_wblend(val, hermite_d2basis(uz)),
+                            hermite_basis(uy)), hermite_basis(ux)) \
+        * (inv_hz * inv_hz)
+    return (n, gx, gy, gzv * inv_hz, hxx, hxy, hxzv * inv_hz, hyy,
+            hyzv * inv_hz, hzz)
 
 
 def check_uniform_grid3(F, x, y, z):
@@ -136,9 +168,10 @@ class C1Grid3Medium(TableMedium):
         iz = torch.clamp(torch.floor(fz).long(), 0, self.nz - 2)
         return ix, iy, iz, fx - ix, fy - iy, fz - iz
 
-    def n_and_grad3(self, x, y, z):
-        """Gather-based evaluation (scan tier): 8 corner nodes x 8
-        channels, blended by :func:`blend3`."""
+    def _gather(self, x, y, z):
+        """(val, ux, uy, uz): the 8 corner nodes x 8 channels of each
+        query's cell as a ``val(ch, corner)`` accessor, and the in-cell
+        offsets."""
         ix, iy, iz, ux, uy, uz = self._cell(x, y, z)
         nodes = _promoted(self.nodes, x)
         flat = (iz * self.ny + iy) * self.nx + ix
@@ -146,9 +179,24 @@ class C1Grid3Medium(TableMedium):
         # corner index dx + 2*dy + 4*dz
         cs = [nodes[flat + dz * sz + dy * sy + dx]
               for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
-        n, gx, gy, gz = blend3(lambda ch, k: cs[k][..., ch], ux, uy, uz,
-                               self.inv_hx, self.inv_hy, self.inv_hz)
+        return (lambda ch, k: cs[k][..., ch]), ux, uy, uz
+
+    def n_and_grad3(self, x, y, z):
+        """Gather-based evaluation (scan tier): 8 corner nodes x 8
+        channels, blended by :func:`blend3`."""
+        val, ux, uy, uz = self._gather(x, y, z)
+        n, gx, gy, gz = blend3(val, ux, uy, uz, self.inv_hx, self.inv_hy,
+                               self.inv_hz)
         return n, (gx, gy, gz)
+
+    def n_grad_hess3(self, x, y, z):
+        """n, the gradient and the Hessian (hxx, hxy, hxz, hyy, hyz, hzz)
+        of the patch by the same gather (:func:`blend3_h`); n and the
+        gradient equal :meth:`n_and_grad3`'s to the bit."""
+        val, ux, uy, uz = self._gather(x, y, z)
+        out = blend3_h(val, ux, uy, uz, self.inv_hx, self.inv_hy,
+                       self.inv_hz)
+        return out[0], out[1:4], out[4:]
 
     def n3(self, x, y, z):
         return self.n_and_grad3(x, y, z)[0]

@@ -123,10 +123,26 @@ def test_op_for_choice_matches_jax():
     (["--scenario", "vert", "--plot", "static"], "item 12"),
     (["--scenario", "vert", "--plot", "movie"], "item 12"),
     ([], "item 12"),
-    (["--eigenrays3", "0", "0", "0"], "item 17"),
 ])
 def test_parser_refuses_what_is_not_ported(args, item, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(args + ["--device", "cpu"])
     assert e.value.code == 2
     assert item in capsys.readouterr().err
+
+
+def test_eigenrays3_flag_parses_as_jax(capsys):
+    """--eigenrays3, --receiver3 and --fan3 are the JAX parser's flags: the
+    same errors for a missing --medium-file and a missing --receiver3
+    (the working flag is tested in tests/test_torch_eigenray3d.py)."""
+    for argv, msg in ((["--eigenrays3", "0", "0", "0", "--fan3", "-0.1",
+                        "0.1", "3", "-0.1", "0.1", "3"],
+                       "--eigenrays3 needs --medium-file"),
+                      (["--medium-file", "x.npz", "--eigenrays3", "0", "0",
+                        "0", "--op", "6", "--delta-s-value", "0.1",
+                        "--steps", "5"], "--eigenrays3 needs --receiver3")):
+        for main, dev in ((tcli.main, ["--device", "cpu"]), (jcli.main, [])):
+            with pytest.raises(SystemExit) as e:
+                main(argv + dev)
+            assert e.value.code == 2
+            assert msg in capsys.readouterr().err

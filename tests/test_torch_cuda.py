@@ -6,8 +6,10 @@ three dynamic kernels, fast_dynamic and the eigenray solver on the card;
 the four df32 kernels on their five media, with the df32 entry points;
 the custom-medium kernels (a CustomMedium traced into its own library) and
 fast_trace on a CustomMedium; the plain versions replayed from a CUDA
-graph against their eager loops; and the fused 3-D kernels (analytic and
-grid3) with fast_trace3's routes.
+graph against their eager loops; the fused 3-D kernels (analytic and
+grid3) with fast_trace3's routes; and the 3-D dynamic kernels (analytic
+and grid3) against their plain version, with fast_dynamic3's routes and the
+3-D eigenray solver on the card.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -29,6 +31,7 @@ from raytracing_tpu_torch.bench import replay  # noqa: E402
 from raytracing_tpu_torch.kernels import custom as kc  # noqa: E402
 from raytracing_tpu_torch.kernels import df as kdf  # noqa: E402
 from raytracing_tpu_torch.kernels import dynamic as kd  # noqa: E402
+from raytracing_tpu_torch.kernels import dynamic3d as kd3  # noqa: E402
 from raytracing_tpu_torch.kernels import fisheye as kf  # noqa: E402
 from raytracing_tpu_torch.kernels import fused as kfu  # noqa: E402
 from raytracing_tpu_torch.kernels import fused3d as kf3  # noqa: E402
@@ -674,3 +677,95 @@ def test_fast_trace3_runs_on_the_card(cuda_device):
         assert eng == engine and g.pos.device.type == "cuda"
         assert float((g.pos.cpu() - c.pos).abs().max()) <= 1e-5
         assert torch.equal(g.active.cpu(), c.active)
+
+
+# -- the 3-D dynamic kernels (csrc/dynamic3d.cu) ----------------------------
+
+def _focus_fan3(r=R):
+    """Rays from (1, 0, 0) in planes tilted by [-0.4, 0.4] rad, spread by
+    +-0.3 rad: through the fisheye's antipodal focus at step 300 of 600 a
+    turn, where det Q collapses and changes sign on some rays."""
+    th = np.pi / 2 + np.linspace(-0.3, 0.3, r)
+    return (np.tile([[1.0, 0.0, 0.0]], (r, 1)),
+            np.stack([np.cos(th), np.sin(th), np.linspace(-0.4, 0.4, r)],
+                     -1))
+
+
+@pytest.mark.parametrize("field", kd3.DYN3_FUSED_FIELDS + ("grid",))
+@pytest.mark.parametrize("op", kd3.DYN3_FUSED_OPS)
+def test_dynamic3d_kernels_match_plain(op, field, cuda_device):
+    """dynamic3d_step (analytic fields) and dynamic3d_step_grid (a 14^3-node
+    grid3 table) against dynamic3d_step_plain, replayed from a CUDA graph,
+    every one of the 25 planes to the bit: random rays that leave the box
+    on the way, and on the fisheye and the grid a fan through the focus
+    (KMAH and the focus locator at work); resume: 150 then 250 steps equal
+    400; the replayed plain version equals the eager one."""
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    med = grid3_tables(_grid3(cuda_device)) if field == "grid" else field
+    kernel = kd3.KERNEL_GRID if field == "grid" else kd3.KERNEL
+    box = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
+    pos0, dir0 = _fan3()
+    if field == "interface":
+        pos0[:, 1] *= 0.05
+    launches = [(pos0, dir0, 0.01, 120, 110.0)]
+    if field in ("fisheye", "grid"):
+        launches.append(_focus_fan3() + (2 * np.pi / 600, 400, 390.0))
+    for p0, d0, ds, steps, limit in launches:
+        st = kd3.initial_dyn3_state(p0, d0, device=cuda_device)
+        kw = dict(field=med, op=op, delta_s=ds, step_limit=limit, box=box)
+        before = kernel.launches
+        out = kd3.dynamic3d_step(st, steps=steps, offset=0.0, **kw)
+        assert kernel.launches == before + 1
+        _planes_equal(out, replay.dynamic3d_plain(st, steps=steps,
+                                                  offset=0.0, **kw))
+        cut = steps * 3 // 8
+        two = kd3.dynamic3d_step(
+            kd3.dynamic3d_step(st, steps=cut, offset=0.0, **kw),
+            steps=steps - cut, offset=float(cut), **kw)
+        _planes_equal(out, two)
+    if field in ("fisheye", "grid"):
+        assert float(out.kmah.max()) > 0 and float(out.minstep.max()) > 5
+    else:
+        assert 0 < int((~out.active).sum()) < R
+    if op == "op6":
+        kw = dict(field=med, op=op, steps=60, delta_s=0.01, step_limit=50.0,
+                  offset=2.0, box=box)
+        st = kd3.initial_dyn3_state(pos0[:256], dir0[:256],
+                                    device=cuda_device)
+        _planes_equal(replay.dynamic3d_plain(st, **kw),
+                      kd3.dynamic3d_step_plain(st, **kw))
+
+
+def test_fast_dynamic3_and_eigenrays3_on_the_card(cuda_device):
+    """fast_dynamic3's three routes on the card against the same call on
+    the CPU (not to the bit: PyTorch's CPU sqrt is not correctly rounded,
+    the card's is); find_eigenrays3's exact homogeneous arrival at float64
+    on the card (tests/test_eigenray3d.py:27-42)."""
+    pos0, dir0 = _focus_fan3(r=512)
+    box = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
+    kw = dict(pos0=pos0, dir0=dir0, delta_s=2 * np.pi / 600, steps=200,
+              box=box)
+    for med_cpu, med_gpu, engine in (
+            (rtt.analytic_medium3("fisheye"), rtt.analytic_medium3("fisheye"),
+             "dynamic3-kernel"),
+            (_grid3("cpu"), _grid3(cuda_device), "dynamic3-kernel-grid"),
+            (rtt.Stratified3D(rtt.analytic_medium("vert_heterogeneous")),
+             rtt.Stratified3D(rtt.analytic_medium("vert_heterogeneous")),
+             "dynamic3-scan")):
+        g, eng = rtt.fast_dynamic3("op6", med_gpu, device=cuda_device, **kw)
+        c, _ = rtt.fast_dynamic3("op6", med_cpu, device="cpu", **kw)
+        assert eng == engine and g.pos.device.type == "cuda"
+        assert float((g.pos.cpu() - c.pos).abs().max()) <= 1e-5
+        assert float((g.detq.cpu() - c.detq).abs().max()) <= 1e-4
+        assert torch.equal(g.active.cpu(), c.active)
+    r = np.array([3.0, 1.0, -0.5])
+    eig = rtt.find_eigenrays3(
+        "op1", rtt.Custom3D(lambda x, y, z: torch.ones_like(x)),
+        source=(0, 0, 0), receivers=[r], delta_s=0.02, max_size=250,
+        box=(-1, 5, -3, 3, -3, 3), fan=(-0.5, 0.5, 17, -0.5, 0.5, 17),
+        device=cuda_device)
+    d = np.linalg.norm(r)
+    assert len(eig.traveltime) == 1 and bool(eig.converged[0])
+    np.testing.assert_allclose(eig.dir0[0], r / d, atol=1e-12)
+    assert abs(eig.traveltime[0] - d) < 1e-12
+    assert abs(eig.amplitude[0] - 1 / d) < 2e-6 and eig.miss[0] < 1e-12

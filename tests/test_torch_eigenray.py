@@ -197,7 +197,8 @@ def test_cli_eigenrays_matches_jax(profile_file):
       "1e-3"], "mutually exclusive"),
     (["--medium-file", "x.npz", "--eigenrays", "0", "-1", "--op", "6",
       "--delta-s-value", "0.01", "--steps", "10"], "needs --receiver"),
-    (["--medium-file", "x.npz", "--eigenrays3", "0", "0", "-1"], "item 17"),
+    (["--medium-file", "x.npz", "--eigenrays3", "0", "0", "-1"],
+     "--eigenrays3 needs --op"),
 ])
 def test_cli_parser_errors(extra, msg, capsys):
     with pytest.raises(SystemExit):

@@ -94,3 +94,15 @@ PATH_3D = ("raytracing_tpu_torch.media.fields3d",
 
 def test_3d_modules_import_without_jax():
     _import_without_jax(PATH_3D)
+
+
+#: the 3-D dynamic tier's modules (fast.py routes fast_dynamic3, cli.py
+#: runs --eigenrays3, bench/replay.py replays its plain step)
+PATH_DYN3 = ("raytracing_tpu_torch.kernels.dynamic3d",
+             "raytracing_tpu_torch.engine.dynamic3d",
+             "raytracing_tpu_torch.engine.eigenray3d",
+             "raytracing_tpu_torch.bench.replay")
+
+
+def test_3d_dynamic_modules_import_without_jax():
+    _import_without_jax(PATH_DYN3)
