@@ -93,7 +93,10 @@ either is missing or any check fails.  Phases, one line or more each:
    on the Munk profile (2**20 rays, 1,500 steps); then its checks: vert and
    the profile against the float64 scan tier on 4,096 rays,
    DfEvalProfile.n_and_grad on the card against the CPU on 2**20 depths,
-   and each kernel's time at its main shape beside its bound;
+   and each kernel's time at its main shape beside its bound; then the two
+   grid kernels on a dispersed fan (2**20 launch points over the grid,
+   uniform angles: one run's time, the share of rays on the grid, the
+   row-read HBM estimate);
 15. user-defined media (kernels/custom.py): ``[custom]`` traces four
    CustomMediums and builds the libraries of the fused and golden loops on
    them (every op on the fisheye field by dual numbers and on the interface
@@ -175,6 +178,7 @@ object with one entry per kernel (its launches on its main path, largest
 FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the last
 line is {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -190,6 +194,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+from raytracing_tpu_torch.bench import (  # noqa: E402
+    DF_PROFILE_STEPS, DF_VERT_STEPS, HEADLINE_DIVISOR, jittered, launch_fan,
+    munk_profile)
+
 RAYS_CHECK = 1 << 16
 STEP_CAP = 1000
 #: the depth at which phases 7, 10 (grid_trace) and 12 hold the main
@@ -198,7 +206,6 @@ STEP_CAP = 1000
 #: script stays well inside its time limit (PERF.md §6)
 MAIN_PLAIN_CAP = 300
 RAYS_MAIN = 1 << 20
-HEADLINE_DIVISOR = 4587
 # kernel-against-plain tolerances: the JAX package's own kernel-against-scan
 # bars for the same op and field (tests/test_kernels.py:24-27,
 # tests/test_fused.py:31-83, tests/test_golden_kernel.py:36-41)
@@ -262,15 +269,18 @@ class _OpCounter(TorchDispatchMode):
     """Counts the elementwise floating-point arithmetic a plain version
     performs on a head of HEAD_RAYS rays: a call with a floating-point
     tensor operand counts the elements it computes a ray (at least 1, so a
-    per-step scalar counts once); integer index arithmetic is not counted."""
+    per-step scalar counts once); integer index arithmetic is not counted,
+    nor anything while ``paused``."""
 
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if (func.overloadpacket.__name__.rstrip("_") in _ARITH
+        if (not self.paused
+                and func.overloadpacket.__name__.rstrip("_") in _ARITH
                 and any(torch.is_tensor(a) and a.is_floating_point()
                         for a in args)):
             self.n += (max(1, out.numel() // HEAD_RAYS)
@@ -278,18 +288,53 @@ class _OpCounter(TorchDispatchMode):
         return out
 
 
-def ops_per_step(plain):
+def ops_per_step(plain, charges=None):
     """FP32 operations a ray-step of a kernel: its plain version, which
     performs the kernel's operations one torch call each (a call may
     compute several elements a ray), run on a head of HEAD_RAYS rays for 1
     and 2 steps (``plain(steps)``) under a counter; selects, gathers and
-    copies are not arithmetic and are not counted."""
+    copies are not arithmetic and are not counted.  ``charges(counter)``,
+    a context manager, may charge some calls what the kernel does in their
+    place (:func:`exact_products_charged`)."""
     counts = []
     for k in (1, 2):
-        with _OpCounter() as c:
+        with _OpCounter() as c, (charges(c) if charges
+                                 else contextlib.nullcontext()):
             plain(k)
         counts.append(c.n)
     return counts[1] - counts[0]
+
+
+#: what the df kernels' exact product costs: p = a * b and its error
+#: fmaf(a, b, -p), one FMUL and one FFMA, 3 operations at a peak that
+#: counts an FMA as 2 (csrc/df.cuh)
+EXACT_PRODUCT_OPS = 3
+
+
+@contextlib.contextmanager
+def exact_products_charged(counter):
+    """The df plain versions' exact products (``two_prod``, Dekker's 17
+    operations, kept for bit parity with JAX) charged to ``counter`` at
+    EXACT_PRODUCT_OPS an element a ray, the work the function needs on this
+    card; ``two_prod_const``, which is not exact, keeps its count."""
+    from unittest import mock
+
+    from raytracing_tpu_torch.engine import df_grid as dg
+    from raytracing_tpu_torch.kernels import df as kdf
+    dekker = kdf.two_prod
+
+    def two_prod(a, b):
+        counter.paused = True
+        try:
+            p, e = dekker(a, b)
+        finally:
+            counter.paused = False
+        counter.n += EXACT_PRODUCT_OPS * max(1, p.numel() // HEAD_RAYS)
+        return p, e
+
+    with mock.patch.object(kdf, "two_prod", two_prod), \
+            mock.patch.object(dg, "two_prod", two_prod):
+        yield
 
 
 def state_bytes(*states):
@@ -316,11 +361,8 @@ def bound(ops, nbytes):
 def fan(scen, rays, rng=None):
     """The scenario's launch fan resized to ``rays`` (bench.py::_fan), with
     optional uniform jitter of +-1e-3 rad on the launch angles."""
-    from raytracing_tpu_torch.bench import launch_fan
     pos0, theta0 = launch_fan(scen, rays)
-    if rng is not None:
-        theta0 = (theta0 + rng.uniform(-1e-3, 1e-3, rays)).astype(np.float32)
-    return pos0, theta0
+    return pos0, (theta0 if rng is None else jittered(theta0, rng))
 
 
 def calibrated_step(op, scen_name):
@@ -1783,14 +1825,6 @@ def phase_dynamic_checks(device, errs, runs):
     return times
 
 
-def munk_profile():
-    """(depth, sound speed) of the TL field map's Munk-style profile
-    (examples/tl_field_map.py), 121 samples, channel axis at depth -1."""
-    depth = np.linspace(-3.0, 0.0, 121)
-    eta = 2.0 * (depth + 1.0)
-    return depth, 1.49 * (1.0 + 0.0057 * (eta - 1.0 + np.exp(-eta)))
-
-
 def cli_eigenrays(device, timeout=600):
     """``python -m raytracing_tpu_torch.cli --eigenrays`` on the Munk
     profile written to a temporary .npz, as a process of its own (killed
@@ -1933,11 +1967,6 @@ def phase_eigenrays(device):
 #: a step on the card's host, the tables' ~40-60 ms
 DF_CAP_ANALYTIC = 1000
 DF_CAP_TABLES = 200
-#: the vert runs' depth: from (-2, -2) at U[0.5, 1.3] the rays stay above
-#: -3 for 500 steps (tests/test_df.py:73-95); deeper ones cross the field's
-#: pole at y = -9, which the df tier (no box) would integrate through
-DF_VERT_STEPS = 500
-DF_PROFILE_STEPS = 1500
 DF_TEN_TURNS = 10 * HEADLINE_DIVISOR
 # bars: the one-turn error against the analytic circle (bench.py:682-692),
 # the north-star RMS over ten prefixes (tests/test_df.py:33-56), the
@@ -1952,63 +1981,33 @@ def df_bound(name, medium, st, steps):
     ``st``: its operations over every ray-step (the df tier has no box: no
     ray freezes), counted from its plain version on the state's head (the
     table media evaluate a row's spline blocks in one call an operation,
-    each element counted); its bytes the eight planes in and out and the
+    each element counted; each exact product charged the kernel's FMUL and
+    FFMA, :func:`exact_products_charged`); its bytes the eight planes in and out and the
     medium's packed table once (all of it: the operations bound it either
     way)."""
     from raytracing_tpu_torch.kernels import df as kdf
     few = head(st)
-    ops = ops_per_step(lambda k: kdf.df_step_plain(few, medium, 0.01, k))
+    ops = ops_per_step(lambda k: kdf.df_step_plain(few, medium, 0.01, k),
+                       exact_products_charged)
     tables = getattr(medium, "kernel_tables", ())
     nbytes = 2 * state_bytes(st) + state_bytes(
         tables if isinstance(tables, tuple) else (tables,))
     bms, by = bound(ops * st.xh.shape[0] * float(steps), nbytes)
-    print(f"    {name} bound {bms:.3f} ms ({by}: {ops} FP32 ops a ray-step)",
-          flush=True)
+    print(f"    {name} bound {bms:.3f} ms ({by}: {ops} FP32 ops a ray-step, "
+          f"an exact product {EXACT_PRODUCT_OPS})", flush=True)
     return bms, by
 
 
 def build_df_media(device):
     """The split-word media of the reference's grid (DELTA, 511 x 511 fisheye
     nodes), parity and C1, and the Munk profile, built on the card."""
-    import raytracing_tpu_torch as rtt
-    from raytracing_tpu_torch.engine import df_grid as dg
+    from raytracing_tpu_torch.bench import df_media
     t0 = time.perf_counter()
-    box = rtt.scenario("fisheye").box
-    depth, c = munk_profile()
-    media = {"grid": dg.build_df_grid_medium("fisheye", box, device=device),
-             "c1": dg.build_df_c1_medium("fisheye", box, device=device),
-             "profile": dg.df_c1_profile_from_samples(c.min() / c, depth,
-                                                      device=device)}
+    media = df_media(device)
     print(f"[df32] split-word media built in {time.perf_counter() - t0:.1f} "
           "s: the parity and C1 fisheye grids (511 x 511), the Munk profile",
           flush=True)
     return media
-
-
-def df_launch(kind, rays, rng):
-    """(pos0, theta0, delta_s) of a df run: the fisheye's one ray with
-    +-1e-3 rad of jitter (the tables' too), vert from (-2, -2) at
-    U[0.5, 1.3], the profile's rays near the Munk channel's axis at
-    U[-0.08, 0.08] rad (they stay between depth -3 and 0)."""
-    import raytracing_tpu_torch as rtt
-    if kind == "vert_heterogeneous":
-        return (np.full((rays, 2), -2.0),
-                rng.uniform(0.5, 1.3, rays).astype(np.float32).astype(
-                    np.float64), float(np.float32(0.0193)))
-    if kind == "profile":
-        return (np.stack([np.zeros(rays), -1.0 + rng.uniform(-0.2, 0.2,
-                                                             rays)], -1),
-                rng.uniform(-0.08, 0.08, rays), float(np.float32(0.01)))
-    pos0, theta0 = fan(rtt.scenario("fisheye"), rays, rng)
-    return pos0, theta0, float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
-
-
-def df_state(kind, pos0, theta0, device):
-    from raytracing_tpu_torch.engine import df_grid as dg
-    from raytracing_tpu_torch.kernels import df as kdf
-    if kind in kdf.DF_FIELDS:
-        return kdf.initial_df_state(pos0, theta0, device=device)
-    return dg.split_state(pos0, theta0, device=device)
 
 
 def df_exact(label, k, p):
@@ -2031,6 +2030,7 @@ def phase_df_vs_plain(device, media, rays=RAYS_CHECK):
     DF_CAP_ANALYTIC steps (vert DF_VERT_STEPS), the tables DF_CAP_TABLES;
     every plane to the bit, and k + (n - k) steps against n.  Returns
     {kernel: Errors}."""
+    from raytracing_tpu_torch.bench import df_launch, df_state
     from raytracing_tpu_torch.kernels import df as kdf
     rng = np.random.default_rng(0)
     errs = {k.name: Errors() for k in kdf.KERNELS}
@@ -2087,6 +2087,7 @@ def phase_df(device, media, rays=RAYS_MAIN):
     profile; each held to its oracle.  Returns {run: DfRun} of the 2^20-ray
     runs."""
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import df_launch, df_state
     from raytracing_tpu_torch.kernels import df as kdf
     fish = rtt.scenario("fisheye")
     ds = float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
@@ -2150,18 +2151,21 @@ def phase_df(device, media, rays=RAYS_MAIN):
                          vds, DF_VERT_STEPS, vpos, vth, vres.pos)
 
     for kind, bar in (("grid", "grid_ten_turn"), ("c1", "c1_ten_turn")):
-        t0 = time.perf_counter()
+        kernel, t0 = media[kind].KERNEL, time.perf_counter()
+        n0 = kernel.launches
         p10 = rtt.df_grid_trace(pos0[:256], theta0[:256], ds, media[kind],
                                 steps=DF_TEN_TURNS, device=device)
         sync()
+        n10 = kernel.launches - n0
         gerr = float(np.linalg.norm(p10[0].cpu().numpy() - [1.0, 0.0]))
         one = rtt.df_grid_trace(pos0, theta0, ds, media[kind], steps=steps,
                                 device=device)
         sync()
         print(f"[df32] df_grid_trace {kind}: 256 rays x {DF_TEN_TURNS} steps"
-              f" closure {gerr:.3e} (bar {DF_BARS[bar]}), then {rays} rays "
-              f"x {steps} steps, {time.perf_counter() - t0:.1f} s",
-              flush=True)
+              f" closure {gerr:.3e} (bar {DF_BARS[bar]}, {n10} launches), "
+              f"then {rays} rays x {steps} steps "
+              f"({kernel.launches - n0 - n10} launches), "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         if not gerr < DF_BARS[bar]:
             fail(f"df32: the {kind} ten-turn closure")
         runs[kind] = DfRun(f"df_step_{kind}", media[kind],
@@ -2264,7 +2268,54 @@ def phase_df_checks(device, errs, runs):
             bms, by = df_bound(r.kernel, r.medium, r.st, r.steps)
             times[r.kernel] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                                    bound_by=by)
+    phase_df_dispersed(device, runs, times)
     return times, time.perf_counter() - t0
+
+
+#: bytes a grid evaluation reads: the parity grid's 64-float cell row and
+#: its four (hi, lo) nodes; the C1 grid's 96-float cell row
+DF_ROW_BYTES = {"grid": 64 * 4 + 4 * 8, "c1": 96 * 4}
+DF_DISPERSED_SAMPLES = 10
+
+
+def phase_df_dispersed(device, runs, times):
+    """The two grid kernels on a dispersed fan at the main shape: 2^20
+    launch points uniform over the grid, angles uniform (numpy seed 5), so
+    that a warp's rays read unrelated cell rows and the tables (beyond the
+    50 MB L2) are read from wherever they lie.  Prints one run's time beside
+    the main path's fan's, the share of ray-steps on the grid (sampled at
+    DF_DISPERSED_SAMPLES resumed segments: off the grid a ray reads the
+    edge cell's row) and the HBM estimate of four row reads a ray-step,
+    were no row cached (not a bound).  Recorded, not tuned for."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import df_state, dispersed_fan
+    from raytracing_tpu_torch.kernels import df as kdf
+    box = rtt.scenario("fisheye").box
+    pos0, theta0 = dispersed_fan(box, RAYS_MAIN, np.random.default_rng(5))
+    for kind in ("grid", "c1"):
+        r = runs[kind]
+        st = df_state(kind, pos0, theta0, device)
+        k_ms, out = cuda_ms(lambda: kdf.df_step(st, r.medium, r.ds, r.steps))
+        seg, inside, cur = -(-r.steps // DF_DISPERSED_SAMPLES), [], st
+        for done in range(0, r.steps, seg):
+            cur = kdf.df_step(cur, r.medium, r.ds, min(seg, r.steps - done))
+            p = kdf.df_positions(cur)
+            inside.append(float(((p[:, 0] >= box[0]) & (p[:, 0] <= box[1])
+                                 & (p[:, 1] >= box[2])
+                                 & (p[:, 1] <= box[3])).double().mean()))
+        if not (bool(torch.isfinite(kdf.df_positions(out)).all())
+                and all(torch.equal(a, b) for a, b in zip(out, cur))):
+            fail(f"df32 dispersed {r.kernel}: non-finite, or the resumed "
+                 "segments differ from one launch")
+        est = (1e3 * RAYS_MAIN * r.steps * 4 * DF_ROW_BYTES[kind]
+               / PEAK_BYTES)
+        print(f"  [df32] dispersed fan {r.kernel}: {RAYS_MAIN} rays x "
+              f"{r.steps} steps {k_ms:.3f} ms (one run; the main path's fan "
+              f"{times[r.kernel]['ms']:.3f} ms), {100 * np.mean(inside):.1f}"
+              f" % of the rays on the grid at {len(inside)} samples; "
+              f"row-read HBM estimate {est:.3f} ms ({DF_ROW_BYTES[kind]} B "
+              "x 4 a ray-step over 3.35 TB/s, were no row cached; not a "
+              "bound)", flush=True)
 
 
 # -- user-defined media (kernels/custom.py) -----------------------------------

@@ -9,15 +9,17 @@ Needs one CUDA device and nvcc.  By default it compares the build the
 package uses (``-fmad=false``) with ``-fmad=true``; with ``--parent-csrc``
 it compares instead the kernels built from another checkout's ``csrc``
 (e.g. the parent commit's, unpacked by ``git archive``) with this one's,
-both with the package's flags, on the analytic entry points they share.
-Either way it makes four passes in the order A, B, B, A, so that a drift of
-the card's clock shows as a difference between the two passes of one
-build.  Each pass prints the card's name, power limit, SM clock, power
+both with the package's flags, on the analytic and df32 entry points they
+share.  Either way it makes four passes in the order A, B, B, A, so that a
+drift of the card's clock shows as a difference between the two passes of
+one build.  Each pass prints the card's name, power limit, SM clock, power
 draw and temperature, then for every shape the median kernel time of
 ``--reps`` runs after one warm-up (CUDA events, one run each) and the
 largest |delta| of the final positions against the first pass.  The
 kernel wrappers launch from ``build.library()``; the probe points it at
-each build in turn.
+each build in turn.  The shapes are the analytic main path's and the df32
+tier's (:func:`df_cases`: the four df kernels at their main shapes, and
+the two grid kernels on a dispersed fan).
 
 ``--profile PATH`` also traces the analytic main path with torch.profiler
 (interface op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through
@@ -30,16 +32,19 @@ window and the share of it in which the card was idle.
 
 ``--sass [PATTERN]`` only builds the package's library and reports, for
 every kernel whose mangled name contains PATTERN (default ``df_kernel``),
-its registers and spill bytes from ptxas (``-Xptxas -v``, the build's log)
-and its count of SASS instructions and of FFMA (fused multiply-add)
-instructions among them (``cuobjdump -sass``); each FFMA line is written
-with the instructions before it to ``sass-ffma-<digest>.txt`` beside the
-library in ``_build/``, so that what issues it (the IEEE division's
-refinement, or a contraction) can be read.
+its registers and spill bytes from ptxas (``-Xptxas -v``, the build's log),
+its count of SASS instructions and of FFMA (fused multiply-add)
+instructions among them (``cuobjdump -sass``) and its most frequent
+opcodes; each FFMA line is written with the instructions before it to
+``sass-ffma-<digest>.txt`` beside the library in ``_build/``, so that what
+issues it (an exact product, the IEEE division's refinement, or a
+contraction) can be read.  Run it in another checkout (e.g. the parent's,
+unpacked by ``git archive``) for that checkout's counts.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import math
 import re
 import shutil
@@ -53,15 +58,28 @@ import time
 from pathlib import Path
 
 from raytracing_tpu_torch import config
-from raytracing_tpu_torch.bench import launch_fan
+from raytracing_tpu_torch.bench import (DF_PROFILE_STEPS, DF_VERT_STEPS,
+                                        HEADLINE_DIVISOR, df_launch, df_media,
+                                        df_state, dispersed_fan, launch_fan)
 from raytracing_tpu_torch.config import scenario
 from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.kernels import df as kdf
 from raytracing_tpu_torch.kernels import fisheye as kf
 from raytracing_tpu_torch.kernels import fused as kfu
 from raytracing_tpu_torch.kernels import golden as kg
 
 RAYS = 1 << 20
 SMI_QUERY = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
+#: the entry points the analytic and df32 shapes launch, which a parent
+#: checkout's library shares
+SHARED_ENTRIES = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step",
+                  "rt_df_step", "rt_df_step_grid", "rt_df_step_c1",
+                  "rt_df_step_profile")
+#: the depths of the df32 main path's runs (chip_smoke.py phase 14)
+DF_STEPS = {"fisheye": HEADLINE_DIVISOR - 1,
+            "vert_heterogeneous": DF_VERT_STEPS,
+            "grid": HEADLINE_DIVISOR - 1, "c1": HEADLINE_DIVISOR - 1,
+            "profile": DF_PROFILE_STEPS}
 
 
 def fmad_flags(fmad: bool):
@@ -98,9 +116,42 @@ def _golden_case(name, op, ds, steps, device, rays):
     return f"golden {op} {name}, {steps} steps", run
 
 
+def df_cases(device, rays=RAYS):
+    """(label, run) of the df32 kernels at the df32 main path's shapes: the
+    fisheye, parity grid and C1 grid on the headline's fan with +-1e-3 rad
+    of jitter (numpy seed 0) for one turn, vert and the Munk profile; then
+    the two grids on a dispersed fan (launch points over the grid, uniform
+    angles, seed 5).  The media are built once, on ``device``."""
+    import raytracing_tpu_torch as rtt
+
+    media = df_media(device)
+    rng = np.random.default_rng(0)
+
+    def case(label, kind, pos0, theta0, ds):
+        medium, steps = media.get(kind, kind), DF_STEPS[kind]
+        st = df_state(kind, pos0, theta0, device)
+        name = medium.KERNEL.name if kind in media else kdf.KERNEL.name
+
+        def run():
+            return kdf.df_positions(kdf.df_step(st, medium, ds, steps))
+        return f"{name} {label}, {rays} x {steps} steps", run
+
+    labels = {"fisheye": "fisheye jittered fan", "grid": "jittered fan",
+              "c1": "jittered fan", "vert_heterogeneous": "vert",
+              "profile": "Munk profile"}
+    out = [case(label, kind, *df_launch(kind, rays, rng))
+           for kind, label in labels.items()]
+    pos0, theta0 = dispersed_fan(rtt.scenario("fisheye").box, rays,
+                                 np.random.default_rng(5))
+    ds = float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
+    out += [case("dispersed fan", kind, pos0, theta0, ds)
+            for kind in ("grid", "c1")]
+    return out
+
+
 def cases(device, rays=RAYS):
-    """(label, run) at the main path's shapes; run returns final positions."""
-    div = 4587
+    """(label, run) at the main paths' shapes; run returns final positions."""
+    div = HEADLINE_DIVISOR
     ds_h = float(np.float32(2.0 * math.pi / div))
     x = torch.ones(rays, device=device)
     y = torch.zeros(rays, device=device)
@@ -126,7 +177,7 @@ def cases(device, rays=RAYS):
         _golden_case("aniso", "op11", ds_a,
                      scenario("aniso").max_size(ds_a) - 1, device, rays),
         _golden_case("fisheye", "op11", ds_f, steps_f, device, rays),
-    ]
+    ] + df_cases(device, rays)
 
 
 def time_ms(run, reps):
@@ -252,11 +303,19 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
+def _opcode(line):
+    """The opcode of one SASS instruction line, without its predicate and
+    modifiers."""
+    text = re.split(r"/\*[0-9a-f]{4,}\*/", line, maxsplit=1)[1].split()
+    return text[text[0].startswith("@")].split(".", 1)[0].rstrip(";")
+
+
 def sass_report(pattern: str) -> None:
-    """Registers, spills, SASS instructions and FFMAs of each kernel whose
-    mangled name contains ``pattern`` (module docstring)."""
+    """Registers, spills, SASS instructions, FFMAs and opcodes of each kernel
+    whose mangled name contains ``pattern`` (module docstring)."""
     lib = build.build()
-    log = (build.BUILD_DIR / f"ptxas-{build.source_digest()}.log").read_text()
+    digest = build.source_digest()
+    log = (build.BUILD_DIR / f"ptxas-{digest}.log").read_text()
     usage, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -269,17 +328,20 @@ def sass_report(pattern: str) -> None:
         Path(build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn, recent, ffma_lines = {}, None, [], []
+    counts, ops, fn, recent, ffma_lines = {}, {}, None, [], []
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn, recent = m.group(1), []
             counts[fn] = [0, 0]
+            ops[fn] = collections.Counter()
             continue
         if fn is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
             continue
+        op = _opcode(line)
         counts[fn][0] += 1
-        if "FFMA" in line and pattern in fn:
+        ops[fn][op] += 1
+        if op == "FFMA" and pattern in fn:
             counts[fn][1] += 1
             ffma_lines.append(f"{fn}\n" + "\n".join(recent[-6:] + [line]))
         recent.append(line.strip())
@@ -288,9 +350,12 @@ def sass_report(pattern: str) -> None:
           flush=True)
     for name, pretty in zip(names, _demangle(names)):
         instr, ffma = counts.get(name, [0, 0])
+        top = ", ".join(f"{o} {c}" for o, c in ops.get(
+            name, collections.Counter()).most_common(14))
         print(f"  {pretty}: {' | '.join(usage.get(name, ['no ptxas line']))}"
-              f"; {instr} SASS instructions, {ffma} FFMA", flush=True)
-    (build.BUILD_DIR / f"sass-ffma-{build.source_digest()}.txt").write_text(
+              f"; {instr} SASS instructions, {ffma} FFMA; opcodes: {top}",
+              flush=True)
+    (build.BUILD_DIR / f"sass-ffma-{digest}.txt").write_text(
         "\n\n".join(ffma_lines) + "\n")
 
 
@@ -316,9 +381,8 @@ def main(argv=None):
         return 0
     own = ("fmad=false", build.load(build.build()))
     if args.parent_csrc is not None:
-        analytic = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step")
         other = ("parent", build.load(build.build(csrc=args.parent_csrc),
-                                      analytic))
+                                      SHARED_ENTRIES))
         probe("cuda", args.reps, (other, ("change", own[1])))
     else:
         probe("cuda", args.reps,

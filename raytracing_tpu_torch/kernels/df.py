@@ -18,19 +18,22 @@ angle rate k = (u x grad n)/n as a (hi, lo) pair: the analytic fisheye and
 vert rates here, the split-word sampled media of ``engine/df_grid.py``
 through the same step (each carries its kernel as ``KERNEL``).
 
-One CUDA step loop (``csrc/df.cu``) serves the five media as four kernels
-with their own launch counts: ``df_step`` (the two analytic fields),
-``df_step_grid``, ``df_step_c1`` and ``df_step_profile`` (the split-word
-tables).  :func:`df_step_plain` is their plain PyTorch version and
-:func:`df_step` the wrapper: a CPU state runs the plain version, a CUDA
-state launches the kernel or raises.
+One CUDA step loop (``csrc/df.cuh``, launched from ``csrc/df.cu``) serves
+the five media as four kernels with their own launch counts: ``df_step``
+(the two analytic fields), ``df_step_grid``, ``df_step_c1`` and
+``df_step_profile`` (the split-word tables).  :func:`df_step_plain` is
+their plain PyTorch version and :func:`df_step` the wrapper: a CPU state
+runs the plain version, a CUDA state launches the kernel or raises.
 
 Bit parity with the kernel rests on the JAX package's own rounding: every
 non-dyadic constant is a float32 value (0-d float32 tensors below, the
 same float32 literals in the kernel), a product with a Python constant
 splits that constant as JAX folds it in float64 (:func:`two_prod_const`),
 no operation is fused or reassociated, and reciprocals are IEEE
-divisions.
+divisions.  The one exception is the kernels' exact product: one FMA,
+``fmaf(a, b, -a * b)``, gives the same bits as :func:`two_prod`'s Dekker
+chain wherever the product's error is a float32 number, which holds on
+the df path (tests/test_torch_df_host.py maps the domain).
 """
 from __future__ import annotations
 
@@ -95,7 +98,8 @@ def _split(a):
 
 
 def two_prod(a, b):
-    """Dekker: a * b = p + e exactly (no fused multiply-add)."""
+    """Dekker: a * b = p + e exactly (no fused multiply-add; the kernels
+    compute the same e as one FMA, ``csrc/df.cuh``)."""
     p = a * b
     ah, al = _split(a)
     bh, bl = _split(b)

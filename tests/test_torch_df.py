@@ -37,21 +37,6 @@ JAX_TOL = {"fisheye": 1e-8, "vert_heterogeneous": 5e-7}
 F64_BAR = {300: 2e-7, 1000: 4e-7, 4587: 6e-7}
 
 
-def _pairs(n=4096, seed=0):
-    """Seeded float32 pairs across 16 decades, signs mixed, with the
-    magnitudes Dekker splitting finds hard: values near powers of two,
-    splits that carry into the high word, and equal and opposite pairs."""
-    rng = np.random.default_rng(seed)
-    a = rng.standard_normal(n) * 10.0 ** rng.integers(-8, 8, n)
-    b = rng.standard_normal(n) * 10.0 ** rng.integers(-8, 8, n)
-    k = n // 8
-    a[:k] = np.ldexp(1.0, rng.integers(-20, 20, k)) * (1 + 2.0 ** -23)
-    b[:k] = np.ldexp(1.0, rng.integers(-20, 20, k)) * (1 - 2.0 ** -24)
-    a[k:2 * k] = (2.0 ** 12 + 1) * rng.uniform(0.5, 1.0, k)   # split carry
-    b[2 * k:3 * k] = -a[2 * k:3 * k]
-    return a.astype(np.float32), b.astype(np.float32)
-
-
 def _same(jax_out, port_out):
     for j, t in zip(jax_out, port_out):
         np.testing.assert_array_equal(H.to_np(t), np.asarray(j))
@@ -70,7 +55,7 @@ PRIMITIVES = {
 @pytest.mark.parametrize("name", PRIMITIVES)
 def test_primitives_equal_jax_bit_for_bit(name):
     jf, tf = PRIMITIVES[name]
-    a, b = _pairs()
+    a, b = H.dekker_pairs()
     lo = (b * np.float32(1e-8)).astype(np.float32)    # a df low word
     if name in ("two_sum", "two_prod"):
         args = [a, b]
@@ -82,13 +67,13 @@ def test_primitives_equal_jax_bit_for_bit(name):
         args = [*tdg.split64(np.cos(th)), *tdg.split64(np.sin(th)),
                 *tdg.split64(np.tanh(b.astype(np.float64)) * 1e-2)]
     else:
-        c, d = _pairs(seed=1)
+        c, d = H.dekker_pairs(seed=1)
         args = [a, lo, c, (d * np.float32(1e-8)).astype(np.float32)]
     _same(jf(*map(jnp.asarray, args)), tf(*map(torch.as_tensor, args)))
 
 
 def test_fast_two_sum_and_the_constant_split_equal_jax():
-    a, b = _pairs()
+    a, b = H.dekker_pairs()
     big = np.where(np.abs(a) >= np.abs(b), a, b)
     small = np.where(np.abs(a) >= np.abs(b), b, a)
     _same(jdf._fast_two_sum(jnp.asarray(big), jnp.asarray(small)),

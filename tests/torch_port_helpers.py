@@ -80,11 +80,25 @@ def fisheye_df_fan(r, jitter=0.0, seed=0):
 def munk_profile():
     """(samples, depth) of a Munk-style channel (axis at depth -1), 121
     samples on [-3, 0]: the refractive index c_min / c of
-    examples/tl_field_map.py's sound speed."""
-    depth = np.linspace(-3.0, 0.0, 121)
-    eta = 2.0 * (depth + 1.0)
-    c = 1.49 * (1.0 + 0.0057 * (eta - 1.0 + np.exp(-eta)))
+    examples/tl_field_map.py's sound speed (``bench.munk_profile``)."""
+    from raytracing_tpu_torch.bench import munk_profile as depth_and_speed
+    depth, c = depth_and_speed()
     return c.min() / c, depth
+
+
+def dekker_pairs(n=4096, seed=0):
+    """Seeded float32 pairs across 16 decades, signs mixed, with the
+    magnitudes Dekker splitting finds hard: values near powers of two,
+    splits that carry into the high word, and equal and opposite pairs."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(n) * 10.0 ** rng.integers(-8, 8, n)
+    b = rng.standard_normal(n) * 10.0 ** rng.integers(-8, 8, n)
+    k = n // 8
+    a[:k] = np.ldexp(1.0, rng.integers(-20, 20, k)) * (1 + 2.0 ** -23)
+    b[:k] = np.ldexp(1.0, rng.integers(-20, 20, k)) * (1 - 2.0 ** -24)
+    a[k:2 * k] = (2.0 ** 12 + 1) * rng.uniform(0.5, 1.0, k)   # split carry
+    b[2 * k:3 * k] = -a[2 * k:3 * k]
+    return a.astype(np.float32), b.astype(np.float32)
 
 
 def channel_fan(r, seed=0):
