@@ -22,6 +22,14 @@ either is missing or any check fails.  Phases, one line or more each:
    and vert tables, the C1 vert table and the parity and C1 fisheye grids,
    every golden op on the parity and C1 vert tables (aniso at gamma 3 for
    op10/op11/op10n/op11n) and the two fisheye grids, with resume checks;
+   then ``[refill-vs-plain]``: fused_step and fused_step_strat, whose
+   persistent loop refills the lanes of frozen rays, on the interface fan
+   (the analytic field at SIGMA/5, 7557 steps; the parity table at the
+   reference table's op6 step, 3854 steps) at full depth, 1, 42, 4097 and
+   2**20 + 17 rays, op7 with the Welford stats, a step limit of 250 steps
+   (below every lifetime) and a resume chain of uneven segments, every
+   plane to the bit; each line with the refill grid and the warp
+   efficiency one ray a thread would have;
 4. headline: fisheye op1, 2**20 rays, divisor 4587 (4587 steps) through
    make_fisheye_runner: closure error, ray-steps/s (median of 5 timed runs
    after 2 warm-ups), and the plain version's time at the same shape;
@@ -36,7 +44,13 @@ either is missing or any check fails.  Phases, one line or more each:
    the same inputs at the full shape, and the kernel's time there beside
    the plain version's and its bound; a run of more than 300 steps is
    compared, and its plain version timed, at 300 steps (a direct launch
-   of the kernel against the plain version, same inputs);
+   of the kernel against the plain version, same inputs), except the two
+   interface runs (``FULL_DEPTH``): their direct launch is held to the
+   plain version replayed at full depth (7557 and 3854 steps) on every
+   plane, and to the fast_trace result, with the refill grid and the warp
+   efficiency one ray a thread would have; then which loop fused_step took
+   on each side of its choice (the interface's refill loop, the fisheye's
+   one ray a thread);
 8. ``[sweep-vs-plain]``: fused_sweep_grid against its plain version (per-ray
    step sizes and limits) on the reference's full fisheye candidate grid
    (divisor 303 -> 4, ten turns, one ray a candidate), parity and C1 grids,
@@ -156,11 +170,12 @@ either is missing or any check fails.  Phases, one line or more each:
    ``python -m raytracing_tpu_torch.cli --eigenrays3`` run on the Munk
    profile lifted to 3-D.
 
-The kernel-against-plain phases (3, 8's nodes, 15's ``[custom-vs-plain]``,
-16's ``[3d-vs-plain]``, 17's ``[dyn3-vs-plain]`` and the [dyn3] checks)
-replay their plain versions' steps from a CUDA graph
-(raytracing_tpu_torch/bench/replay.py), equal to the eager loop to the bit;
-the main shapes' plain versions run eagerly, as their times are reported.
+The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
+15's ``[custom-vs-plain]``, 16's ``[3d-vs-plain]``, 17's
+``[dyn3-vs-plain]`` and the [dyn3] checks) replay their plain versions'
+steps from a CUDA graph (raytracing_tpu_torch/bench/replay.py), equal to
+the eager loop to the bit; the other main shapes' plain versions run
+eagerly, as their times are reported.
 
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
 the search path, phase 12 the dynamic one, phase 14's ``[df32]`` the df32
@@ -205,6 +220,10 @@ STEP_CAP = 1000
 #: kernels' own times stay at the full step count), so that the whole
 #: script stays well inside its time limit (PERF.md §6)
 MAIN_PLAIN_CAP = 300
+#: the main path's runs whose kernel runs the refill loop on rays of mixed
+#: lifetimes (fused_step, fused_step_strat): held to the plain version,
+#: replayed from a CUDA graph, at full depth on every plane
+FULL_DEPTH = ("interface", "interface_strat")
 RAYS_MAIN = 1 << 20
 # kernel-against-plain tolerances: the JAX package's own kernel-against-scan
 # bars for the same op and field (tests/test_kernels.py:24-27,
@@ -348,6 +367,25 @@ def live_ray_steps(dist_sim, ds, steps):
     dist_sim over the step, rounded (a step moves ds, or its chord)."""
     return float(torch.clamp(torch.round(dist_sim.double() / float(ds)),
                              max=steps).sum())
+
+
+def warp_efficiency(dist_sim, ds, steps):
+    """bench.warp_efficiency of the rays' lifetimes: each ray's dist_sim
+    over the step, as :func:`live_ray_steps` counts it."""
+    from raytracing_tpu_torch import bench
+    life = torch.clamp(torch.round(dist_sim.double() / float(ds)), max=steps)
+    return bench.warp_efficiency(life.cpu().numpy())
+
+
+def refill_line(field, op, st, out, ds, steps):
+    """The refill loop's grid and the warp efficiency one ray a thread would
+    give on this run, as one line's text."""
+    from raytracing_tpu_torch.kernels import fused as kfu
+    n = st.x.shape[0]
+    blocks = kfu.refill_grid(field, op, n, stats=st.mom_count is not None)
+    return (f"grid {blocks} blocks x 128 for {n} rays "
+            f"({n / (blocks * 128):.2f} rays a thread), warp efficiency one "
+            f"ray a thread {warp_efficiency(out.dsim - st.dsim, ds, steps):.3f}")
 
 
 def bound(ops, nbytes):
@@ -767,6 +805,26 @@ def compare_run(device, errs, times, name, r, field):
         tol = dict(pos_tol=POS_TOL_OP7 if r.op == "op7" or interface
                    else POS_TOL[r.scen.field], tt_rel=TT_REL_TOL)
     k_ms, out = cuda_ms(lambda: launch(r.steps), reps=3)
+    if name in FULL_DEPTH:
+        # the refill loop at full depth, against the replayed plain version
+        # (every plane) and the main path's own result
+        from raytracing_tpu_torch.bench import replay
+        depth = r.steps
+        p_ms, p = cuda_ms(lambda: replay.fused_plain(
+            st, steps=depth, step_limit=depth, **kw))
+        exact(errs[kernel], f"{kernel} {name} {r.op} {st.x.shape[0]} x "
+              f"{depth} steps (full depth, plain replayed)", out, p)
+        same_final(f"{kernel} {name}: fast_trace against a direct launch",
+                   r.res, kfu.final_from_state(out))
+        print(f"    kernel {k_ms:.3f} ms, plain (replayed) {p_ms:.1f} ms; "
+              f"{refill_line(field, r.op, st, out, r.ds, r.steps)}",
+              flush=True)
+        if TIMED_SHAPE[kernel] == name:
+            bms, by = timed_bound(kernel, lambda k: plain(head(st), k), st,
+                                  out, tables, r.ds, r.steps)
+            times[kernel] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                                 bound_by=by)
+        return
     p_ms, p = cuda_ms(lambda: plain(st, depth))
     if depth == r.steps:
         kpos, ktt, kact = r.res.pos, r.res.traveltime, r.res.active
@@ -796,6 +854,18 @@ def phase_main_shapes(device, errs, runs):
           flush=True)
     for name, r in runs.items():
         compare_run(device, errs, times, name, r, r.scen.field)
+    # fused_step's two loops (csrc/fused.cuh, Refills), a run held above on
+    # each side: the interface refills, the fisheye's one ray repeated runs
+    # one ray a thread
+    from raytracing_tpu_torch.kernels import fused as kfu
+    for name, refills in (("interface", True), ("fisheye", False)):
+        r = runs[name]
+        blocks = kfu.refill_grid(r.scen.field, r.op, RAYS_MAIN, stats=r.stats)
+        print(f"  fused_step {name} {r.op}: " + (
+            f"refill loop, {blocks} blocks x 128" if blocks else
+            "one ray a thread"), flush=True)
+        if (blocks > 0) != refills:
+            fail(f"fused_step {name} took the wrong loop")
     return times
 
 
@@ -944,6 +1014,89 @@ def phase_sampled_kernel_vs_plain(device, media, rays=RAYS_CHECK,
         if delta <= 0:
             fail(f"{k.name} was not launched against its plain version")
     return errs
+
+
+#: the refill cases' ray counts: one ray, the 42 launch angles once, a
+#: ragged 4097, and the main path's 2**20 plus a ragged 17
+REFILL_RAYS = (1, 42, 4097, RAYS_MAIN + 17)
+
+
+def refill_inputs(media, kind, rays, rng):
+    """(field, pos0, theta0, ds, steps, box) of the interface fan on the
+    analytic field at SIGMA/5 (kind "analytic", 7557 steps) or on the parity
+    table at the reference table's op6 step (kind "strat", 3854 steps): the
+    main path's two interface runs, resized to ``rays`` with jitter."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    scen = rtt.scenario("interface")
+    pos0, theta0 = fan(scen, rays, rng)
+    if kind == "analytic":
+        ds = config.SIGMA / 5.0
+        return "interface", pos0, theta0, ds, scen.max_size(ds) - 1, \
+            tuple(scen.box)
+    ds, div = calibrated_with_fallback("op6", "interface")
+    return (kernel_medium(media, "strat", scen, ds), pos0, theta0, float(ds),
+            scen.max_size(ds, div, 1) - 1, tuple(scen.box))
+
+
+def phase_refill_vs_plain(device, media, errs):
+    """The refill loop of fused_step and fused_step_strat against the plain
+    version (replayed), every plane to the bit, where refills happen: the
+    interface fan at full depth at REFILL_RAYS rays; op7's window and the
+    Welford stats across refills; a step limit below most lifetimes; a
+    resume chain of uneven segments against one launch.  Each line gives
+    the refill grid and the warp efficiency one ray a thread would have."""
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.kernels import fused as kfu
+
+    rng = np.random.default_rng(3)
+    infos = {"analytic": kfu.KERNEL, "strat": kfu.KERNEL_STRAT}
+    before = {k: info.launches for k, info in infos.items()}
+    print("[refill-vs-plain] the interface fan, analytic (SIGMA/5) and "
+          "parity table (op6 reference step), full depth", flush=True)
+    for kind, info in infos.items():
+        e = errs[info.name]
+        for rays in REFILL_RAYS:
+            field, pos0, theta0, ds, steps, box = refill_inputs(
+                media, kind, rays, rng)
+            st = kfu.initial_state("op6", pos0, theta0, field=field,
+                                   with_stats=False, device=device)
+            kw = dict(field=field, op="op6", steps=steps, delta_s=ds,
+                      step_limit=steps, offset=0.0, box=box)
+            k = kfu.fused_step(st, **kw)
+            exact(e, f"{info.name} op6 {rays} rays x {steps} steps", k,
+                  replay.fused_plain(st, **kw))
+            print(f"    {refill_line(field, 'op6', st, k, ds, steps)}",
+                  flush=True)
+        rays = RAYS_CHECK + 17
+        field, pos0, theta0, ds, steps, box = refill_inputs(media, kind, rays,
+                                                            rng)
+        st = kfu.initial_state("op7", pos0, theta0, field=field,
+                               with_stats=True, device=device)
+        kw = dict(field=field, op="op7", delta_s=ds, box=box)
+        one = kfu.fused_step(st, steps=steps, step_limit=steps, offset=0.0,
+                             **kw)
+        exact(e, f"{info.name} op7 with stats {rays} rays x {steps} steps",
+              one, replay.fused_plain(st, steps=steps, step_limit=steps,
+                                      offset=0.0, **kw))
+        print(f"    {refill_line(field, 'op7', st, one, ds, steps)}",
+              flush=True)
+        short = dict(steps=steps, step_limit=250.0, offset=0.0, **kw)
+        exact(e, f"{info.name} op7 with stats, step limit 250 of {steps}",
+              kfu.fused_step(st, **short), replay.fused_plain(st, **short))
+        chain, done, segs = st, 0, []
+        for seg in (1, 300, 37, 2000, steps):
+            seg = min(seg, steps - done)
+            chain = kfu.fused_step(chain, steps=seg, step_limit=steps,
+                                   offset=float(done), **kw)
+            done += seg
+            segs.append(seg)
+        resume_check(f"{info.name} op7 with stats, segments {segs}", one,
+                     chain)
+    for kind, info in infos.items():
+        delta = info.launches - before[kind]
+        print(f"  {info.name}: {delta} launches in this phase", flush=True)
 
 
 def phase_sampled(device, media, rays=RAYS_MAIN):
@@ -3440,8 +3593,11 @@ def main():
     media = build_sampled_media("cuda")
     t3s = time.perf_counter()
     errs.update(phase_sampled_kernel_vs_plain("cuda", media))
+    t3r = time.perf_counter()
+    phase_refill_vs_plain("cuda", media, errs)
     print(f"[phase 3] kernel-vs-plain {t3_analytic:.1f} s, sampled-vs-plain "
-          f"{time.perf_counter() - t3s:.1f} s (plain versions replayed "
+          f"{t3r - t3s:.1f} s, refill-vs-plain "
+          f"{time.perf_counter() - t3r:.1f} s (plain versions replayed "
           "from CUDA graphs)",
           flush=True)
     # the analytic main path, then the sampled one, counts from zero each

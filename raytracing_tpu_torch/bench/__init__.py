@@ -1,7 +1,8 @@
 """Benchmark helpers of the port: ``harness`` (timing), ``fma_probe``,
 :func:`launch_fan`, the numpy port of ``bench.py::_fan`` (bench.py:37-44),
 the sampled main path's runs (:data:`SAMPLED_RUNS`, :func:`sampled_media`)
-that ``chip_smoke.py`` and ``fma_probe --profile-sampled`` drive, and the
+that ``chip_smoke.py`` and ``fma_probe --profile-sampled`` drive,
+:func:`warp_efficiency` (``chip_smoke.py`` and ``lifetimes``), and the
 df32 tier's depths, media and launch fans (:func:`df_media`,
 :func:`df_launch`, :func:`dispersed_fan`) that ``chip_smoke.py`` and
 ``fma_probe`` share."""
@@ -43,6 +44,15 @@ def launch_fan(scen, rays: int):
                 np.full(rays, np.pi / 2.0, np.float32))
     return (np.tile(scen.pos0[:1].astype(np.float32), (rays, 1)),
             np.resize(np.asarray(scen.theta0, np.float32), rays))
+
+
+def warp_efficiency(life) -> float:
+    """Share of the lane-steps of a one-ray-a-thread launch that step a live
+    ray: the rays' lifetimes (steps before each froze, in ray order, as
+    numpy) over 32 times the longest lifetime of each 32-ray warp."""
+    life = np.asarray(life, np.float64)
+    warps = np.concatenate([life, np.zeros(-len(life) % 32)]).reshape(-1, 32)
+    return float(life.sum() / (32.0 * warps.max(1)).sum())
 
 
 def sampled_media(device):

@@ -9,17 +9,21 @@ Needs one CUDA device and nvcc.  By default it compares the build the
 package uses (``-fmad=false``) with ``-fmad=true``; with ``--parent-csrc``
 it compares instead the kernels built from another checkout's ``csrc``
 (e.g. the parent commit's, unpacked by ``git archive``) with this one's,
-both with the package's flags, on the analytic and df32 entry points they
-share.  Either way it makes four passes in the order A, B, B, A, so that a
-drift of the card's clock shows as a difference between the two passes of
-one build.  Each pass prints the card's name, power limit, SM clock, power
+both with the package's flags, on the analytic, sampled and df32 entry
+points they share (a parent built before the refill loop of
+``fused_step`` and ``fused_step_strat`` is called without its counter).
+Either way it makes four passes in the order A, B, B, A, so that a drift
+of the card's clock shows as a difference between the two passes of one
+build.  Each pass prints the card's name, power limit, SM clock, power
 draw and temperature, then for every shape the median kernel time of
 ``--reps`` runs after one warm-up (CUDA events, one run each) and the
 largest |delta| of the final positions against the first pass.  The
 kernel wrappers launch from ``build.library()``; the probe points it at
-each build in turn.  The shapes are the analytic main path's and the df32
-tier's (:func:`df_cases`: the four df kernels at their main shapes, and
-the two grid kernels on a dispersed fan).
+each build in turn.  The shapes are the analytic main path's, the fused
+kernels' on sampled media (:func:`sampled_cases`: interface_strat op6,
+vert_strat op8, fisheye_grid op1 and its node table) and the df32 tier's
+(:func:`df_cases`: the four df kernels at their main shapes, and the two
+grid kernels on a dispersed fan).
 
 ``--profile PATH`` also traces the analytic main path with torch.profiler
 (interface op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through
@@ -31,11 +35,14 @@ built on the card beforehand), and prints the wall time of the traced
 window and the share of it in which the card was idle.
 
 ``--sass [PATTERN]`` only builds the package's library and reports, for
-every kernel whose mangled name contains PATTERN (default ``df_kernel``),
-its registers and spill bytes from ptxas (``-Xptxas -v``, the build's log),
-its count of SASS instructions and of FFMA (fused multiply-add)
-instructions among them (``cuobjdump -sass``) and its most frequent
-opcodes; each FFMA line is written with the instructions before it to
+every kernel whose mangled name contains PATTERN (default ``df_kernel``;
+``fused_kernel`` gives every instantiation of the 2-D fused loop, one ray
+a thread and the refill loop's ``fused_kernel_refill``), its registers
+and spill bytes from ptxas (``-Xptxas -v``, the build's log), its count of
+SASS instructions, of FFMA (fused multiply-add) instructions among them,
+of FCHK (the IEEE division's range check, whose failure calls the slow
+path) and of CALL (``cuobjdump -sass``) and its most frequent opcodes;
+each FFMA line is written with the instructions before it to
 ``sass-ffma-<digest>.txt`` beside the library in ``_build/``, so that what
 issues it (an exact product, the IEEE division's refinement, or a
 contraction) can be read.  Run it in another checkout (e.g. the parent's,
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import math
 import re
 import shutil
@@ -70,11 +78,15 @@ from raytracing_tpu_torch.kernels import golden as kg
 
 RAYS = 1 << 20
 SMI_QUERY = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
-#: the entry points the analytic and df32 shapes launch, which a parent
-#: checkout's library shares
+#: the entry points the analytic, sampled and df32 shapes launch, which a
+#: parent checkout's library shares
 SHARED_ENTRIES = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step",
-                  "rt_df_step", "rt_df_step_grid", "rt_df_step_c1",
-                  "rt_df_step_profile")
+                  "rt_fused_step_strat", "rt_fused_step_grid",
+                  "rt_fused_step_nodes", "rt_df_step", "rt_df_step_grid",
+                  "rt_df_step_c1", "rt_df_step_profile")
+#: the entry points that take the refill loop's ray counter before the
+#: stream; a parent built before the loop takes none
+COUNTER_ENTRIES = ("rt_fused_step", "rt_fused_step_strat")
 #: the depths of the df32 main path's runs (chip_smoke.py phase 14)
 DF_STEPS = {"fisheye": HEADLINE_DIVISOR - 1,
             "vert_heterogeneous": DF_VERT_STEPS,
@@ -114,6 +126,50 @@ def _golden_case(name, op, ds, steps, device, rays):
                              box=scen.box)
         return torch.stack([out.x, out.y], -1)
     return f"golden {op} {name}, {steps} steps", run
+
+
+def sampled_cases(device, rays=RAYS):
+    """(label, run) of the fused kernels on sampled media at their main
+    shapes: fused_step_strat on the interface_strat run (the parity table,
+    the reference table's op6 step, 3854 steps) and on the vert_strat run
+    (op8 with the Welford stats, 4142 steps), fused_step_grid on the
+    fisheye_grid run (op1, 4586 steps) and fused_step_nodes on the same
+    grid's node table (grid_trace's kernel).  The media are built once, on
+    ``device``."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    from raytracing_tpu_torch.engine import fast
+    from raytracing_tpu_torch.engine import segmented as seg
+
+    def case(label, name, op, field, stats=False):
+        scen = scenario(name)
+        ds, div = calibrated_with_fallback(op, name)
+        steps = scen.max_size(ds, div, 1) - 1
+        st = kfu.initial_state(op, *launch_fan(scen, rays), field=field,
+                               with_stats=stats, device=device)
+        kw = dict(field=field, op=op, steps=steps, delta_s=float(ds),
+                  step_limit=steps, offset=0.0, box=tuple(scen.box))
+
+        def run():
+            out = kfu.fused_step(st, **kw)
+            return torch.stack([out.x, out.y], -1)
+        return f"{label} {op} {name}, {steps} steps", run
+
+    def strat(name, field, op):
+        box = scenario(name).box
+        ds, _ = calibrated_with_fallback(op, name)
+        return kfu.strat_tables(rtt.compact_for_trace(
+            rtt.build_stratified_medium(field, box, device=device), box, ds))
+
+    fish = scenario("fisheye")
+    grid = fast._as_hermite(rtt.build_grid_medium("fisheye", fish.box,
+                                                  device=device))
+    return [case("fused_step_strat", "interface", "op6",
+                 strat("interface", "interface", "op6")),
+            case("fused_step_strat", "vert", "op8",
+                 strat("vert", "vert_heterogeneous", "op8"), stats=True),
+            case("fused_step_grid", "fisheye", "op1", seg.grid_tables(grid)),
+            case("fused_step_nodes", "fisheye", "op1", seg.node_tables(grid))]
 
 
 def df_cases(device, rays=RAYS):
@@ -177,7 +233,7 @@ def cases(device, rays=RAYS):
         _golden_case("aniso", "op11", ds_a,
                      scenario("aniso").max_size(ds_a) - 1, device, rays),
         _golden_case("fisheye", "op11", ds_f, steps_f, device, rays),
-    ] + df_cases(device, rays)
+    ] + sampled_cases(device, rays) + df_cases(device, rays)
 
 
 def time_ms(run, reps):
@@ -200,6 +256,36 @@ def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={SMI_QUERY}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+class ParentLibrary:
+    """A parent checkout's library as the wrappers call it: the entry points
+    of COUNTER_ENTRIES are called without the counter that the wrapper
+    passes before the stream."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in COUNTER_ENTRIES:
+            return fn
+        return lambda *args: fn(*args[:-2], args[-1])
+
+
+def load_parent(path):
+    """The parent's library; where it has no refill loop (no
+    ``rt_fused_refill_blocks``), its COUNTER_ENTRIES take this checkout's
+    arguments less the counter."""
+    lib = build.load(path, tuple(n for n in SHARED_ENTRIES
+                                 if n not in COUNTER_ENTRIES))
+    if hasattr(lib, "rt_fused_refill_blocks"):
+        return build.load(path, SHARED_ENTRIES)
+    for name in COUNTER_ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = list(build._SIGNATURES[name][:-2]) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return ParentLibrary(lib)
 
 
 def probe(device, reps, builds):
@@ -352,9 +438,10 @@ def sass_report(pattern: str) -> None:
         instr, ffma = counts.get(name, [0, 0])
         top = ", ".join(f"{o} {c}" for o, c in ops.get(
             name, collections.Counter()).most_common(14))
+        slow = ops.get(name, collections.Counter())
         print(f"  {pretty}: {' | '.join(usage.get(name, ['no ptxas line']))}"
-              f"; {instr} SASS instructions, {ffma} FFMA; opcodes: {top}",
-              flush=True)
+              f"; {instr} SASS instructions, {ffma} FFMA, {slow['FCHK']} "
+              f"FCHK, {slow['CALL']} CALL; opcodes: {top}", flush=True)
     (build.BUILD_DIR / f"sass-ffma-{digest}.txt").write_text(
         "\n\n".join(ffma_lines) + "\n")
 
@@ -381,8 +468,7 @@ def main(argv=None):
         return 0
     own = ("fmad=false", build.load(build.build()))
     if args.parent_csrc is not None:
-        other = ("parent", build.load(build.build(csrc=args.parent_csrc),
-                                      SHARED_ENTRIES))
+        other = ("parent", load_parent(build.build(csrc=args.parent_csrc)))
         probe("cuda", args.reps, (other, ("change", own[1])))
     else:
         probe("cuda", args.reps,

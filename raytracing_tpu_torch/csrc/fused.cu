@@ -28,15 +28,23 @@
 // the full state is read from the input planes and written to the output
 // planes, with a global step offset, so chained launches equal one launch.
 //
-// One thread per ray, the whole carry (up to 20 floats) in registers across
-// every step; state is read and written once as coalesced planes, the
-// ragged edge is masked.  A step is 30-120 FP32 operations (op12 evaluates
-// the field four times) against ~64 bytes a ray for the whole launch, so the
-// kernel is bound by FP32 issue, not memory; a sampled medium adds one
-// 32-byte (1-D) or 64-144-byte (2-D) table read per field evaluation, served
-// by L1/L2 (the tables are at most 37.5 MB).  A thread leaves its step loop
-// as soon as its ray is frozen (box exit or the step limit) — results are
-// unchanged, since a frozen ray's state never changes again.
+// The whole carry (up to 20 floats) stays in registers across every step;
+// state is read and written once a ray as coalesced planes, the ragged edge
+// is masked.  fused_step on the interface and fused_step_strat run the
+// persistent refill loop (fused.cuh): their fans put rays of very
+// different lifetimes in one warp, and a lane whose ray froze takes the
+// next ray instead of idling until the warp's longest ray ends (one ray a
+// thread, 56 % of the lane-steps of the interface fan's warps belonged to
+// frozen rays); both entry points take the loop's ray counter, one int on
+// the card that a refill launch zeroes on its stream first.  The other media, and the
+// fisheye and vert fields, run one ray a thread.  A step is 30-120 FP32 operations
+// (op12 evaluates the field four times) against ~64 bytes a ray for the
+// whole launch, so the kernel is bound by FP32 issue, not memory; a
+// sampled medium adds one 32-byte (1-D) or 64-144-byte (2-D) table read per
+// field evaluation, served by L1/L2 (the tables are at most 37.5 MB).  A
+// thread leaves its step loop as soon as its ray is frozen (box exit or the
+// step limit) — results are unchanged, since a frozen ray's state never
+// changes again.
 //
 // The sweep is n_cand independent trajectories, one thread a candidate,
 // each reading its own (ds, limit) from two per-ray arrays once before the
@@ -51,10 +59,14 @@
 // The loop itself, its arguments and launchers are in fused.cuh.
 #include "fused.cuh"
 
-// fused_step: the analytic fields (row 2 of the kernel table)
-extern "C" int rt_fused_step(int field, RT_FUSED_PARAMS, void* stream) {
+// fused_step: the analytic fields (row 2 of the kernel table); counter is
+// the refill loop's (one int on the card; the interface's launches zero
+// and use it)
+extern "C" int rt_fused_step(int field, RT_FUSED_PARAMS, void* counter,
+                             void* stream) {
   if (n <= 0) return 0;
-  const rt::FusedArgs a = RT_FUSED_ARGS;
+  rt::FusedArgs a = RT_FUSED_ARGS;
+  a.next = static_cast<int*>(counter);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (field) {
     case rt::FISHEYE:
@@ -67,11 +79,13 @@ extern "C" int rt_fused_step(int field, RT_FUSED_PARAMS, void* stream) {
   }
 }
 
-// fused_step_strat: 1-D stratified tables, ch = 6 (parity) or 4 (C1); row 2s
+// fused_step_strat: 1-D stratified tables, ch = 6 (parity) or 4 (C1); row
+// 2s; counter as rt_fused_step's
 extern "C" int rt_fused_step_strat(int ch, RT_FUSED_PARAMS, RT_TABLE_PARAMS,
-                                   void* stream) {
+                                   void* counter, void* stream) {
   if (n <= 0) return 0;
-  const rt::FusedArgs a = RT_FUSED_ARGS;
+  rt::FusedArgs a = RT_FUSED_ARGS;
+  a.next = static_cast<int*>(counter);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ch) {
     case 6: return rt::launch_fused(op, a, rt::Strat<6>{RT_TABLE}, s);
@@ -122,4 +136,34 @@ extern "C" int rt_fused_sweep_grid(int cell_ch, RT_FUSED_PARAMS,
     case 16: return rt::launch_fused(op, a, rt::Grid<16>{RT_TABLE}, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The refill loop's grid for n rays of op, with or without the stats:
+// blocks of 128 threads, written to *blocks, 0 where the medium runs one
+// ray a thread.  medium 0 is rt_fused_step's (code = field), 1
+// rt_fused_step_strat's (code = ch).
+extern "C" int rt_fused_refill_blocks(int medium, int code, int op,
+                                      int stats, int n, int* blocks) {
+  using rt::refill_blocks_of;
+  if (n <= 0 || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (medium == 0) {
+    switch (code) {
+      case rt::FISHEYE:
+        return refill_blocks_of<rt::Analytic<rt::FISHEYE>>(op, stats, n,
+                                                           blocks);
+      case rt::VERT:
+        return refill_blocks_of<rt::Analytic<rt::VERT>>(op, stats, n,
+                                                        blocks);
+      case rt::INTERFACE:
+        return refill_blocks_of<rt::Analytic<rt::INTERFACE>>(op, stats, n,
+                                                             blocks);
+    }
+  } else if (medium == 1) {
+    switch (code) {
+      case 6: return refill_blocks_of<rt::Strat<6>>(op, stats, n, blocks);
+      case 4: return refill_blocks_of<rt::Strat<4>>(op, stats, n, blocks);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

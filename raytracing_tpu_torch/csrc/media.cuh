@@ -1,6 +1,9 @@
 // The media the step kernels evaluate: each type has one
-// __device__ nag(x, y, n, gx, gy) giving n and its gradient at (x, y), and
-// the step loops of fused.cu and golden.cu are templates on the type.  The
+// nag(x, y, n, gx, gy) giving n and its gradient at (x, y), and the step
+// loops of fused.cuh and golden.cuh are templates on the type.  Every
+// function is __host__ __device__ (RT_HD, common.cuh): a table row loads
+// through __ldg on the card and plainly on the host, so the media also
+// build with g++ for the CPU tests of fused.cuh.  The
 // analytic, stratified and per-cell grid types also have
 // nag_h(x, y, f[9]): the dynamic kernels' (dynamic.cu) nine channels
 // (n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy) — gn the n channel's own
@@ -61,8 +64,7 @@ enum H9 { HN = 0, HGX, HGY, HGNX, HGNY, HXX, HXY, HYX, HYY };
 
 template <int FIELD>
 struct Analytic {
-  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
-                                      float& gy) const {
+  RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
     if (FIELD == FISHEYE) {
       n = 1.0f / (1.0f + x * x + y * y);
       const float c = -2.0f * n * n;
@@ -74,9 +76,14 @@ struct Analytic {
       gy = -2.0f * n * n;
     } else {
       // literal logistic as in the TPU kernel (fused.py:58): expf overflows
-      // to inf for y < ~-0.44, giving sig = 0 exactly, which is the right
-      // value
-      const float sig = 1.0f / (1.0f + expf(-y / kThck));
+      // to inf for y < ~-0.44, where 1 / (1 + inf) is +0 exactly, the right
+      // value.  That division's divisor would send it down the IEEE
+      // division's slow path (FCHK), so an infinite e divides 1 by 1 and
+      // selects +0 instead: the same bits, without the detour.
+      const float e = expf(-y / kThck);
+      const bool big = e == INFINITY;
+      const float q = 1.0f / (big ? 1.0f : 1.0f + e);
+      const float sig = big ? 0.0f : q;
       n = kSqrt2 - kSqrt2m1 * sig;
       gx = 0.0f;
       gy = -kSqrt2m1 * sig * (1.0f - sig) / kThck;
@@ -86,7 +93,7 @@ struct Analytic {
   // closed-form Hessians (dynamic.py:78-118); the interface's logistic is
   // the overflow-safe two-branch form of media/fields.py::_sigmoid, both
   // branches exponentiating -|t|
-  __device__ __forceinline__ void nag_h(float x, float y, float* f) const {
+  RT_HD void nag_h(float x, float y, float* f) const {
     if (FIELD == FISHEYE) {
       const float n = 1.0f / (1.0f + x * x + y * y);
       const float n2 = n * n;
@@ -141,12 +148,25 @@ struct Table {
   }
 
 // jnp.clip(v, lo, hi) = min(max(v, lo), hi)
-__device__ __forceinline__ float clampf(float v, float hi) {
+RT_HD float clampf(float v, float hi) {
   return fminf(fmaxf(v, 0.0f), hi);
 }
 
-__device__ __forceinline__ float4 ldg4(const float* p, int k) {
+// the k-th float4 of a table row through the read-only cache (a plain load
+// on the host)
+RT_HD float4 ldg4(const float* p, int k) {
+#ifdef __CUDA_ARCH__
   return __ldg(reinterpret_cast<const float4*>(p) + k);
+#else
+  return float4{p[4 * k], p[4 * k + 1], p[4 * k + 2], p[4 * k + 3]};
+#endif
+}
+RT_HD float ldg1(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
 }
 
 // -- 1-D stratified tables (fused.py:65-105) ---------------------------------
@@ -154,8 +174,7 @@ template <int CH>
 struct Strat {
   static_assert(CH == 6 || CH == 4, "parity (6) or C1 (4) channels");
   Table m;
-  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
-                                      float& gy) const {
+  RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
     const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
     const float iy = fminf(floorf(fy), (float)(m.ny - 2));
     const float uy = fy - iy;
@@ -179,7 +198,7 @@ struct Strat {
   // the 9 channels (dynamic.py:121-174): C1 gives the cubic's second
   // derivative and gn == g; parity the bilinear n's own slope and the
   // derivative of the cubic gy
-  __device__ __forceinline__ void nag_h(float x, float y, float* f) const {
+  RT_HD void nag_h(float x, float y, float* f) const {
     const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
     const float iy = fminf(floorf(fy), (float)(m.ny - 2));
     const float uy = fy - iy;
@@ -210,7 +229,7 @@ struct Strat {
 // A per-cell row of the _cells36 layout: channel ch is the row's ch-th float4
 struct CellCorners {
   const float* c;
-  __device__ __forceinline__ float4 operator()(int ch) const {
+  RT_HD float4 operator()(int ch) const {
     return ldg4(c, ch);
   }
 };
@@ -218,18 +237,17 @@ struct CellCorners {
 // Four node rows of the (ny*nx, 9) node table: channel ch is column ch of each
 struct NodeCorners {
   const float *c00, *c01, *c10, *c11;
-  __device__ __forceinline__ float4 operator()(int ch) const {
-    return make_float4(__ldg(c00 + ch), __ldg(c01 + ch), __ldg(c10 + ch),
-                       __ldg(c11 + ch));
+  RT_HD float4 operator()(int ch) const {
+    return make_float4(ldg1(c00 + ch), ldg1(c01 + ch), ldg1(c10 + ch),
+                       ldg1(c11 + ch));
   }
 };
 
 // bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8):
 // raytracing_tpu/kernels/fused.py::_hermite_blend (:108-148)
 template <class Corners>
-__device__ __forceinline__ void hermite_blend(const Corners& corners, float u,
-                                              float v, float& n, float& gx,
-                                              float& gy) {
+RT_HD void hermite_blend(const Corners& corners, float u, float v, float& n,
+                         float& gx, float& gy) {
   const float4 z = corners(0);
   n = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
       v * ((1.0f - u) * z.z + u * z.w);
@@ -265,32 +283,30 @@ __device__ __forceinline__ void hermite_blend(const Corners& corners, float u,
 struct Basis {
   float h0, g0, h1, g1;
 };
-__device__ __forceinline__ Basis hermite_basis(float t) {
+RT_HD Basis hermite_basis(float t) {
   const float t2 = t * t;
   const float t3 = t2 * t;
   return {2.0f * t3 - 3.0f * t2 + 1.0f, t3 - 2.0f * t2 + t,
           -2.0f * t3 + 3.0f * t2, t3 - t2};
 }
-__device__ __forceinline__ Basis hermite_dbasis(float t) {
+RT_HD Basis hermite_dbasis(float t) {
   const float t2 = t * t;
   return {6.0f * t2 - 6.0f * t, 3.0f * t2 - 4.0f * t + 1.0f,
           -6.0f * t2 + 6.0f * t, 3.0f * t2 - 2.0f * t};
 }
 // c0*h0 + c1*g0 + c2*h1 + c3*g1 (media/c1.py::_hermite1)
-__device__ __forceinline__ float hermite1(float c0, float c1, float c2,
-                                          float c3, const Basis& b) {
+RT_HD float hermite1(float c0, float c1, float c2, float c3, const Basis& b) {
   return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
 }
 
-__device__ __forceinline__ Basis hermite_d2basis(float t) {
+RT_HD Basis hermite_d2basis(float t) {
   return {12.0f * t - 6.0f, 6.0f * t - 4.0f, -12.0f * t + 6.0f,
           6.0f * t - 2.0f};
 }
 
 // n and grad n of one bicubic patch: media/c1.py::c1_blend
-__device__ __forceinline__ void c1_blend(const float* c, float u, float v,
-                                         float inv_hx, float inv_hy, float& n,
-                                         float& gx, float& gy) {
+RT_HD void c1_blend(const float* c, float u, float v, float inv_hx,
+                    float inv_hy, float& n, float& gx, float& gy) {
   const float4 f = ldg4(c, 0), fv = ldg4(c, 1), fu = ldg4(c, 2),
                fw = ldg4(c, 3);
   const Basis hv = hermite_basis(v), dv = hermite_dbasis(v);
@@ -314,9 +330,8 @@ __device__ __forceinline__ void c1_blend(const float* c, float u, float v,
 
 // c1_blend plus the patch's symmetric Hessian: media/c1.py::c1_blend_h, the
 // 9 channels of dynamic.py::_tile_nag_c1_h (gn == g, hyx == hxy)
-__device__ __forceinline__ void c1_blend_h(const float* c, float u, float v,
-                                           float inv_hx, float inv_hy,
-                                           float* h) {
+RT_HD void c1_blend_h(const float* c, float u, float v, float inv_hx,
+                      float inv_hy, float* h) {
   const float4 f = ldg4(c, 0), fv = ldg4(c, 1), fu = ldg4(c, 2),
                fw = ldg4(c, 3);
   const Basis hv = hermite_basis(v), dv = hermite_dbasis(v),
@@ -344,9 +359,8 @@ __device__ __forceinline__ void c1_blend_h(const float* c, float u, float v,
 // the parity cell's 9 channels (dynamic.py::_tile_nag_h, :177-287): the
 // bilinear n and its own gradient, the two independent bicubic gradients
 // and their full 2x2 Jacobian (hxy != hyx in general)
-__device__ __forceinline__ void hermite_blend_h(const float* c, float u,
-                                                float v, float inv_hx,
-                                                float inv_hy, float* h) {
+RT_HD void hermite_blend_h(const float* c, float u, float v, float inv_hx,
+                           float inv_hy, float* h) {
   const float4 z = ldg4(c, 0);
   h[HN] = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
           v * ((1.0f - u) * z.z + u * z.w);
@@ -382,8 +396,7 @@ template <int CELL_CH>
 struct Grid {
   static_assert(CELL_CH == 36 || CELL_CH == 16, "parity (36) or C1 (16)");
   Table m;
-  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
-                                      float& gy) const {
+  RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
     const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
     const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
     const float ix = fminf(floorf(fx), (float)(m.nx - 2));
@@ -401,7 +414,7 @@ struct Grid {
     }
   }
   // the same cell lookup, then the 9 channels of the dynamic kernels
-  __device__ __forceinline__ void nag_h(float x, float y, float* f) const {
+  RT_HD void nag_h(float x, float y, float* f) const {
     const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
     const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
     const float ix = fminf(floorf(fx), (float)(m.nx - 2));
@@ -422,8 +435,7 @@ struct Grid {
 // -- the parity Hermite node table (media/hermite.py, fused.py::_supercell_nag)
 struct Nodes {
   Table m;   // t: the (ny*nx, 9) node table
-  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
-                                      float& gy) const {
+  RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
     const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
     const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
     const float ix = fminf(floorf(fx), (float)(m.nx - 2));

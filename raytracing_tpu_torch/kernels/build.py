@@ -49,22 +49,28 @@ _SIGNATURES = {
     # x, y, ux, uy, out_x, out_y, out_tt, n, steps, ds, stream
     "rt_fisheye_op1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # field, op, stats, in_planes, out_planes, n, steps, ds, limit, offset,
-    # limx_i, limx_s, limy_i, limy_s, curv_tol, stream
+    # limx_i, limx_s, limy_i, limy_s, curv_tol, counter (the refill loop's
+    # int, on the card), stream
     "rt_fused_step": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
-                      _F, _F, _F, _F, _F, _P),
+                      _F, _F, _F, _F, _F, _P, _P),
+    # medium (0 analytic, 1 stratified), field or ch, op, stats, n, out:
+    # blocks of the refill loop's grid (a host int)
+    "rt_fused_refill_blocks": (_I, _I, _I, _I, _I, _P),
     # field, curv, newton, iso, stats, in_planes, out_planes, n, steps,
     # scal (device), iters, polish, limx_i, limx_s, limy_i, limy_s,
     # curv_tol, cos_c0, sin_c0, cos_d0, sin_d0, cos_m, sin_m, l_final, stream
     "rt_golden_step": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
-    # rt_fused_step's arguments after field (a generated custom-medium
-    # library, kernels/custom.py: one op on one medium)
+    # rt_fused_step's arguments after field, without the counter (a
+    # generated custom-medium library, kernels/custom.py: one op on one
+    # medium)
     "rt_fused_step_custom": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
                              _F, _F, _F, _F, _F, _P),
-    # ch (6 | 4), then rt_fused_step's arguments after field, the table, stream
+    # ch (6 | 4), then rt_fused_step's arguments after field up to
+    # curv_tol, the table, counter, stream
     "rt_fused_step_strat": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
-                            _F, _F, _F, _F, _F, *_TABLE, _P),
-    # cell_ch (36 | 16), the same
+                            _F, _F, _F, _F, _F, *_TABLE, _P, _P),
+    # cell_ch (36 | 16), the same without the counter
     "rt_fused_step_grid": (_I, _I, _I, _P, _P, _I, _I, _F, _F, _F,
                            _F, _F, _F, _F, _F, *_TABLE, _P),
     # node_ch (9), the same

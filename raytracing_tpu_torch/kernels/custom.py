@@ -638,8 +638,8 @@ def _unit(field: CustomField, family: str, op: str) -> tuple[str, str]:
             f"{family} loop on a CustomMedium ({op}).\n")
     medium = ("namespace rt {\n" + field.source + """
 struct Custom {
-  __device__ __forceinline__ void nag(float x, float y, float& n, float& gx,
-                                      float& gy) const {
+  __host__ __device__ __forceinline__ void nag(float x, float y, float& n,
+                                               float& gx, float& gy) const {
     custom_nag(x, y, n, gx, gy);
   }
 };

@@ -28,7 +28,11 @@ sweep); and on a custom medium in a library generated for it
 :func:`fused_step_plain` is their plain PyTorch version, and
 :func:`fused_step` / :func:`fused_sweep_grid` the wrappers that dispatch on
 the device of the state tensors: a CPU state runs the plain version, a CUDA
-state launches the kernel or raises.
+state launches the kernel or raises.  ``fused_step`` on the interface
+field and ``fused_step_strat`` launch the persistent refill loop of
+``csrc/fused.cuh`` (a lane whose ray froze takes the next ray), on a ray
+counter the wrapper allocates for each call; :func:`refill_grid`
+gives its grid.  The fisheye and vert fields run one ray a thread.
 
 What the TPU kernel carried only for Mosaic is gone: no zeros buffer, the
 active mask is a bool, the scalars are arguments, and the state is plain
@@ -36,6 +40,7 @@ active mask is a bool, the scalars are arguments, and the state is plain
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -69,6 +74,9 @@ KERNEL_SWEEP_GRID = build.KernelInfo(
     replaces="raytracing_tpu/engine/segmented.py:968")
 #: the family's kernels by medium: analytic, stratified, grid, node table
 KERNELS = (KERNEL, KERNEL_STRAT, KERNEL_GRID, KERNEL_NODES)
+#: the entry-point suffixes (see :func:`kernel_of`) that take the ray
+#: counter of csrc/fused.cuh's persistent refill loop
+REFILL_SUFFIXES = ("", "_strat")
 
 _SQRT2 = 1.4142135623730951
 #: curvature-negligibility threshold of the float32 kernels
@@ -652,14 +660,41 @@ def fused_step(st: ResumeState, *, field, op: str, steps: int, delta_s,
                  "rt_fused_step" + suffix))
     out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
     with torch.cuda.device(st.x.device):
+        # the refill loop's ray counter (the launch zeroes it on its stream)
+        counter = (torch.empty(1, dtype=torch.int32, device=st.x.device)
+                   if suffix in REFILL_SUFFIXES else None)
         err = fn(*lead, int(op[2:]), int(st.mom_count is not None),
                  build.pointer_array(st), build.pointer_array(out),
                  st.x.shape[0], int(steps), float(delta_s), float(step_limit),
                  float(offset), *box, CURV_TOL, *table,
+                 *(() if counter is None else (counter.data_ptr(),)),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, name)
     kernel.launches += 1
     return out
+
+
+def refill_grid(field, op: str, n: int, stats: bool = False) -> int:
+    """Blocks of 128 threads that the refill loop of ``fused_step`` (an
+    analytic field name) or ``fused_step_strat`` (a :class:`StratTables`)
+    launches for ``n`` rays of ``op``, with or without the Welford ``stats``,
+    on the current CUDA device: as many as every SM holds at once, never
+    more than the rays fill; 0 for the fisheye and vert fields, which run
+    one ray a thread."""
+    if isinstance(field, StratTables):
+        medium, code = 1, field.ch
+    elif isinstance(field, str) and field in FUSED_FIELDS:
+        medium, code = 0, FIELD_CODES[field]
+    else:
+        raise ValueError("the refill loop runs on the analytic fields and "
+                         f"StratTables, not {type(field).__name__}")
+    if op not in FUSED_OPS:
+        raise ValueError(f"fused kernel supports ops {FUSED_OPS}, got {op!r}")
+    blocks = ctypes.c_int(0)
+    build.check(build.library().rt_fused_refill_blocks(
+        medium, code, int(op[2:]), int(bool(stats)), int(n),
+        ctypes.addressof(blocks)), "rt_fused_refill_blocks")
+    return blocks.value
 
 
 def fused_sweep_grid(st: ResumeState, delta_s, step_limit, *,

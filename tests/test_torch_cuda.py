@@ -6,7 +6,9 @@ three dynamic kernels, fast_dynamic and the eigenray solver on the card;
 the four df32 kernels on their five media, with the df32 entry points;
 the custom-medium kernels (a CustomMedium traced into its own library) and
 fast_trace on a CustomMedium; the plain versions replayed from a CUDA
-graph against their eager loops; the fused 3-D kernels (analytic and
+graph against their eager loops; the refill loop of fused_step and
+fused_step_strat on the interface fan (1 to 8,209 rays, op6 and op7 with
+the stats, a short step limit, a resume chain); the fused 3-D kernels (analytic and
 grid3) with fast_trace3's routes; and the 3-D dynamic kernels (analytic
 and grid3) against their plain version, with fast_dynamic3's routes and the
 3-D eigenray solver on the card.
@@ -615,6 +617,92 @@ def test_replayed_plain_equals_eager(field, cuda_device):
                   step_limit=35, offset=offset, box=box)
         _planes_equal(replay.fused_plain(st, **kw),
                       kfu.fused_step_plain(st, **kw))
+
+
+# -- the refill loop of fused_step and fused_step_strat (csrc/fused.cuh) -------
+
+def _interface_fan(n, media, device, seed=4):
+    """The interface scenario's launch angles resized to ``n`` rays, with
+    +-1e-3 rad of jitter, and the medium of ``media``: the analytic field at
+    SIGMA/5 (rays live 561-2168 steps) or the parity table at the reference
+    table's op6 step (288-1120)."""
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch.bench import jittered, launch_fan
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    scen = rtt.scenario("interface")
+    pos0, theta0 = launch_fan(scen, n)
+    theta0 = jittered(theta0, np.random.default_rng(seed))
+    if media == "analytic":
+        ds = config.SIGMA / 5.0
+        return "interface", pos0, theta0, ds, scen.max_size(ds) - 1, \
+            tuple(scen.box)
+    ds, div = calibrated_with_fallback("op6", "interface")
+    med = rtt.compact_for_trace(rtt.build_stratified_medium(
+        "interface", scen.box, device=device), scen.box, ds)
+    return kfu.strat_tables(med), pos0, theta0, float(ds), \
+        scen.max_size(ds, div, 1) - 1, tuple(scen.box)
+
+
+@pytest.mark.parametrize("media", ("analytic", "strat"))
+@pytest.mark.parametrize("n", (1, 42, 4097))
+def test_refill_kernels_match_plain(n, media, cuda_device):
+    """fused_step and fused_step_strat, whose persistent loop refills the
+    lanes of frozen rays, against the plain version at full depth on the
+    interface fan, every plane to the bit; each ray frozen by the box; the
+    grid no larger than the rays fill."""
+    field, pos0, theta0, ds, steps, box = _interface_fan(n, media,
+                                                         cuda_device)
+    kernel = kfu.KERNEL if media == "analytic" else kfu.KERNEL_STRAT
+    st = kfu.initial_state("op6", pos0, theta0, field=field,
+                           with_stats=False, device=cuda_device)
+    kw = dict(field=field, op="op6", steps=steps, delta_s=ds,
+              step_limit=steps, offset=0.0, box=box)
+    before = kernel.launches
+    out = kfu.fused_step(st, **kw)
+    assert kernel.launches == before + 1
+    _planes_equal(out, replay.fused_plain(st, **kw))
+    assert not bool(out.active.any())
+    assert 1 <= kfu.refill_grid(field, "op6", n) <= -(-n // 128)
+
+
+@pytest.mark.parametrize("media", ("analytic", "strat"))
+def test_refill_window_stats_limit_and_resume(media, cuda_device):
+    """op7's window and the Welford stats carried across refills, a step
+    limit shorter than most lifetimes, and a resume chain of uneven
+    segments, all equal to the plain version and to one launch."""
+    field, pos0, theta0, ds, steps, box = _interface_fan(2 * 4096 + 17,
+                                                         media, cuda_device)
+    st = kfu.initial_state("op7", pos0, theta0, field=field,
+                           with_stats=True, device=cuda_device)
+    kw = dict(field=field, op="op7", delta_s=ds, box=box)
+    one = kfu.fused_step(st, steps=steps, step_limit=steps, offset=0.0, **kw)
+    _planes_equal(one, replay.fused_plain(st, steps=steps, step_limit=steps,
+                                          offset=0.0, **kw))
+    chain, done = st, 0
+    for seg in (1, 300, 37, 2000, steps):
+        seg = min(seg, steps - done)
+        chain = kfu.fused_step(chain, steps=seg, step_limit=steps,
+                               offset=float(done), **kw)
+        done += seg
+    _planes_equal(chain, one)
+    short = dict(steps=steps, step_limit=250.0, offset=0.0, **kw)
+    _planes_equal(kfu.fused_step(st, **short), replay.fused_plain(st, **short))
+
+
+def test_refill_grid_is_persistent(cuda_device):
+    """At 2^20 rays the refill loop's grid is what the SMs hold at once:
+    a whole number of blocks a SM, fewer blocks than the rays fill; the
+    fisheye and vert fields run one ray a thread (no refill grid)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    strat = _interface_fan(1, "strat", cuda_device)[0]
+    for field in ("interface", strat):
+        for stats in (False, True):
+            blocks = kfu.refill_grid(field, "op6", 1 << 20, stats=stats)
+            assert blocks % sms == 0 and 0 < blocks < (1 << 20) // 128
+    for field in ("fisheye", "vert_heterogeneous"):
+        assert kfu.refill_grid(field, "op6", 1 << 20) == 0
+    with pytest.raises(ValueError, match="refill loop"):
+        kfu.refill_grid(kfu.GridTables(None, 36, 0, 0, 1, 1, 2, 2), "op6", 10)
 
 
 # -- the fused 3-D kernels (csrc/fused3d.cu) ----------------------------------
