@@ -148,12 +148,15 @@ either is missing or any check fails.  Phases, one line or more each:
    over 3.35 TB/s: not a bound, since rows the L2 holds cost no HBM read).
 
 17. the 3-D dynamic tier (kernels/dynamic3d.py, engine/dynamic3d.py,
-   engine/eigenray3d.py): ``[dyn3-vs-plain]`` both 3-D dynamic kernels
-   against dynamic3d_step_plain at 65,536 rays and at most 1,000 steps,
-   every op on the three analytic fields (the fisheye's tilted fan through
-   its focus, JAX's vert and interface launches), op1 and op6 on the 71^3
-   grid with a tilted and a dispersed fan, all 25 planes to the bit, with a
-   resume check each; ``[dyn3]`` the eighth main path through
+   engine/eigenray3d.py): ``[div_by]`` the division by a shared reciprocal
+   that its loop forms its quotients with (csrc/common.cuh) against the
+   card's IEEE division, all 2^32 numerators over 60 and over 360 and 2^28
+   seeded pairs, no pair differing; ``[dyn3-vs-plain]`` both 3-D dynamic
+   kernels against dynamic3d_step_plain at 65,536 rays and at most 1,000
+   steps, every op on the three analytic fields (the fisheye's tilted fan
+   through its focus, JAX's vert and interface launches), op1 and op6 on
+   the 71^3 grid with a tilted and a dispersed fan, all 25 planes to the
+   bit, with a resume check each; ``[dyn3]`` the eighth main path through
    fast_dynamic3 at 2**20 rays: dyn3_op6 and dyn3_tiled_op6
    (kernel_matrix.py:191-244), the tilted fan for one turn on the fisheye
    and on the grid (against each other), vert op8, interface op6 and the
@@ -210,8 +213,8 @@ import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from raytracing_tpu_torch.bench import (  # noqa: E402
-    DF_PROFILE_STEPS, DF_VERT_STEPS, HEADLINE_DIVISOR, jittered, launch_fan,
-    munk_profile)
+    DF_PROFILE_STEPS, DF_VERT_STEPS, HEADLINE_DIVISOR, fan3, fan3_dyn,
+    grid3_medium, jittered, launch_fan, munk_profile)
 
 RAYS_CHECK = 1 << 16
 STEP_CAP = 1000
@@ -2833,12 +2836,6 @@ def phase_custom_checks(device, errs, runs):
 
 
 # -- the 3-D kinematic tier (kernels/fused3d.py, engine/tiled3.py) ----------
-#: one turn of the fisheye's unit circle (benchmarks/kernel_matrix.py:194)
-DIV3 = 600
-BOX3 = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
-#: the benchmark's grid3 axis: 71 nodes at pitch 0.05
-#: (benchmarks/kernel_matrix.py:220-224); its per-cell table is 87.8 MB
-AX3 = np.arange(-1.75, 1.7501, 0.05)
 #: the sampled fisheye's one-turn positions against the analytic kernel's
 #: on the same fan: JAX's sampled-fisheye bar (tests/test_grid3.py:185)
 GRID3_DEV_BAR = 2e-4
@@ -2847,45 +2844,6 @@ GRID3_DEV_BAR = 2e-4
 CV3_BAR = 0.05
 #: HBM bytes one grid3 evaluation reads when its row is not cached
 ROW3_BYTES = 256
-
-
-def grid3_medium(device):
-    """The benchmark's sampled 3-D fisheye (71^3 nodes), built on the host
-    and uploaded to ``device``."""
-    import raytracing_tpu_torch as rtt
-    X, Y, Z = np.meshgrid(AX3, AX3, AX3, indexing="ij")
-    return rtt.c1_medium3_from_samples(
-        1.0 / (1.0 + X ** 2 + Y ** 2 + Z ** 2), AX3, AX3, AX3, device=device)
-
-
-def fan3(kind, rays, seed):
-    """(pos0, dir0, delta_s, steps, box) of the 3-D runs: ``tilted`` the
-    fisheye's ray (1, 0, 0) launched in planes tilted by [0, 1] rad (every
-    ray distinct; one turn); ``matrix`` the benchmark's 2^20 identical rays
-    (kernel_matrix.py:191-194); ``vert`` and ``interface`` random points
-    and directions in a box that some rays leave; ``dispersed`` points
-    all over the grid with random directions, so that the rays read rows
-    all over the 87.8 MB table."""
-    rng = np.random.default_rng(seed)
-    if kind in ("tilted", "matrix"):
-        if kind == "tilted":
-            tilt = np.linspace(0.0, 1.0, rays)
-            d = np.stack([np.zeros(rays), np.cos(tilt), np.sin(tilt)], -1)
-        else:
-            d = np.tile([[0.0, 1.0, 1e-3]], (rays, 1))
-        return (np.tile([[1.0, 0.0, 0.0]], (rays, 1)).astype(np.float32),
-                d.astype(np.float32), 2.0 * math.pi / DIV3, DIV3, BOX3)
-    if kind == "dispersed":
-        return (rng.uniform(-1.4, 1.4, (rays, 3)).astype(np.float32),
-                rng.normal(size=(rays, 3)).astype(np.float32),
-                2.0 * math.pi / DIV3, DIV3, BOX3)
-    pos0 = rng.uniform(-1.0, 1.0, (rays, 3))
-    ds, steps, box = 0.01, 200, (-2.0, 2.0, -2.0, 2.0, -2.0, 2.0)
-    if kind == "interface":
-        pos0[:, 1] = rng.uniform(-0.05, 0.05, rays)
-        ds, steps = 0.002, 1000
-    return (pos0.astype(np.float32),
-            rng.normal(size=(rays, 3)).astype(np.float32), ds, steps, box)
 
 
 def phase_3d_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -3159,28 +3117,6 @@ DYN3_BARS = {
 #: locator are held on every other ray, and on these printed
 DYN3_FOCUS_FLOOR = 1e-6
 DYN3_ORACLE_RAYS = 4096
-#: the JAX launches of vert op8 and interface op6
-#: (tests/test_dynamic_kernel3.py:92-99)
-DYN3_FIELD_LAUNCH = {
-    "vert": ((0.0, -1.0, 0.0), (-2.0, 5.0, -2.5, 1.0, -2.0, 2.0)),
-    "interface": ((-2.0, -2.0, 0.0), (-2.0, 20.0, -2.0, 4.0, -4.0, 4.0)),
-}
-
-
-def fan3_dyn(kind, rays, seed):
-    """(pos0, dir0, delta_s, steps, box) of the [dyn3] runs: the 3-D
-    phase's fans (``tilted``, ``matrix``, ``dispersed``: one turn of 600
-    steps) and JAX's ``vert`` and ``interface`` launches (directions at
-    [0.1, 0.9] rad with a 0.01 z-component, 250 steps of 0.01)."""
-    if kind not in DYN3_FIELD_LAUNCH:
-        return fan3(kind, rays, seed)
-    pos, box = DYN3_FIELD_LAUNCH[kind]
-    a = np.linspace(0.1, 0.9, rays)
-    return (np.tile([pos], (rays, 1)).astype(np.float32),
-            np.stack([np.cos(a), np.sin(a), np.full(rays, 0.01)],
-                     -1).astype(np.float32), 0.01, 250, box)
-
-
 def dyn3_exact(label, k, p):
     """A 3-D dynamic kernel's 25 planes against its plain version's, to the
     bit; prints the largest |d| of pos, tt and det Q and the KMAH
@@ -3208,6 +3144,29 @@ def dyn3_medium(name, gmed):
     if field is not None:
         return field, rtt.analytic_medium3(field), "dynamic3-kernel"
     return grid3_tables(gmed), gmed, "dynamic3-kernel-grid"
+
+
+def phase_div_check(device):
+    """The 3-D dynamic loop's quotients (csrc/common.cuh div_by: the
+    denominator's reciprocal and Markstein's correction) against the card's
+    IEEE division: all 2^32 float32 numerators over its constant
+    denominators 60 and 360, and 2^28 seeded pairs, half over every bit
+    pattern and half around the helper's guard (csrc/divide.cu).  Any
+    differing pair fails the run."""
+    from raytracing_tpu_torch.kernels.divide import div_check
+    t0 = time.perf_counter()
+    for label, kw in (("all 2^32 numerators / 60", dict(denominator=60.0,
+                                                         count=1 << 32)),
+                      ("all 2^32 numerators / 360", dict(denominator=360.0,
+                                                          count=1 << 32)),
+                      ("2^28 seeded pairs", dict(count=1 << 28, seed=11))):
+        bad, pair = div_check(device=device, **kw)
+        print(f"[div_by] {label}: {bad} differ from __fdiv_rn"
+              + ("" if pair is None else f" (e.g. {pair[0]!r} / {pair[1]!r})"),
+              flush=True)
+        if bad:
+            fail(f"div_by differs from IEEE division on {label}")
+    print(f"[div_by] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_dyn3_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):
@@ -3671,6 +3630,7 @@ def main():
     times.update(times3)
     # this slice: the 3-D dynamic tier and the 3-D eigenray solver
     t_d3 = time.perf_counter()
+    phase_div_check("cuda")
     errs.update(phase_dyn3_vs_plain("cuda", gmed))
     t_d3_main = time.perf_counter()
     druns3, dlaunches3 = main_path(

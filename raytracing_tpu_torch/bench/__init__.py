@@ -5,7 +5,9 @@ that ``chip_smoke.py`` and ``fma_probe --profile-sampled`` drive,
 :func:`warp_efficiency` (``chip_smoke.py`` and ``lifetimes``), and the
 df32 tier's depths, media and launch fans (:func:`df_media`,
 :func:`df_launch`, :func:`dispersed_fan`) that ``chip_smoke.py`` and
-``fma_probe`` share."""
+``fma_probe`` share; the 3-D runs' grid and fans (:func:`grid3_medium`,
+:func:`fan3`, :func:`fan3_dyn`) that ``chip_smoke.py`` and ``fma_probe``
+share."""
 import math
 
 import numpy as np
@@ -148,3 +150,71 @@ def df_state(kind, pos0, theta0, device):
     if kind in kdf.DF_FIELDS:
         return kdf.initial_df_state(pos0, theta0, device=device)
     return dg.split_state(pos0, theta0, device=device)
+
+
+# -- the 3-D runs -------------------------------------------------------------
+#: one turn of the fisheye's unit circle (benchmarks/kernel_matrix.py:194)
+DIV3 = 600
+BOX3 = (-1.5, 1.5, -1.5, 1.5, -1.5, 1.5)
+#: the benchmark's grid3 axis: 71 nodes at pitch 0.05
+#: (benchmarks/kernel_matrix.py:220-224); its per-cell table is 87.8 MB
+AX3 = np.arange(-1.75, 1.7501, 0.05)
+#: the JAX launches of vert op8 and interface op6
+#: (tests/test_dynamic_kernel3.py:92-99)
+DYN3_FIELD_LAUNCH = {
+    "vert": ((0.0, -1.0, 0.0), (-2.0, 5.0, -2.5, 1.0, -2.0, 2.0)),
+    "interface": ((-2.0, -2.0, 0.0), (-2.0, 20.0, -2.0, 4.0, -4.0, 4.0)),
+}
+
+
+def grid3_medium(device):
+    """The benchmark's sampled 3-D fisheye (71^3 nodes), built on the host
+    and uploaded to ``device``."""
+    import raytracing_tpu_torch as rtt
+    X, Y, Z = np.meshgrid(AX3, AX3, AX3, indexing="ij")
+    return rtt.c1_medium3_from_samples(
+        1.0 / (1.0 + X ** 2 + Y ** 2 + Z ** 2), AX3, AX3, AX3, device=device)
+
+
+def fan3(kind, rays, seed):
+    """(pos0, dir0, delta_s, steps, box) of the 3-D runs: ``tilted`` the
+    fisheye's ray (1, 0, 0) launched in planes tilted by [0, 1] rad (every
+    ray distinct; one turn); ``matrix`` the benchmark's 2^20 identical rays
+    (kernel_matrix.py:191-194); ``vert`` and ``interface`` random points
+    and directions in a box that some rays leave; ``dispersed`` points
+    all over the grid with random directions, so that the rays read rows
+    all over the 87.8 MB table."""
+    rng = np.random.default_rng(seed)
+    if kind in ("tilted", "matrix"):
+        if kind == "tilted":
+            tilt = np.linspace(0.0, 1.0, rays)
+            d = np.stack([np.zeros(rays), np.cos(tilt), np.sin(tilt)], -1)
+        else:
+            d = np.tile([[0.0, 1.0, 1e-3]], (rays, 1))
+        return (np.tile([[1.0, 0.0, 0.0]], (rays, 1)).astype(np.float32),
+                d.astype(np.float32), 2.0 * math.pi / DIV3, DIV3, BOX3)
+    if kind == "dispersed":
+        return (rng.uniform(-1.4, 1.4, (rays, 3)).astype(np.float32),
+                rng.normal(size=(rays, 3)).astype(np.float32),
+                2.0 * math.pi / DIV3, DIV3, BOX3)
+    pos0 = rng.uniform(-1.0, 1.0, (rays, 3))
+    ds, steps, box = 0.01, 200, (-2.0, 2.0, -2.0, 2.0, -2.0, 2.0)
+    if kind == "interface":
+        pos0[:, 1] = rng.uniform(-0.05, 0.05, rays)
+        ds, steps = 0.002, 1000
+    return (pos0.astype(np.float32),
+            rng.normal(size=(rays, 3)).astype(np.float32), ds, steps, box)
+
+
+def fan3_dyn(kind, rays, seed):
+    """(pos0, dir0, delta_s, steps, box) of the [dyn3] runs: the 3-D
+    phase's fans (``tilted``, ``matrix``, ``dispersed``: one turn of 600
+    steps) and JAX's ``vert`` and ``interface`` launches (directions at
+    [0.1, 0.9] rad with a 0.01 z-component, 250 steps of 0.01)."""
+    if kind not in DYN3_FIELD_LAUNCH:
+        return fan3(kind, rays, seed)
+    pos, box = DYN3_FIELD_LAUNCH[kind]
+    a = np.linspace(0.1, 0.9, rays)
+    return (np.tile([pos], (rays, 1)).astype(np.float32),
+            np.stack([np.cos(a), np.sin(a), np.full(rays, 0.01)],
+                     -1).astype(np.float32), 0.01, 250, box)

@@ -1,29 +1,43 @@
-"""Build probes of the CUDA kernels at the analytic main path's shapes, and
-profiles of the main paths.
+"""Build probes of the CUDA kernels at the main paths' shapes, and profiles
+of the main paths.
 
     python -m raytracing_tpu_torch.bench.fma_probe [--reps 5]
         [--parent-csrc DIR] [--profile PATH] [--profile-sampled PATH]
     python -m raytracing_tpu_torch.bench.fma_probe --sass [PATTERN]
+        [--parent-csrc DIR]
 
 Needs one CUDA device and nvcc.  By default it compares the build the
 package uses (``-fmad=false``) with ``-fmad=true``; with ``--parent-csrc``
 it compares instead the kernels built from another checkout's ``csrc``
 (e.g. the parent commit's, unpacked by ``git archive``) with this one's,
-both with the package's flags, on the analytic, sampled and df32 entry
-points they share (a parent built before the refill loop of
-``fused_step`` and ``fused_step_strat`` is called without its counter).
+both with the package's flags, on the analytic, sampled, df32, dynamic
+and 3-D entry points they share (SHARED_ENTRIES; a parent built before the
+refill loop of ``fused_step`` and ``fused_step_strat`` is called without
+its counter).
 Either way it makes four passes in the order A, B, B, A, so that a drift
 of the card's clock shows as a difference between the two passes of one
 build.  Each pass prints the card's name, power limit, SM clock, power
 draw and temperature, then for every shape the median kernel time of
-``--reps`` runs after one warm-up (CUDA events, one run each) and the
-largest |delta| of the final positions against the first pass.  The
-kernel wrappers launch from ``build.library()``; the probe points it at
-each build in turn.  The shapes are the analytic main path's, the fused
-kernels' on sampled media (:func:`sampled_cases`: interface_strat op6,
-vert_strat op8, fisheye_grid op1 and its node table) and the df32 tier's
-(:func:`df_cases`: the four df kernels at their main shapes, and the two
-grid kernels on a dispersed fan).
+``--reps`` runs after one warm-up (CUDA events around one run each; a run
+shorter than ``BATCH_BELOW_MS`` is timed as a batch of launches captured
+in one CUDA graph, its time a replay's over its count, so that neither
+the events' own cost nor the wrapper's host work between launches swamps
+it) and the largest
+|delta| of the final positions against the first pass.  The kernel
+wrappers launch from ``build.library()``; the probe points it at each
+build in turn.  The shapes are the analytic main path's (among them the
+76-step vert op8 run, timed from a graph), the fused kernels' on sampled
+media (:func:`sampled_cases`: interface_strat op6, vert_strat op8,
+fisheye_grid op1 and its node table), the df32 tier's (:func:`df_cases`:
+the four df kernels at their main shapes, and the two grid kernels on a
+dispersed fan) and the dynamic and 3-D tiers' (:func:`dynamic_cases`: the
+2-D dynamic kernels at chip_smoke.py's dynamic main shapes, fisheye_grid
+op6 on the parity and C1 grids (PERF.md row 8), the fisheye (row 11) and
+vert_strat (row 12); the 3-D dynamic kernels on the benchmark's identical
+rays ``dyn3_op6`` and the tilted fan, JAX's vert op8 and interface op6
+launches (row 15), the 71^3 grid3 table on the identical, tilted and
+dispersed fans (row 14d); and fused3d_step_grid on the tilted and
+dispersed fans (row 14k)).
 
 ``--profile PATH`` also traces the analytic main path with torch.profiler
 (interface op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through
@@ -37,11 +51,17 @@ window and the share of it in which the card was idle.
 ``--sass [PATTERN]`` only builds the package's library and reports, for
 every kernel whose mangled name contains PATTERN (default ``df_kernel``;
 ``fused_kernel`` gives every instantiation of the 2-D fused loop, one ray
-a thread and the refill loop's ``fused_kernel_refill``), its registers
-and spill bytes from ptxas (``-Xptxas -v``, the build's log), its count of
-SASS instructions, of FFMA (fused multiply-add) instructions among them,
-of FCHK (the IEEE division's range check, whose failure calls the slow
-path) and of CALL (``cuobjdump -sass``) and its most frequent opcodes;
+a thread and the refill loop's ``fused_kernel_refill``; ``dynamic`` the
+2-D and 3-D dynamic loops), its registers and spill bytes from ptxas
+(``-Xptxas -v``, the build's log), its count of SASS instructions, of FFMA
+(fused multiply-add) instructions among them, of F2I, I2F, LDG, MUFU,
+FCHK (the IEEE division's range check, whose failure calls the slow
+path), CALL and BSSY (a convergence barrier) (``cuobjdump -sass``), the
+instructions one iteration of its step loop issues on the usual path
+(:func:`loop_path`: the slow branches of divisions and square roots
+skipped; the 2-D dynamic loop is unrolled by two, so an iteration is two
+steps) and its most frequent opcodes; with ``--parent-csrc`` it reports
+the parent's build first;
 each FFMA line is written with the instructions before it to
 ``sass-ffma-<digest>.txt`` beside the library in ``_build/``, so that what
 issues it (an exact product, the IEEE division's refinement, or a
@@ -78,12 +98,17 @@ from raytracing_tpu_torch.kernels import golden as kg
 
 RAYS = 1 << 20
 SMI_QUERY = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
-#: the entry points the analytic, sampled and df32 shapes launch, which a
-#: parent checkout's library shares
+#: the entry points the probe's shapes launch, which a parent checkout's
+#: library shares
 SHARED_ENTRIES = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step",
                   "rt_fused_step_strat", "rt_fused_step_grid",
                   "rt_fused_step_nodes", "rt_df_step", "rt_df_step_grid",
-                  "rt_df_step_c1", "rt_df_step_profile")
+                  "rt_df_step_c1", "rt_df_step_profile", "rt_dynamic_step",
+                  "rt_dynamic_step_strat", "rt_dynamic_step_grid",
+                  "rt_fused3d_step_grid", "rt_dynamic3d_step",
+                  "rt_dynamic3d_step_grid")
+#: a run shorter than this (ms) is timed from a CUDA graph of launches
+BATCH_BELOW_MS = 2.0
 #: the entry points that take the refill loop's ray counter before the
 #: stream; a parent built before the loop takes none
 COUNTER_ENTRIES = ("rt_fused_step", "rt_fused_step_strat")
@@ -205,6 +230,92 @@ def df_cases(device, rays=RAYS):
     return out
 
 
+def dynamic_cases(device, rays=RAYS):
+    """(label, run) of the dynamic and 3-D kernels at their main shapes (the
+    module docstring lists them); the media are built once, on ``device``,
+    the tables as fast_dynamic and fast_dynamic3 make them."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import (fan3, fan3_dyn, grid3_medium,
+                                            jittered, sampled_media)
+    from raytracing_tpu_torch.engine import fast
+    from raytracing_tpu_torch.engine import segmented as seg
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    from raytracing_tpu_torch.kernels import dynamic as kd
+    from raytracing_tpu_torch.kernels import dynamic3d as kd3
+    from raytracing_tpu_torch.kernels import fused3d as kf3
+
+    media = sampled_media(device)
+    fish, vert = scenario("fisheye"), scenario("vert")
+    fpos, fth = launch_fan(fish, rays)
+    fth = jittered(fth, np.random.default_rng(0))
+    fds = float(np.float32(2.0 * math.pi / HEADLINE_DIVISOR))
+    vth = np.random.default_rng(0).uniform(0.05, 1.5, rays).astype(
+        np.float32)
+    vds = float(np.float32(0.0193))
+
+    def case2(label, field, pos0, theta0, ds, steps, box):
+        st = kd.initial_dyn_state(pos0, theta0, device=device)
+        kw = dict(field=field, op="op6", steps=steps, delta_s=ds,
+                  step_limit=steps, offset=0.0, box=tuple(box))
+
+        def run():
+            out = kd.dynamic_step(st, **kw)
+            return torch.stack([out.x, out.y], -1)
+        return f"{label} op6, {steps} steps", run
+
+    def grid(kind):
+        med = media[(kind, "fisheye")]
+        return seg.grid_tables(fast._as_hermite(med)
+                               if kind == "grid" else med)
+
+    vtab = kfu.strat_tables(rtt.compact_for_trace(media[("strat", "vert")],
+                                                  vert.box, vds))
+    out = [case2("dynamic_step_grid fisheye_grid", grid("grid"), fpos, fth,
+                 fds, HEADLINE_DIVISOR - 1, fish.box),
+           case2("dynamic_step_grid fisheye_c1_grid", grid("c1_grid"), fpos,
+                 fth, fds, HEADLINE_DIVISOR - 1, fish.box),
+           case2("dynamic_step fisheye", "fisheye", fpos, fth, fds,
+                 HEADLINE_DIVISOR, fish.box),
+           case2("dynamic_step_strat vert_strat", vtab,
+                 np.full((rays, 2), -2.0, np.float32), vth, vds, 2000,
+                 vert.box)]
+    g3 = grid3_tables(grid3_medium(device))
+
+    def case3(label, kernel, field, op, fan):
+        pos0, dir0, ds, steps, box = fan
+        init, step = ((kd3.initial_dyn3_state, kd3.dynamic3d_step)
+                      if kernel == "dyn"
+                      else (kf3.initial_state3, kf3.fused3d_step))
+        st = init(pos0, dir0, device=device)
+        kw = dict(field=field, op=op, steps=steps, delta_s=ds,
+                  step_limit=steps, offset=0.0, box=box)
+
+        def run():
+            o = step(st, **kw)
+            return torch.stack([o.x, o.y, o.z], -1)
+        return f"{label} {op}, {steps} steps", run
+
+    out += [case3("dynamic3d_step dyn3_op6", "dyn", "fisheye", "op6",
+                  fan3_dyn("matrix", rays, 0)),
+            case3("dynamic3d_step fisheye tilted", "dyn", "fisheye", "op6",
+                  fan3_dyn("tilted", rays, 0)),
+            case3("dynamic3d_step vert", "dyn", "vert_heterogeneous", "op8",
+                  fan3_dyn("vert", rays, 1)),
+            case3("dynamic3d_step interface", "dyn", "interface", "op6",
+                  fan3_dyn("interface", rays, 2)),
+            case3("dynamic3d_step_grid dyn3_tiled_op6", "dyn", g3, "op6",
+                  fan3_dyn("matrix", rays, 0)),
+            case3("dynamic3d_step_grid tilted", "dyn", g3, "op6",
+                  fan3_dyn("tilted", rays, 0)),
+            case3("dynamic3d_step_grid dispersed", "dyn", g3, "op6",
+                  fan3_dyn("dispersed", rays, 3)),
+            case3("fused3d_step_grid tilted", "fused", g3, "op6",
+                  fan3("tilted", rays, 0)),
+            case3("fused3d_step_grid dispersed", "fused", g3, "op6",
+                  fan3("dispersed", rays, 3))]
+    return out
+
+
 def cases(device, rays=RAYS):
     """(label, run) at the main paths' shapes; run returns final positions."""
     div = HEADLINE_DIVISOR
@@ -233,23 +344,47 @@ def cases(device, rays=RAYS):
         _golden_case("aniso", "op11", ds_a,
                      scenario("aniso").max_size(ds_a) - 1, device, rays),
         _golden_case("fisheye", "op11", ds_f, steps_f, device, rays),
-    ] + sampled_cases(device, rays) + df_cases(device, rays)
+    ] + sampled_cases(device, rays) + df_cases(device, rays) + \
+        dynamic_cases(device, rays)
 
 
 def time_ms(run, reps):
-    """Per-run CUDA-event times (ms) after one warm-up, and the last output."""
-    out = run()
-    times = []
-    for _ in range(reps):
+    """Per-run CUDA-event times (ms) after one warm-up, the last output and
+    the batch: a run shorter than BATCH_BELOW_MS is timed again as
+    ``batch`` launches captured in one CUDA graph, each time a replay's over
+    its count.  Launched one by one, such a run's launches are spaced by
+    the wrapper's host work, which the events would time instead; a
+    replay issues them back to back."""
+    def timed(fn, k):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        out = run()
+        res = fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times, out
+        return start.elapsed_time(end) / k, res
+
+    out = run()
+    times = []
+    for _ in range(reps):
+        ms, out = timed(run, 1)
+        times.append(ms)
+    if statistics.median(times) >= BATCH_BELOW_MS:
+        return times, out, 1
+    batch = max(2, math.ceil(BATCH_BELOW_MS / statistics.median(times)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                    # warm-up: lazy initialisation off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            last = run()
+    graph.replay()
+    times = [timed(graph.replay, batch)[0] for _ in range(reps)]
+    return times, last.clone(), batch
 
 
 def smi() -> str:
@@ -299,12 +434,14 @@ def probe(device, reps, builds):
         build.library = lambda lib=lib: lib
         print(smi(), flush=True)
         for label, run in shapes:
-            times, pos = time_ms(run, reps)
+            times, pos, batch = time_ms(run, reps)
             ref.setdefault(label, pos)
             dev = float((pos - ref[label]).abs().max())
+            each = ("" if batch == 1
+                    else f" (graphs of {batch} launches)")
             print(f"pass {p} {label_b} {label}: median "
                   f"{statistics.median(times):.3f} ms runs "
-                  f"{[round(t, 3) for t in times]} max|d vs {la}| "
+                  f"{[round(t, 3) for t in times]}{each} max|d vs {la}| "
                   f"{dev:.3e}", flush=True)
 
 
@@ -396,11 +533,49 @@ def _opcode(line):
     return text[text[0].startswith("@")].split(".", 1)[0].rstrip(";")
 
 
-def sass_report(pattern: str) -> None:
-    """Registers, spills, SASS instructions, FFMAs and opcodes of each kernel
-    whose mangled name contains ``pattern`` (module docstring)."""
-    lib = build.build()
-    digest = build.source_digest()
+_TARGET = re.compile(r"0x([0-9a-f]+)")
+
+
+def loop_path(code):
+    """The instructions, by opcode, that one iteration of a kernel's longest
+    loop issues on its usual path; None for a kernel without a loop.
+    ``code`` is the kernel's (address, instruction) pairs.  The loop runs
+    from the target of its longest backward branch to that branch; a
+    forward conditional branch over code that calls a subroutine (the slow
+    path of an IEEE division or square root, or of a guarded group of
+    quotients) is taken, any other is not."""
+    back = [(int(m.group(1), 16), addr) for addr, text in code
+            if _opcode(text) == "BRA" and (m := _TARGET.search(text))
+            and int(m.group(1), 16) < addr]
+    if not back:
+        return None
+    head, tail = max(back, key=lambda b: b[1] - b[0])
+    body = [(addr, text) for addr, text in code if head <= addr <= tail]
+    at = {addr: k for k, (addr, _) in enumerate(body)}
+    path, k = collections.Counter(), 0
+    while k < len(body):
+        addr, text = body[k]
+        op = _opcode(text)
+        path[op] += 1
+        if addr == tail:
+            break
+        m = _TARGET.search(text) if op == "BRA" else None
+        j = at.get(int(m.group(1), 16)) if m else None
+        if j is not None and j > k and (
+                not text.split("*/", 1)[1].lstrip().startswith("@")
+                or any(_opcode(t) == "CALL" for _, t in body[k + 1:j])):
+            k = j
+            continue
+        k += 1
+    return path
+
+
+def sass_report(pattern: str, csrc=build.CSRC) -> None:
+    """Registers, spills, SASS instructions, FFMAs, opcodes and the loop's
+    path of each kernel whose mangled name contains ``pattern``, built from
+    ``csrc`` (module docstring)."""
+    lib = build.build(csrc=csrc)
+    digest = build.source_digest(csrc=csrc)
     log = (build.BUILD_DIR / f"ptxas-{digest}.log").read_text()
     usage, entry = {}, None
     for line in log.splitlines():
@@ -415,6 +590,7 @@ def sass_report(pattern: str) -> None:
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     counts, ops, fn, recent, ffma_lines = {}, {}, None, [], []
+    code = collections.defaultdict(list)
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
@@ -422,26 +598,34 @@ def sass_report(pattern: str) -> None:
             counts[fn] = [0, 0]
             ops[fn] = collections.Counter()
             continue
-        if fn is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
+        where = re.search(r"/\*([0-9a-f]{4,})\*/", line)
+        if fn is None or not where:
             continue
         op = _opcode(line)
         counts[fn][0] += 1
         ops[fn][op] += 1
+        code[fn].append((int(where.group(1), 16), line.split(";", 1)[0]))
         if op == "FFMA" and pattern in fn:
             counts[fn][1] += 1
             ffma_lines.append(f"{fn}\n" + "\n".join(recent[-6:] + [line]))
         recent.append(line.strip())
     names = sorted(n for n in set(counts) | set(usage) if pattern in n)
-    print(f"[sass] {lib.name}: {len(names)} kernels matching {pattern!r}",
-          flush=True)
+    print(f"[sass] {lib.name} from {csrc}: {len(names)} kernels matching "
+          f"{pattern!r}", flush=True)
     for name, pretty in zip(names, _demangle(names)):
         instr, ffma = counts.get(name, [0, 0])
         top = ", ".join(f"{o} {c}" for o, c in ops.get(
             name, collections.Counter()).most_common(14))
         slow = ops.get(name, collections.Counter())
+        named = ("F2I", "I2F", "I2FP", "LDG", "MUFU", "FCHK", "CALL", "BSSY")
+        path = loop_path(code.get(name, []))
+        loop = "no loop" if path is None else (
+            f"loop path {sum(path.values())} instructions an iteration ("
+            + ", ".join(f"{o} {path[o]}" for o in named if path[o]) + ")")
         print(f"  {pretty}: {' | '.join(usage.get(name, ['no ptxas line']))}"
-              f"; {instr} SASS instructions, {ffma} FFMA, {slow['FCHK']} "
-              f"FCHK, {slow['CALL']} CALL; opcodes: {top}", flush=True)
+              f"; {instr} SASS instructions, {ffma} FFMA, "
+              + ", ".join(f"{slow[o]} {o}" for o in named)
+              + f"; {loop}; opcodes: {top}", flush=True)
     (build.BUILD_DIR / f"sass-ffma-{digest}.txt").write_text(
         "\n\n".join(ffma_lines) + "\n")
 
@@ -464,6 +648,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("fma_probe: needs a CUDA device")
     if args.sass:
+        if args.parent_csrc is not None:
+            sass_report(args.sass, csrc=args.parent_csrc)
         sass_report(args.sass)
         return 0
     own = ("fmad=false", build.load(build.build()))

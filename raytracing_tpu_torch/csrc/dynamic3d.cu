@@ -38,6 +38,14 @@
 // the row-read HBM estimate).  A thread leaves its step loop as soon as its
 // ray is frozen (box exit or the step limit): a frozen ray's state never
 // changes again.
+//
+// What the design does about its bound (FP32 issue): the loop's nineteen
+// quotients a step (op6) take a multiply, two FMAs and two compares each
+// from their five denominators' reciprocals, one guard branch a group
+// (dynamic3d.cuh, common.cuh div_all), where an IEEE division issues ~10
+// instructions with a branch and a convergence barrier; the grid's row is
+// blended as it is read (fused3d.cuh Grid3::nag_h); and the kernel runs as
+// many blocks an SM as it can without spilling (Dyn3Blocks below).
 #include "common.cuh"
 #include "dynamic3d.cuh"
 
@@ -58,8 +66,23 @@ struct Dyn3Args {
   float box[6];
 };
 
+// Blocks of 128 threads an SM, the most at which ptxas spills nothing: four
+// (128 registers, 16 warps) on the analytic fields, whose op2/op6 loops
+// took up to 141 registers unbounded, three blocks; three on the grid,
+// whose op6 and op8 loops spill 12 and 28 bytes at 128 registers (147-167
+// unbounded).  Measured on the H100 (PERF.md §6): four blocks ran
+// the analytic dyn3_op6 3.5 % faster than three, the grid's 1.4 % slower.
+template <class Medium>
+struct Dyn3Blocks {
+  static constexpr int value = 4;
+};
+template <>
+struct Dyn3Blocks<Grid3> {
+  static constexpr int value = 3;
+};
+
 template <class Medium, int OP>
-__global__ void __launch_bounds__(rt::kThreads)
+__global__ void __launch_bounds__(rt::kThreads, Dyn3Blocks<Medium>::value)
     dynamic3d_kernel(Dyn3Args a, Medium m) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= a.n) return;

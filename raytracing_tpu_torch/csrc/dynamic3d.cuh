@@ -20,8 +20,17 @@
 // exactly too); 1 / sqrtf where JAX writes lax.rsqrt (:263); 2n * n as
 // (2n) * n; the primal values both tangents read are computed once a step;
 // the sign of det Q is 0 at 0, as jnp.sign.  Built with -fmad=false.
+//
+// Its nineteen divisions a step (op6) share five denominators: n, 2n,
+// 2n * n and the constants 60 and 360.  Each denominator's reciprocal is
+// computed once and every quotient is formed from it by common.cuh's
+// div_by, or div_all for a group (the six of a tangent's advance, the two
+// of a rotation), which give the IEEE quotient's bits; 1 / n is carried
+// from one step to the next (the next step's n is this step's n2), and
+// 1 / (2n) is (1 / n) / 2, exact wherever 1 / n passes the guard.
 #pragma once
 
+#include "common.cuh"
 #include "fused3d.cuh"
 
 namespace rt3 {
@@ -59,6 +68,8 @@ struct Rot3 {
 };
 
 RT_HD Rot3 rot3(const V3& u, const V3& r) {
+  const rt::Recip r60{60.0f, 1.0f / 60.0f, true};
+  const rt::Recip r360{360.0f, 1.0f / 360.0f, true};
   Rot3 p;
   p.u = u;
   p.r = r;
@@ -66,8 +77,10 @@ RT_HD Rot3 rot3(const V3& u, const V3& r) {
   p.sinc = 1.0f - a2 * kSixth3 * (1.0f - a2 * 0.05f);
   p.vers = 0.5f * (1.0f - a2 * kTwelfth3 * (1.0f - a2 * kThirtieth3));
   p.cs = 1.0f - a2 * p.vers;
-  p.dsinc = kDsinc0 + a2 / 60.0f;
-  p.dvers = kDvers0 + a2 / 360.0f;
+  float q[2];
+  rt::div_all({a2, a2}, {&r60, &r360}, q);
+  p.dsinc = kDsinc0 + q[0];
+  p.dvers = kDvers0 + q[1];
   p.dcos = -(p.vers + a2 * p.dvers);
   p.c = cross3(r, u);
   p.rdotu = dot3(r, u);
@@ -113,7 +126,8 @@ struct Prim3 {
   V3 u, g, t, k1, um, g2, t2v, k2, u2;
   H3 h, h2;
   Rot3 rot1, rot;
-  float n, n2, gu, gum, two_n, two_nn, inv_n, inv_n2, inv;
+  rt::Recip two_n, two_nn;   // 2n and 2n * n, with their reciprocals
+  float n, n2, gu, gum, inv_n, inv_n2, inv;
 };
 
 // (dp2, du2) from (dp, du): the step's directional derivative (:215-268)
@@ -130,12 +144,15 @@ RT_HD void advance3(const Prim3& p, float ds, float half, V3& dp, V3& du) {
                  dg.z - dgu * u.z - p.gu * du.z};
   V3 dp2;
   if (kSecond) {
-    dp2 = {dp.x + (du.x * ds + (dt.x / p.two_n - p.t.x * dn / p.two_nn) * ds *
-                                   ds),
-           dp.y + (du.y * ds + (dt.y / p.two_n - p.t.y * dn / p.two_nn) * ds *
-                                   ds),
-           dp.z + (du.z * ds + (dt.z / p.two_n - p.t.z * dn / p.two_nn) * ds *
-                                   ds)};
+    // dt / (2n) and t dn / (2n n), componentwise, as one group
+    const rt::Recip* a = &p.two_n;
+    const rt::Recip* b = &p.two_nn;
+    float q[6];
+    rt::div_all({dt.x, p.t.x * dn, dt.y, p.t.y * dn, dt.z, p.t.z * dn},
+                {a, b, a, b, a, b}, q);
+    dp2 = {dp.x + (du.x * ds + (q[0] - q[1]) * ds * ds),
+           dp.y + (du.y * ds + (q[2] - q[3]) * ds * ds),
+           dp.z + (du.z * ds + (q[4] - q[5]) * ds * ds)};
   } else {
     dp2 = {dp.x + du.x * ds, dp.y + du.y * ds, dp.z + du.z * ds};
   }
@@ -180,11 +197,12 @@ RT_HD float sign3f(float v) {
 
 // ``steps`` steps of OP on one ray from global step ``offset``:
 // _dyn_step_body3 with the ray leaving the loop once it is frozen (box exit
-// or the step limit).  That changes nothing: every value the body carries,
-// the focus locator's included, changes only under active && in_limit, and
-// the global step only grows, so a frozen ray's state stays as it is (the
-// resume checks of tests/test_torch_dynamic_kernel3.py and chip_smoke.py
-// hold k + (n - k) launches to one).  n, grad n and the Hessian are
+// or the step limit, common.cuh step_budget).  That changes nothing: every
+// value the body carries, the focus locator's included, changes only under
+// active && in_limit, and the global step only grows, so a frozen ray's
+// state stays as it is (the resume checks of
+// tests/test_torch_dynamic_kernel3.py and chip_smoke.py hold k + (n - k)
+// launches to one).  n, grad n and the Hessian are
 // evaluated at the start, as _make_dyn_tile_kernel3 does (:471), so chained
 // launches equal one.  box = (x0, x1, y0, y1, z0, z1).
 template <class Medium, int OP>
@@ -196,11 +214,13 @@ RT_HD void run_dyn3(Dyn3& s, int steps, float ds, float limit, float offset,
   m.nag_h(s.pos.x, s.pos.y, s.pos.z, h);
   const float dsds_half = ds * ds * 0.5f;
   const float half = ds * 0.5f;
+  // 1 / n at the step's start, carried from the step before
+  rt::Recip rn{};
+  if (kSecond || kRk2) rn = rt::recip(h.n);
 
-  for (int i = 0; i < steps; ++i) {
-    const float gi = (float)i + offset;
-    if (!s.active || !(gi < limit)) break;
-    const float gstep = gi + 1.0f;
+  const int stop = rt::step_budget(steps, offset, limit);
+  for (int i = 0; i < stop && s.active; ++i) {
+    const float gstep = ((float)i + offset) + 1.0f;
 
     // -- the primal step ---------------------------------------------------
     Prim3 p;
@@ -213,7 +233,7 @@ RT_HD void run_dyn3(Dyn3& s, int steps, float ds, float limit, float offset,
     p.t = {p.g.x - p.gu * u.x, p.g.y - p.gu * u.y, p.g.z - p.gu * u.z};
     V3 D;
     if (kSecond) {
-      const float half_fac = dsds_half / p.n;
+      const float half_fac = rt::div_by(dsds_half, rn);
       D = {u.x * ds + p.t.x * half_fac, u.y * ds + p.t.y * half_fac,
            u.z * ds + p.t.z * half_fac};
     } else {
@@ -223,15 +243,21 @@ RT_HD void run_dyn3(Dyn3& s, int steps, float ds, float limit, float offset,
     m.nag_h(pos2.x, pos2.y, pos2.z, p.h2);
     p.n2 = p.h2.n;
     p.g2 = {p.h2.gx, p.h2.gy, p.h2.gz};
-    p.two_n = 2.0f * p.n;
-    p.two_nn = p.two_n * p.n;
+    rt::Recip rn2{};
+    if (kSecond || kRk2) rn2 = rt::recip(p.n2);
+    if (kSecond) {
+      // 1 / (2n) = (1 / n) / 2 exactly where rn.ok: both are normal numbers
+      const float two_n = 2.0f * p.n;
+      p.two_n = {two_n, 0.5f * rn.y, rn.ok && fabsf(two_n) <= 0x1p32f};
+      p.two_nn = rt::recip(two_n * p.n);
+    }
     if (kRk2) {
-      p.inv_n = 1.0f / p.n;
+      p.inv_n = rn.y;
       p.k1 = {ds * p.t.x * p.inv_n, ds * p.t.y * p.inv_n,
               ds * p.t.z * p.inv_n};
       p.rot1 = rot3(u, cross3(u, p.k1));
       p.um = rodrigues3v(p.rot1);
-      p.inv_n2 = 1.0f / p.n2;
+      p.inv_n2 = rn2.y;
       p.gum = dot3(p.g2, p.um);
       p.t2v = {p.g2.x - p.gum * p.um.x, p.g2.y - p.gum * p.um.y,
                p.g2.z - p.gum * p.um.z};
@@ -276,6 +302,7 @@ RT_HD void run_dyn3(Dyn3& s, int steps, float ds, float limit, float offset,
     s.pos = pos2;
     s.u = p.u2;
     h = p.h2;
+    rn = rn2;
     // strict 6-face exit: the exiting step is kept
     if ((pos2.x > box[1]) | (pos2.x < box[0]) | (pos2.y > box[3]) |
         (pos2.y < box[2]) | (pos2.z > box[5]) | (pos2.z < box[4]))

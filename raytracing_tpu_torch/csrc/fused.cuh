@@ -253,25 +253,9 @@ RT_HD void store_ray(const FusedArgs& a, int r, const Ray& s) {
 
 // A frozen ray never changes again (fused.py:585-592): it left the box, or
 // its global step i + offset reached its step limit.  budget is the steps
-// ray s may take in this launch before that limit: the plain version's
-// test (float)i + offset < limit holds for every i below it and for none
-// above (both the conversion and the sum round monotonically), so it is
-// a.steps where the test holds at a.steps - 1 (a launch that ends before
-// the limit, the usual case), else found by a binary search; 0 where limit
-// or offset is NaN
+// ray s may take in this launch before that limit (common.cuh step_budget)
 RT_HD int budget(const FusedArgs& a, const Ray& s) {
-  if (a.steps <= 0 || (float)(a.steps - 1) + a.offset < s.limit)
-    return a.steps > 0 ? a.steps : 0;
-  int lo = 0, hi = a.steps - 1;
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    if ((float)mid + a.offset < s.limit) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+  return step_budget(a.steps, a.offset, s.limit);
 }
 
 // ray r's a.steps steps: a thread leaves the loop as soon as the ray is

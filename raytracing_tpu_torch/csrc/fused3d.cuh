@@ -144,21 +144,6 @@ RT_HD float herm1(float c0, float c1, float c2, float c3, const Basis3& b) {
   return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
 }
 
-// The w-collapse of _tile_cell_locate3 (:322-328): the 2-D C1 patch data
-// q[ch2d][corner] (channels f, f_v, f_u, f_vu; corners 00, +x, +y, +xy) from
-// the cell row v[ch * 8 + corner3] with the 1-D basis b in w
-RT_HD void wblend(const float* v, const Basis3& b, float q[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int ch = c == 1 ? 2 : (c == 2 ? 1 : c);   // media/grid3._CH2D
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      q[c][k] = v[ch * 8 + k] * b.h0 + v[(ch + 4) * 8 + k] * b.g0 +
-                v[ch * 8 + k + 4] * b.h1 + v[(ch + 4) * 8 + k + 4] * b.g1;
-    }
-  }
-}
-
 // media/c1.py::_vblend on patch data q: each corner column pair blended in v
 // with the basis b into cubic-in-u Hermite data (p0, m0, p1, m1)
 RT_HD Basis3 vblend3(const float q[4][4], const Basis3& b) {
@@ -175,6 +160,42 @@ RT_HD Basis3 vblend3(const float q[4][4], const Basis3& b) {
 // jnp.clip(v, 0, hi) = min(max(v, 0), hi)
 RT_HD float clamp3(float v, float hi) { return fminf(fmaxf(v, 0.0f), hi); }
 
+// row quad j (floats 4j .. 4j + 3) of a cell row: one float4 load through
+// the read-only cache on the card
+RT_HD void quad(const float* row, int j, float* o) {
+#ifdef __CUDA_ARCH__
+  const float4 w = __ldg(reinterpret_cast<const float4*>(row) + j);
+  o[0] = w.x;
+  o[1] = w.y;
+  o[2] = w.z;
+  o[3] = w.w;
+#else
+  for (int k = 0; k < 4; ++k) o[k] = row[4 * j + k];
+#endif
+}
+
+// One patch channel of the w-collapse of _tile_cell_locate3 (:322-328):
+// its four corners (00, +x, +y, +xy) from the row channel's values at
+// w = 0 (lo) and w = 1 (hi) and those of its d/dw channel (dlo, dhi), with
+// the 1-D basis b in w
+RT_HD void wcollapse(const float* lo, const float* hi, const float* dlo,
+                     const float* dhi, const Basis3& b, float* q) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = lo[k] * b.h0 + dlo[k] * b.g0 + hi[k] * b.h1 + dhi[k] * b.g1;
+}
+
+// The whole w-collapse: the 2-D C1 patch data q[ch2d][corner] (channels f,
+// f_v, f_u, f_vu) from the cell row v[ch * 8 + corner3]
+RT_HD void wblend(const float* v, const Basis3& b, float q[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int ch = c == 1 ? 2 : (c == 2 ? 1 : c);   // media/grid3._CH2D
+    wcollapse(v + ch * 8, v + ch * 8 + 4, v + (ch + 4) * 8,
+              v + (ch + 4) * 8 + 4, b, q[c]);
+  }
+}
+
 // A C1Grid3Medium's per-cell table (engine/tiled3.py::cells64): one row of
 // 64 floats a cell, the cell (ix, iy, iz) at row (iz*(ny-1) + iy)*(nx-1) +
 // ix; nx, ny, nz count nodes.  Each evaluation locates the cell by JAX's
@@ -187,9 +208,9 @@ struct Grid3 {
   float x0, y0, z0, inv_hx, inv_hy, inv_hz;
   int nx, ny, nz;
 
-  // the cell of (x, y, z): its 64 floats into v, the in-cell offsets
-  RT_HD void cell(float x, float y, float z, float* v, float& ux, float& uy,
-                  float& uz) const {
+  // the row of the cell of (x, y, z) and the in-cell offsets
+  RT_HD const float* locate(float x, float y, float z, float& ux, float& uy,
+                            float& uz) const {
     const float fx = clamp3((x - x0) * inv_hx, (float)(nx - 1));
     const float fy = clamp3((y - y0) * inv_hy, (float)(ny - 1));
     const float fz = clamp3((z - z0) * inv_hz, (float)(nz - 1));
@@ -203,20 +224,15 @@ struct Grid3 {
         (static_cast<long long>(iz) * (ny - 1) + static_cast<long long>(iy)) *
             (nx - 1) +
         static_cast<long long>(ix);
-    const float* row = t + c * 64;
-#ifdef __CUDA_ARCH__
-    const float4* r4 = reinterpret_cast<const float4*>(row);
+    return t + c * 64;
+  }
+
+  // the cell of (x, y, z): its 64 floats into v, the in-cell offsets
+  RT_HD void cell(float x, float y, float z, float* v, float& ux, float& uy,
+                  float& uz) const {
+    const float* row = locate(x, y, z, ux, uy, uz);
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float4 w = __ldg(r4 + k);
-      v[4 * k] = w.x;
-      v[4 * k + 1] = w.y;
-      v[4 * k + 2] = w.z;
-      v[4 * k + 3] = w.w;
-    }
-#else
-    for (int k = 0; k < 64; ++k) v[k] = row[k];
-#endif
+    for (int k = 0; k < 16; ++k) quad(row, k, v + 4 * k);
   }
 
   RT_HD void nag(float x, float y, float z, float& n, float& gx, float& gy,
@@ -240,37 +256,72 @@ struct Grid3 {
   }
 
   // media/grid3.py::blend3_h (kernels/dynamic3d.py::_tile_nag3_h,
-  // :386-397), the row read once: the value w-collapse through the 2-D
-  // Hessian blend (media/c1.py::c1_blend_h) gives n, gx, gy, hxx, hxy, hyy;
-  // the derivative collapse through the full gradient blend gz, hxz, hyz
-  // (times inv_hz); the second-derivative collapse's value hzz
+  // :386-397): the value w-collapse through the 2-D Hessian blend
+  // (media/c1.py::c1_blend_h) gives n, gx, gy, hxx, hxy, hyy; the
+  // derivative collapse through the full gradient blend gz, hxz, hyz
+  // (times inv_hz); the second-derivative collapse's value hzz.  The row is
+  // consumed as it arrives, with no copy of its 64 floats: the two patch
+  // channels of one half of vblend3 (f and f_v give its h0 and h1, f_u and
+  // f_vu its g0 and g1) are read, collapsed in w with all three bases and
+  // blended in v at once, then the other two; every product and sum is the
+  // one wblend, vblend3 and herm1 form, in their order.
   RT_HD void nag_h(float x, float y, float z, H3& h) const {
-    float v[64], ux, uy, uz;
-    cell(x, y, z, v, ux, uy, uz);
-    const Basis3 hv = hermite_basis3(uy), dv = hermite_dbasis3(uy);
-    const Basis3 hu = hermite_basis3(ux), du = hermite_dbasis3(ux);
-    float q[4][4];
-    wblend(v, hermite_basis3(uz), q);
-    const Basis3 col = vblend3(q, hv);
-    const Basis3 col_dv = vblend3(q, dv);
+    float ux, uy, uz;
+    const float* row = locate(x, y, z, ux, uy, uz);
+    const Basis3 hv = hermite_basis3(uy), dv = hermite_dbasis3(uy),
+                 ddv = hermite_d2basis3(uy);
+    const Basis3 wb[3] = {hermite_basis3(uz), hermite_dbasis3(uz),
+                          hermite_d2basis3(uz)};
+    // the v-collapses vblend3(q_w, b_v) that the blend reads, by
+    // (w basis, v basis): col (value, value), col_dv, col_ddv, cw (d/dw,
+    // value), cw_dv, cww (d2/dw2, value); their (h0, h1), then (g0, g1)
+    constexpr int kW[6] = {0, 0, 0, 1, 1, 2};
+    const Basis3* vb[6] = {&hv, &dv, &ddv, &hv, &dv, &hv};
+    float o[6][2][2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // patch channels 2 half and 2 half + 1 are row channels chs[0..1]
+      // (media/grid3._CH2D); a row channel's quads 2 ch, 2 ch + 1 hold its
+      // corners at w = 0 and 1, quads 2 ch + 8, 2 ch + 9 its d/dw channel's
+      const int chs[2] = {half, half + 2};
+      float q[2][3][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float lo[4], hi[4], dlo[4], dhi[4];
+        quad(row, 2 * chs[j], lo);
+        quad(row, 2 * chs[j] + 1, hi);
+        quad(row, 2 * chs[j] + 8, dlo);
+        quad(row, 2 * chs[j] + 9, dhi);
+#pragma unroll
+        for (int w = 0; w < 3; ++w)
+          wcollapse(lo, hi, dlo, dhi, wb[w], q[j][w]);
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const float* a = q[0][kW[c]];
+        const float* b = q[1][kW[c]];
+        o[c][half][0] = herm1(a[0], b[0], a[2], b[2], *vb[c]);
+        o[c][half][1] = herm1(a[1], b[1], a[3], b[3], *vb[c]);
+      }
+    }
+    auto col_of = [&](int c) -> Basis3 {
+      return {o[c][0][0], o[c][1][0], o[c][0][1], o[c][1][1]};
+    };
+    const Basis3 col = col_of(0), col_dv = col_of(1), col_ddv = col_of(2),
+                 cw = col_of(3), cw_dv = col_of(4), cww = col_of(5);
+    const Basis3 hu = hermite_basis3(ux), du = hermite_dbasis3(ux),
+                 ddu = hermite_d2basis3(ux);
     h.n = herm1(col.h0, col.g0, col.h1, col.g1, hu);
     h.gx = herm1(col.h0, col.g0, col.h1, col.g1, du) * inv_hx;
     h.gy = herm1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, hu) * inv_hy;
-    const Basis3 ddu = hermite_d2basis3(ux);
     h.hxx = herm1(col.h0, col.g0, col.h1, col.g1, ddu) * (inv_hx * inv_hx);
     h.hxy = herm1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, du) *
             (inv_hx * inv_hy);
-    const Basis3 col_ddv = vblend3(q, hermite_d2basis3(uy));
     h.hyy = herm1(col_ddv.h0, col_ddv.g0, col_ddv.h1, col_ddv.g1, hu) *
             (inv_hy * inv_hy);
-    wblend(v, hermite_dbasis3(uz), q);
-    const Basis3 cw = vblend3(q, hv);
-    const Basis3 cw_dv = vblend3(q, dv);
     h.gz = herm1(cw.h0, cw.g0, cw.h1, cw.g1, hu) * inv_hz;
     h.hxz = herm1(cw.h0, cw.g0, cw.h1, cw.g1, du) * inv_hx * inv_hz;
     h.hyz = herm1(cw_dv.h0, cw_dv.g0, cw_dv.h1, cw_dv.g1, hu) * inv_hy * inv_hz;
-    wblend(v, hermite_d2basis3(uz), q);
-    const Basis3 cww = vblend3(q, hv);
     h.hzz = herm1(cww.h0, cww.g0, cww.h1, cww.g1, hu) * (inv_hz * inv_hz);
   }
 };

@@ -392,21 +392,28 @@ RT_HD void hermite_blend_h(const float* c, float u, float v, float inv_hx,
 }
 
 // -- 2-D grid (engine/segmented.py::_cells, fused.py::_tile_nag) -------------
+// The cell of (x, y) on a table's nodes, by JAX's float32 clip/floor/min
+// sequence: the in-cell offsets (u, v) and the row index iy * stride + ix
+// (stride nx - 1 for a per-cell table, nx for the node table), in 64 bits:
+// a user grid may hold more than 2^31 floats.
+RT_HD long long locate2(const Table& m, float x, float y, int stride, float& u,
+                        float& v) {
+  const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
+  const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
+  const float ix = fminf(floorf(fx), (float)(m.nx - 2));
+  const float iy = fminf(floorf(fy), (float)(m.ny - 2));
+  u = fx - ix;
+  v = fy - iy;
+  return static_cast<long long>(iy) * stride + static_cast<long long>(ix);
+}
+
 template <int CELL_CH>
 struct Grid {
   static_assert(CELL_CH == 36 || CELL_CH == 16, "parity (36) or C1 (16)");
   Table m;
   RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
-    const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
-    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
-    const float ix = fminf(floorf(fx), (float)(m.nx - 2));
-    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
-    const float u = fx - ix;
-    const float v = fy - iy;
-    // 64-bit offset: a user grid may hold more than 2^31 floats
-    const long long cell = static_cast<long long>(iy) * (m.nx - 1) +
-                           static_cast<long long>(ix);
-    const float* c = m.t + cell * CELL_CH;
+    float u, v;
+    const float* c = m.t + locate2(m, x, y, m.nx - 1, u, v) * CELL_CH;
     if (CELL_CH == 16) {
       c1_blend(c, u, v, m.inv_hx, m.inv_hy, n, gx, gy);
     } else {
@@ -415,15 +422,8 @@ struct Grid {
   }
   // the same cell lookup, then the 9 channels of the dynamic kernels
   RT_HD void nag_h(float x, float y, float* f) const {
-    const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
-    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
-    const float ix = fminf(floorf(fx), (float)(m.nx - 2));
-    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
-    const float u = fx - ix;
-    const float v = fy - iy;
-    const long long cell = static_cast<long long>(iy) * (m.nx - 1) +
-                           static_cast<long long>(ix);
-    const float* c = m.t + cell * CELL_CH;
+    float u, v;
+    const float* c = m.t + locate2(m, x, y, m.nx - 1, u, v) * CELL_CH;
     if (CELL_CH == 16) {
       c1_blend_h(c, u, v, m.inv_hx, m.inv_hy, f);
     } else {
@@ -436,15 +436,8 @@ struct Grid {
 struct Nodes {
   Table m;   // t: the (ny*nx, 9) node table
   RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
-    const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
-    const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
-    const float ix = fminf(floorf(fx), (float)(m.nx - 2));
-    const float iy = fminf(floorf(fy), (float)(m.ny - 2));
-    const float u = fx - ix;
-    const float v = fy - iy;
-    const long long node = static_cast<long long>(iy) * m.nx +
-                           static_cast<long long>(ix);
-    const float* c00 = m.t + node * 9;
+    float u, v;
+    const float* c00 = m.t + locate2(m, x, y, m.nx, u, v) * 9;
     const float* c10 = c00 + static_cast<long long>(m.nx) * 9;
     hermite_blend(NodeCorners{c00, c00 + 9, c10, c10 + 9}, u, v, n, gx, gy);
   }

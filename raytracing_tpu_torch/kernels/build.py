@@ -38,6 +38,7 @@ _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
 #: a sampled medium's table and geometry: table, x0, y0, inv_hx, inv_hy,
 #: nx, ny (csrc/media.cuh RT_TABLE_PARAMS)
 _TABLE = (_P, _F, _F, _F, _F, _I, _I)
@@ -128,6 +129,9 @@ _SIGNATURES = {
     # in_planes, out_planes, n, steps, ds, cells, y0h, y0l, ihyh, ihyl, ny,
     # stream
     "rt_df_step_profile": (_P, _P, _I, _I, _F, _P, _F, _F, _F, _F, _I, _P),
+    # mode, denominator, first, count, seed, out (3 int64 on the card),
+    # stream (csrc/divide.cu: the shared-reciprocal division's check)
+    "rt_div_check": (_I, _F, _U64, _U64, _U64, _P, _P),
 }
 
 

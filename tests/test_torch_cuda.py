@@ -9,9 +9,12 @@ fast_trace on a CustomMedium; the plain versions replayed from a CUDA
 graph against their eager loops; the refill loop of fused_step and
 fused_step_strat on the interface fan (1 to 8,209 rays, op6 and op7 with
 the stats, a short step limit, a resume chain); the fused 3-D kernels (analytic and
-grid3) with fast_trace3's routes; and the 3-D dynamic kernels (analytic
-and grid3) against their plain version, with fast_dynamic3's routes and the
-3-D eigenray solver on the card.
+grid3) with fast_trace3's routes; the 3-D dynamic kernels (analytic and
+grid3) against their plain version, also where their shared-reciprocal
+quotients leave the fast path, with fast_dynamic3's routes and the 3-D
+eigenray solver on the card; and that division (csrc/common.cuh div_by)
+against IEEE division on all 2^32 numerators of 60 and 360 and 2^28
+seeded pairs.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -822,6 +825,45 @@ def test_dynamic3d_kernels_match_plain(op, field, cuda_device):
                                     device=cuda_device)
         _planes_equal(replay.dynamic3d_plain(st, **kw),
                       kd3.dynamic3d_step_plain(st, **kw))
+
+
+@pytest.mark.parametrize("op", ["op2", "op6", "op8"])
+@pytest.mark.parametrize("field", ["fisheye", "grid"])
+def test_dynamic3d_kernels_off_the_division_fast_path(op, field,
+                                                      cuda_device):
+    """Both 3-D dynamic kernels where their quotients (common.cuh div_by)
+    leave the fast path, against dynamic3d_step_plain, every plane to the
+    bit: rays launched at the fisheye's centre (zero numerators) and within
+    1e-30 to 1e-12 of it (subnormal and tiny numerators), in and out of
+    the z = 0 plane."""
+    from raytracing_tpu_torch.engine.tiled3 import grid3_tables
+    med = grid3_tables(_grid3(cuda_device)) if field == "grid" else field
+    rng = np.random.default_rng(4)
+    pos0 = rng.normal(size=(R, 3)) * 10.0 ** rng.uniform(-30, -12, (R, 1))
+    dir0 = rng.normal(size=(R, 3))
+    pos0[:64] = 0.0
+    pos0[64:512, 2] = dir0[64:512, 2] = 0.0
+    st = kd3.initial_dyn3_state(pos0, dir0, device=cuda_device)
+    kw = dict(field=med, op=op, steps=60, delta_s=2 * np.pi / 600,
+              step_limit=60.0, offset=0.0,
+              box=(-1.5, 1.5, -1.5, 1.5, -1.5, 1.5))
+    _planes_equal(kd3.dynamic3d_step(st, **kw), replay.dynamic3d_plain(st,
+                                                                       **kw))
+
+
+@pytest.mark.parametrize("denominator", [60.0, 360.0, None])
+def test_div_by_equals_fdiv_rn(denominator, cuda_device):
+    """common.cuh's div_by against the card's IEEE division (__fdiv_rn):
+    every one of the 2^32 float32 numerators over the 3-D loop's constant
+    denominators 60 and 360, and 2^28 seeded pairs (half over every bit
+    pattern, half around the guard's thresholds); no pair may differ."""
+    from raytracing_tpu_torch.kernels.divide import div_check
+    if denominator is None:
+        bad, pair = div_check(count=1 << 28, seed=11, device=cuda_device)
+    else:
+        bad, pair = div_check(denominator=denominator, count=1 << 32,
+                              device=cuda_device)
+    assert bad == 0, pair
 
 
 def test_fast_dynamic3_and_eigenrays3_on_the_card(cuda_device):

@@ -346,6 +346,43 @@ def test_header_step_loop_on_the_host_equals_plain(field, op, host_loop,
         assert float(plain.kmah.max()) > 0 and float(plain.minstep.max()) > 5
 
 
+@pytest.mark.parametrize("op", ["op2", "op6", "op8"])
+@pytest.mark.parametrize("field", ["fisheye", "grid"])
+def test_header_step_loop_takes_the_division_guard(field, op, host_loop,
+                                                   monkeypatch):
+    """The loop's quotients (common.cuh div_by) off its fast path, against
+    dynamic3d_step_plain, all 25 planes to the bit: rays launched at the
+    fisheye's centre (grad n exactly 0, so zero numerators) and within
+    1e-30 to 1e-12 of it (subnormal and tiny rotation angles a2 and tangent
+    numerators, below the guard's 2^-64), in and out of the z = 0 plane."""
+    sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda t: sqrt(t.double()).float())
+    med = grid3_tables(_grid(12)) if field == "grid" else field
+    rng = np.random.default_rng(4)
+    n = 128
+    scale = 10.0 ** rng.uniform(-30, -12, (n, 1))
+    pos0 = rng.normal(size=(n, 3)) * scale
+    pos0[:16] = 0.0
+    pos0[16:48, 2] = 0.0
+    dir0 = rng.normal(size=(n, 3))
+    dir0[16:48, 2] = 0.0
+    st = tk3.initial_dyn3_state(pos0, dir0, **CPU)
+    # the first step's rotation angle a2 = |u x k1|^2, k1 = ds t / n, t the
+    # part of grad n = -2 n^2 pos across u, is below the guard on these rays
+    p = pos0 * 2.0
+    u = dir0 / np.linalg.norm(dir0, axis=1, keepdims=True)
+    t = p - (p * u).sum(1, keepdims=True) * u
+    ds = 2 * np.pi / 600
+    a2 = (np.cross(u, ds * t) ** 2).sum(1)
+    assert (a2[16:] < 2.0 ** -64).all() and (a2[16:] > 0).any()
+    plain = tk3.dynamic3d_step_plain(st, field=med, op=op, steps=40,
+                                     delta_s=ds, step_limit=40.0, offset=0.0,
+                                     box=BOX)
+    host = host_loop(st, med, op, 40, ds, 40.0, BOX)
+    for name, a, b in zip(tk3.Dyn3State._fields, plain, host):
+        assert torch.equal(a, b), name
+
+
 # -- interop, routes, errors ------------------------------------------------
 
 def test_state_interop_and_a_jax_launch_state_resumed():
