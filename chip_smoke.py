@@ -151,7 +151,12 @@ either is missing or any check fails.  Phases, one line or more each:
    engine/eigenray3d.py): ``[div_by]`` the division by a shared reciprocal
    that its loop forms its quotients with (csrc/common.cuh) against the
    card's IEEE division, all 2^32 numerators over 60 and over 360 and 2^28
-   seeded pairs, no pair differing; ``[dyn3-vs-plain]`` both 3-D dynamic
+   seeded pairs; the fused step's division by a carried positive
+   reciprocal (div_fast_pos), all 2^32 numerators over four values of n
+   and 2^28 seeded pairs; the reciprocal, square root and rsqrt fast paths
+   (rcp_rn, sqrt_fast, rsqrt_fast) on all 2^32 operands against
+   __frcp_rn, __fsqrt_rn and rsqrtf; no operand differing;
+   ``[dyn3-vs-plain]`` both 3-D dynamic
    kernels against dynamic3d_step_plain at 65,536 rays and at most 1,000
    steps, every op on the three analytic fields (the fisheye's tilted fan
    through its focus, JAX's vert and interface launches), op1 and op6 on
@@ -517,12 +522,18 @@ def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
     scen, ds, steps, pos0, theta0 = inputs("fisheye", "op1")
     x, y, th = kfu._vectors(pos0, theta0, device)
     ux, uy = torch.cos(th), torch.sin(th)
-    kx, ky, ktt = kf.fisheye_op1(x, y, ux, uy, ds, steps)
-    px, py, ptt = kf.fisheye_op1_plain(x, y, ux, uy, ds, steps)
-    errs["fisheye_op1"].compare(
-        f"fisheye_op1 {steps} steps", torch.stack([kx, ky], -1),
-        torch.stack([px, py], -1), ktt, ptt, None, None, POS_TOL["fisheye"],
-        tt_rel=TT_REL_TOL)
+    for n in (steps, steps - 1):      # an even and an odd count
+        kx, ky, ktt = kf.fisheye_op1(x, y, ux, uy, ds, n)
+        px, py, ptt = kf.fisheye_op1_plain(x, y, ux, uy, ds, n)
+        errs["fisheye_op1"].compare(
+            f"fisheye_op1 {n} steps", torch.stack([kx, ky], -1),
+            torch.stack([px, py], -1), ktt, ptt, None, None,
+            POS_TOL["fisheye"], tt_rel=TT_REL_TOL)
+        if not all(torch.equal(k, p) for k, p in ((kx, px), (ky, py),
+                                                  (ktt, ptt))):
+            fail(f"fisheye_op1 {n} steps: x, y or tt differs from the "
+                 "plain version's bits")
+        print("    x, y and tt equal to the bit", flush=True)
 
     # fused_step: every op on every field, with stats where p_x is invariant
     for op in kfu.FUSED_OPS:
@@ -640,17 +651,26 @@ def phase_headline(device, errs, rays=RAYS_MAIN, divisor=HEADLINE_DIVISOR):
     y = torch.zeros(rays, device=device)
     th = torch.full((rays,), math.pi / 2.0, device=device)
     ds = float(np.float32(2.0 * math.pi / divisor))
-    plain_ms, (px, py, _) = cuda_ms(
+    plain_ms, (px, py, ptt) = cuda_ms(
         lambda: kf.fisheye_op1_plain(x, y, torch.cos(th), torch.sin(th), ds,
                                      steps))
     dpos = float((pos - torch.stack([px, py], -1)).abs().max())
     errs["fisheye_op1"].pos = max(errs["fisheye_op1"].pos, dpos)
+    # a comparison launch, not the main path's: its count is taken back
+    counted = kf.KERNEL.launches
+    kx, ky, ktt = kf.fisheye_op1(x, y, torch.cos(th), torch.sin(th), ds,
+                                 steps)
+    kf.KERNEL.launches = counted
+    if not all(torch.equal(k, p) for k, p in ((kx, px), (ky, py),
+                                              (ktt, ptt))):
+        fail(f"headline: fisheye_op1's {steps} steps differ from the plain "
+             "version's bits (x, y or tt)")
     rate = rays * steps / med
     print(f"[headline] fisheye op1 {rays} rays x {steps} steps: "
           f"{med * 1e3:.3f} ms median of {len(times)} "
           f"({rate:.4e} ray-steps/s), closure {closure:.6f} % (bar < 5), "
-          f"plain version {plain_ms:.1f} ms, |dpos| vs plain {dpos:.3e}",
-          flush=True)
+          f"plain version {plain_ms:.1f} ms, |dpos| vs plain {dpos:.3e} "
+          "(x, y and tt equal to the bit)", flush=True)
     if not closure < 5.0:
         fail(f"headline closure {closure} % >= 5 %")
     if not dpos <= POS_TOL["fisheye"]:
@@ -3146,26 +3166,47 @@ def dyn3_medium(name, gmed):
     return grid3_tables(gmed), gmed, "dynamic3-kernel-grid"
 
 
+#: [div_by]'s checks: (label, div_check arguments); the fused step's n lies
+#: near 1 or 1/18 (fisheye (0, 1], vert about 1/18, interface 1 .. 1.41)
+DIV_CHECKS = (
+    ("div_by, all 2^32 numerators / 60", dict(denominator=60.0,
+                                               count=1 << 32)),
+    ("div_by, all 2^32 numerators / 360", dict(denominator=360.0,
+                                                count=1 << 32)),
+    ("div_by, 2^28 seeded pairs", dict(count=1 << 28, seed=11)),
+    *((f"div_fast_pos, all 2^32 numerators / {b!r}",
+       dict(kind="div_pos", denominator=b, count=1 << 32))
+      for b in (1.0, 0.5, 0.0555555559694767, 1.2071068286895752)),
+    ("div_fast_pos, 2^28 seeded pairs", dict(kind="div_pos", count=1 << 28,
+                                             seed=13)),
+    ("rcp_rn, all 2^32 denominators, against __frcp_rn",
+     dict(kind="rcp", count=1 << 32)),
+    ("sqrt_fast, all 2^32 operands, against __fsqrt_rn",
+     dict(kind="sqrt", count=1 << 32)),
+    ("rsqrt_fast, all 2^32 operands, against rsqrtf",
+     dict(kind="rsqrt", count=1 << 32)),
+)
+
+
 def phase_div_check(device):
-    """The 3-D dynamic loop's quotients (csrc/common.cuh div_by: the
-    denominator's reciprocal and Markstein's correction) against the card's
-    IEEE division: all 2^32 float32 numerators over its constant
-    denominators 60 and 360, and 2^28 seeded pairs, half over every bit
-    pattern and half around the helper's guard (csrc/divide.cu).  Any
-    differing pair fails the run."""
+    """The correctly rounded operations from shared or approximate
+    reciprocals (csrc/common.cuh; csrc/divide.cu, DIV_CHECKS) against the
+    card's own: div_by (the 3-D dynamic loop's quotients) and div_fast_pos
+    (the fused step's) against __fdiv_rn, rcp_rn (the analytic and custom
+    fields' reciprocals), sqrt_fast (the fused step's length) and
+    rsqrt_fast (fisheye_op1's normalization) against __frcp_rn,
+    __fsqrt_rn and rsqrtf.  Any differing operand fails the run."""
     from raytracing_tpu_torch.kernels.divide import div_check
     t0 = time.perf_counter()
-    for label, kw in (("all 2^32 numerators / 60", dict(denominator=60.0,
-                                                         count=1 << 32)),
-                      ("all 2^32 numerators / 360", dict(denominator=360.0,
-                                                          count=1 << 32)),
-                      ("2^28 seeded pairs", dict(count=1 << 28, seed=11))):
+    for label, kw in DIV_CHECKS:
         bad, pair = div_check(device=device, **kw)
-        print(f"[div_by] {label}: {bad} differ from __fdiv_rn"
-              + ("" if pair is None else f" (e.g. {pair[0]!r} / {pair[1]!r})"),
-              flush=True)
+        what = ("" if pair is None else
+                f" (e.g. {pair[0]!r} / {pair[1]!r})"
+                if kw.get("kind", "div_by").startswith("div")
+                else f" (e.g. {pair[0]!r})")
+        print(f"[div_by] {label}: {bad} differ{what}", flush=True)
         if bad:
-            fail(f"div_by differs from IEEE division on {label}")
+            fail(f"{label}: differs from the card's own operation")
     print(f"[div_by] {time.perf_counter() - t0:.1f} s", flush=True)
 
 

@@ -2,8 +2,9 @@
 of the main paths.
 
     python -m raytracing_tpu_torch.bench.fma_probe [--reps 5]
-        [--parent-csrc DIR] [--profile PATH] [--profile-sampled PATH]
-    python -m raytracing_tpu_torch.bench.fma_probe --sass [PATTERN]
+        [--parent-csrc DIR] [--cases LABEL[,...]] [--profile PATH]
+        [--profile-sampled PATH]
+    python -m raytracing_tpu_torch.bench.fma_probe --sass [PATTERN[,...]]
         [--parent-csrc DIR]
 
 Needs one CUDA device and nvcc.  By default it compares the build the
@@ -13,7 +14,10 @@ it compares instead the kernels built from another checkout's ``csrc``
 both with the package's flags, on the analytic, sampled, df32, dynamic
 and 3-D entry points they share (SHARED_ENTRIES; a parent built before the
 refill loop of ``fused_step`` and ``fused_step_strat`` is called without
-its counter).
+its counter), and on row 2c's generated library (:func:`custom_library`:
+the fisheye as a ``CustomMedium``, its op6 loop emitted by each checkout's
+own ``kernels/custom.py`` where the other checkout has one beside its
+``csrc``, and built against that checkout's headers).
 Either way it makes four passes in the order A, B, B, A, so that a drift
 of the card's clock shows as a difference between the two passes of one
 build.  Each pass prints the card's name, power limit, SM clock, power
@@ -23,10 +27,14 @@ shorter than ``BATCH_BELOW_MS`` is timed as a batch of launches captured
 in one CUDA graph, its time a replay's over its count, so that neither
 the events' own cost nor the wrapper's host work between launches swamps
 it) and the largest
-|delta| of the final positions against the first pass.  The kernel
+|delta| of the final positions against the first pass; ``--cases`` keeps
+the shapes whose label contains one of the strings given.  The kernel
 wrappers launch from ``build.library()``; the probe points it at each
 build in turn.  The shapes are the analytic main path's (among them the
-76-step vert op8 run, timed from a graph), the fused kernels' on sampled
+76-step vert op8 run, timed from a graph), row 2c's (:func:`custom_cases`:
+``fused_step_custom`` on chip_smoke.py's ``[custom]`` fisheye fan, 2^20 x
+4586, and the analytic ``fused_step`` on the same fan), the fused kernels'
+on sampled
 media (:func:`sampled_cases`: interface_strat op6, vert_strat op8,
 fisheye_grid op1 and its node table), the df32 tier's (:func:`df_cases`:
 the four df kernels at their main shapes, and the two grid kernels on a
@@ -48,25 +56,29 @@ seven runs of chip_smoke.py's sampled phase through ``fast_trace``, media
 built on the card beforehand), and prints the wall time of the traced
 window and the share of it in which the card was idle.
 
-``--sass [PATTERN]`` only builds the package's library and reports, for
-every kernel whose mangled name contains PATTERN (default ``df_kernel``;
+``--sass [PATTERN[,PATTERN...]]`` only builds the package's library and
+row 2c's generated one (:func:`custom_library`) and reports, for every
+kernel whose mangled name contains a PATTERN (default ``df_kernel``;
 ``fused_kernel`` gives every instantiation of the 2-D fused loop, one ray
-a thread and the refill loop's ``fused_kernel_refill``; ``dynamic`` the
-2-D and 3-D dynamic loops), its registers and spill bytes from ptxas
-(``-Xptxas -v``, the build's log), its count of SASS instructions, of FFMA
-(fused multiply-add) instructions among them, of F2I, I2F, LDG, MUFU,
-FCHK (the IEEE division's range check, whose failure calls the slow
-path), CALL and BSSY (a convergence barrier) (``cuobjdump -sass``), the
-instructions one iteration of its step loop issues on the usual path
-(:func:`loop_path`: the slow branches of divisions and square roots
-skipped; the 2-D dynamic loop is unrolled by two, so an iteration is two
-steps) and its most frequent opcodes; with ``--parent-csrc`` it reports
-the parent's build first;
-each FFMA line is written with the instructions before it to
-``sass-ffma-<digest>.txt`` beside the library in ``_build/``, so that what
-issues it (an exact product, the IEEE division's refinement, or a
-contraction) can be read.  Run it in another checkout (e.g. the parent's,
-unpacked by ``git archive``) for that checkout's counts.
+a thread, the refill loop's ``fused_kernel_refill`` and the generated
+``fused_kernel<Custom, 6>``; ``fisheye_op1`` the headline's loop;
+``dynamic`` the 2-D and 3-D dynamic loops), its registers and spill bytes
+from ptxas (``-Xptxas -v``, the build's log), its count of SASS
+instructions, of FFMA (fused multiply-add) instructions among them, of
+F2I, I2F, LDG, MUFU, FCHK (the IEEE division's range check, whose failure
+calls the slow path), CALL, BSSY (a convergence barrier) and MOV
+(``cuobjdump -sass``), the instructions one iteration of its longest loop
+issues on the usual path (:func:`loop_path`: the slow branches of
+divisions, square roots and guarded fast paths skipped; the 2-D dynamic
+and fused loops run two steps an iteration, the fisheye's four) and of
+every loop no other loop holds (:func:`outer_loops`: fused_kernel's loops
+with and without the Welford stats, fisheye_op1's for each traveltime
+form), and its most frequent opcodes; with ``--parent-csrc`` it reports
+the parent's builds first; each FFMA line is written with the
+instructions before it to ``sass-ffma-<digest>.txt`` beside the library
+in ``_build/``, so that what issues it (an exact product, the IEEE
+division's refinement, or a contraction) can be read, and each loop's
+path to ``sass-loop-<digest>.txt``.
 """
 from __future__ import annotations
 
@@ -88,9 +100,11 @@ from pathlib import Path
 from raytracing_tpu_torch import config
 from raytracing_tpu_torch.bench import (DF_PROFILE_STEPS, DF_VERT_STEPS,
                                         HEADLINE_DIVISOR, df_launch, df_media,
-                                        df_state, dispersed_fan, launch_fan)
+                                        df_state, dispersed_fan, jittered,
+                                        launch_fan)
 from raytracing_tpu_torch.config import scenario
 from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.kernels import custom
 from raytracing_tpu_torch.kernels import df as kdf
 from raytracing_tpu_torch.kernels import fisheye as kf
 from raytracing_tpu_torch.kernels import fused as kfu
@@ -151,6 +165,74 @@ def _golden_case(name, op, ds, steps, device, rays):
                              box=scen.box)
         return torch.stack([out.x, out.y], -1)
     return f"golden {op} {name}, {steps} steps", run
+
+
+def custom_fisheye():
+    """Row 2c's medium: the fisheye's ``1 / (1 + x^2 + y^2)`` as a
+    ``CustomMedium`` (its gradient by dual numbers), as chip_smoke.py's
+    ``[custom]`` phase writes it."""
+    import raytracing_tpu_torch as rtt
+    return rtt.CustomMedium(lambda x, y: 1.0 / (1.0 + x * x + y * y))
+
+
+def _generator(csrc):
+    """The custom-medium generator (kernels/custom.py) of the checkout whose
+    ``csrc`` is given: this one's, or another checkout's own module where
+    it has one beside its csrc (its emitted source calls only its own
+    headers)."""
+    other = Path(csrc).resolve().parent / "kernels" / "custom.py"
+    if Path(csrc).resolve() == build.CSRC.resolve() or not other.exists():
+        return custom
+    import importlib.util
+    import sys
+    name = "raytracing_tpu_torch_parent_custom"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, other)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def custom_library(csrc=build.CSRC):
+    """(library path, its entry point) of row 2c's fused op6 loop on
+    :func:`custom_fisheye`, generated by ``csrc``'s checkout and built
+    against its headers."""
+    gen = _generator(csrc)
+    source, entry = gen._unit(gen.trace_custom(custom_fisheye()), "fused",
+                              "op6")
+    custom.build_units({0: source}, csrc)
+    lib = custom._library_path(source, csrc)
+    return lib, getattr(build.load(lib, (entry,)), entry)
+
+
+def custom_cases(device, rays=RAYS):
+    """(label, run) of row 2c's main shape: ``fused_step_custom`` on the
+    ``[custom]`` fisheye fan of chip_smoke.py (the headline's fan with
+    +-1e-3 rad of jitter, numpy seed 3, ray 0 at pi/2), op6 for one turn at
+    the headline divisor, 2^20 x 4586; then the analytic ``fused_step`` on
+    the same fan, whose arithmetic the generated field repeats.  The
+    custom kernel launches from ``kfu.library_for``, which :func:`probe`
+    points at each build's library in turn."""
+    fish = scenario("fisheye")
+    ds = 2.0 * math.pi / HEADLINE_DIVISOR
+    steps = fish.max_size(ds, HEADLINE_DIVISOR, 1) - 1
+    pos0, theta0 = launch_fan(fish, rays)
+    theta0 = jittered(theta0, np.random.default_rng(3))
+    theta0[0] = np.float32(math.pi / 2.0)
+    field = custom.trace_custom(custom_fisheye())
+    out = []
+    for label, medium in (("fused_step_custom", field),
+                          ("fused_step", "fisheye")):
+        st = kfu.initial_state("op6", pos0, theta0, field=medium,
+                               with_stats=False, device=device)
+        kw = dict(field=medium, op="op6", steps=steps, delta_s=ds,
+                  step_limit=steps, offset=0.0, box=tuple(fish.box))
+
+        def run(st=st, kw=kw):
+            o = kfu.fused_step(st, **kw)
+            return torch.stack([o.x, o.y], -1)
+        out.append((f"{label} op6 custom fisheye fan, {steps} steps", run))
+    return out
 
 
 def sampled_cases(device, rays=RAYS):
@@ -236,7 +318,7 @@ def dynamic_cases(device, rays=RAYS):
     the tables as fast_dynamic and fast_dynamic3 make them."""
     import raytracing_tpu_torch as rtt
     from raytracing_tpu_torch.bench import (fan3, fan3_dyn, grid3_medium,
-                                            jittered, sampled_media)
+                                            sampled_media)
     from raytracing_tpu_torch.engine import fast
     from raytracing_tpu_torch.engine import segmented as seg
     from raytracing_tpu_torch.engine.tiled3 import grid3_tables
@@ -344,8 +426,8 @@ def cases(device, rays=RAYS):
         _golden_case("aniso", "op11", ds_a,
                      scenario("aniso").max_size(ds_a) - 1, device, rays),
         _golden_case("fisheye", "op11", ds_f, steps_f, device, rays),
-    ] + sampled_cases(device, rays) + df_cases(device, rays) + \
-        dynamic_cases(device, rays)
+    ] + custom_cases(device, rays) + sampled_cases(device, rays) + \
+        df_cases(device, rays) + dynamic_cases(device, rays)
 
 
 def time_ms(run, reps):
@@ -423,15 +505,20 @@ def load_parent(path):
     return ParentLibrary(lib)
 
 
-def probe(device, reps, builds):
-    """Four passes over the shapes, in the order A, B, B, A of the two
-    ``(label, library)`` builds."""
-    shapes = cases(device)
+def probe(device, reps, builds, only=None):
+    """Four passes over the shapes (those whose label contains one of the
+    strings ``only``, where given), in the order A, B, B, A of the two
+    ``(label, library, custom entry point)`` builds: the main library and
+    row 2c's generated one."""
+    shapes = [(label, run) for label, run in cases(device)
+              if not only or any(o in label for o in only)]
     ref = {}
-    (la, liba), (lb, libb) = builds
-    for p, (label_b, lib) in enumerate(((la, liba), (lb, libb), (lb, libb),
-                                        (la, liba))):
+    (la, liba, cua), (lb, libb, cub) = builds
+    for p, (label_b, lib, cu) in enumerate(((la, liba, cua), (lb, libb, cub),
+                                            (lb, libb, cub),
+                                            (la, liba, cua))):
         build.library = lambda lib=lib: lib
+        kfu.library_for = lambda *spec, cu=cu: (cu, cu.__name__)
         print(smi(), flush=True)
         for label, run in shapes:
             times, pos, batch = time_ms(run, reps)
@@ -536,20 +623,26 @@ def _opcode(line):
 _TARGET = re.compile(r"0x([0-9a-f]+)")
 
 
-def loop_path(code):
-    """The instructions, by opcode, that one iteration of a kernel's longest
-    loop issues on its usual path; None for a kernel without a loop.
-    ``code`` is the kernel's (address, instruction) pairs.  The loop runs
-    from the target of its longest backward branch to that branch; a
-    forward conditional branch over code that calls a subroutine (the slow
-    path of an IEEE division or square root, or of a guarded group of
-    quotients) is taken, any other is not."""
-    back = [(int(m.group(1), 16), addr) for addr, text in code
+def _back_branches(code):
+    return [(int(m.group(1), 16), addr) for addr, text in code
             if _opcode(text) == "BRA" and (m := _TARGET.search(text))
             and int(m.group(1), 16) < addr]
+
+
+def loop_path(code, lines=None, loop=None):
+    """The instructions, by opcode, that one iteration of a kernel's longest
+    loop (or of ``loop``, a (head, tail) pair) issues on its usual path;
+    None for a kernel without a loop.  ``code`` is the kernel's (address,
+    instruction) pairs; ``lines``, a list, receives the path's instructions
+    in order.  The loop runs from the target of its longest backward
+    branch to that branch; a forward conditional branch over code that
+    calls a subroutine (the slow path of an IEEE division or square root,
+    or of a guarded group of quotients or of a whole step) is taken, any
+    other is not."""
+    back = _back_branches(code)
     if not back:
         return None
-    head, tail = max(back, key=lambda b: b[1] - b[0])
+    head, tail = loop or max(back, key=lambda b: b[1] - b[0])
     body = [(addr, text) for addr, text in code if head <= addr <= tail]
     at = {addr: k for k, (addr, _) in enumerate(body)}
     path, k = collections.Counter(), 0
@@ -557,6 +650,8 @@ def loop_path(code):
         addr, text = body[k]
         op = _opcode(text)
         path[op] += 1
+        if lines is not None:
+            lines.append(text.strip())
         if addr == tail:
             break
         m = _TARGET.search(text) if op == "BRA" else None
@@ -570,13 +665,8 @@ def loop_path(code):
     return path
 
 
-def sass_report(pattern: str, csrc=build.CSRC) -> None:
-    """Registers, spills, SASS instructions, FFMAs, opcodes and the loop's
-    path of each kernel whose mangled name contains ``pattern``, built from
-    ``csrc`` (module docstring)."""
-    lib = build.build(csrc=csrc)
-    digest = build.source_digest(csrc=csrc)
-    log = (build.BUILD_DIR / f"ptxas-{digest}.log").read_text()
+def _usage(log):
+    """ptxas's register and spill lines of each entry in a build log."""
     usage, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -585,49 +675,92 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
             entry = m.group(1)
         elif entry and ("registers" in line or "spill" in line):
             usage.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return usage
+
+
+def outer_loops(code):
+    """The (head, tail) of each loop of a kernel that no other loop holds
+    (in fused_kernel, the step loops with and without the Welford stats),
+    by address."""
+    back = sorted(set(_back_branches(code)))
+    return [b for b in back if not any(o != b and o[0] <= b[0] and b[1] <= o[1]
+                                       for o in back)]
+
+
+def sass_report(pattern: str, csrc=build.CSRC) -> None:
+    """Registers, spills, SASS instructions, FFMAs, opcodes and the loop's
+    path of each kernel whose mangled name contains one of the
+    comma-separated ``pattern``s, in the library built from ``csrc`` and in
+    row 2c's generated library (:func:`custom_library`) built against it
+    (module docstring)."""
+    patterns = pattern.split(",")
+    main_lib = build.build(csrc=csrc)
+    digest = build.source_digest(csrc=csrc)
+    custom_lib = custom_library(csrc)[0]
     tool = shutil.which("cuobjdump") or str(
         Path(build._nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    counts, ops, fn, recent, ffma_lines = {}, {}, None, [], []
-    code = collections.defaultdict(list)
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            fn, recent = m.group(1), []
-            counts[fn] = [0, 0]
-            ops[fn] = collections.Counter()
-            continue
-        where = re.search(r"/\*([0-9a-f]{4,})\*/", line)
-        if fn is None or not where:
-            continue
-        op = _opcode(line)
-        counts[fn][0] += 1
-        ops[fn][op] += 1
-        code[fn].append((int(where.group(1), 16), line.split(";", 1)[0]))
-        if op == "FFMA" and pattern in fn:
-            counts[fn][1] += 1
-            ffma_lines.append(f"{fn}\n" + "\n".join(recent[-6:] + [line]))
-        recent.append(line.strip())
-    names = sorted(n for n in set(counts) | set(usage) if pattern in n)
-    print(f"[sass] {lib.name} from {csrc}: {len(names)} kernels matching "
-          f"{pattern!r}", flush=True)
-    for name, pretty in zip(names, _demangle(names)):
-        instr, ffma = counts.get(name, [0, 0])
-        top = ", ".join(f"{o} {c}" for o, c in ops.get(
-            name, collections.Counter()).most_common(14))
-        slow = ops.get(name, collections.Counter())
-        named = ("F2I", "I2F", "I2FP", "LDG", "MUFU", "FCHK", "CALL", "BSSY")
-        path = loop_path(code.get(name, []))
-        loop = "no loop" if path is None else (
-            f"loop path {sum(path.values())} instructions an iteration ("
-            + ", ".join(f"{o} {path[o]}" for o in named if path[o]) + ")")
-        print(f"  {pretty}: {' | '.join(usage.get(name, ['no ptxas line']))}"
-              f"; {instr} SASS instructions, {ffma} FFMA, "
-              + ", ".join(f"{slow[o]} {o}" for o in named)
-              + f"; {loop}; opcodes: {top}", flush=True)
+    ffma_lines, loops = [], []
+    for lib, log in ((main_lib, build.BUILD_DIR / f"ptxas-{digest}.log"),
+                     (custom_lib, custom_lib.with_suffix(".log"))):
+        usage = _usage(log.read_text())
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        counts, ops, fn, recent = {}, {}, None, []
+        code = collections.defaultdict(list)
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn, recent = m.group(1), []
+                counts[fn] = [0, 0]
+                ops[fn] = collections.Counter()
+                continue
+            where = re.search(r"/\*([0-9a-f]{4,})\*/", line)
+            if fn is None or not where:
+                continue
+            op = _opcode(line)
+            counts[fn][0] += 1
+            ops[fn][op] += 1
+            code[fn].append((int(where.group(1), 16), line.split(";", 1)[0]))
+            if op == "FFMA" and any(p in fn for p in patterns):
+                counts[fn][1] += 1
+                ffma_lines.append(f"{fn}\n" + "\n".join(recent[-6:] + [line]))
+            recent.append(line.strip())
+        names = sorted(n for n in set(counts) | set(usage)
+                       if any(p in n for p in patterns))
+        print(f"[sass] {lib.name} from {csrc}: {len(names)} kernels matching "
+              f"{pattern!r}", flush=True)
+        for name, pretty in zip(names, _demangle(names)):
+            instr, ffma = counts.get(name, [0, 0])
+            top = ", ".join(f"{o} {c}" for o, c in ops.get(
+                name, collections.Counter()).most_common(14))
+            slow = ops.get(name, collections.Counter())
+            named = ("F2I", "I2F", "I2FP", "LDG", "MUFU", "FCHK", "CALL",
+                     "BSSY", "MOV")
+            lines = []
+            path = loop_path(code.get(name, []), lines)
+            loop = "no loop" if path is None else (
+                f"loop path {sum(path.values())} instructions an iteration ("
+                + ", ".join(f"{o} {path[o]}" for o in named if path[o])
+                + ")")
+            for head, tail in outer_loops(code.get(name, [])):
+                more = []
+                other = loop_path(code[name], more, (head, tail))
+                loop += (f"; loop at {head:#x} {sum(other.values())} ("
+                         + ", ".join(f"{o} {other[o]}" for o in named
+                                     if other[o]) + ")")
+                loops.append(f"{pretty} loop at {head:#x}\n"
+                             + "\n".join(more))
+            print(f"  {pretty}: "
+                  f"{' | '.join(usage.get(name, ['no ptxas line']))}"
+                  f"; {instr} SASS instructions, {ffma} FFMA, "
+                  + ", ".join(f"{slow[o]} {o}" for o in named)
+                  + f"; {loop}; opcodes: {top}", flush=True)
+            if path is not None:
+                loops.append(f"{pretty}\n" + "\n".join(lines))
     (build.BUILD_DIR / f"sass-ffma-{digest}.txt").write_text(
         "\n\n".join(ffma_lines) + "\n")
+    (build.BUILD_DIR / f"sass-loop-{digest}.txt").write_text(
+        "\n\n".join(loops) + "\n")
 
 
 def main(argv=None):
@@ -640,6 +773,9 @@ def main(argv=None):
                     help="also trace the analytic main path to this trace")
     ap.add_argument("--profile-sampled", metavar="PATH",
                     help="also trace the sampled main path to this trace")
+    ap.add_argument("--cases", metavar="LABEL[,LABEL...]",
+                    help="time only the shapes whose label contains one of "
+                         "these strings")
     ap.add_argument("--sass", metavar="PATTERN", nargs="?",
                     const="df_kernel",
                     help="only report registers, spills and FFMAs of the "
@@ -652,14 +788,19 @@ def main(argv=None):
             sass_report(args.sass, csrc=args.parent_csrc)
         sass_report(args.sass)
         return 0
-    own = ("fmad=false", build.load(build.build()))
+    only = args.cases.split(",") if args.cases else None
+    own = ("fmad=false", build.load(build.build()), custom_library()[1])
     if args.parent_csrc is not None:
-        other = ("parent", load_parent(build.build(csrc=args.parent_csrc)))
-        probe("cuda", args.reps, (other, ("change", own[1])))
+        other = ("parent", load_parent(build.build(csrc=args.parent_csrc)),
+                 custom_library(args.parent_csrc)[1])
+        probe("cuda", args.reps, (other, ("change", *own[1:])), only)
     else:
+        # row 2c's generated library is built with the package's flags only
         probe("cuda", args.reps,
-              (own, ("fmad=true", build.load(build.build(fmad_flags(True))))))
+              (own, ("fmad=true", build.load(build.build(fmad_flags(True))),
+                     own[2])), only)
     build.library = lambda: own[1]
+    kfu.library_for = custom.library_for
     if args.profile:
         profile_main_path("cuda", args.profile)
     if args.profile_sampled:

@@ -7,12 +7,16 @@
 //
 // One thread per ray; the whole state (x, y, cx, cy, ux, uy, n, gx, gy, tt)
 // lives in registers for every step, and each ray is read and written once
-// as coalesced struct-of-arrays planes (7 x 4 bytes a ray).  A step is ~30
-// FP32 operations and one rsqrt against 28 bytes per ray for the whole run,
-// so at thousands of steps the kernel is bound by FP32 issue, not memory:
-// the design keeps every step's traffic in registers and masks the ragged
-// edge instead of padding.
-#include "media.cuh"
+// as coalesced struct-of-arrays planes (7 x 4 bytes a ray).  The loop is
+// fisheye.cuh's fisheye_op1_run: a step issues 43.5 instructions on its
+// usual path (fma_probe --sass fisheye_op1, PERF.md section 5): 35 counted
+// FP32 operations, the reciprocal's MUFU.RCP and two FFMA, one MUFU.RSQ,
+// two guard compares and a share of the guard branch, the loop and the
+// carry.  Against 28 bytes per ray for the whole run, so at thousands of
+// steps the kernel is bound by FP32 issue, not memory: the design keeps
+// every step's traffic in registers and masks the ragged edge instead of
+// padding.
+#include "fisheye.cuh"
 
 namespace rt {
 
@@ -23,35 +27,8 @@ fisheye_op1_kernel(const float* __restrict__ x0, const float* __restrict__ y0,
                    float* __restrict__ out_tt, int n_rays, int steps, float ds) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  float x = x0[r], y = y0[r], ux = ux0[r], uy = uy0[r];
-  float cx = 0.0f, cy = 0.0f, tt = 0.0f;
-  const Analytic<FISHEYE> medium{};
-  float n, gx, gy;
-  medium.nag(x, y, n, gx, gy);
-  const float half = ds * 0.5f;
-  for (int i = 0; i < steps; ++i) {
-    float nx, ny;
-    kahan(x, cx, ux * ds, nx, cx);
-    kahan(y, cy, uy * ds, ny, cy);
-    x = nx;
-    y = ny;
-    float n2, gx2, gy2;
-    medium.nag(x, y, n2, gx2, gy2);
-    // theta_cost_t, trig-free: new tangent = normalized momentum + impulse
-    const float sx = n * ux + (gx + gx2) * half;
-    const float sy = n * uy + (gy + gy2) * half;
-    const float inv = rsqrtf(sx * sx + sy * sy);
-    ux = sx * inv;
-    uy = sy * inv;
-    // optical path: a first-order step moves exactly ds
-    tt = tt + ds * (n + n2) * 0.5f;
-    n = n2;
-    gx = gx2;
-    gy = gy2;
-  }
-  out_x[r] = x;
-  out_y[r] = y;
-  out_tt[r] = tt;
+  fisheye_op1_run(x0[r], y0[r], ux0[r], uy0[r], steps, ds, out_x[r],
+                  out_y[r], out_tt[r]);
 }
 
 }  // namespace rt

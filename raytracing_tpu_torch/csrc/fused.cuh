@@ -61,8 +61,44 @@ struct Ray {
   float wax, way, wbx, wby;     // op7's window: p_{-2}, p_{-1}
   float ds, limit;
   float n, gx, gy;
+  float rny;   // 1 / n where n is in recip_pos's range (Quick steps)
   bool active;
 };
+
+// The steps that divide several numerators by n and n2 (op2: k1, k2;
+// op6: the position's ds^2 / 2n too): they take the fast path
+// (advance<..., true>: quotients from the carried reciprocal of n, the
+// analytic fields' reciprocal, the step length's square root, each
+// correctly rounded where its guard holds, with no branch) and test the
+// guards once; where any fails, they take the step again with the IEEE
+// operations (advance<..., false>, the plain version's operations one by
+// one), from the same carry.  Either way the same bits.  Not on the
+// analytic interface, whose literal logistic gives a gradient below 2^-100
+// (or subnormal) over a band of y on either side of its width, where the
+// guard fails and the step would run twice (PERF.md, section 6): there
+// every step takes the IEEE operations, as before.
+template <class Medium, int OP>
+struct Quick {
+  static constexpr bool value = OP == 2 || OP == 6;
+};
+template <int FIELD, int OP>
+struct Quick<Analytic<FIELD>, OP> {
+  static constexpr bool value = (OP == 2 || OP == 6) && FIELD != INTERFACE;
+};
+
+// medium.nag_fast where the medium has one (the analytic fields), its
+// guards ANDed into ok; else medium.nag
+template <class Medium>
+RT_HD auto nag_q(const Medium& m, float x, float y, float& n, float& gx,
+                 float& gy, bool& ok, int)
+    -> decltype(m.nag_fast(x, y, n, gx, gy, ok), void()) {
+  m.nag_fast(x, y, n, gx, gy, ok);
+}
+template <class Medium>
+RT_HD void nag_q(const Medium& m, float x, float y, float& n, float& gx,
+                 float& gy, bool&, long) {
+  m.nag(x, y, n, gx, gy);
+}
 
 template <class Medium, int OP>
 RT_HD void load_ray(const FusedArgs& a, const Medium& medium, int r, Ray& s) {
@@ -91,13 +127,15 @@ RT_HD void load_ray(const FusedArgs& a, const Medium& medium, int r, Ray& s) {
   s.ds = a.ds_ray ? a.ds_ray[r] : a.ds;
   s.limit = a.limit_ray ? a.limit_ray[r] : a.limit;
   medium.nag(s.x, s.y, s.n, s.gx, s.gy);
+  if (Quick<Medium, OP>::value) s.rny = recip_pos(s.n).y;
 }
 
 // one step of OP (fused.py:430-608) from the ray's step i of this launch;
-// stats is a.stats (a constant where the caller knows it)
-template <class Medium, int OP>
-RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
-                bool stats) {
+// stats is a.stats (a constant where the caller knows it).  FAST (Quick
+// ops only): the fast path, every guard ANDed into ok
+template <class Medium, int OP, bool FAST>
+RT_HD void advance(const FusedArgs& a, const Medium& medium, Ray& s, int i,
+                   bool stats, bool& ok) {
   constexpr bool kSecond = OP == 6 || OP == 7 || OP == 8;
   constexpr bool kCurv = OP == 3 || OP == 4;
   constexpr bool kRk2 = OP == 2 || OP == 3 || OP == 6;
@@ -106,6 +144,8 @@ RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
   const float ds = s.ds;
   const float x = s.x, y = s.y, ux = s.ux, uy = s.uy;
   const float n = s.n, gx = s.gx, gy = s.gy;
+  // the carried reciprocal of n, its guard tested where it is used
+  const Recip rn{n, s.rny, pos_range(n)};
 
   // -- position advance ------------------------------------------------
   float ddx, ddy;
@@ -134,7 +174,8 @@ RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
   } else if (kSecond) {
     // r += u ds + (grad - (grad.u) u) ds^2 / 2n
     const float gdotu = gx * ux + gy * uy;
-    const float half_fac = ds * ds * 0.5f / n;
+    const float num = ds * ds * 0.5f;
+    const float half_fac = FAST ? div_fast_pos(num, rn, ok) : num / n;
     ddx = ux * ds + (gx - gdotu * ux) * half_fac;
     ddy = uy * ds + (gy - gdotu * uy) * half_fac;
   } else if (kCurv) {
@@ -150,7 +191,14 @@ RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
   kahan(y, s.cy, ddy, ny2, cy2);
 
   float n2, gx2, gy2;
-  medium.nag(nx2, ny2, n2, gx2, gy2);
+  if (FAST) {
+    nag_q(medium, nx2, ny2, n2, gx2, gy2, ok, 0);
+  } else {
+    medium.nag(nx2, ny2, n2, gx2, gy2);
+  }
+  // the next step's reciprocal of n (its y read only where its ok holds)
+  Recip rn2{};
+  if (Quick<Medium, OP>::value) rn2 = recip_pos(n2);
 
   // -- angle update ----------------------------------------------------
   float nux, nuy;
@@ -172,10 +220,12 @@ RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
     nuy = vy * inv;
   } else if (kRk2) {
     // tfinal_2o: rotate the tangent by the k1/k2 increments
-    const float k1 = ds * (ux * gy - uy * gx) / n;
+    const float num1 = ds * (ux * gy - uy * gx);
+    const float k1 = FAST ? div_fast_pos(num1, rn, ok) : num1 / n;
     float ux1, uy1;
     rot(ux, uy, k1, ux1, uy1);
-    const float k2 = ds * (ux1 * gy2 - uy1 * gx2) / n2;
+    const float num2 = ds * (ux1 * gy2 - uy1 * gx2);
+    const float k2 = FAST ? div_fast_pos(num2, rn2, ok) : num2 / n2;
     rot(ux, uy, (k1 + k2) * 0.5f, nux, nuy);
   } else {
     // theta_cost_t: normalized momentum + trapezoid impulse
@@ -193,7 +243,8 @@ RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
   }
 
   if (kSecond || kCurv || kRk4) {
-    const float dist = sqrtf(ddx * ddx + ddy * ddy);
+    const float d2 = ddx * ddx + ddy * ddy;
+    const float dist = FAST ? sqrt_fast(d2, ok) : sqrtf(d2);
     s.tt = s.tt + dist * (n + n2) * 0.5f;
     s.dsim = s.dsim + dist;
   } else {
@@ -223,6 +274,27 @@ RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
   s.n = n2;
   s.gx = gx2;
   s.gy = gy2;
+  s.rny = rn2.y;
+}
+
+// one step of OP from the ray's step i of this launch (advance); a Quick
+// op's takes the fast path and, where a guard fails, the step again with
+// the IEEE operations from the same carry
+template <class Medium, int OP>
+RT_HD void step(const FusedArgs& a, const Medium& medium, Ray& s, int i,
+                bool stats) {
+  bool ok = true;
+  if constexpr (Quick<Medium, OP>::value) {
+    Ray t = s;
+    advance<Medium, OP, true>(a, medium, t, i, stats, ok);
+    if (!ok) {
+      t = s;
+      advance<Medium, OP, false>(a, medium, t, i, stats, ok);
+    }
+    s = t;
+  } else {
+    advance<Medium, OP, false>(a, medium, s, i, stats, ok);
+  }
   // strict box exit (RT_bench.py:878): the exiting step is kept
   if (outside(s.x, s.y, a.box)) s.active = false;
 }
@@ -258,15 +330,42 @@ RT_HD int budget(const FusedArgs& a, const Ray& s) {
   return step_budget(a.steps, a.offset, s.limit);
 }
 
+// the ray's steps 0 .. stop - 1 of this launch, until it leaves the box.
+// A Quick op's loop runs two steps an iteration, the box tested after
+// each, then the odd one (one loop test for two steps); the others keep
+// one step an iteration, where two gave the grid's op1 more carry moves
+// than loop tests saved (PERF.md section 5)
+template <class Medium, int OP, bool STATS>
+RT_HD void run_steps(const FusedArgs& a, const Medium& medium, Ray& s,
+                     int stop) {
+  int i = 0;
+  if constexpr (Quick<Medium, OP>::value) {
+    if (!s.active) return;
+    for (; i + 1 < stop; i += 2) {
+      step<Medium, OP>(a, medium, s, i, STATS);
+      if (!s.active) return;
+      step<Medium, OP>(a, medium, s, i + 1, STATS);
+      if (!s.active) return;
+    }
+  }
+  for (; i < stop && s.active; ++i) step<Medium, OP>(a, medium, s, i, STATS);
+}
+
 // ray r's a.steps steps: a thread leaves the loop as soon as the ray is
-// frozen, since its state never changes again
+// frozen, since its state never changes again.  The stats flag picks the
+// loop once, so that a launch without them computes no Welford update (it
+// has no side effect, so with a run-time flag the compiler computed it
+// every step and kept it unstored)
 template <class Medium, int OP>
 RT_HD void run_ray(const FusedArgs& a, const Medium& medium, int r) {
   Ray s;
   load_ray<Medium, OP>(a, medium, r, s);
   const int stop = budget(a, s);
-  for (int i = 0; i < stop && s.active; ++i)
-    step<Medium, OP>(a, medium, s, i, a.stats);
+  if (a.stats) {
+    run_steps<Medium, OP, true>(a, medium, s, stop);
+  } else {
+    run_steps<Medium, OP, false>(a, medium, s, stop);
+  }
   store_ray<OP>(a, r, s);
 }
 

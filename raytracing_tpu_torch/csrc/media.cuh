@@ -64,30 +64,52 @@ enum H9 { HN = 0, HGX, HGY, HGNX, HGNY, HXX, HXY, HYX, HYY };
 
 template <int FIELD>
 struct Analytic {
-  RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
+  // n and grad n.  FAST: each 1 / (...) by its fast path, its guard ANDed
+  // into ok (common.cuh), so that a step can test it with its other
+  // guards; else the IEEE division.  Both give the same bits where ok
+  // holds.
+  template <bool FAST>
+  RT_HD void field(float x, float y, float& n, float& gx, float& gy,
+                   bool& ok) const {
     if (FIELD == FISHEYE) {
-      n = 1.0f / (1.0f + x * x + y * y);
+      const float d = 1.0f + x * x + y * y;
+      n = FAST ? rcp_fast_ge1(d, ok) : 1.0f / d;
       const float c = -2.0f * n * n;
       gx = c * x;
       gy = c * y;
     } else if (FIELD == VERT) {
-      n = 1.0f / (18.0f + 2.0f * y);
+      const float d = 18.0f + 2.0f * y;
+      n = FAST ? rcp_fast(d, ok) : 1.0f / d;
       gx = 0.0f;
       gy = -2.0f * n * n;
     } else {
       // literal logistic as in the TPU kernel (fused.py:58): expf overflows
       // to inf for y < ~-0.44, where 1 / (1 + inf) is +0 exactly, the right
-      // value.  That division's divisor would send it down the IEEE
-      // division's slow path (FCHK), so an infinite e divides 1 by 1 and
-      // selects +0 instead: the same bits, without the detour.
+      // value.  That reciprocal's argument would send it down the slow
+      // path, so an infinite e takes 1 / 1 and selects +0 instead: the same
+      // bits, without the detour.
       const float e = expf(-y / kThck);
       const bool big = e == INFINITY;
-      const float q = 1.0f / (big ? 1.0f : 1.0f + e);
+      const float d = big ? 1.0f : 1.0f + e;
+      const float q = FAST ? rcp_fast_ge1(d, ok) : 1.0f / d;
       const float sig = big ? 0.0f : q;
       n = kSqrt2 - kSqrt2m1 * sig;
       gx = 0.0f;
       gy = -kSqrt2m1 * sig * (1.0f - sig) / kThck;
     }
+  }
+
+  RT_HD void nag_fast(float x, float y, float& n, float& gx, float& gy,
+                      bool& ok) const {
+    field<true>(x, y, n, gx, gy, ok);
+  }
+
+  // the same to the bit on every input: where a guard fails, the field
+  // again with the IEEE division
+  RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
+    bool ok = true;
+    field<true>(x, y, n, gx, gy, ok);
+    if (!ok) field<false>(x, y, n, gx, gy, ok);
   }
 
   // closed-form Hessians (dynamic.py:78-118); the interface's logistic is

@@ -571,7 +571,17 @@ def _literal(v) -> str:
 
 def emit_source(field: CustomField) -> str:
     """The field as C++: ``custom_nag(x, y, n, gx, gy)``, one float32
-    operation a line in :attr:`CustomField.schedule`'s order."""
+    operation a line in :attr:`CustomField.schedule`'s order.
+
+    A division whose numerator is the constant 1 is ``rt::rcp_rn`` (the
+    correctly rounded reciprocal's fast path, csrc/common.cuh); where
+    several other divisions share a denominator, its ``rt::Recip`` is
+    formed once and each quotient is ``rt::div_by``.  Both round as the
+    IEEE division, so the plain evaluator is unchanged; the function needs
+    common.cuh (fused.cuh and golden.cuh include it).  A second function,
+    ``custom_nag_fast(x, y, n, gx, gy, ok)``, is the same with each
+    reciprocal by ``rt::rcp_fast``, its guard ANDed into ``ok`` (the fused
+    step's fast path tests it once with its own guards)."""
     dag = field.dag
     names = {dag.x: "x", dag.y: "y"}
 
@@ -579,13 +589,40 @@ def emit_source(field: CustomField) -> str:
         key = dag.nodes[k]
         return _literal(key[1]) if key[0] == "c" else names[k]
 
-    lines = []
+    def is_one(k):
+        return dag.nodes[k][0] == "c" and dag.value_of(k) == 1.0
+
+    # denominators of two or more divisions other than reciprocals
+    uses: dict = {}
+    for k in field.schedule:
+        prim, *args = dag.nodes[k]
+        if prim == "div" and not is_one(args[0]):
+            uses[args[1]] = uses.get(args[1], 0) + 1
+    shared = {b for b, count in uses.items() if count > 1}
+    recips: dict = {}
+
+    lines, fast_lines = [], []
     for i, k in enumerate(field.schedule):
         prim, *args = dag.nodes[k]
         names[k] = f"t{i}"
         kind = "bool" if prim in _BOOL_PRIMS else "float"
-        lines.append(f"  const {kind} t{i} = "
-                     f"{PRIMS[prim][0].format(*map(ref, args))};")
+        if prim == "div" and is_one(args[0]):
+            lines.append(f"  const float t{i} = rt::rcp_rn({ref(args[1])});")
+            fast_lines.append(f"  const float t{i} = "
+                              f"rt::rcp_fast({ref(args[1])}, ok);")
+            continue
+        if prim == "div" and args[1] in shared:
+            if args[1] not in recips:
+                recips[args[1]] = f"r{len(recips)}"
+                line = (f"  const rt::Recip {recips[args[1]]} = "
+                        f"rt::recip({ref(args[1])});")
+                lines.append(line)
+                fast_lines.append(line)
+            expr = f"rt::div_by({ref(args[0])}, {recips[args[1]]})"
+        else:
+            expr = PRIMS[prim][0].format(*map(ref, args))
+        lines.append(f"  const {kind} t{i} = {expr};")
+        fast_lines.append(lines[-1])
     n, gx, gy = map(ref, field.outputs)
     mode = ("gradient by forward mode (two tangents a value)" if field.dual
             else "gradient from the medium's grad_fn")
@@ -602,6 +639,11 @@ def emit_source(field: CustomField) -> str:
         "__host__ __device__ __forceinline__ void custom_nag(float x, "
         "float y, float& n, float& gx, float& gy) {\n"
         + "\n".join(lines) + ("\n" if lines else "")
+        + f"  n = {n};\n  gx = {gx};\n  gy = {gy};\n}}\n"
+        "__host__ __device__ __forceinline__ void custom_nag_fast(float x, "
+        "float y, float& n, float& gx, float& gy, bool& ok) {\n"
+        + ("  (void)ok;\n" if fast_lines == lines else "")
+        + "\n".join(fast_lines) + ("\n" if fast_lines else "")
         + f"  n = {n};\n  gx = {gx};\n  gy = {gy};\n}}\n")
 
 
@@ -642,6 +684,12 @@ struct Custom {
                                                float& gx, float& gy) const {
     custom_nag(x, y, n, gx, gy);
   }
+  __host__ __device__ __forceinline__ void nag_fast(float x, float y,
+                                                    float& n, float& gx,
+                                                    float& gy,
+                                                    bool& ok) const {
+    custom_nag_fast(x, y, n, gx, gy, ok);
+  }
 };
 }  // namespace rt
 """)
@@ -674,20 +722,20 @@ extern "C" int rt_golden_step_custom(RT_GOLDEN_PARAMS, void* stream) {{
 
 
 @functools.cache
-def _headers_digest() -> bytes:
-    """The flags and every header in ``csrc/`` (the headers that build.py
+def _headers_digest(csrc=build.CSRC) -> bytes:
+    """The flags and every header in ``csrc`` (the headers that build.py
     hashes), read once a process as build.library() reads its sources."""
     h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
-    for p in build._sources(build.CSRC)[1]:
+    for p in build._sources(csrc)[1]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.digest()
 
 
-def _library_path(source: str) -> Path:
-    """The library of a generated unit, named by a digest of the unit, the
-    flags and the headers."""
-    h = hashlib.sha256(_headers_digest())
+def _library_path(source: str, csrc=build.CSRC) -> Path:
+    """The library of a generated unit built against the headers in
+    ``csrc``, named by a digest of the unit, the flags and the headers."""
+    h = hashlib.sha256(_headers_digest(csrc))
     h.update(source.encode())
     return CUSTOM_DIR / f"librt_custom_{h.hexdigest()[:16]}.so"
 
@@ -701,11 +749,17 @@ def build_libraries(specs) -> dict:
     not built yet, one nvcc each, all started together; a failed build
     raises with nvcc's output.  Returns {spec: seconds} of the builds run
     (a library found on disk is not built again and not listed)."""
+    return build_units({spec: _unit(*spec)[0] for spec in specs})
+
+
+def build_units(units: dict, csrc=build.CSRC) -> dict:
+    """:func:`build_libraries` on generated units ({key: source}) against
+    the headers in ``csrc`` (another checkout's, for a comparison of two
+    builds); {key: seconds} of the builds run."""
     jobs, seconds, failed = [], {}, []
-    for spec in specs:
-        source, _ = _unit(*spec)
-        lib = _library_path(source)
-        if lib.exists() or any(j[2] == lib for j in jobs):
+    for spec, source in units.items():
+        lib = _library_path(source, csrc)
+        if lib.exists() or any(j[1] == lib for j in jobs):
             continue
         CUSTOM_DIR.mkdir(parents=True, exist_ok=True)
         # this process's own unit, log and library, renamed into place after
@@ -713,7 +767,7 @@ def build_libraries(specs) -> dict:
         tmp = {ext: lib.with_name(f"{lib.stem}.{os.getpid()}{ext}")
                for ext in (".cu", ".log", ".so")}
         tmp[".cu"].write_text(source)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc),
                "-shared", "-o", str(tmp[".so"]), str(tmp[".cu"])]
         log = tmp[".log"].open("w")
         log.write(f"$ {' '.join(cmd)}\n")

@@ -12,9 +12,12 @@ the stats, a short step limit, a resume chain); the fused 3-D kernels (analytic 
 grid3) with fast_trace3's routes; the 3-D dynamic kernels (analytic and
 grid3) against their plain version, also where their shared-reciprocal
 quotients leave the fast path, with fast_dynamic3's routes and the 3-D
-eigenray solver on the card; and that division (csrc/common.cuh div_by)
+eigenray solver on the card; that division (csrc/common.cuh div_by)
 against IEEE division on all 2^32 numerators of 60 and 360 and 2^28
-seeded pairs.
+seeded pairs; the fused step's division by a carried reciprocal
+(div_fast_pos) the same way, and the reciprocal, square root and rsqrt
+fast paths on all 2^32 operands against the card's own operations; and
+fisheye_op1 at odd step counts, to the bit.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -864,6 +867,45 @@ def test_div_by_equals_fdiv_rn(denominator, cuda_device):
         bad, pair = div_check(denominator=denominator, count=1 << 32,
                               device=cuda_device)
     assert bad == 0, pair
+
+
+@pytest.mark.parametrize("kind,denominator", [
+    ("div_pos", 1.0), ("div_pos", 0.0555555559694767), ("div_pos", None),
+    ("rcp", None), ("sqrt", None), ("rsqrt", None)])
+def test_fast_paths_equal_the_cards_operations(kind, denominator,
+                                               cuda_device):
+    """common.cuh's fast paths on the card against its own operations:
+    div_fast_pos (the fused step's quotient from a carried reciprocal of
+    n; the IEEE division where its guard fails) on all 2^32 numerators
+    over two values of n and 2^28 seeded pairs against __fdiv_rn; rcp_rn,
+    sqrt_fast and rsqrt_fast (each with its card operation where its guard
+    fails) on all 2^32 operands against __frcp_rn, __fsqrt_rn and
+    rsqrtf.  No operand may differ."""
+    from raytracing_tpu_torch.kernels.divide import div_check
+    if denominator is None and kind == "div_pos":
+        bad, pair = div_check(kind=kind, count=1 << 28, seed=13,
+                              device=cuda_device)
+    else:
+        bad, pair = div_check(kind=kind, denominator=denominator,
+                              count=1 << 32, device=cuda_device)
+    assert bad == 0, pair
+
+
+def test_fisheye_op1_bit_equal_at_odd_counts(cuda_device):
+    """fisheye_op1 (its loop two steps an iteration, the odd one after)
+    against fisheye_op1_plain at 1 and 301 steps: x, y and tt to the bit,
+    on the headline's ray and jittered rays over the unit disk."""
+    rng = np.random.default_rng(4)
+    pos = np.concatenate([[[1.0, 0.0]], rng.uniform(-1, 1, (R - 1, 2))])
+    th = np.concatenate([[np.pi / 2], rng.uniform(0, 2 * np.pi, R - 1)])
+    x, y, th = (torch.tensor(v, dtype=torch.float32, device=cuda_device)
+                for v in (pos[:, 0], pos[:, 1], th))
+    for steps in (1, 301):
+        k = kf.fisheye_op1(x, y, torch.cos(th), torch.sin(th), 0.02, steps)
+        p = kf.fisheye_op1_plain(x, y, torch.cos(th), torch.sin(th), 0.02,
+                                 steps)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
 
 
 def test_fast_dynamic3_and_eigenrays3_on_the_card(cuda_device):

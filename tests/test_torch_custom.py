@@ -222,11 +222,21 @@ _STUBS = """#include <math.h>
 #define __host__
 #define __device__
 #define __forceinline__ inline
+#include "common.cuh"
 """
 _EVAL = """
 extern "C" void eval(const float* x, const float* y, float* n, float* gx,
                      float* gy, int count) {
   for (int i = 0; i < count; ++i) custom_nag(x[i], y[i], n[i], gx[i], gy[i]);
+}
+extern "C" void eval_fast(const float* x, const float* y, float* n,
+                          float* gx, float* gy, unsigned char* ok,
+                          int count) {
+  for (int i = 0; i < count; ++i) {
+    bool k = true;
+    custom_nag_fast(x[i], y[i], n[i], gx[i], gy[i], k);
+    ok[i] = k;
+  }
 }
 """
 
@@ -235,17 +245,76 @@ def _host_eval(field, tmp_path):
     src = tmp_path / "custom_host.cpp"
     lib = tmp_path / "custom_host.so"
     src.write_text(_STUBS + custom.emit_source(field) + _EVAL)
-    subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-o", str(lib), str(src)], check=True)
+    from raytracing_tpu_torch.kernels import build
+    subprocess.run(["g++", "-O2", "-ffp-contract=off", "-std=c++17",
+                    "-shared", "-fPIC", f"-I{build.CSRC}", "-o", str(lib),
+                    str(src)], check=True)
     so = ctypes.CDLL(str(lib))
     so.eval.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    so.eval_fast.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
 
-    def run(x, y):
+    def run(x, y, fast=False):
         outs = [torch.empty_like(x) for _ in range(3)]
-        so.eval(x.data_ptr(), y.data_ptr(), *(o.data_ptr() for o in outs),
-                x.numel())
-        return outs
+        if not fast:
+            so.eval(x.data_ptr(), y.data_ptr(),
+                    *(o.data_ptr() for o in outs), x.numel())
+            return outs
+        ok = torch.zeros(x.shape, dtype=torch.uint8)
+        so.eval_fast(x.data_ptr(), y.data_ptr(),
+                     *(o.data_ptr() for o in outs), ok.data_ptr(), x.numel())
+        return outs, ok.bool()
     return run
+
+
+#: a field whose value and tangents divide several numerators by one
+#: value, and by another through 1 / (...)
+SHARED = (lambda x, y: (x + y) / (2.0 + x * x) - (x - 2.0 * y) / (2.0 + x * x)
+          + 1.0 / (3.0 + y * y))
+
+
+def test_emitted_divisions_share_a_reciprocal():
+    """A division whose numerator is 1 is emitted as rt::rcp_rn; the
+    divisions of other numerators by one value share one rt::Recip, each
+    quotient rt::div_by (csrc/common.cuh, the IEEE quotient's bits); a
+    value divided once stays an IEEE division."""
+    src = custom.trace_custom(rtt.CustomMedium(SHARED)).source
+    body, fast = src.split("void custom_nag(", 1)[1].split(
+        "void custom_nag_fast(")
+    assert body.count("rt::recip(") == 1
+    assert body.count("rt::div_by(") >= 4     # value and tangents
+    assert "rt::rcp_rn(" in body and " / " not in body
+    # the fast function: the same, each reciprocal by rt::rcp_fast
+    lines = [ln for ln in body.splitlines() if ln.startswith("  const")]
+    assert [ln.replace("rt::rcp_fast(", "rt::rcp_rn(").replace(", ok)", ")")
+            for ln in fast.splitlines() if ln.startswith("  const")] == lines
+    once = custom.trace_custom(rtt.CustomMedium(
+        lambda x, y: x / (2.0 + y * y),
+        grad_fn=lambda x, y: (torch.zeros_like(x), torch.zeros_like(y))
+    )).source
+    assert "rt::recip(" not in once and "rt::div_by(" not in once
+    assert " = x / t" in once
+
+
+@pytest.mark.parametrize("name", ["rational", "shared", "sqrt_rsqrt",
+                                  "exp_log"])
+def test_emitted_fast_function_equals_the_exact_one(name, tmp_path):
+    """custom_nag_fast, the fused step's fast path through the generated
+    field (each reciprocal by rt::rcp_fast), against custom_nag on the
+    host, bit for bit with its guard holding on 4096 points (on the host
+    both divide as IEEE; the card's fast reciprocal is checked against
+    __frcp_rn on all 2^32 denominators, tests/test_torch_cuda.py)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine to compile the emitted source")
+    fn = {"rational": lambda x, y: 1.0 / (1.0 + x * x + y * y),
+          "shared": SHARED}.get(name) or FIELDS[name]
+    field = custom.trace_custom(rtt.CustomMedium(fn))
+    assert "custom_nag_fast(" in field.source
+    x, y = _points(torch.float32)
+    run = _host_eval(field, tmp_path)
+    (fn_, fgx, fgy), ok = run(x, y, fast=True)
+    for got, want in zip((fn_, fgx, fgy), run(x, y)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(ok.all())
 
 
 def _ulps(a, b):
@@ -258,8 +327,8 @@ def _ulps(a, b):
 
 
 @pytest.mark.parametrize("name,ulps", [
-    ("rational", 0), ("arith", 0), ("selects", 0), ("sin", 2), ("exp", 2),
-    ("log", 2), ("atan2", 2), ("sigmoid_grad_fn", 3)])
+    ("rational", 0), ("shared", 0), ("arith", 0), ("selects", 0), ("sin", 2),
+    ("exp", 2), ("log", 2), ("atan2", 2), ("sigmoid_grad_fn", 3)])
 def test_emitted_source_matches_plain_on_the_host(name, ulps, tmp_path):
     """The emitted custom_nag compiled by g++ (-ffp-contract=off, CUDA
     qualifiers stubbed) against the plain evaluator on 4096 points:
@@ -273,6 +342,7 @@ def test_emitted_source_matches_plain_on_the_host(name, ulps, tmp_path):
     media = {
         "rational": lambda x, y: 1.0 / (1.0 + x * x + y * y) + x / 3.0
         - 0.1 * y,
+        "shared": SHARED,
         "sin": lambda x, y: 1.0 + 0.25 * torch.sin(x + y),
         "exp": lambda x, y: 1.0 + 0.25 * torch.exp(x - y),
         "log": lambda x, y: 1.0 + 0.25 * torch.log(x * x + y + 3.0),
