@@ -9,7 +9,10 @@ either is missing or any check fails.  Phases, one line or more each:
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
 2. build: the twenty CUDA kernels of the main library compiled from
-   raytracing_tpu_torch/csrc (one nvcc a source, all at once), then the
+   raytracing_tpu_torch/csrc (one nvcc a source, all at once); ``[fma32]``
+   the card's fmaf (the 2-D grid blend's FFMA) against the plain
+   versions' fma32 (utils/fma.py) on the card, 2^26 seeded triples and
+   2^21 constructed float64 midpoints, no triple differing; then the
    reference's sampled media built on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
    the card, for every (op, field) it serves, at 65,536 rays (each
@@ -219,7 +222,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from raytracing_tpu_torch.bench import (  # noqa: E402
     DF_PROFILE_STEPS, DF_VERT_STEPS, HEADLINE_DIVISOR, fan3, fan3_dyn,
-    grid3_medium, jittered, launch_fan, munk_profile)
+    grid3_medium, jittered, launch_fan, munk_profile, sweep_inputs)
 
 RAYS_CHECK = 1 << 16
 STEP_CAP = 1000
@@ -320,16 +323,46 @@ def ops_per_step(plain, charges=None):
     performs the kernel's operations one torch call each (a call may
     compute several elements a ray), run on a head of HEAD_RAYS rays for 1
     and 2 steps (``plain(steps)``) under a counter; selects, gathers and
-    copies are not arithmetic and are not counted.  ``charges(counter)``,
-    a context manager, may charge some calls what the kernel does in their
-    place (:func:`exact_products_charged`)."""
+    copies are not arithmetic and are not counted; each fused multiply-add
+    (fma32) is charged what its FFMA does (:func:`fma_charged`).
+    ``charges(counter)``, a context manager, may charge some calls what the
+    kernel does in their place (:func:`exact_products_charged`)."""
     counts = []
     for k in (1, 2):
-        with _OpCounter() as c, (charges(c) if charges
-                                 else contextlib.nullcontext()):
+        with _OpCounter() as c, fma_charged(c), (
+                charges(c) if charges else contextlib.nullcontext()):
             plain(k)
         counts.append(c.n)
     return counts[1] - counts[0]
+
+
+#: what a fused multiply-add (utils/fma.py::fma32, one FFMA in the kernels)
+#: costs: a multiply and an add, 2 operations at a peak that counts an FMA
+#: as 2
+FMA_OPS = 2
+
+
+@contextlib.contextmanager
+def fma_charged(counter):
+    """The plain versions' fma32 calls (the 2-D grid blend's, float64
+    operations that round once to float32) charged to ``counter`` at
+    FMA_OPS an element a ray, the FFMA that the kernel issues."""
+    from unittest import mock
+
+    from raytracing_tpu_torch.utils import fma
+    inner = fma.fma32
+
+    def fma32(a, b, c):
+        counter.paused = True
+        try:
+            out = inner(a, b, c)
+        finally:
+            counter.paused = False
+        counter.n += FMA_OPS * max(1, out.numel() // HEAD_RAYS)
+        return out
+
+    with mock.patch.object(fma, "fma32", fma32):
+        yield
 
 
 #: what the df kernels' exact product costs: p = a * b and its error
@@ -1225,24 +1258,6 @@ def same_final(label, a, b, names=("pos", "traveltime", "dist_sim", "active",
           "(bit parity required)", flush=True)
     if worst or flips:
         fail(f"{label}: results differ")
-
-
-def sweep_inputs(device):
-    """The reference's full fisheye candidate grid (divisor 303 -> 4, ten
-    turns, buffers sized at divisor + 1) as the search runs it: one ray a
-    candidate at (1, 0) heading pi/2, its step size and step limit."""
-    import raytracing_tpu_torch as rtt
-    from raytracing_tpu_torch import config
-    from raytracing_tpu_torch.parallel import sweep
-    scen = rtt.scenario("fisheye")
-    divs, ds, tdivs = sweep.candidates(scen)
-    limits = sweep._max_sizes(scen, ds, tdivs, config.N_TURNS) - 1
-    n = len(ds)
-    pos0 = np.tile(np.array([[1.0, 0.0]], np.float32), (n, 1))
-    theta0 = np.full(n, np.pi / 2.0, np.float32)
-    return (scen, divs, pos0, theta0,
-            torch.as_tensor(ds.astype(np.float32), device=device),
-            torch.as_tensor(limits.astype(np.float32), device=device))
 
 
 def visited_cells(run_plain, tables):
@@ -3210,6 +3225,39 @@ def phase_div_check(device):
     print(f"[div_by] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+#: [fma32]'s triples (bench.fma_triples): (kind, count), 2^26 random ones
+#: and 2^21 constructed float64 midpoints
+FMA_CHECKS = (("bits", 1 << 25), ("moderate", 1 << 25),
+              ("midpoint", 1 << 20), ("midpoint-subnormal", 1 << 20))
+#: triples a launch of [fma32]
+FMA_CHUNK = 1 << 23
+
+
+def phase_fma32(device):
+    """The card's fmaf (csrc/divide.cu rt_fma: the 2-D grid blend's FFMA,
+    csrc/media.cuh hermite_blend) against the plain versions' fma32
+    (utils/fma.py) computed on the card, on FMA_CHECKS' seeded triples:
+    every result's bits (NaN against NaN).  Any differing triple fails the
+    run."""
+    from raytracing_tpu_torch.bench import fma_triples
+    from raytracing_tpu_torch.kernels.divide import fma_card
+    from raytracing_tpu_torch.utils.fma import fma32
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    for kind, count in FMA_CHECKS:
+        off = 0
+        for start in range(0, count, FMA_CHUNK):
+            a, b, c = (torch.as_tensor(v, device=device) for v in fma_triples(
+                kind, min(FMA_CHUNK, count - start), rng))
+            card, plain = fma_card(a, b, c), fma32(a, b, c)
+            off += int(((card.view(torch.int32) != plain.view(torch.int32))
+                        & ~(card.isnan() & plain.isnan())).sum())
+        print(f"[fma32] {kind}: {off} of {count} triples off", flush=True)
+        if off:
+            fail(f"[fma32] {kind}: the card's fmaf differs from fma32")
+    print(f"[fma32] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_dyn3_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):
     """Both 3-D dynamic kernels against dynamic3d_step_plain (replayed,
     bench/replay.py) at 65,536 rays, at most 1,000 steps, all 25 planes to
@@ -3586,6 +3634,7 @@ def main():
     name, _ = phase_environment()
     phase_build()
     kernels = kernel_infos()
+    phase_fma32("cuda")
 
     t3 = time.perf_counter()
     errs = phase_kernel_vs_plain("cuda")

@@ -1,7 +1,9 @@
 """Benchmark helpers of the port: ``harness`` (timing), ``fma_probe``,
 :func:`launch_fan`, the numpy port of ``bench.py::_fan`` (bench.py:37-44),
 the sampled main path's runs (:data:`SAMPLED_RUNS`, :func:`sampled_media`)
-that ``chip_smoke.py`` and ``fma_probe --profile-sampled`` drive,
+that ``chip_smoke.py`` and ``fma_probe --profile-sampled`` drive, the
+fisheye search's candidate sweep (:func:`sweep_inputs`), the float32 FMA
+checks' triples (:func:`fma_triples`, ``chip_smoke.py`` and the tests),
 :func:`warp_efficiency` (``chip_smoke.py`` and ``lifetimes``), and the
 df32 tier's depths, media and launch fans (:func:`df_media`,
 :func:`df_launch`, :func:`dispersed_fan`) that ``chip_smoke.py`` and
@@ -81,6 +83,26 @@ def sampled_media(device):
     media[("strat", "aniso")] = media[("strat", "vert")]
     media[("c1_strat", "aniso")] = media[("c1_strat", "vert")]
     return media
+
+
+def sweep_inputs(device):
+    """The reference's full fisheye candidate grid (divisor 303 -> 4, ten
+    turns, buffers sized at divisor + 1) as the search runs it: one ray a
+    candidate at (1, 0) heading pi/2, its step size and step limit."""
+    import torch
+
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch.parallel import sweep
+    scen = rtt.scenario("fisheye")
+    divs, ds, tdivs = sweep.candidates(scen)
+    limits = sweep._max_sizes(scen, ds, tdivs, config.N_TURNS) - 1
+    n = len(ds)
+    pos0 = np.tile(np.array([[1.0, 0.0]], np.float32), (n, 1))
+    theta0 = np.full(n, np.pi / 2.0, np.float32)
+    return (scen, divs, pos0, theta0,
+            torch.as_tensor(ds.astype(np.float32), device=device),
+            torch.as_tensor(limits.astype(np.float32), device=device))
 
 
 def munk_profile():
@@ -218,3 +240,57 @@ def fan3_dyn(kind, rays, seed):
     return (np.tile([pos], (rays, 1)).astype(np.float32),
             np.stack([np.cos(a), np.sin(a), np.full(rays, 0.01)],
                      -1).astype(np.float32), 0.01, 250, box)
+
+
+# -- the FMA checks -----------------------------------------------------------
+def _f32(bits):
+    return np.asarray(bits, np.uint32).view(np.float32)
+
+
+def fma_triples(kind, n, rng):
+    """(a, b, c), float32 numpy arrays of n triples that test a float32 FMA
+    against a reference: ``bits`` every bit pattern (zeros, subnormals,
+    infinities and NaN included); ``moderate`` exponents in +-30 and +-60,
+    c near -a b half the time, so that the sum cancels most of the
+    product's bits; ``midpoint`` and ``midpoint-subnormal`` triples where p
+    + c = m + t, m a float32 midpoint (of normal or subnormal neighbours)
+    and |t| far below float64's half ulp of m, so that p + c rounds in
+    float64 to m exactly with an error of sign(t), either sign: c = y or
+    its upper neighbour, a b = +-2^(E - 24) (1 - 2^-46) where 2^E <= |y| <
+    2^(E + 1) (2^-150 (1 - 2^-46) for a subnormal y), a = 2^ka (1 + 2^-23),
+    b = 2^kb (1 - 2^-23), signs drawn."""
+    if kind == "bits":
+        return tuple(_f32(rng.integers(0, 2 ** 32, n, dtype=np.uint64))
+                     for _ in range(3))
+    if kind == "moderate":
+        a = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+             ).astype(np.float32)
+        b = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+             ).astype(np.float32)
+        c = (rng.standard_normal(n) * 2.0 ** rng.integers(-60, 60, n)
+             ).astype(np.float32)
+        near = rng.random(n) < 0.5
+        c[near] = (-(a[near].astype(np.float64) * b[near])
+                   * (1.0 + rng.standard_normal(int(near.sum())) * 2.0 ** -20)
+                   ).astype(np.float32)
+        return a, b, c
+    if kind == "midpoint-subnormal":
+        y = _f32(rng.integers(1, 1 << 23, n, dtype=np.uint64))
+        e = np.full(n, -126)
+    elif kind == "midpoint":
+        y = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-100, 100, n)
+             ).astype(np.float32)
+        e = np.floor(np.log2(y.astype(np.float64))).astype(np.int64)
+    else:
+        raise ValueError(f"fma_triples kinds: bits, moderate, midpoint, "
+                         f"midpoint-subnormal; not {kind!r}")
+    up = rng.random(n) < 0.5
+    c = np.where(up, np.nextafter(y, np.float32(np.inf)), y)
+    sign = np.where(up, -1.0, 1.0)
+    # the midpoint's half ulp, 2^(e - 24), split between a and b
+    k = e - 24
+    ka = k // 2
+    a = (sign * 2.0 ** ka * (1.0 + 2.0 ** -23)).astype(np.float32)
+    b = (2.0 ** (k - ka) * (1.0 - 2.0 ** -23)).astype(np.float32)
+    neg = rng.random(n) < 0.5
+    return np.where(neg, -a, a), b, np.where(neg, -c, c)

@@ -35,8 +35,10 @@ build in turn.  The shapes are the analytic main path's (among them the
 ``fused_step_custom`` on chip_smoke.py's ``[custom]`` fisheye fan, 2^20 x
 4586, and the analytic ``fused_step`` on the same fan), the fused kernels'
 on sampled
-media (:func:`sampled_cases`: interface_strat op6, vert_strat op8,
-fisheye_grid op1 and its node table), the df32 tier's (:func:`df_cases`:
+media (:func:`sampled_cases`: interface_strat op6, vert_strat op8, and
+on the parity fisheye grid, labelled ``fisheye_grid``, op1 on its cells
+and its node table, tiled_grid_op5's golden run and the search's
+candidate sweep), the df32 tier's (:func:`df_cases`:
 the four df kernels at their main shapes, and the two grid kernels on a
 dispersed fan) and the dynamic and 3-D tiers' (:func:`dynamic_cases`: the
 2-D dynamic kernels at chip_smoke.py's dynamic main shapes, fisheye_grid
@@ -44,8 +46,10 @@ op6 on the parity and C1 grids (PERF.md row 8), the fisheye (row 11) and
 vert_strat (row 12); the 3-D dynamic kernels on the benchmark's identical
 rays ``dyn3_op6`` and the tilted fan, JAX's vert op8 and interface op6
 launches (row 15), the 71^3 grid3 table on the identical, tilted and
-dispersed fans (row 14d); and fused3d_step_grid on the tilted and
-dispersed fans (row 14k)).
+dispersed fans (row 14d); fused3d_step_grid on the tilted and dispersed
+fans (row 14k, labelled ``grid3``) and fused3d_step on the tilted fisheye
+fan (row 13, ``fisheye3``)).  ``--cases fisheye_grid,grid3`` keeps rows
+5, 6, 7, 8 and 14k.
 
 ``--profile PATH`` also traces the analytic main path with torch.profiler
 (interface op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through
@@ -101,7 +105,7 @@ from raytracing_tpu_torch import config
 from raytracing_tpu_torch.bench import (DF_PROFILE_STEPS, DF_VERT_STEPS,
                                         HEADLINE_DIVISOR, df_launch, df_media,
                                         df_state, dispersed_fan, jittered,
-                                        launch_fan)
+                                        launch_fan, sweep_inputs)
 from raytracing_tpu_torch.config import scenario
 from raytracing_tpu_torch.kernels import build
 from raytracing_tpu_torch.kernels import custom
@@ -116,13 +120,32 @@ SMI_QUERY = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
 #: library shares
 SHARED_ENTRIES = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step",
                   "rt_fused_step_strat", "rt_fused_step_grid",
-                  "rt_fused_step_nodes", "rt_df_step", "rt_df_step_grid",
+                  "rt_fused_step_nodes", "rt_golden_step_grid",
+                  "rt_fused_sweep_grid", "rt_fused3d_step", "rt_df_step",
+                  "rt_df_step_grid",
                   "rt_df_step_c1", "rt_df_step_profile", "rt_dynamic_step",
                   "rt_dynamic_step_strat", "rt_dynamic_step_grid",
                   "rt_fused3d_step_grid", "rt_dynamic3d_step",
                   "rt_dynamic3d_step_grid")
 #: a run shorter than this (ms) is timed from a CUDA graph of launches
 BATCH_BELOW_MS = 2.0
+#: (label part, kernel as cu++filt names it, steps an iteration of its
+#: loop): the instantiation a shape's run launches, whose loops'
+#: instructions a step each pass prints beside the shape's time
+#: (:func:`loop_steps`: every outermost loop, the step budget's search
+#: among them); the first label part a shape's label contains picks it
+CASE_KERNELS = (
+    ("fused_step_grid", "fused_kernel<rt::Grid<(int)36>, (int)1>", 1),
+    ("fused_sweep_grid", "fused_kernel<rt::Grid<(int)36>, (int)1>", 1),
+    ("fused_step_nodes", "fused_kernel<rt::Nodes, (int)1>", 1),
+    ("golden_step_grid",
+     "golden_kernel<rt::Grid<(int)36>, (bool)1, (bool)0, (bool)1>", 1),
+    ("dynamic_step_grid fisheye_grid",
+     "dynamic_kernel<rt::Grid<(int)36>, (int)6>", 2),
+    ("fused3d_step_grid", "fused3d_kernel<rt3::Grid3, (int)6>", 1),
+    ("fused3d_step fisheye3", "fused3d_kernel<rt3::Analytic3<(int)0>, (int)6>",
+     1),
+)
 #: the entry points that take the refill loop's ray counter before the
 #: stream; a parent built before the loop takes none
 COUNTER_ENTRIES = ("rt_fused_step", "rt_fused_step_strat")
@@ -239,10 +262,13 @@ def sampled_cases(device, rays=RAYS):
     """(label, run) of the fused kernels on sampled media at their main
     shapes: fused_step_strat on the interface_strat run (the parity table,
     the reference table's op6 step, 3854 steps) and on the vert_strat run
-    (op8 with the Welford stats, 4142 steps), fused_step_grid on the
-    fisheye_grid run (op1, 4586 steps) and fused_step_nodes on the same
-    grid's node table (grid_trace's kernel).  The media are built once, on
-    ``device``."""
+    (op8 with the Welford stats, 4142 steps); on the parity fisheye grid
+    (every label holds ``fisheye_grid``), fused_step_grid on the
+    fisheye_grid run (op1, 4586 steps), fused_step_nodes on the same grid's
+    node table (grid_trace's kernel), golden_step_grid on the
+    tiled_grid_op5 run (op5, 299 steps) and fused_sweep_grid on the fisheye
+    search's 300 candidates (op1, one ray each, :func:`sweep_inputs`).
+    The media are built once, on ``device``."""
     import raytracing_tpu_torch as rtt
     from raytracing_tpu_torch.calibrated import calibrated_with_fallback
     from raytracing_tpu_torch.engine import fast
@@ -262,6 +288,35 @@ def sampled_cases(device, rays=RAYS):
             return torch.stack([out.x, out.y], -1)
         return f"{label} {op} {name}, {steps} steps", run
 
+    def golden(label, name, op, field):
+        scen = scenario(name)
+        ds, div = calibrated_with_fallback(op, name)
+        steps = scen.max_size(ds, div, 1) - 1
+        st = kg.initial_state(op, *launch_fan(scen, rays), scen.gamma,
+                              field=field, with_stats=False, device=device)
+        it, _ = kg.golden_schedule()
+        scal = kg.golden_scalars(float(ds), scen.gamma, steps, 0.0, it,
+                                 device=device)
+
+        def run():
+            out = kg.golden_step(st, scal, field=field, op=op, steps=steps,
+                                 box=scen.box)
+            return torch.stack([out.x, out.y], -1)
+        return f"{label} {op} {name}, {steps} steps", run
+
+    def sweep(label, field):
+        scen, _, pos0, theta0, ds, lim = sweep_inputs(device)
+        steps = int(lim.max())
+        st = kfu.initial_state("op1", pos0, theta0, field=field,
+                               with_stats=False, device=device)
+
+        def run():
+            out = kfu.fused_sweep_grid(st, ds, lim, field=field, op="op1",
+                                       steps=steps, box=tuple(scen.box))
+            return torch.stack([out.x, out.y], -1)
+        return (f"{label} op1 fisheye search, {len(ds)} candidates, up to "
+                f"{steps} steps"), run
+
     def strat(name, field, op):
         box = scenario(name).box
         ds, _ = calibrated_with_fallback(op, name)
@@ -271,12 +326,17 @@ def sampled_cases(device, rays=RAYS):
     fish = scenario("fisheye")
     grid = fast._as_hermite(rtt.build_grid_medium("fisheye", fish.box,
                                                   device=device))
+    cells = seg.grid_tables(grid)
     return [case("fused_step_strat", "interface", "op6",
                  strat("interface", "interface", "op6")),
             case("fused_step_strat", "vert", "op8",
                  strat("vert", "vert_heterogeneous", "op8"), stats=True),
-            case("fused_step_grid", "fisheye", "op1", seg.grid_tables(grid)),
-            case("fused_step_nodes", "fisheye", "op1", seg.node_tables(grid))]
+            case("fused_step_grid fisheye_grid", "fisheye", "op1", cells),
+            case("fused_step_nodes fisheye_grid", "fisheye", "op1",
+                 seg.node_tables(grid)),
+            golden("golden_step_grid fisheye_grid tiled_grid_op5",
+                   "fisheye", "op5", cells),
+            sweep("fused_sweep_grid fisheye_grid", cells)]
 
 
 def df_cases(device, rays=RAYS):
@@ -391,10 +451,12 @@ def dynamic_cases(device, rays=RAYS):
                   fan3_dyn("tilted", rays, 0)),
             case3("dynamic3d_step_grid dispersed", "dyn", g3, "op6",
                   fan3_dyn("dispersed", rays, 3)),
-            case3("fused3d_step_grid tilted", "fused", g3, "op6",
+            case3("fused3d_step_grid grid3 tilted", "fused", g3, "op6",
                   fan3("tilted", rays, 0)),
-            case3("fused3d_step_grid dispersed", "fused", g3, "op6",
-                  fan3("dispersed", rays, 3))]
+            case3("fused3d_step_grid grid3 dispersed", "fused", g3, "op6",
+                  fan3("dispersed", rays, 3)),
+            case3("fused3d_step fisheye3 tilted", "fused", "fisheye", "op6",
+                  fan3("tilted", rays, 0))]
     return out
 
 
@@ -514,6 +576,7 @@ def probe(device, reps, builds, only=None):
               if not only or any(o in label for o in only)]
     ref = {}
     (la, liba, cua), (lb, libb, cub) = builds
+    steps_of = {id(liba): loop_steps(liba), id(libb): loop_steps(libb)}
     for p, (label_b, lib, cu) in enumerate(((la, liba, cua), (lb, libb, cub),
                                             (lb, libb, cub),
                                             (la, liba, cua))):
@@ -526,10 +589,14 @@ def probe(device, reps, builds, only=None):
             dev = float((pos - ref[label]).abs().max())
             each = ("" if batch == 1
                     else f" (graphs of {batch} launches)")
+            sass = next((steps_of[id(lib)].get(k) for part, k, _ in
+                         CASE_KERNELS if part in label), None)
             print(f"pass {p} {label_b} {label}: median "
                   f"{statistics.median(times):.3f} ms runs "
                   f"{[round(t, 3) for t in times]}{each} max|d vs {la}| "
-                  f"{dev:.3e}", flush=True)
+                  f"{dev:.3e}"
+                  + ("" if sass is None else f"; SASS a step {sass}"),
+                  flush=True)
 
 
 def traced(main_path, path, wall=False):
@@ -687,6 +754,63 @@ def outer_loops(code):
                                        for o in back)]
 
 
+def _cuobjdump():
+    return shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).parent / "cuobjdump")
+
+
+def parse_sass(lib):
+    """The SASS of a built library by kernel (mangled name): ({name:
+    [instructions, FFMA]}, {name: Counter of opcodes}, {name: [(address,
+    instruction)]}, [each FFMA with the six instructions before it])."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, ops, fn, recent, ffma_lines = {}, {}, None, [], []
+    code = collections.defaultdict(list)
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn, recent = m.group(1), []
+            counts[fn] = [0, 0]
+            ops[fn] = collections.Counter()
+            continue
+        where = re.search(r"/\*([0-9a-f]{4,})\*/", line)
+        if fn is None or not where:
+            continue
+        op = _opcode(line)
+        counts[fn][0] += 1
+        ops[fn][op] += 1
+        code[fn].append((int(where.group(1), 16), line.split(";", 1)[0]))
+        if op == "FFMA":
+            counts[fn][1] += 1
+            ffma_lines.append(
+                (fn, f"{fn}\n" + "\n".join(recent[-6:] + [line])))
+        recent.append(line.strip())
+    return counts, ops, code, ffma_lines
+
+
+def loop_steps(lib):
+    """{demangled kernel of CASE_KERNELS: its outermost loops' instructions
+    a step on the usual path (:func:`loop_path`), " | "-joined} for the
+    kernels of CASE_KERNELS in the loaded library ``lib``; empty where the
+    SASS cannot be read."""
+    path = getattr(lib, "_name", None) or getattr(
+        getattr(lib, "_lib", None), "_name", None)
+    try:
+        _, _, code, _ = parse_sass(path)
+    except (OSError, subprocess.CalledProcessError, TypeError):
+        return {}
+    names = list(code)
+    out = {}
+    for mangled, pretty in zip(names, _demangle(names)):
+        for _, kernel, per in CASE_KERNELS:
+            if f"::{kernel}(" in pretty:
+                loops = [sum(loop_path(code[mangled], None, lp).values()) / per
+                         for lp in outer_loops(code[mangled])]
+                out[kernel] = " | ".join(f"{c:g}" for c in loops)
+    return out
+
+
 def sass_report(pattern: str, csrc=build.CSRC) -> None:
     """Registers, spills, SASS instructions, FFMAs, opcodes and the loop's
     path of each kernel whose mangled name contains one of the
@@ -697,34 +821,13 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
     main_lib = build.build(csrc=csrc)
     digest = build.source_digest(csrc=csrc)
     custom_lib = custom_library(csrc)[0]
-    tool = shutil.which("cuobjdump") or str(
-        Path(build._nvcc()).parent / "cuobjdump")
     ffma_lines, loops = [], []
     for lib, log in ((main_lib, build.BUILD_DIR / f"ptxas-{digest}.log"),
                      (custom_lib, custom_lib.with_suffix(".log"))):
         usage = _usage(log.read_text())
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                              text=True, check=True).stdout
-        counts, ops, fn, recent = {}, {}, None, []
-        code = collections.defaultdict(list)
-        for line in sass.splitlines():
-            m = re.match(r"\s*Function : (\S+)", line)
-            if m:
-                fn, recent = m.group(1), []
-                counts[fn] = [0, 0]
-                ops[fn] = collections.Counter()
-                continue
-            where = re.search(r"/\*([0-9a-f]{4,})\*/", line)
-            if fn is None or not where:
-                continue
-            op = _opcode(line)
-            counts[fn][0] += 1
-            ops[fn][op] += 1
-            code[fn].append((int(where.group(1), 16), line.split(";", 1)[0]))
-            if op == "FFMA" and any(p in fn for p in patterns):
-                counts[fn][1] += 1
-                ffma_lines.append(f"{fn}\n" + "\n".join(recent[-6:] + [line]))
-            recent.append(line.strip())
+        counts, ops, code, ffmas = parse_sass(lib)
+        ffma_lines += [text for fn, text in ffmas
+                       if any(p in fn for p in patterns)]
         names = sorted(n for n in set(counts) | set(usage)
                        if any(p in n for p in patterns))
         print(f"[sass] {lib.name} from {csrc}: {len(names)} kernels matching "

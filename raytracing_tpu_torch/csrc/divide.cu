@@ -27,6 +27,11 @@
 // Two results agree when their bits are equal or both are NaN.
 // out[0] counts the differing operands, out[1] and out[2] hold the bits of
 // one such (a, b) (a alone for modes 2-4).
+//
+// rt_fma: the card's fma_rn (common.cuh, one FFMA: the 2-D grid blend's
+// sums of products) on n triples, elementwise, for chip_smoke.py's [fma32]
+// phase and the card-only tests, which hold it to the plain versions'
+// utils/fma.py::fma32 computed on the card.
 #include "common.cuh"
 
 namespace rt {
@@ -119,7 +124,26 @@ __global__ void div_check_kernel(int mode, float b, unsigned long long first,
   if (bad) atomicAdd(out, bad);
 }
 
+__global__ void fma_kernel(const float* a, const float* b, const float* c,
+                           float* out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride)
+    out[i] = fma_rn(a[i], b[i], c[i]);
+}
+
 }  // namespace rt
+
+// out[i] = fma_rn(a[i], b[i], c[i]) for i < n, float32 arrays on the card
+extern "C" int rt_fma(const void* a, const void* b, const void* c, void* out,
+                      long long n, void* stream) {
+  if (n <= 0) return 0;
+  rt::fma_kernel<<<132 * 16, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // out: three unsigned 64-bit integers on the card, zeroed by the caller
 extern "C" int rt_div_check(int mode, float b, unsigned long long first,

@@ -205,7 +205,7 @@ extern "C" int rt_dynamic3d_step_grid(RT_DYN3_PARAMS, const void* table,
                                       float inv_hz, int nx, int ny, int nz,
                                       void* stream) {
   if (n <= 0) return 0;
-  if (nx < 2 || ny < 2 || nz < 2)
+  if (!rt3::grid3_fits(nx, ny, nz))
     return static_cast<int>(cudaErrorInvalidValue);
   const rt3::Dyn3Args a = RT_DYN3_ARGS;
   const rt3::Grid3 m{static_cast<const float*>(table), x0, y0, z0, inv_hx,

@@ -99,6 +99,8 @@ extern "C" int rt_fused_step_strat(int ch, RT_FUSED_PARAMS, RT_TABLE_PARAMS,
 extern "C" int rt_fused_step_grid(int cell_ch, RT_FUSED_PARAMS,
                                   RT_TABLE_PARAMS, void* stream) {
   if (n <= 0) return 0;
+  if (!rt::table2_fits(nx, ny))
+    return static_cast<int>(cudaErrorInvalidValue);
   const rt::FusedArgs a = RT_FUSED_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cell_ch) {
@@ -112,6 +114,8 @@ extern "C" int rt_fused_step_grid(int cell_ch, RT_FUSED_PARAMS,
 extern "C" int rt_fused_step_nodes(int node_ch, RT_FUSED_PARAMS,
                                    RT_TABLE_PARAMS, void* stream) {
   if (n <= 0) return 0;
+  if (!rt::table2_fits(nx, ny))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (node_ch != 9) return static_cast<int>(cudaErrorInvalidValue);
   const rt::FusedArgs a = RT_FUSED_ARGS;
   return rt::launch_fused(op, a, rt::Nodes{RT_TABLE},
@@ -125,6 +129,8 @@ extern "C" int rt_fused_sweep_grid(int cell_ch, RT_FUSED_PARAMS,
                                    const void* ds_ray, const void* limit_ray,
                                    RT_TABLE_PARAMS, void* stream) {
   if (n <= 0) return 0;
+  if (!rt::table2_fits(nx, ny))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (ds_ray == nullptr || limit_ray == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   rt::FusedArgs a = RT_FUSED_ARGS;

@@ -76,7 +76,9 @@ struct Ray {
 // analytic interface, whose literal logistic gives a gradient below 2^-100
 // (or subnormal) over a band of y on either side of its width, where the
 // guard fails and the step would run twice (PERF.md, section 6): there
-// every step takes the IEEE operations, as before.
+// every step takes the IEEE operations, as before.  op1 keeps its IEEE
+// step everywhere: its one guarded operation, the impulse's rsqrtf, costs
+// less than a guard, its test and the rerun would (PERF.md section 5).
 template <class Medium, int OP>
 struct Quick {
   static constexpr bool value = OP == 2 || OP == 6;

@@ -168,7 +168,7 @@ extern "C" int rt_fused3d_step_grid(RT_FUSED3_PARAMS, const void* table,
                                     float inv_hx, float inv_hy, float inv_hz,
                                     int nx, int ny, int nz, void* stream) {
   if (n <= 0) return 0;
-  if (nx < 2 || ny < 2 || nz < 2)
+  if (!rt3::grid3_fits(nx, ny, nz))
     return static_cast<int>(cudaErrorInvalidValue);
   const rt3::Fused3Args a = RT_FUSED3_ARGS;
   const rt3::Grid3 m{static_cast<const float*>(table), x0, y0, z0, inv_hx,

@@ -7,10 +7,11 @@
 // loop (dynamic3d.cuh) reads.
 //
 // Every function here is __host__ __device__ (RT_HD) and includes no CUDA
-// header, so the whole per-ray loop (run3) also compiles for the host with
-// g++ and the CUDA qualifiers stubbed (-ffp-contract=off), and the CPU tests
-// hold it against the plain PyTorch version
-// (raytracing_tpu_torch/kernels/fused3d.py::fused3d_step_plain) to the bit.
+// header (common.cuh includes one only under nvcc), so the whole per-ray
+// loop (run3) also compiles for the host with g++ and the CUDA qualifiers
+// stubbed (-ffp-contract=off), and the CPU tests hold it against the plain
+// PyTorch version (raytracing_tpu_torch/kernels/fused3d.py::
+// fused3d_step_plain) to the bit.
 //
 // Every expression keeps the order of operations of JAX's _step_body3
 // (raytracing_tpu/kernels/fused3d.py:93-188) and of the plain version: the
@@ -23,9 +24,7 @@
 
 #include <math.h>
 
-#ifndef RT_HD
-#define RT_HD __host__ __device__ __forceinline__
-#endif
+#include "common.cuh"
 
 #ifdef __CUDA_ARCH__
 #define RT3_ADD(a, b) __fadd_rn(a, b)
@@ -144,19 +143,6 @@ RT_HD float herm1(float c0, float c1, float c2, float c3, const Basis3& b) {
   return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
 }
 
-// media/c1.py::_vblend on patch data q: each corner column pair blended in v
-// with the basis b into cubic-in-u Hermite data (p0, m0, p1, m1)
-RT_HD Basis3 vblend3(const float q[4][4], const Basis3& b) {
-  const float* f = q[0];
-  const float* fv = q[1];
-  const float* fu = q[2];
-  const float* fw = q[3];
-  return {herm1(f[0], fv[0], f[2], fv[2], b),
-          herm1(fu[0], fw[0], fu[2], fw[2], b),
-          herm1(f[1], fv[1], f[3], fv[3], b),
-          herm1(fu[1], fw[1], fu[3], fw[3], b)};
-}
-
 // jnp.clip(v, 0, hi) = min(max(v, 0), hi)
 RT_HD float clamp3(float v, float hi) { return fminf(fmaxf(v, 0.0f), hi); }
 
@@ -185,23 +171,61 @@ RT_HD void wcollapse(const float* lo, const float* hi, const float* dlo,
     q[k] = lo[k] * b.h0 + dlo[k] * b.g0 + hi[k] * b.h1 + dhi[k] * b.g1;
 }
 
-// The whole w-collapse: the 2-D C1 patch data q[ch2d][corner] (channels f,
-// f_v, f_u, f_vu) from the cell row v[ch * 8 + corner3]
-RT_HD void wblend(const float* v, const Basis3& b, float q[4][4]) {
+// The v-collapses of one cell row that a blend reads (media/c1.py::_vblend
+// of the w-collapsed patch q_w with the v basis b_v: each corner column
+// pair blended in v into cubic-in-u Hermite data (p0, m0, p1, m1)):
+// col[c] for the w basis wb[kw[c]] and the v basis *vb[c], from the row
+// consumed as it arrives, with no copy of its 64 floats.  The w-collapse of
+// media/grid3.py (wcollapse, its patch channels f, f_v, f_u, f_vu from row
+// channels 0, 2, 1, 3 and their d/dw channels 4..7: media/grid3._CH2D)
+// feeds _vblend's halves: f and f_v give a collapse's h0 and h1, f_u and
+// f_vu its g0 and g1.  So each half reads its two row channels' eight
+// quads, collapses them in w with every basis of wb, and blends them in v
+// at once; then the other half.  Every product and sum is the one
+// wcollapse, _vblend and herm1 form, in their order.
+template <int NW, int NC>
+RT_HD void row_cols(const float* row, const Basis3 (&wb)[NW],
+                    const int (&kw)[NC], const Basis3* const (&vb)[NC],
+                    Basis3 (&col)[NC]) {
+  float o[NC][2][2];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int ch = c == 1 ? 2 : (c == 2 ? 1 : c);   // media/grid3._CH2D
-    wcollapse(v + ch * 8, v + ch * 8 + 4, v + (ch + 4) * 8,
-              v + (ch + 4) * 8 + 4, b, q[c]);
+  for (int half = 0; half < 2; ++half) {
+    // patch channels 2 half and 2 half + 1 are row channels chs[0..1]; a
+    // row channel's quads 2 ch, 2 ch + 1 hold its corners at w = 0 and 1,
+    // quads 2 ch + 8, 2 ch + 9 its d/dw channel's
+    const int chs[2] = {half, half + 2};
+    float q[2][NW][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float lo[4], hi[4], dlo[4], dhi[4];
+      quad(row, 2 * chs[j], lo);
+      quad(row, 2 * chs[j] + 1, hi);
+      quad(row, 2 * chs[j] + 8, dlo);
+      quad(row, 2 * chs[j] + 9, dhi);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        wcollapse(lo, hi, dlo, dhi, wb[w], q[j][w]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* a = q[0][kw[c]];
+      const float* b = q[1][kw[c]];
+      o[c][half][0] = herm1(a[0], b[0], a[2], b[2], *vb[c]);
+      o[c][half][1] = herm1(a[1], b[1], a[3], b[3], *vb[c]);
+    }
   }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    col[c] = {o[c][0][0], o[c][1][0], o[c][0][1], o[c][1][1]};
 }
 
 // A C1Grid3Medium's per-cell table (engine/tiled3.py::cells64): one row of
 // 64 floats a cell, the cell (ix, iy, iz) at row (iz*(ny-1) + iy)*(nx-1) +
 // ix; nx, ny, nz count nodes.  Each evaluation locates the cell by JAX's
-// float32 clip/floor/min sequence (fused3d.py:284-293), forms the global row
-// index in 64-bit integers (no window, so no float32 index), reads the row
-// (16 float4 loads through the read-only cache on the card) and blends.
+// float32 clip/floor/min sequence (fused3d.py:284-293), forms the row index
+// in 32-bit integers (no window, so no float32 index; a table of 2^31 rows
+// would hold 550 GB, and the entry points refuse one), reads the row (16
+// float4 loads through the read-only cache on the card) as it blends.
 // Queries outside the grid read the edge cell.
 struct Grid3 {
   const float* t;
@@ -220,38 +244,32 @@ struct Grid3 {
     ux = fx - ix;
     uy = fy - iy;
     uz = fz - iz;
-    const long long c =
-        (static_cast<long long>(iz) * (ny - 1) + static_cast<long long>(iy)) *
-            (nx - 1) +
-        static_cast<long long>(ix);
-    return t + c * 64;
+    const int c = (static_cast<int>(iz) * (ny - 1) + static_cast<int>(iy)) *
+                      (nx - 1) +
+                  static_cast<int>(ix);
+    return t + static_cast<long long>(c) * 64;
   }
 
-  // the cell of (x, y, z): its 64 floats into v, the in-cell offsets
-  RT_HD void cell(float x, float y, float z, float* v, float& ux, float& uy,
-                  float& uz) const {
-    const float* row = locate(x, y, z, ux, uy, uz);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) quad(row, k, v + 4 * k);
-  }
-
+  // media/grid3.py::blend3: the value w-collapse gives n, gx and gy
+  // (media/c1.py::c1_blend), the derivative w-collapse's value gz; the row
+  // is read as it is blended (row_cols)
   RT_HD void nag(float x, float y, float z, float& n, float& gx, float& gy,
                  float& gz) const {
-    float v[64], ux, uy, uz;
-    cell(x, y, z, v, ux, uy, uz);
-    // media/grid3.py::blend3: the value w-collapse gives n, gx and gy
-    // (media/c1.py::c1_blend), the derivative w-collapse's value gz
+    float ux, uy, uz;
+    const float* row = locate(x, y, z, ux, uy, uz);
     const Basis3 hv = hermite_basis3(uy), dv = hermite_dbasis3(uy);
+    const Basis3 wb[2] = {hermite_basis3(uz), hermite_dbasis3(uz)};
+    // col (value in w and v), col_dv (value in w, d/dv), col_dw (d/dw,
+    // value in v)
+    constexpr int kW[3] = {0, 0, 1};
+    const Basis3* vb[3] = {&hv, &dv, &hv};
+    Basis3 cols[3];
+    row_cols(row, wb, kW, vb, cols);
+    const Basis3 &col = cols[0], &col_dv = cols[1], &col_dw = cols[2];
     const Basis3 hu = hermite_basis3(ux), du = hermite_dbasis3(ux);
-    float q[4][4];
-    wblend(v, hermite_basis3(uz), q);
-    const Basis3 col = vblend3(q, hv);
     n = herm1(col.h0, col.g0, col.h1, col.g1, hu);
     gx = herm1(col.h0, col.g0, col.h1, col.g1, du) * inv_hx;
-    const Basis3 col_dv = vblend3(q, dv);
     gy = herm1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, hu) * inv_hy;
-    wblend(v, hermite_dbasis3(uz), q);
-    const Basis3 col_dw = vblend3(q, hv);
     gz = herm1(col_dw.h0, col_dw.g0, col_dw.h1, col_dw.g1, hu) * inv_hz;
   }
 
@@ -260,11 +278,7 @@ struct Grid3 {
   // (media/c1.py::c1_blend_h) gives n, gx, gy, hxx, hxy, hyy; the
   // derivative collapse through the full gradient blend gz, hxz, hyz
   // (times inv_hz); the second-derivative collapse's value hzz.  The row is
-  // consumed as it arrives, with no copy of its 64 floats: the two patch
-  // channels of one half of vblend3 (f and f_v give its h0 and h1, f_u and
-  // f_vu its g0 and g1) are read, collapsed in w with all three bases and
-  // blended in v at once, then the other two; every product and sum is the
-  // one wblend, vblend3 and herm1 form, in their order.
+  // read as it is blended (row_cols).
   RT_HD void nag_h(float x, float y, float z, H3& h) const {
     float ux, uy, uz;
     const float* row = locate(x, y, z, ux, uy, uz);
@@ -272,43 +286,14 @@ struct Grid3 {
                  ddv = hermite_d2basis3(uy);
     const Basis3 wb[3] = {hermite_basis3(uz), hermite_dbasis3(uz),
                           hermite_d2basis3(uz)};
-    // the v-collapses vblend3(q_w, b_v) that the blend reads, by
-    // (w basis, v basis): col (value, value), col_dv, col_ddv, cw (d/dw,
-    // value), cw_dv, cww (d2/dw2, value); their (h0, h1), then (g0, g1)
+    // by (w basis, v basis): col (value, value), col_dv, col_ddv, cw (d/dw,
+    // value), cw_dv, cww (d2/dw2, value)
     constexpr int kW[6] = {0, 0, 0, 1, 1, 2};
     const Basis3* vb[6] = {&hv, &dv, &ddv, &hv, &dv, &hv};
-    float o[6][2][2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // patch channels 2 half and 2 half + 1 are row channels chs[0..1]
-      // (media/grid3._CH2D); a row channel's quads 2 ch, 2 ch + 1 hold its
-      // corners at w = 0 and 1, quads 2 ch + 8, 2 ch + 9 its d/dw channel's
-      const int chs[2] = {half, half + 2};
-      float q[2][3][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float lo[4], hi[4], dlo[4], dhi[4];
-        quad(row, 2 * chs[j], lo);
-        quad(row, 2 * chs[j] + 1, hi);
-        quad(row, 2 * chs[j] + 8, dlo);
-        quad(row, 2 * chs[j] + 9, dhi);
-#pragma unroll
-        for (int w = 0; w < 3; ++w)
-          wcollapse(lo, hi, dlo, dhi, wb[w], q[j][w]);
-      }
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        const float* a = q[0][kW[c]];
-        const float* b = q[1][kW[c]];
-        o[c][half][0] = herm1(a[0], b[0], a[2], b[2], *vb[c]);
-        o[c][half][1] = herm1(a[1], b[1], a[3], b[3], *vb[c]);
-      }
-    }
-    auto col_of = [&](int c) -> Basis3 {
-      return {o[c][0][0], o[c][1][0], o[c][0][1], o[c][1][1]};
-    };
-    const Basis3 col = col_of(0), col_dv = col_of(1), col_ddv = col_of(2),
-                 cw = col_of(3), cw_dv = col_of(4), cww = col_of(5);
+    Basis3 cols[6];
+    row_cols(row, wb, kW, vb, cols);
+    const Basis3 &col = cols[0], &col_dv = cols[1], &col_ddv = cols[2],
+                 &cw = cols[3], &cw_dv = cols[4], &cww = cols[5];
     const Basis3 hu = hermite_basis3(ux), du = hermite_dbasis3(ux),
                  ddu = hermite_d2basis3(ux);
     h.n = herm1(col.h0, col.g0, col.h1, col.g1, hu);
@@ -325,6 +310,13 @@ struct Grid3 {
     h.hzz = herm1(cww.h0, cww.g0, cww.h1, cww.g1, hu) * (inv_hz * inv_hz);
   }
 };
+
+// Whether a Grid3 of nx * ny * nz nodes can be read: at least 2 nodes an
+// axis, and fewer than 2^31 cells (Grid3::locate's 32-bit row index)
+RT_HD bool grid3_fits(int nx, int ny, int nz) {
+  return nx >= 2 && ny >= 2 && nz >= 2 &&
+         static_cast<long long>(nx - 1) * (ny - 1) * (nz - 1) < (1LL << 31);
+}
 
 // -- the step (fused3d.py::_rot_coeffs :68, _rodrigues3 :79) ----------------
 constexpr float kSixth3 = (float)(1.0 / 6.0);
@@ -361,119 +353,218 @@ struct Ray3 {
   bool active;
 };
 
+// One ray's carry across steps: its state, n and grad n at its position,
+// and 1 / n where n is in recip_pos's range (the ops of Quick3::kRecip)
+struct Carry3 {
+  Ray3 s;
+  float n, gx, gy, gz, rny;
+};
+
+// Every op's step divides or takes a square root: op2 and op6 by n and the
+// next n (1 / n), op6 and op8 ds^2 / 2n, op6 and op8 take the chord's
+// length, op1 and op8 normalize the impulse by 1 / sqrtf.  Each of these
+// has a fast form: 1 / n carried from the last step's n2 and the quotient
+// from it (common.cuh's recip_pos and div_fast_pos), sqrt_fast, 1 / sqrtf
+// as sqrt_fast then rcp_fast, each correctly rounded where its guard holds,
+// with no branch.  A step takes them in one of two ways, either way with
+// the IEEE operations' bits (Mode3):
+// * FAST3 (WholeStep3: the grid3 table): every guard ANDed into one flag,
+//   tested once a step; where it fails, the step again in IEEE3 (the plain
+//   version's operations one by one) from the same carry.  One test a step,
+//   but the carry stays live through the step (128 registers, 4 blocks an
+//   SM): on the grid3 table's tilted fan, 2.5 % faster than LOCAL3 (PERF.md
+//   section 6).
+// * LOCAL3 (the analytic fields): each guarded operation takes its IEEE
+//   form at once where its own guard fails, so no carry is kept for a
+//   rerun (44-48 registers against 56): 3.7 % faster on the fisheye.
+// The guards hold on every step of the 3-D main path's fans: n lies in
+// [2^-16, 2^16] on every 3-D field (the fisheye and the grid (0, 1], vert
+// about 1/18, the interface [1, 1.42]); a step's squared chord (about ds^2,
+// 4e-6 or more at the 3-D fans' steps) and the impulse's |n u + ...|^2
+// (about n^2) lie in [2^-100, 2^126].  No small numerator is divided: the
+// 3-D step multiplies by 1 / n, where the 2-D step divides (fused.cuh
+// Quick).
+enum Mode3 { IEEE3 = 0, FAST3, LOCAL3 };
+
+template <class Medium>
+struct WholeStep3 {
+  static constexpr bool value = false;
+};
+template <>
+struct WholeStep3<Grid3> {
+  static constexpr bool value = true;
+};
+
+template <int OP>
+struct Quick3 {
+  // the ops that divide by n: op2 and op6 (1 / n), op6 and op8 (ds^2 / 2n)
+  static constexpr bool kRecip = OP == 2 || OP == 6 || OP == 8;
+};
+
+// A guarded operation in MODE: ieee() in IEEE3; else fast(g), which ANDs
+// its guard into g, and in LOCAL3 ieee() at once where g fails; g is ANDed
+// into ok
+template <int MODE, class Fast, class Ieee>
+RT_HD float guarded(const Fast& fast, const Ieee& ieee, bool& ok) {
+  if (MODE == IEEE3) return ieee();
+  bool g = true;
+  float r = fast(g);
+  if (MODE == LOCAL3 && !g) r = ieee();
+  ok = ok & g;
+  return r;
+}
+
+template <class Medium, int OP>
+RT_HD void load3(const Medium& m, Carry3& c) {
+  m.nag(c.s.x, c.s.y, c.s.z, c.n, c.gx, c.gy, c.gz);
+  c.rny = Quick3<OP>::kRecip ? rt::recip_pos(c.n).y : 0.0f;
+}
+
+// One step of OP (_step_body3) from the carry, its guarded operations in
+// MODE (Mode3), their guards ANDed into ok
+template <class Medium, int OP, int MODE>
+RT_HD void step3(Carry3& c, float ds, float dsds_half, float half,
+                    const Medium& m, bool& ok) {
+  constexpr bool kSecond = OP == 6 || OP == 8;
+  constexpr bool kRk2 = OP == 2 || OP == 6;
+  Ray3& s = c.s;
+  const float ux = s.ux, uy = s.uy, uz = s.uz;
+  const float n = c.n, gx = c.gx, gy = c.gy, gz = c.gz;
+  // the carried reciprocal of n, its guard tested where it is used
+  const rt::Recip rn{n, c.rny, rt::pos_range(n)};
+
+  // -- position advance (ops/steppers.py in vector form) -----------------
+  // g . u, shared by the position advance and the rotation
+  const float gdotu = gx * ux + gy * uy + gz * uz;
+  float ddx, ddy, ddz;
+  if (kSecond) {
+    const float half_fac = guarded<MODE>(
+        [&](bool& g) { return rt::div_fast_pos(dsds_half, rn, g); },
+        [&] { return dsds_half / n; }, ok);
+    ddx = ux * ds + (gx - gdotu * ux) * half_fac;
+    ddy = uy * ds + (gy - gdotu * uy) * half_fac;
+    ddz = uz * ds + (gz - gdotu * uz) * half_fac;
+  } else {
+    ddx = ux * ds;
+    ddy = uy * ds;
+    ddz = uz * ds;
+  }
+  float nx2, ny2, nz2, cx2, cy2, cz2;
+  kahan3(s.x, s.cx, ddx, nx2, cx2);
+  kahan3(s.y, s.cy, ddy, ny2, cy2);
+  kahan3(s.z, s.cz, ddz, nz2, cz2);
+  float n2, gx2, gy2, gz2;
+  m.nag(nx2, ny2, nz2, n2, gx2, gy2, gz2);
+  // the next step's reciprocal of n (its y read only where its ok holds)
+  rt::Recip rn2{};
+  if (Quick3<OP>::kRecip) rn2 = rt::recip_pos(n2);
+
+  // -- tangent update ----------------------------------------------------
+  float nux, nuy, nuz;
+  if (kRk2) {
+    // rotation-vector Heun (engine/trace3d.py), polynomial rotations
+    const float inv_n = guarded<MODE>(
+        [&](bool& g) { g = g & rn.ok; return rn.y; },
+        [&] { return 1.0f / n; }, ok);
+    const float k1x = ds * (gx - gdotu * ux) * inv_n;
+    const float k1y = ds * (gy - gdotu * uy) * inv_n;
+    const float k1z = ds * (gz - gdotu * uz) * inv_n;
+    const float r1x = uy * k1z - uz * k1y;
+    const float r1y = uz * k1x - ux * k1z;
+    const float r1z = ux * k1y - uy * k1x;
+    float umx, umy, umz;
+    rodrigues3(ux, uy, uz, r1x, r1y, r1z, umx, umy, umz);
+    const float inv_n2 = guarded<MODE>(
+        [&](bool& g) { g = g & rn2.ok; return rn2.y; },
+        [&] { return 1.0f / n2; }, ok);
+    const float gdotm = gx2 * umx + gy2 * umy + gz2 * umz;
+    const float k2x = ds * (gx2 - gdotm * umx) * inv_n2;
+    const float k2y = ds * (gy2 - gdotm * umy) * inv_n2;
+    const float k2z = ds * (gz2 - gdotm * umz) * inv_n2;
+    const float rx = (r1x + (umy * k2z - umz * k2y)) * 0.5f;
+    const float ry = (r1y + (umz * k2x - umx * k2z)) * 0.5f;
+    const float rz = (r1z + (umx * k2y - umy * k2x)) * 0.5f;
+    rodrigues3(ux, uy, uz, rx, ry, rz, nux, nuy, nuz);
+  } else {
+    // trapezoidal impulse on p = n u
+    const float sx = n * ux + (gx + gx2) * half;
+    const float sy = n * uy + (gy + gy2) * half;
+    const float sz = n * uz + (gz + gz2) * half;
+    const float ssq = sx * sx + sy * sy + sz * sz;
+    const float inv = guarded<MODE>(
+        [&](bool& g) { return rt::rcp_fast(rt::sqrt_fast(ssq, g), g); },
+        [&] { return 1.0f / sqrtf(ssq); }, ok);
+    nux = sx * inv;
+    nuy = sy * inv;
+    nuz = sz * inv;
+  }
+
+  if (kSecond) {
+    const float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
+    const float dist = guarded<MODE>(
+        [&](bool& g) { return rt::sqrt_fast(d2, g); },
+        [&] { return sqrtf(d2); }, ok);
+    s.tt = s.tt + dist * (n + n2) * 0.5f;
+    s.dsim = s.dsim + dist;
+  } else {
+    s.tt = s.tt + ds * (n + n2) * 0.5f;
+    s.dsim = s.dsim + ds;
+  }
+  s.x = nx2;
+  s.y = ny2;
+  s.z = nz2;
+  s.cx = cx2;
+  s.cy = cy2;
+  s.cz = cz2;
+  s.ux = nux;
+  s.uy = nuy;
+  s.uz = nuz;
+  c.n = n2;
+  c.gx = gx2;
+  c.gy = gy2;
+  c.gz = gz2;
+  c.rny = rn2.y;
+}
+
 // ``steps`` steps of OP on one ray from global step ``offset``: _step_body3
 // with a frozen ray (box exit or the step limit) leaving the loop, since its
-// state never changes again.  n and grad are evaluated at the start, as
-// _make_tile_kernel3 does (:417), so chained launches equal one.
-// box = (x0, x1, y0, y1, z0, z1).
+// state never changes again; the loop runs to the ray's step budget
+// (common.cuh step_budget: the steps before its limit), so it tests no
+// limit a step.  n and grad are evaluated at the start, as
+// _make_tile_kernel3 does (:417), so chained launches equal one.  Each step
+// takes its guarded operations' fast forms, with the IEEE step from the
+// same carry (WholeStep3) or each operation's IEEE form (Mode3) where a
+// guard fails.  box = (x0, x1, y0, y1, z0, z1).
 template <class Medium, int OP>
 RT_HD void run3(Ray3& s, int steps, float ds, float limit, float offset,
                 const float* box, const Medium& m) {
-  constexpr bool kSecond = OP == 6 || OP == 8;
-  constexpr bool kRk2 = OP == 2 || OP == 6;
-  float x = s.x, y = s.y, z = s.z, cx = s.cx, cy = s.cy, cz = s.cz;
-  float ux = s.ux, uy = s.uy, uz = s.uz, tt = s.tt, dsim = s.dsim;
-  bool active = s.active;
-  float n, gx, gy, gz;
-  m.nag(x, y, z, n, gx, gy, gz);
+  Carry3 c;
+  c.s = s;
+  const int stop = rt::step_budget(steps, offset, limit);
+  if (!s.active || stop == 0) return;
+  load3<Medium, OP>(m, c);
   const float dsds_half = ds * ds * 0.5f;
   const float half = ds * 0.5f;
-
-  for (int i = 0; i < steps; ++i) {
-    if (!active || !((float)i + offset < limit)) break;
-
-    // -- position advance (ops/steppers.py in vector form) ---------------
-    // g . u, shared by the position advance and the rotation
-    const float gdotu = gx * ux + gy * uy + gz * uz;
-    float ddx, ddy, ddz;
-    if (kSecond) {
-      const float half_fac = dsds_half / n;
-      ddx = ux * ds + (gx - gdotu * ux) * half_fac;
-      ddy = uy * ds + (gy - gdotu * uy) * half_fac;
-      ddz = uz * ds + (gz - gdotu * uz) * half_fac;
+  for (int i = 0; i < stop && c.s.active; ++i) {
+    bool ok = true;
+    if constexpr (WholeStep3<Medium>::value) {
+      Carry3 t = c;
+      step3<Medium, OP, FAST3>(t, ds, dsds_half, half, m, ok);
+      if (!ok) {
+        t = c;
+        step3<Medium, OP, IEEE3>(t, ds, dsds_half, half, m, ok);
+      }
+      c = t;
     } else {
-      ddx = ux * ds;
-      ddy = uy * ds;
-      ddz = uz * ds;
+      step3<Medium, OP, LOCAL3>(c, ds, dsds_half, half, m, ok);
     }
-    float nx2, ny2, nz2, cx2, cy2, cz2;
-    kahan3(x, cx, ddx, nx2, cx2);
-    kahan3(y, cy, ddy, ny2, cy2);
-    kahan3(z, cz, ddz, nz2, cz2);
-    float n2, gx2, gy2, gz2;
-    m.nag(nx2, ny2, nz2, n2, gx2, gy2, gz2);
-
-    // -- tangent update ----------------------------------------------------
-    float nux, nuy, nuz;
-    if (kRk2) {
-      // rotation-vector Heun (engine/trace3d.py), polynomial rotations
-      const float inv_n = 1.0f / n;
-      const float k1x = ds * (gx - gdotu * ux) * inv_n;
-      const float k1y = ds * (gy - gdotu * uy) * inv_n;
-      const float k1z = ds * (gz - gdotu * uz) * inv_n;
-      const float r1x = uy * k1z - uz * k1y;
-      const float r1y = uz * k1x - ux * k1z;
-      const float r1z = ux * k1y - uy * k1x;
-      float umx, umy, umz;
-      rodrigues3(ux, uy, uz, r1x, r1y, r1z, umx, umy, umz);
-      const float inv_n2 = 1.0f / n2;
-      const float gdotm = gx2 * umx + gy2 * umy + gz2 * umz;
-      const float k2x = ds * (gx2 - gdotm * umx) * inv_n2;
-      const float k2y = ds * (gy2 - gdotm * umy) * inv_n2;
-      const float k2z = ds * (gz2 - gdotm * umz) * inv_n2;
-      const float rx = (r1x + (umy * k2z - umz * k2y)) * 0.5f;
-      const float ry = (r1y + (umz * k2x - umx * k2z)) * 0.5f;
-      const float rz = (r1z + (umx * k2y - umy * k2x)) * 0.5f;
-      rodrigues3(ux, uy, uz, rx, ry, rz, nux, nuy, nuz);
-    } else {
-      // trapezoidal impulse on p = n u
-      const float sx = n * ux + (gx + gx2) * half;
-      const float sy = n * uy + (gy + gy2) * half;
-      const float sz = n * uz + (gz + gz2) * half;
-      const float inv = 1.0f / sqrtf(sx * sx + sy * sy + sz * sz);
-      nux = sx * inv;
-      nuy = sy * inv;
-      nuz = sz * inv;
-    }
-
-    if (kSecond) {
-      const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
-      tt = tt + dist * (n + n2) * 0.5f;
-      dsim = dsim + dist;
-    } else {
-      tt = tt + ds * (n + n2) * 0.5f;
-      dsim = dsim + ds;
-    }
-    x = nx2;
-    y = ny2;
-    z = nz2;
-    cx = cx2;
-    cy = cy2;
-    cz = cz2;
-    ux = nux;
-    uy = nuy;
-    uz = nuz;
-    n = n2;
-    gx = gx2;
-    gy = gy2;
-    gz = gz2;
     // strict 6-face exit: the exiting step is kept
-    if ((x > box[1]) | (x < box[0]) | (y > box[3]) | (y < box[2]) |
-        (z > box[5]) | (z < box[4]))
-      active = false;
+    const Ray3& r = c.s;
+    if ((r.x > box[1]) | (r.x < box[0]) | (r.y > box[3]) | (r.y < box[2]) |
+        (r.z > box[5]) | (r.z < box[4]))
+      c.s.active = false;
   }
-  s.x = x;
-  s.y = y;
-  s.z = z;
-  s.cx = cx;
-  s.cy = cy;
-  s.cz = cz;
-  s.ux = ux;
-  s.uy = uy;
-  s.uz = uz;
-  s.tt = tt;
-  s.dsim = dsim;
-  s.active = active;
+  s = c.s;
 }
 
 }  // namespace rt3

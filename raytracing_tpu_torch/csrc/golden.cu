@@ -74,6 +74,8 @@ extern "C" int rt_golden_step_strat(int ch, RT_GOLDEN_PARAMS, RT_TABLE_PARAMS,
 extern "C" int rt_golden_step_grid(int cell_ch, RT_GOLDEN_PARAMS,
                                    RT_TABLE_PARAMS, void* stream) {
   if (n <= 0) return 0;
+  if (!rt::table2_fits(nx, ny))
+    return static_cast<int>(cudaErrorInvalidValue);
   const rt::GoldenArgs a = RT_GOLDEN_ARGS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cell_ch) {

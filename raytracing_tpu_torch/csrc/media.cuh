@@ -44,7 +44,12 @@
 // kernels agree to the bit with their plain PyTorch versions
 // (raytracing_tpu_torch/kernels/fused.py: field_fn, strat_nag_plain,
 // tile_nag_plain, nodes_nag_plain; kernels/dynamic.py: field_fn_h,
-// strat_nag_h, tile_nag_h) under -fmad=false.
+// strat_nag_h, tile_nag_h) under -fmad=false.  The one exception is the
+// parity grid's hermite_blend (Grid<36>, Nodes), which fuses each product
+// into its sum by an explicit fmaf (fma_rn) where JAX rounds the two
+// apart; its plain version rounds the same fused operations with
+// utils/fma.py::fma32, so the pair stays bit-equal, and JAX is held to
+// the port's tolerances there (ROADMAP.md section 3).
 #pragma once
 
 #include "common.cuh"
@@ -265,39 +270,11 @@ struct NodeCorners {
   }
 };
 
-// bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8):
-// raytracing_tpu/kernels/fused.py::_hermite_blend (:108-148)
-template <class Corners>
-RT_HD void hermite_blend(const Corners& corners, float u, float v, float& n,
-                         float& gx, float& gy) {
-  const float4 z = corners(0);
-  n = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
-      v * ((1.0f - u) * z.z + u * z.w);
-  const float v2 = v * v;
-  const float v3 = v2 * v;
-  const float hv0 = 2.0f * v3 - 3.0f * v2 + 1.0f;
-  const float gv0 = v3 - 2.0f * v2 + v;
-  const float hv1 = -2.0f * v3 + 3.0f * v2;
-  const float gv1 = v3 - v2;
-  const float u2 = u * u;
-  const float u3 = u2 * u;
-  const float hu0 = 2.0f * u3 - 3.0f * u2 + 1.0f;
-  const float gu0 = u3 - 2.0f * u2 + u;
-  const float hu1 = -2.0f * u3 + 3.0f * u2;
-  const float gu1 = u3 - u2;
-  float g[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int ch0 = 1 + 4 * k;
-    const float4 f = corners(ch0), fv = corners(ch0 + 1),
-                 fu = corners(ch0 + 2), fw = corners(ch0 + 3);
-    g[k] = (f.x * hv0 + fv.x * gv0 + f.z * hv1 + fv.z * gv1) * hu0 +
-           (f.y * hv0 + fv.y * gv0 + f.w * hv1 + fv.w * gv1) * hu1 +
-           (fu.x * hv0 + fw.x * gv0 + fu.z * hv1 + fw.z * gv1) * gu0 +
-           (fu.y * hv0 + fw.y * gv0 + fu.w * hv1 + fw.w * gv1) * gu1;
-  }
-  gx = g[0];
-  gy = g[1];
+// c0 b0 + c1 b1 + c2 b2 + c3 b3, summed left to right with each product
+// fused into its sum: fma(c3, b3, fma(c2, b2, fma(c1, b1, c0 * b0)))
+RT_HD float dot4_fma(float c0, float c1, float c2, float c3, float b0,
+                     float b1, float b2, float b3) {
+  return fma_rn(c3, b3, fma_rn(c2, b2, fma_rn(c1, b1, c0 * b0)));
 }
 
 // Hermite basis (h00, h10, h01, h11) and its derivative at t
@@ -316,6 +293,55 @@ RT_HD Basis hermite_dbasis(float t) {
   return {6.0f * t2 - 6.0f * t, 3.0f * t2 - 4.0f * t + 1.0f,
           -6.0f * t2 + 6.0f * t, 3.0f * t2 - 2.0f * t};
 }
+
+// The cubic Hermite basis (h0, g0, h1, g1) at t in FMA form, t2 = t * t:
+// h0 = fma(fma(2, t, -3), t2, 1), g0 = fma(t2, t - 2, t),
+// h1 = t2 * fma(-2, t, 3), g1 = t2 * (t - 1)
+RT_HD Basis hermite_basis_fma(float t) {
+  const float t2 = t * t;
+  return {fma_rn(fma_rn(2.0f, t, -3.0f), t2, 1.0f), fma_rn(t2, t - 2.0f, t),
+          t2 * fma_rn(-2.0f, t, 3.0f), t2 * (t - 1.0f)};
+}
+
+// bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8) of
+// raytracing_tpu/kernels/fused.py::_hermite_blend (:108-148), each product
+// that feeds a sum fused into it (fma_rn): n as two lerps along u and one
+// along v, r0 = fma(u, z01 - z00, z00), r1 = fma(u, z11 - z10, z10),
+// n = fma(v, r1 - r0, r0); the bases by hermite_basis_fma; each gradient
+// channel's four corner columns blended along v and the four results
+// across u by dot4_fma, in the terms' order of _hermite_blend.  The plain
+// version (kernels/fused.py::hermite_blend) performs the same operations
+// with fma32, so the two agree to the bit; JAX's blend rounds every
+// product and sum on its own, which this one is held to within the port's
+// tolerances only (ROADMAP.md section 3).
+template <class Corners>
+RT_HD void hermite_blend(const Corners& corners, float u, float v, float& n,
+                         float& gx, float& gy) {
+  const float4 z = corners(0);
+  const float r0 = fma_rn(u, z.y - z.x, z.x);
+  const float r1 = fma_rn(u, z.w - z.z, z.z);
+  n = fma_rn(v, r1 - r0, r0);
+  const Basis hv = hermite_basis_fma(v), hu = hermite_basis_fma(u);
+  float g[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int ch0 = 1 + 4 * k;
+    const float4 f = corners(ch0), fv = corners(ch0 + 1),
+                 fu = corners(ch0 + 2), fw = corners(ch0 + 3);
+    const float c00 = dot4_fma(f.x, fv.x, f.z, fv.z, hv.h0, hv.g0, hv.h1,
+                               hv.g1);
+    const float c01 = dot4_fma(f.y, fv.y, f.w, fv.w, hv.h0, hv.g0, hv.h1,
+                               hv.g1);
+    const float d00 = dot4_fma(fu.x, fw.x, fu.z, fw.z, hv.h0, hv.g0, hv.h1,
+                               hv.g1);
+    const float d01 = dot4_fma(fu.y, fw.y, fu.w, fw.w, hv.h0, hv.g0, hv.h1,
+                               hv.g1);
+    g[k] = dot4_fma(c00, c01, d00, d01, hu.h0, hu.h1, hu.g0, hu.g1);
+  }
+  gx = g[0];
+  gy = g[1];
+}
+
 // c0*h0 + c1*g0 + c2*h1 + c3*g1 (media/c1.py::_hermite1)
 RT_HD float hermite1(float c0, float c1, float c2, float c3, const Basis& b) {
   return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
@@ -416,17 +442,25 @@ RT_HD void hermite_blend_h(const float* c, float u, float v, float inv_hx,
 // -- 2-D grid (engine/segmented.py::_cells, fused.py::_tile_nag) -------------
 // The cell of (x, y) on a table's nodes, by JAX's float32 clip/floor/min
 // sequence: the in-cell offsets (u, v) and the row index iy * stride + ix
-// (stride nx - 1 for a per-cell table, nx for the node table), in 64 bits:
-// a user grid may hold more than 2^31 floats.
-RT_HD long long locate2(const Table& m, float x, float y, int stride, float& u,
-                        float& v) {
+// (stride nx - 1 for a per-cell table, nx for the node table) in 32 bits;
+// the callers widen it as they scale it by the row's floats (one wide
+// multiply-add), so a table may hold more than 2^31 floats, but fewer than
+// 2^31 rows (table2_fits, which the entry points check).
+RT_HD int locate2(const Table& m, float x, float y, int stride, float& u,
+                  float& v) {
   const float fx = clampf((x - m.x0) * m.inv_hx, (float)(m.nx - 1));
   const float fy = clampf((y - m.y0) * m.inv_hy, (float)(m.ny - 1));
   const float ix = fminf(floorf(fx), (float)(m.nx - 2));
   const float iy = fminf(floorf(fy), (float)(m.ny - 2));
   u = fx - ix;
   v = fy - iy;
-  return static_cast<long long>(iy) * stride + static_cast<long long>(ix);
+  return static_cast<int>(iy) * stride + static_cast<int>(ix);
+}
+
+// whether locate2's 32-bit row index can address every row of a table of
+// nx * ny nodes (the node table's nx * ny rows; a per-cell table has fewer)
+RT_HD bool table2_fits(int nx, int ny) {
+  return static_cast<long long>(nx) * ny < (1LL << 31);
 }
 
 template <int CELL_CH>
@@ -435,7 +469,8 @@ struct Grid {
   Table m;
   RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
     float u, v;
-    const float* c = m.t + locate2(m, x, y, m.nx - 1, u, v) * CELL_CH;
+    const int cell = locate2(m, x, y, m.nx - 1, u, v);
+    const float* c = m.t + static_cast<long long>(cell) * CELL_CH;
     if (CELL_CH == 16) {
       c1_blend(c, u, v, m.inv_hx, m.inv_hy, n, gx, gy);
     } else {
@@ -445,7 +480,8 @@ struct Grid {
   // the same cell lookup, then the 9 channels of the dynamic kernels
   RT_HD void nag_h(float x, float y, float* f) const {
     float u, v;
-    const float* c = m.t + locate2(m, x, y, m.nx - 1, u, v) * CELL_CH;
+    const int cell = locate2(m, x, y, m.nx - 1, u, v);
+    const float* c = m.t + static_cast<long long>(cell) * CELL_CH;
     if (CELL_CH == 16) {
       c1_blend_h(c, u, v, m.inv_hx, m.inv_hy, f);
     } else {
@@ -459,7 +495,8 @@ struct Nodes {
   Table m;   // t: the (ny*nx, 9) node table
   RT_HD void nag(float x, float y, float& n, float& gx, float& gy) const {
     float u, v;
-    const float* c00 = m.t + locate2(m, x, y, m.nx, u, v) * 9;
+    const int node = locate2(m, x, y, m.nx, u, v);
+    const float* c00 = m.t + static_cast<long long>(node) * 9;
     const float* c10 = c00 + static_cast<long long>(m.nx) * 9;
     hermite_blend(NodeCorners{c00, c00 + 9, c10, c10 + 9}, u, v, n, gx, gy);
   }

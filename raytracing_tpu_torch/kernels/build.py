@@ -132,6 +132,9 @@ _SIGNATURES = {
     # mode, denominator, first, count, seed, out (3 int64 on the card),
     # stream (csrc/divide.cu: the shared-reciprocal division's check)
     "rt_div_check": (_I, _F, _U64, _U64, _U64, _P, _P),
+    # a, b, c, out (float32 on the card), n, stream (csrc/divide.cu: the
+    # card's fmaf, against utils/fma.py::fma32)
+    "rt_fma": (_P, _P, _P, _P, ctypes.c_longlong, _P),
 }
 
 

@@ -19,6 +19,11 @@ against ``__fdiv_rn``; all 2^32 operands of the reciprocal, square root
 and rsqrt against ``__frcp_rn``, ``__fsqrt_rn`` and ``rsqrtf``.  It is a
 check, not a port of a TPU kernel, and it needs the card; the CPU tests
 hold the same header functions, built by g++, to numpy.
+
+:func:`fma_card` gives the card's ``fmaf`` (``fma_rn``, one FFMA: the 2-D
+grid blend's sums of products, csrc/media.cuh ``hermite_blend``) on
+float32 tensors, which chip_smoke.py's ``[fma32]`` phase holds to the plain
+versions' :func:`raytracing_tpu_torch.utils.fma.fma32` on the card.
 """
 from __future__ import annotations
 
@@ -69,3 +74,21 @@ def div_check(*, denominator: float | None = None, count: int,
         return 0, None
     pair = np.array([a_bits, b_bits], np.uint32).view(np.float32)
     return bad, (float(pair[0]), float(pair[1]))
+
+
+def fma_card(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """a * b + c rounded once, by the card's ``fmaf`` (csrc/divide.cu
+    ``rt_fma``), elementwise on float32 CUDA tensors of one shape."""
+    if not (a.is_cuda and b.is_cuda and c.is_cuda):
+        raise ValueError("fma_card runs on the card: pass CUDA tensors")
+    if not (a.shape == b.shape == c.shape) or any(
+            t.dtype != torch.float32 for t in (a, b, c)):
+        raise ValueError("fma_card takes three float32 tensors of one shape")
+    a, b, c = (t.contiguous() for t in (a, b, c))
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        build.check(build.library().rt_fma(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
+            a.numel(), torch.cuda.current_stream().cuda_stream), "rt_fma")
+    return out

@@ -51,6 +51,7 @@ from raytracing_tpu_torch.kernels import build
 from raytracing_tpu_torch.kernels.custom import (
     KERNEL_FUSED as KERNEL_CUSTOM, CustomField, custom_nag_plain, library_for,
     trace_custom)
+from raytracing_tpu_torch.utils import fma
 
 FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
 FUSED_OPS = ("op1", "op2", "op3", "op4", "op6", "op7", "op8", "op12")
@@ -209,41 +210,61 @@ def strat_nag_plain(t: StratTables):
     return nag
 
 
+def hermite_basis_fma(t):
+    """The cubic Hermite basis (h0, g0, h1, g1) at ``t`` in csrc/media.cuh's
+    FMA form (``hermite_basis_fma``), t2 = t * t: h0 = fma(fma(2, t, -3),
+    t2, 1), g0 = fma(t2, t - 2, t), h1 = t2 * fma(-2, t, 3), g1 = t2 * (t -
+    1)."""
+    fma32 = fma.fma32
+    t2 = t * t
+    return (fma32(fma32(2.0, t, -3.0), t2, 1.0), fma32(t2, t - 2.0, t),
+            t2 * fma32(-2.0, t, 3.0), t2 * (t - 1.0))
+
+
+def dot4_fma(c, b):
+    """c0 b0 + c1 b1 + c2 b2 + c3 b3 summed left to right, each product fused
+    into its sum (csrc/media.cuh ``dot4_fma``)."""
+    fma32 = fma.fma32
+    return fma32(c[3], b[3], fma32(c[2], b[2], fma32(c[1], b[1],
+                                                     c[0] * b[0])))
+
+
 def hermite_blend(corners, u, v):
-    """Bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8)
-    (fused.py:108-148 ``_hermite_blend``).
+    """Bilinear n (channel 0) + bicubic Hermite gradients (channels 1-8) of
+    JAX's ``_hermite_blend`` (fused.py:108-148), each product that feeds a
+    sum fused into it as csrc/media.cuh's ``hermite_blend`` fuses it, by
+    :func:`raytracing_tpu_torch.utils.fma.fma32`: n as two lerps along u
+    and one along v; the bases by :func:`hermite_basis_fma`; each gradient
+    channel's corner columns blended along v and the results across u by
+    :func:`dot4_fma`.  The kernels' bits, not JAX's, which rounds each
+    product and sum on its own (ROADMAP.md section 3).  Blends of the same
+    form run as one stacked call (the two lerps along u, the v and u
+    bases, the eight v-blends, the two u-blends): the same operations on
+    every element, in a quarter of the torch calls.
 
     ``corners(ch) -> (c00, c01, c10, c11)`` fetches a channel's 2x2 corner
     node values (c01 = +x neighbour, c10 = +y).
     """
+    fma32 = fma.fma32
     z00, z01, z10, z11 = corners(0)
-    n = ((1.0 - v) * ((1.0 - u) * z00 + u * z01)
-         + v * ((1.0 - u) * z10 + u * z11))
-
-    v2 = v * v
-    v3 = v2 * v
-    hv0 = 2.0 * v3 - 3.0 * v2 + 1.0
-    gv0 = v3 - 2.0 * v2 + v
-    hv1 = -2.0 * v3 + 3.0 * v2
-    gv1 = v3 - v2
-    u2 = u * u
-    u3 = u2 * u
-    hu0 = 2.0 * u3 - 3.0 * u2 + 1.0
-    gu0 = u3 - 2.0 * u2 + u
-    hu1 = -2.0 * u3 + 3.0 * u2
-    gu1 = u3 - u2
-
-    def hermite(ch0):
-        f00, f01, f10, f11 = corners(ch0)
-        fv00, fv01, fv10, fv11 = corners(ch0 + 1)
-        fu00, fu01, fu10, fu11 = corners(ch0 + 2)
-        fw00, fw01, fw10, fw11 = corners(ch0 + 3)
-        return ((f00 * hv0 + fv00 * gv0 + f10 * hv1 + fv10 * gv1) * hu0
-                + (f01 * hv0 + fv01 * gv0 + f11 * hv1 + fv11 * gv1) * hu1
-                + (fu00 * hv0 + fw00 * gv0 + fu10 * hv1 + fw10 * gv1) * gu0
-                + (fu01 * hv0 + fw01 * gv0 + fu11 * hv1 + fw11 * gv1) * gu1)
-
-    return n, hermite(1), hermite(5)
+    lo, hi = torch.stack((z00, z10)), torch.stack((z01, z11))
+    r = fma32(u, hi - lo, lo)
+    n = fma32(v, r[1] - r[0], r[0])
+    h0, g0, h1, g1 = hermite_basis_fma(torch.stack((v, u)))
+    hv = (h0[0], g0[0], h1[0], g1[0])
+    hu = (h0[1], h1[1], g0[1], g1[1])
+    # the v-blends c00, c01, d00, d01 of channels 1-4 then 5-8, each of the
+    # corner column (value, d/dv) pairs (f, f_v) and (f_u, f_vu) at x = 0
+    # and x = 1: terms (a[k], b[k], a[k + 2], b[k + 2])
+    cols = []
+    for ch0 in (1, 5):
+        f, fv, fu, fw = (corners(ch0 + k) for k in range(4))
+        cols += [(a[k], b[k], a[k + 2], b[k + 2])
+                 for a, b in ((f, fv), (fu, fw)) for k in (0, 1)]
+    inner = dot4_fma(tuple(torch.stack(t) for t in zip(*cols)), hv)
+    per_channel = inner.unflatten(0, (2, 4))
+    g = dot4_fma(tuple(per_channel[:, j] for j in range(4)), hu)
+    return n, g[0], g[1]
 
 
 def tile_nag_plain(g: GridTables):

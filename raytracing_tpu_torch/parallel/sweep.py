@@ -153,14 +153,18 @@ def candidate_metrics(scen: config.ScenarioConfig, fan, nf: int,
     """One candidate's acceptance metrics from its kernel run's
     ``FusedFinal`` or ``GoldenFinal`` (sweep.py:300-318), in the JAX
     package's float32 numpy arithmetic: fisheye closure from ray 0's
-    position, interface Snell errors from the final tangents of the first
-    ``nf`` rays (a golden run's from numpy cos/sin of its angle), vert/aniso
-    the mean momentum CV of the fan's interior rays (``cv[1:-1]``, the
-    reference's convention)."""
+    position (as (100 / 2 pi) |p - (1, 0)|, the expression of the grid
+    sweep's closures below and of JAX's, sweep.py:223, so that a
+    candidate's closure does not depend on which path ran it; JAX's
+    per-candidate path divides by 2 pi last, sweep.py:302, which may round
+    the last float64 bit apart), interface Snell errors from the final
+    tangents of the first ``nf`` rays (a golden run's from numpy cos/sin
+    of its angle), vert/aniso the mean momentum CV of the fan's interior
+    rays (``cv[1:-1]``, the reference's convention)."""
     if scen.is_fisheye:
         p = _np(final.pos[0])
-        return {"closure_pct": 100.0 * np.linalg.norm(p - [1.0, 0.0])
-                / (2.0 * np.pi)}
+        return {"closure_pct": (100.0 / (2.0 * np.pi))
+                * np.linalg.norm(p - [1.0, 0.0])}
     if scen.is_interface:
         if hasattr(final, "angle"):
             a = _np(final.angle[:nf])

@@ -17,7 +17,8 @@ against IEEE division on all 2^32 numerators of 60 and 360 and 2^28
 seeded pairs; the fused step's division by a carried reciprocal
 (div_fast_pos) the same way, and the reciprocal, square root and rsqrt
 fast paths on all 2^32 operands against the card's own operations; and
-fisheye_op1 at odd step counts, to the bit.
+fisheye_op1 at odd step counts, to the bit; the plain versions' float32
+FMA (utils/fma.py::fma32) on the card against the card's fmaf.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -889,6 +890,23 @@ def test_fast_paths_equal_the_cards_operations(kind, denominator,
         bad, pair = div_check(kind=kind, denominator=denominator,
                               count=1 << 32, device=cuda_device)
     assert bad == 0, pair
+
+
+@pytest.mark.parametrize("kind", ["bits", "moderate", "midpoint",
+                                  "midpoint-subnormal"])
+def test_fma32_equals_the_cards_fmaf(kind, cuda_device):
+    """utils/fma.py::fma32 computed on the card (the 2-D grid blend's plain
+    version) against the card's fmaf (csrc/divide.cu rt_fma), 2^22
+    seeded triples of each kind (bench.fma_triples), every bit."""
+    from raytracing_tpu_torch.bench import fma_triples
+    from raytracing_tpu_torch.kernels.divide import fma_card
+    from raytracing_tpu_torch.utils.fma import fma32
+    a, b, c = (torch.as_tensor(v, device=cuda_device) for v in fma_triples(
+        kind, 1 << 22, np.random.default_rng(21)))
+    card, plain = fma_card(a, b, c), fma32(a, b, c)
+    off = ((card.view(torch.int32) != plain.view(torch.int32))
+           & ~(card.isnan() & plain.isnan()))
+    assert int(off.sum()) == 0
 
 
 def test_fisheye_op1_bit_equal_at_odd_counts(cuda_device):
