@@ -10,10 +10,13 @@ either is missing or any check fails.  Phases, one line or more each:
    and power limit from nvidia-smi;
 2. build: the twenty CUDA kernels of the main library compiled from
    raytracing_tpu_torch/csrc (one nvcc a source, all at once); ``[fma32]``
-   the card's fmaf (the 2-D grid blend's FFMA) against the plain
-   versions' fma32 (utils/fma.py) on the card, 2^26 seeded triples and
-   2^21 constructed float64 midpoints, no triple differing; then the
-   reference's sampled media built on the card (``[media]``);
+   the card's fmaf (the FFMA of the 2-D grid blend and of the analytic
+   dynamic and 3-D steps) against the plain versions' fma32 (utils/fma.py)
+   on the card, 2^26 seeded triples and 2^21 constructed float64
+   midpoints, then every operand triple of the analytic dynamic and 3-D
+   plain versions' fma32 calls (every op on each field, 256 rays, 10
+   steps), no triple differing; then the reference's sampled media built
+   on the card (``[media]``);
 3. kernel against plain: every kernel against its plain PyTorch version on
    the card, for every (op, field) it serves, at 65,536 rays (each
    scenario's launch fan resized, with jitter from numpy seed 0) at the
@@ -79,7 +82,12 @@ either is missing or any check fails.  Phases, one line or more each:
    dynamic_step_plain at 65,536 rays and at most 1,000 steps, op1/op2/op6/
    op8 on the analytic fisheye, vert and interface, the parity and C1 vert
    tables, the parity interface table and the parity and C1 fisheye grids,
-   all 18 state planes to the bit, with a resume check a kernel;
+   all 18 state planes to the bit, with a resume check a kernel; each
+   line with the share of ray-steps on which a fast path's guard failed
+   (the kernel then takes that operation's IEEE form), as the plain
+   version's model of the guards counts them (the kernel does not report
+   its path; tests/test_torch_cuda.py checks the model and the kernel's
+   IEEE forms on rays beyond each guard);
 12. ``[dynamic]`` the dynamic path at 2**20 rays through fast_dynamic: the
    analytic fisheye op6 for one turn (divisor 4587, the scenario's ray with
    +-1e-3 rad of jitter), the parity vert table op6 (ds 0.0193, 2000 steps,
@@ -135,7 +143,8 @@ either is missing or any check fails.  Phases, one line or more each:
    ``[3d-vs-plain]`` both 3-D kernels against fused3d_step_plain at 65,536
    rays and at most 1,000 steps, every op on the three analytic fields and
    on the grid (a tilted and a dispersed fan), all 12 planes to the bit,
-   with a resume check each; ``[3d]`` the 3-D main path through
+   with a resume check each and the share of ray-steps whose fast paths'
+   guards failed, as modelled by the plain version; ``[3d]`` the 3-D main path through
    fast_trace3 at 2**20 rays: the fisheye for one turn on a fan of tilted
    planes (closure), vert op8 and interface op6 in a box some rays leave,
    the grid3 fisheye (one turn, against the analytic run), a dispersed
@@ -182,7 +191,8 @@ either is missing or any check fails.  Phases, one line or more each:
    profile lifted to 3-D.
 
 The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
-15's ``[custom-vs-plain]``, 16's ``[3d-vs-plain]``, 17's
+11's ``[dynamic-vs-plain]``, 15's ``[custom-vs-plain]``, 16's
+``[3d-vs-plain]``, 17's
 ``[dyn3-vs-plain]`` and the [dyn3] checks) replay their plain versions'
 steps from a CUDA graph (raytracing_tpu_torch/bench/replay.py), equal to
 the eager loop to the bit; the other main shapes' plain versions run
@@ -352,10 +362,10 @@ def fma_charged(counter):
     from raytracing_tpu_torch.utils import fma
     inner = fma.fma32
 
-    def fma32(a, b, c):
+    def fma32(a, b, c, **negations):
         counter.paused = True
         try:
-            out = inner(a, b, c)
+            out = inner(a, b, c, **negations)
         finally:
             counter.paused = False
         counter.n += FMA_OPS * max(1, out.numel() // HEAD_RAYS)
@@ -1676,6 +1686,19 @@ def dyn_exact(label, k, p):
     return dpos
 
 
+def guard_line(guards):
+    """Print the share of ray-steps on which a kernel took an operation's
+    IEEE form because a fast path's guard failed: ``guards`` as the plain
+    versions' model of the kernels' guards counts them
+    (kernels/dynamic.py::dynamic_step_plain,
+    kernels/fused3d.py::fused3d_step_plain: failed, moved).  Modelled, not
+    read from the kernel, which does not report its path."""
+    failed, moved = (float(v) for v in guards.cpu())
+    print(f"    guard failures (modelled) {failed:.0f} of {moved:.0f} "
+          f"ray-steps "
+          f"({100.0 * failed / max(moved, 1.0):.4f} %)", flush=True)
+
+
 def dyn_inputs(media, kind, scen_name, op, rays, rng, cap):
     """(scen, ds, steps, pos0, theta0, medium) of one [dynamic-vs-plain]
     case: the analytic fields at the op's calibrated analytic step, the
@@ -1696,14 +1719,17 @@ def dyn_inputs(media, kind, scen_name, op, rays, rng, cap):
 
 
 def phase_dynamic_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
-    """The three dynamic kernels against dynamic_step_plain on the card:
+    """The three dynamic kernels against dynamic_step_plain (replayed,
+    bench/replay.py) on the card:
     op1/op2/op6/op8 on the analytic fisheye, vert and interface, the parity
     and C1 vert tables and the parity interface table, the parity and C1
     fisheye grids; every plane to the bit, and a resume check a kernel."""
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.kernels import dynamic as kd
     rng = np.random.default_rng(3)
     errs = {k.name: Errors() for k in kd.KERNELS}
     before = {k.name: k.launches for k in kd.KERNELS}
+    t0 = time.perf_counter()
     cases = ([("analytic", s) for s in ("fisheye", "vert", "interface")]
              + [("strat", "vert"), ("c1_strat", "vert"),
                 ("strat", "interface"), ("grid", "fisheye"),
@@ -1720,9 +1746,11 @@ def phase_dynamic_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
             kw = dict(field=tab, op=op, steps=steps, delta_s=ds,
                       step_limit=steps, offset=0.0, box=tuple(scen.box))
             name = name_of[kind]
+            guards = torch.zeros(2, dtype=torch.float64, device=device)
             dpos = dyn_exact(f"{name} {op} {scen_name} {kind} {steps} steps",
                              kd.dynamic_step(st, **kw),
-                             kd.dynamic_step_plain(st, **kw))
+                             replay.dynamic_plain(st, guards=guards, **kw))
+            guard_line(guards)
             errs[name].pos = max(errs[name].pos, dpos)
     # resume: k then n - k steps (offset k) equal n steps, one case a kernel
     for kind, scen_name, op in (("analytic", "fisheye", "op6"),
@@ -1745,6 +1773,7 @@ def phase_dynamic_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
         print(f"  {k.name}: {delta} launches in this phase", flush=True)
         if delta <= 0:
             fail(f"{k.name} was not launched against its plain version")
+    print(f"[dynamic-vs-plain] {time.perf_counter() - t0:.1f} s", flush=True)
     return errs
 
 
@@ -2908,8 +2937,11 @@ def phase_3d_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):
         for op in kf3.FUSED3_OPS:
             kw = dict(field=field, op=op, steps=steps, delta_s=ds,
                       step_limit=steps, offset=0.0, box=box)
+            guards = torch.zeros(2, dtype=torch.float64, device=device)
             exact(errs[kernel], f"{kernel} {op} {name} {steps} steps",
-                  kf3.fused3d_step(st, **kw), replay.fused3d_plain(st, **kw))
+                  kf3.fused3d_step(st, **kw),
+                  replay.fused3d_plain(st, guards=guards, **kw))
+            guard_line(guards)
         # resume: k steps then n - k (offset k) against n steps
         kw = dict(field=field, op="op8", delta_s=ds, step_limit=steps,
                   box=box)
@@ -3233,6 +3265,12 @@ FMA_CHECKS = (("bits", 1 << 25), ("moderate", 1 << 25),
 FMA_CHUNK = 1 << 23
 
 
+def fma_off(card, plain):
+    """How many results differ in their bits (NaN against NaN is equal)."""
+    return int(((card.view(torch.int32) != plain.view(torch.int32))
+                & ~(card.isnan() & plain.isnan())).sum())
+
+
 def phase_fma32(device):
     """The card's fmaf (csrc/divide.cu rt_fma: the 2-D grid blend's FFMA,
     csrc/media.cuh hermite_blend) against the plain versions' fma32
@@ -3249,13 +3287,81 @@ def phase_fma32(device):
         for start in range(0, count, FMA_CHUNK):
             a, b, c = (torch.as_tensor(v, device=device) for v in fma_triples(
                 kind, min(FMA_CHUNK, count - start), rng))
-            card, plain = fma_card(a, b, c), fma32(a, b, c)
-            off += int(((card.view(torch.int32) != plain.view(torch.int32))
-                        & ~(card.isnan() & plain.isnan())).sum())
+            off += fma_off(fma_card(a, b, c), fma32(a, b, c))
         print(f"[fma32] {kind}: {off} of {count} triples off", flush=True)
         if off:
             fail(f"[fma32] {kind}: the card's fmaf differs from fma32")
+    for label, triples in fma_operands(device):
+        a, b, c = (torch.cat(t) for t in zip(*triples))
+        off = fma_off(fma_card(a, b, c), fma32(a, b, c))
+        print(f"[fma32] {label}: {off} of {a.numel()} operand triples off",
+              flush=True)
+        if off:
+            fail(f"[fma32] {label}: the card's fmaf differs from fma32")
     print(f"[fma32] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+#: the rays and steps of each plain run whose fma32 operands [fma32] checks
+FMA_OPERAND_RAYS, FMA_OPERAND_STEPS = 256, 10
+
+
+def fma_operands(device):
+    """[(label, [(a, b, c), ...])]: the operands of every fma32 call that
+    the analytic dynamic and 3-D steps' plain versions make (their FMA
+    forms), recorded on the card as float32 vectors: dynamic_step_plain
+    and fused3d_step_plain, every op on each analytic field, from
+    phase 3's and phase 16's launch fans at FMA_OPERAND_RAYS rays for
+    FMA_OPERAND_STEPS steps."""
+    from unittest import mock
+
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.kernels import dynamic as kd
+    from raytracing_tpu_torch.kernels import fused3d as kf3
+    from raytracing_tpu_torch.utils import fma
+    inner = fma.fma32
+    rec = []
+
+    def recording(a, b, c, neg_ab=False, neg_c=False):
+        # the FFMA's own operands: -(a b) as (-a) b, both exact
+        out = inner(a, b, c, neg_ab=neg_ab, neg_c=neg_c)
+        rec.append(tuple(
+            (v if torch.is_tensor(v) else torch.tensor(
+                float(np.float32(v)), device=out.device)).expand(
+                out.shape).reshape(-1).float() * sign
+            for v, sign in ((a, -1.0 if neg_ab else 1.0), (b, 1.0),
+                            (c, -1.0 if neg_c else 1.0))))
+        return out
+
+    rng = np.random.default_rng(19)
+    out = []
+    with mock.patch.object(fma, "fma32", recording):
+        for field, scen_name in (("fisheye", "fisheye"),
+                                 ("vert_heterogeneous", "vert"),
+                                 ("interface", "interface")):
+            scen = rtt.scenario(scen_name)
+            pos0, theta0 = fan(scen, FMA_OPERAND_RAYS, rng)
+            st = kd.initial_dyn_state(pos0, theta0, device=device)
+            for op in DYN_OPS:
+                ds, _ = calibrated_step(op, scen_name)
+                kd.dynamic_step_plain(st, field=field, op=op,
+                                      steps=FMA_OPERAND_STEPS, delta_s=ds,
+                                      step_limit=FMA_OPERAND_STEPS,
+                                      offset=0.0, box=tuple(scen.box))
+            out.append((f"dynamic_step_plain {field}", rec))
+            rec = []
+        for seed, (field, kind) in enumerate((
+                ("fisheye", "tilted"), ("vert_heterogeneous", "vert"),
+                ("interface", "interface"))):
+            pos0, dir0, ds, _, box = fan3(kind, FMA_OPERAND_RAYS, seed)
+            st = kf3.initial_state3(pos0, dir0, device=device)
+            for op in kf3.FUSED3_OPS:
+                kf3.fused3d_step_plain(st, field=field, op=op,
+                                       steps=FMA_OPERAND_STEPS, delta_s=ds,
+                                       step_limit=FMA_OPERAND_STEPS,
+                                       offset=0.0, box=box)
+            out.append((f"fused3d_step_plain {field}", rec))
+            rec = []
+    return out
 
 
 def phase_dyn3_vs_plain(device, gmed, rays=RAYS_CHECK, cap=STEP_CAP):

@@ -49,7 +49,9 @@ launches (row 15), the 71^3 grid3 table on the identical, tilted and
 dispersed fans (row 14d); fused3d_step_grid on the tilted and dispersed
 fans (row 14k, labelled ``grid3``) and fused3d_step on the tilted fisheye
 fan (row 13, ``fisheye3``)).  ``--cases fisheye_grid,grid3`` keeps rows
-5, 6, 7, 8 and 14k.
+5, 6, 7, 8 and 14k; ``--cases "dynamic_step fisheye"`` row 11 alone,
+``--cases fisheye3`` row 13 alone, ``--cases dynamic_step`` rows 8, 11
+and 12.
 
 ``--profile PATH`` also traces the analytic main path with torch.profiler
 (interface op6 at SIGMA/5.0 and aniso op11 at SIGMA/1.2 through
@@ -142,6 +144,10 @@ CASE_KERNELS = (
      "golden_kernel<rt::Grid<(int)36>, (bool)1, (bool)0, (bool)1>", 1),
     ("dynamic_step_grid fisheye_grid",
      "dynamic_kernel<rt::Grid<(int)36>, (int)6>", 2),
+    ("dynamic_step fisheye", "dynamic_kernel<rt::Analytic<(int)0>, (int)6>",
+     2),
+    ("dynamic_step_strat vert_strat",
+     "dynamic_kernel<rt::Strat<(int)6>, (int)6>", 2),
     ("fused3d_step_grid", "fused3d_kernel<rt3::Grid3, (int)6>", 1),
     ("fused3d_step fisheye3", "fused3d_kernel<rt3::Analytic3<(int)0>, (int)6>",
      1),

@@ -2,7 +2,8 @@
 with their plain versions on the card in less time.
 
 A plain version (``fused_step_plain``, ``golden_step_plain``,
-``fused3d_step_plain``, ``dynamic3d_step_plain``) performs one
+``fused3d_step_plain``, ``dynamic_step_plain``, ``dynamic3d_step_plain``)
+performs one
 torch call an operation, so on the card its time is the host's dispatch of
 some hundreds of small kernels a step.  :func:`replay_steps` captures one
 step, with its output copied back into the input buffers, in a
@@ -16,7 +17,8 @@ and no step after it changes the state) and op7's order ramp (global steps
 1 and 2 differ from the rest).  :func:`fused_plain` and
 :func:`golden_plain` run the steps where those differ eagerly and replay
 only a run of steps over which they are constant; :func:`fused3d_plain`
-has no order ramp, so it replays every step before the limit.  The 3-D
+and :func:`dynamic_plain` have no order ramp, so they replay every step
+before the limit.  The 3-D
 dynamic step reads its global step number in the focus locator too (the
 past-source guard and the recorded step), so :func:`dynamic3d_plain`
 keeps it in a device tensor that the captured step advances.
@@ -96,17 +98,39 @@ def golden_plain(st, scal, *, field, op: str, steps: int, box, iters: int,
 
 
 def fused3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
-                  offset: float, box):
+                  offset: float, box, guards=None):
     """``fused3d_step_plain`` with the same arguments, its steps before the
     step limit replayed from a CUDA graph (the steps after it change
-    nothing); equal to it to the bit."""
+    nothing); equal to it to the bit.  ``guards`` counts as there, the
+    warm-up step's count taken back before the first replay."""
     from raytracing_tpu_torch.kernels.fused3d import fused3d_step_plain
 
     return replay_steps(
         lambda s: fused3d_step_plain(s, field=field, op=op, steps=1,
                                      delta_s=delta_s, step_limit=step_limit,
-                                     offset=float(offset), box=box),
-        st, live_steps(steps, offset, float(step_limit)))
+                                     offset=float(offset), box=box,
+                                     guards=guards),
+        st, live_steps(steps, offset, float(step_limit)),
+        before_replay=None if guards is None else guards.zero_)
+
+
+def dynamic_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
+                  offset: float, box, guards=None):
+    """``dynamic_step_plain`` with the same arguments, its steps before the
+    step limit replayed from a CUDA graph (the steps after it change
+    nothing); equal to it to the bit: each replayed step evaluates the
+    field at the state's position, which is the channels the eager loop
+    carries.  ``guards`` counts as there, the warm-up step's count taken
+    back before the first replay."""
+    from raytracing_tpu_torch.kernels.dynamic import dynamic_step_plain
+
+    return replay_steps(
+        lambda s: dynamic_step_plain(s, field=field, op=op, steps=1,
+                                     delta_s=delta_s, step_limit=step_limit,
+                                     offset=float(offset), box=box,
+                                     guards=guards),
+        st, live_steps(steps, offset, float(step_limit)),
+        before_replay=None if guards is None else guards.zero_)
 
 
 def dynamic3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,

@@ -19,7 +19,10 @@
 // as JAX folds them; (ds * ds) * 0.5 and ds * 0.5 are float32 products; the
 // impulse normalizes by 1 / sqrtf (IEEE square root, one rounded division)
 // where JAX writes lax.rsqrt.  Built with -fmad=false, so nothing contracts
-// into an FMA; the Kahan lines use __fadd_rn/__fsub_rn on the card.
+// into an FMA by itself; the Kahan lines use __fadd_rn/__fsub_rn on the
+// card.  On the analytic fields the step fuses each product that feeds a
+// sum into it by an explicit fmaf (Fma3), and the plain version rounds the
+// same fused operations with utils/fma.py::fma32.
 #pragma once
 
 #include <math.h>
@@ -53,23 +56,36 @@ struct H3 {
 
 template <int FIELD>
 struct Analytic3 {
-  RT_HD void nag(float x, float y, float z, float& n, float& gx, float& gy,
-                 float& gz) const {
+  // n and grad n.  FAST: the reciprocal by its fast path (the fisheye's
+  // and the interface's denominators are at least 1, vert's by rcp_fast),
+  // its guard ANDed into ok; else the IEEE division.  Both give the same
+  // bits where ok holds.
+  template <bool FAST>
+  RT_HD void field(float x, float y, float z, float& n, float& gx, float& gy,
+                   float& gz, bool& ok) const {
     if (FIELD == FISHEYE3) {
-      n = 1.0f / (1.0f + x * x + y * y + z * z);
+      const float d = 1.0f + x * x + y * y + z * z;
+      n = FAST ? rt::rcp_fast_ge1(d, ok) : 1.0f / d;
       const float c = -2.0f * n * n;
       gx = c * x;
       gy = c * y;
       gz = c * z;
     } else if (FIELD == VERT3) {
-      n = 1.0f / (18.0f + 2.0f * y);
+      const float d = 18.0f + 2.0f * y;
+      n = FAST ? rt::rcp_fast(d, ok) : 1.0f / d;
       gx = 0.0f;
       gy = -2.0f * n * n;
       gz = 0.0f;
     } else {
       // the literal logistic of the TPU kernel (fused3d.py:60): expf
-      // overflows to inf below y ~ -0.44, giving sig = 0 exactly
-      const float sig = 1.0f / (1.0f + expf(-y / kThck));
+      // overflows to inf below y ~ -0.44, where 1 / (1 + inf) is +0; an
+      // infinite e takes 1 / 1 and selects +0 instead, the same bits
+      // without the reciprocal's slow path (media.cuh Analytic::field)
+      const float e = expf(-y / kThck);
+      const bool big = e == INFINITY;
+      const float d = big ? 1.0f : 1.0f + e;
+      const float q = FAST ? rt::rcp_fast_ge1(d, ok) : 1.0f / d;
+      const float sig = big ? 0.0f : q;
       n = kSqrt2 - kSqrt2m1 * sig;
       gx = 0.0f;
       gy = -kSqrt2m1 * sig * (1.0f - sig) / kThck;
@@ -324,20 +340,25 @@ constexpr float kTwelfth3 = (float)(1.0 / 12.0);
 constexpr float kThirtieth3 = (float)(1.0 / 30.0);
 
 // rotate unit u by the rotation vector r, cos/sinc/vers as polynomials in
-// the squared angle (cos from vers, so the three stay consistent)
+// the squared angle (cos from vers, so the three stay consistent); F: each
+// product that feeds a sum fused into it (Fma3)
+template <bool F>
 RT_HD void rodrigues3(float ux, float uy, float uz, float rx, float ry,
                       float rz, float& ox, float& oy, float& oz) {
-  const float a2 = rx * rx + ry * ry + rz * rz;
-  const float sinc = 1.0f - a2 * kSixth3 * (1.0f - a2 * 0.05f);
-  const float vers = 0.5f * (1.0f - a2 * kTwelfth3 * (1.0f - a2 * kThirtieth3));
-  const float cs = 1.0f - a2 * vers;
-  const float cx = ry * uz - rz * uy;
-  const float cy = rz * ux - rx * uz;
-  const float cz = rx * uy - ry * ux;
-  const float rdotu = rx * ux + ry * uy + rz * uz;
-  ox = ux * cs + cx * sinc + rx * rdotu * vers;
-  oy = uy * cs + cy * sinc + ry * rdotu * vers;
-  oz = uz * cs + cz * sinc + rz * rdotu * vers;
+  using rt::mad;
+  const float a2 = mad<F>(rz, rz, mad<F>(ry, ry, rx * rx));
+  const float sinc =
+      mad<F>(-(a2 * kSixth3), mad<F>(-a2, 0.05f, 1.0f), 1.0f);
+  const float vers =
+      0.5f * mad<F>(-(a2 * kTwelfth3), mad<F>(-a2, kThirtieth3, 1.0f), 1.0f);
+  const float cs = mad<F>(-a2, vers, 1.0f);
+  const float cx = mad<F>(ry, uz, -(rz * uy));
+  const float cy = mad<F>(rz, ux, -(rx * uz));
+  const float cz = mad<F>(rx, uy, -(ry * ux));
+  const float rdotu = mad<F>(rz, uz, mad<F>(ry, uy, rx * ux));
+  ox = mad<F>(rx * rdotu, vers, mad<F>(cx, sinc, ux * cs));
+  oy = mad<F>(ry * rdotu, vers, mad<F>(cy, sinc, uy * cs));
+  oz = mad<F>(rz * rdotu, vers, mad<F>(cz, sinc, uz * cs));
 }
 
 // Kahan-compensated position update: t = dd - c; nx = x + t; c' = (nx - x) - t
@@ -362,12 +383,13 @@ struct Carry3 {
 
 // Every op's step divides or takes a square root: op2 and op6 by n and the
 // next n (1 / n), op6 and op8 ds^2 / 2n, op6 and op8 take the chord's
-// length, op1 and op8 normalize the impulse by 1 / sqrtf.  Each of these
-// has a fast form: 1 / n carried from the last step's n2 and the quotient
-// from it (common.cuh's recip_pos and div_fast_pos), sqrt_fast, 1 / sqrtf
-// as sqrt_fast then rcp_fast, each correctly rounded where its guard holds,
-// with no branch.  A step takes them in one of two ways, either way with
-// the IEEE operations' bits (Mode3):
+// length, op1 and op8 normalize the impulse by 1 / sqrtf, and the analytic
+// fields take a reciprocal.  Each of these has a fast form: 1 / n carried
+// from the last step's n2 and the quotient from it (common.cuh's recip_pos
+// and div_fast_pos), sqrt_fast, 1 / sqrtf as sqrt_fast then rcp_fast, the
+// fields' rcp_fast, each correctly rounded where its guard holds, with no
+// branch.  A step takes them in one of two ways (common.cuh StepMode),
+// either way with the IEEE operations' bits:
 // * FAST3 (WholeStep3: the grid3 table): every guard ANDed into one flag,
 //   tested once a step; where it fails, the step again in IEEE3 (the plain
 //   version's operations one by one) from the same carry.  One test a step,
@@ -384,7 +406,9 @@ struct Carry3 {
 // (about n^2) lie in [2^-100, 2^126].  No small numerator is divided: the
 // 3-D step multiplies by 1 / n, where the 2-D step divides (fused.cuh
 // Quick).
-enum Mode3 { IEEE3 = 0, FAST3, LOCAL3 };
+enum Mode3 { IEEE3 = rt::STEP_IEEE, FAST3 = rt::STEP_FAST,
+             LOCAL3 = rt::STEP_LOCAL };
+using rt::guarded;
 
 template <class Medium>
 struct WholeStep3 {
@@ -395,38 +419,65 @@ struct WholeStep3<Grid3> {
   static constexpr bool value = true;
 };
 
+// The analytic fields' step in its FMA form: every product that feeds a
+// sum in step3 and rodrigues3 fused into it (rt::mad<true>, one FFMA), in
+// the order written there, which the plain version repeats with
+// utils/fma.py::fma32; the grid3 table keeps JAX's roundings
+// (rt::mad<false>), term for term (its plain version is held to JAX's
+// tiled kernel and the scan tier's evaluator).  The fields themselves keep
+// JAX's roundings.
+template <class Medium>
+struct Fma3 {
+  static constexpr bool value = false;
+};
+template <int FIELD>
+struct Fma3<Analytic3<FIELD>> {
+  static constexpr bool value = true;
+};
+
+// n and grad n at (x, y, z) in MODE: the grid3 table divides nothing; an
+// analytic field's reciprocal by its fast path
+template <int MODE, class Medium>
+RT_HD void eval3(const Medium& m, float x, float y, float z, float& n,
+                 float& gx, float& gy, float& gz, bool& ok) {
+  m.nag(x, y, z, n, gx, gy, gz);
+}
+template <int MODE, int FIELD>
+RT_HD void eval3(const Analytic3<FIELD>& m, float x, float y, float z,
+                 float& n, float& gx, float& gy, float& gz, bool& ok) {
+  if (MODE == IEEE3) {
+    m.template field<false>(x, y, z, n, gx, gy, gz, ok);
+    return;
+  }
+  bool g = true;
+  m.template field<true>(x, y, z, n, gx, gy, gz, g);
+  if (MODE == LOCAL3 && !g) m.template field<false>(x, y, z, n, gx, gy, gz, g);
+  ok = ok & g;
+}
+
 template <int OP>
 struct Quick3 {
   // the ops that divide by n: op2 and op6 (1 / n), op6 and op8 (ds^2 / 2n)
   static constexpr bool kRecip = OP == 2 || OP == 6 || OP == 8;
 };
 
-// A guarded operation in MODE: ieee() in IEEE3; else fast(g), which ANDs
-// its guard into g, and in LOCAL3 ieee() at once where g fails; g is ANDed
-// into ok
-template <int MODE, class Fast, class Ieee>
-RT_HD float guarded(const Fast& fast, const Ieee& ieee, bool& ok) {
-  if (MODE == IEEE3) return ieee();
-  bool g = true;
-  float r = fast(g);
-  if (MODE == LOCAL3 && !g) r = ieee();
-  ok = ok & g;
-  return r;
-}
-
 template <class Medium, int OP>
 RT_HD void load3(const Medium& m, Carry3& c) {
-  m.nag(c.s.x, c.s.y, c.s.z, c.n, c.gx, c.gy, c.gz);
+  bool ok = true;
+  eval3<LOCAL3>(m, c.s.x, c.s.y, c.s.z, c.n, c.gx, c.gy, c.gz, ok);
   c.rny = Quick3<OP>::kRecip ? rt::recip_pos(c.n).y : 0.0f;
 }
 
 // One step of OP (_step_body3) from the carry, its guarded operations in
-// MODE (Mode3), their guards ANDed into ok
+// MODE (Mode3), their guards ANDed into ok; on the analytic fields in the
+// FMA form (Fma3)
 template <class Medium, int OP, int MODE>
 RT_HD void step3(Carry3& c, float ds, float dsds_half, float half,
                     const Medium& m, bool& ok) {
+  using rt::mad;
   constexpr bool kSecond = OP == 6 || OP == 8;
   constexpr bool kRk2 = OP == 2 || OP == 6;
+  constexpr bool F = Fma3<Medium>::value;
   Ray3& s = c.s;
   const float ux = s.ux, uy = s.uy, uz = s.uz;
   const float n = c.n, gx = c.gx, gy = c.gy, gz = c.gz;
@@ -434,16 +485,20 @@ RT_HD void step3(Carry3& c, float ds, float dsds_half, float half,
   const rt::Recip rn{n, c.rny, rt::pos_range(n)};
 
   // -- position advance (ops/steppers.py in vector form) -----------------
-  // g . u, shared by the position advance and the rotation
-  const float gdotu = gx * ux + gy * uy + gz * uz;
+  // g . u and grad n less its part along u, shared by the position advance
+  // and the rotation
+  const float gdotu = mad<F>(gz, uz, mad<F>(gy, uy, gx * ux));
+  const float tx = mad<F>(-gdotu, ux, gx);
+  const float ty = mad<F>(-gdotu, uy, gy);
+  const float tz = mad<F>(-gdotu, uz, gz);
   float ddx, ddy, ddz;
   if (kSecond) {
     const float half_fac = guarded<MODE>(
         [&](bool& g) { return rt::div_fast_pos(dsds_half, rn, g); },
         [&] { return dsds_half / n; }, ok);
-    ddx = ux * ds + (gx - gdotu * ux) * half_fac;
-    ddy = uy * ds + (gy - gdotu * uy) * half_fac;
-    ddz = uz * ds + (gz - gdotu * uz) * half_fac;
+    ddx = mad<F>(tx, half_fac, ux * ds);
+    ddy = mad<F>(ty, half_fac, uy * ds);
+    ddz = mad<F>(tz, half_fac, uz * ds);
   } else {
     ddx = ux * ds;
     ddy = uy * ds;
@@ -454,7 +509,7 @@ RT_HD void step3(Carry3& c, float ds, float dsds_half, float half,
   kahan3(s.y, s.cy, ddy, ny2, cy2);
   kahan3(s.z, s.cz, ddz, nz2, cz2);
   float n2, gx2, gy2, gz2;
-  m.nag(nx2, ny2, nz2, n2, gx2, gy2, gz2);
+  eval3<MODE>(m, nx2, ny2, nz2, n2, gx2, gy2, gz2, ok);
   // the next step's reciprocal of n (its y read only where its ok holds)
   rt::Recip rn2{};
   if (Quick3<OP>::kRecip) rn2 = rt::recip_pos(n2);
@@ -466,31 +521,31 @@ RT_HD void step3(Carry3& c, float ds, float dsds_half, float half,
     const float inv_n = guarded<MODE>(
         [&](bool& g) { g = g & rn.ok; return rn.y; },
         [&] { return 1.0f / n; }, ok);
-    const float k1x = ds * (gx - gdotu * ux) * inv_n;
-    const float k1y = ds * (gy - gdotu * uy) * inv_n;
-    const float k1z = ds * (gz - gdotu * uz) * inv_n;
-    const float r1x = uy * k1z - uz * k1y;
-    const float r1y = uz * k1x - ux * k1z;
-    const float r1z = ux * k1y - uy * k1x;
+    const float k1x = ds * tx * inv_n;
+    const float k1y = ds * ty * inv_n;
+    const float k1z = ds * tz * inv_n;
+    const float r1x = mad<F>(uy, k1z, -(uz * k1y));
+    const float r1y = mad<F>(uz, k1x, -(ux * k1z));
+    const float r1z = mad<F>(ux, k1y, -(uy * k1x));
     float umx, umy, umz;
-    rodrigues3(ux, uy, uz, r1x, r1y, r1z, umx, umy, umz);
+    rodrigues3<F>(ux, uy, uz, r1x, r1y, r1z, umx, umy, umz);
     const float inv_n2 = guarded<MODE>(
         [&](bool& g) { g = g & rn2.ok; return rn2.y; },
         [&] { return 1.0f / n2; }, ok);
-    const float gdotm = gx2 * umx + gy2 * umy + gz2 * umz;
-    const float k2x = ds * (gx2 - gdotm * umx) * inv_n2;
-    const float k2y = ds * (gy2 - gdotm * umy) * inv_n2;
-    const float k2z = ds * (gz2 - gdotm * umz) * inv_n2;
-    const float rx = (r1x + (umy * k2z - umz * k2y)) * 0.5f;
-    const float ry = (r1y + (umz * k2x - umx * k2z)) * 0.5f;
-    const float rz = (r1z + (umx * k2y - umy * k2x)) * 0.5f;
-    rodrigues3(ux, uy, uz, rx, ry, rz, nux, nuy, nuz);
+    const float gdotm = mad<F>(gz2, umz, mad<F>(gy2, umy, gx2 * umx));
+    const float k2x = ds * mad<F>(-gdotm, umx, gx2) * inv_n2;
+    const float k2y = ds * mad<F>(-gdotm, umy, gy2) * inv_n2;
+    const float k2z = ds * mad<F>(-gdotm, umz, gz2) * inv_n2;
+    const float rx = (r1x + mad<F>(umy, k2z, -(umz * k2y))) * 0.5f;
+    const float ry = (r1y + mad<F>(umz, k2x, -(umx * k2z))) * 0.5f;
+    const float rz = (r1z + mad<F>(umx, k2y, -(umy * k2x))) * 0.5f;
+    rodrigues3<F>(ux, uy, uz, rx, ry, rz, nux, nuy, nuz);
   } else {
     // trapezoidal impulse on p = n u
-    const float sx = n * ux + (gx + gx2) * half;
-    const float sy = n * uy + (gy + gy2) * half;
-    const float sz = n * uz + (gz + gz2) * half;
-    const float ssq = sx * sx + sy * sy + sz * sz;
+    const float sx = mad<F>(gx + gx2, half, n * ux);
+    const float sy = mad<F>(gy + gy2, half, n * uy);
+    const float sz = mad<F>(gz + gz2, half, n * uz);
+    const float ssq = mad<F>(sz, sz, mad<F>(sy, sy, sx * sx));
     const float inv = guarded<MODE>(
         [&](bool& g) { return rt::rcp_fast(rt::sqrt_fast(ssq, g), g); },
         [&] { return 1.0f / sqrtf(ssq); }, ok);
@@ -500,14 +555,14 @@ RT_HD void step3(Carry3& c, float ds, float dsds_half, float half,
   }
 
   if (kSecond) {
-    const float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
+    const float d2 = mad<F>(ddz, ddz, mad<F>(ddy, ddy, ddx * ddx));
     const float dist = guarded<MODE>(
         [&](bool& g) { return rt::sqrt_fast(d2, g); },
         [&] { return sqrtf(d2); }, ok);
-    s.tt = s.tt + dist * (n + n2) * 0.5f;
+    s.tt = mad<F>(dist * (n + n2), 0.5f, s.tt);
     s.dsim = s.dsim + dist;
   } else {
-    s.tt = s.tt + ds * (n + n2) * 0.5f;
+    s.tt = mad<F>(ds * (n + n2), 0.5f, s.tt);
     s.dsim = s.dsim + ds;
   }
   s.x = nx2;

@@ -3,9 +3,10 @@
 // loops of fused.cuh and golden.cuh are templates on the type.  Every
 // function is __host__ __device__ (RT_HD, common.cuh): a table row loads
 // through __ldg on the card and plainly on the host, so the media also
-// build with g++ for the CPU tests of fused.cuh.  The
-// analytic, stratified and per-cell grid types also have
-// nag_h(x, y, f[9]): the dynamic kernels' (dynamic.cu) nine channels
+// build with g++ for the CPU tests of fused.cuh.  The stratified and
+// per-cell grid types also have nag_h(x, y, f[9]), the analytic fields
+// field_h<FAST>(x, y, f[9], ok): the dynamic kernels' (dynamic.cu) nine
+// channels
 // (n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy) — gn the n channel's own
 // gradient, h the gradient's Jacobian
 // (raytracing_tpu/kernels/dynamic.py: _field_fn_h :78, _strat_nag_h :121,
@@ -43,13 +44,15 @@
 // cell index follows the same float32 path (clip, floor, min), so the
 // kernels agree to the bit with their plain PyTorch versions
 // (raytracing_tpu_torch/kernels/fused.py: field_fn, strat_nag_plain,
-// tile_nag_plain, nodes_nag_plain; kernels/dynamic.py: field_fn_h,
-// strat_nag_h, tile_nag_h) under -fmad=false.  The one exception is the
-// parity grid's hermite_blend (Grid<36>, Nodes), which fuses each product
-// into its sum by an explicit fmaf (fma_rn) where JAX rounds the two
-// apart; its plain version rounds the same fused operations with
-// utils/fma.py::fma32, so the pair stays bit-equal, and JAX is held to
-// the port's tolerances there (ROADMAP.md section 3).
+// tile_nag_plain, nodes_nag_plain; kernels/dynamic.py: strat_nag_h,
+// tile_nag_h) under -fmad=false.  Two exceptions fuse each product into its
+// sum by an explicit fmaf (fma_rn) where JAX rounds the two apart: the
+// parity grid's hermite_blend (Grid<36>, Nodes) and the analytic fields'
+// dynamic channels (Analytic::field_h); their plain versions
+// (kernels/fused.py::hermite_blend, kernels/dynamic.py::field_fn_h)
+// round the same fused operations with utils/fma.py::fma32, so each pair
+// stays bit-equal, and JAX is held to the port's tolerances there
+// (ROADMAP.md section 3).
 #pragma once
 
 #include "common.cuh"
@@ -117,26 +120,40 @@ struct Analytic {
     if (!ok) field<false>(x, y, n, gx, gy, ok);
   }
 
-  // closed-form Hessians (dynamic.py:78-118); the interface's logistic is
-  // the overflow-safe two-branch form of media/fields.py::_sigmoid, both
-  // branches exponentiating -|t|
-  RT_HD void nag_h(float x, float y, float* f) const {
+  // The dynamic kernels' 9 channels, the closed-form Hessians of
+  // dynamic.py:78-118, in the FMA form of the analytic dynamic step
+  // (dynamic.cuh DynFma): each product that feeds a sum fused into it
+  // (fma_rn): the fisheye's 1 + x^2 + y^2 as fma(y, y, fma(x, x, 1)) and c +
+  // n3_8 x x as fma(n3_8 x, x, c), vert's 18 + 2 y as fma(2, y, 18), the
+  // interface's sqrt2 - (sqrt2 - 1) sig and 1 - 2 sig as fmas.  The
+  // interface's logistic is the overflow-safe two-branch form of
+  // media/fields.py::_sigmoid, both branches exponentiating -|t|, e / (1 +
+  // e) with e = 1 where t >= 0.  FAST: each reciprocal by its fast path
+  // (the fisheye's denominator is at least 1, vert's by rcp_fast, the
+  // interface's quotient by div_fast_pos), its guard ANDed into ok; else
+  // the IEEE divisions.  Both give the same bits where ok holds.  The plain
+  // version is kernels/dynamic.py::field_fn_h with fma.mads(True).
+  template <bool FAST>
+  RT_HD void field_h(float x, float y, float* f, bool& ok) const {
     if (FIELD == FISHEYE) {
-      const float n = 1.0f / (1.0f + x * x + y * y);
+      const float d = fma_rn(y, y, fma_rn(x, x, 1.0f));
+      const float n = FAST ? rcp_fast_ge1(d, ok) : 1.0f / d;
       const float n2 = n * n;
       const float c = -2.0f * n2;
       const float n3_8 = 8.0f * n2 * n;
+      const float n3_8x = n3_8 * x;
       f[HN] = n;
       f[HGX] = f[HGNX] = c * x;
       f[HGY] = f[HGNY] = c * y;
-      f[HXX] = c + n3_8 * x * x;
-      f[HXY] = f[HYX] = n3_8 * x * y;
-      f[HYY] = c + n3_8 * y * y;
+      f[HXX] = fma_rn(n3_8x, x, c);
+      f[HXY] = f[HYX] = n3_8x * y;
+      f[HYY] = fma_rn(n3_8 * y, y, c);
       return;
     }
     float n, gy, hyy;
     if (FIELD == VERT) {
-      n = 1.0f / (18.0f + 2.0f * y);
+      const float d = fma_rn(2.0f, y, 18.0f);
+      n = FAST ? rcp_fast(d, ok) : 1.0f / d;
       const float n2 = n * n;
       gy = -2.0f * n2;
       hyy = 8.0f * n2 * n;
@@ -144,11 +161,23 @@ struct Analytic {
       const float t = y / kThck;
       const bool pos = t >= 0.0f;
       const float e = expf(pos ? -t : t);
-      const float sig = pos ? 1.0f / (1.0f + e) : e / (1.0f + e);
-      n = kSqrt2 - kSqrt2m1 * sig;
-      const float d = sig * (1.0f - sig);
-      gy = -kSqrt2m1 * d / kThck;
-      hyy = -kSqrt2m1 * d * (1.0f - 2.0f * sig) / kThck2;
+      const float num = pos ? 1.0f : e;
+      const float d1 = 1.0f + e;
+      float sig;
+      if (FAST) {
+        // where 1 + e rounds to 1 (e below 2^-24, where div_fast_pos's
+        // range ends at 2^-100), the quotient is num itself
+        bool g = true;
+        const float q = div_fast_pos(num, recip_pos(d1), g);
+        sig = d1 == 1.0f ? num : q;
+        ok = ok & (g | (d1 == 1.0f));
+      } else {
+        sig = num / d1;
+      }
+      n = fma_rn(-kSqrt2m1, sig, kSqrt2);
+      const float a = -kSqrt2m1 * (sig * (1.0f - sig));
+      gy = a / kThck;
+      hyy = a * fma_rn(-2.0f, sig, 1.0f) / kThck2;
     }
     f[HN] = n;
     f[HGX] = f[HGNX] = f[HXX] = f[HXY] = f[HYX] = 0.0f;

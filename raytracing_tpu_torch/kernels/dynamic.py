@@ -28,7 +28,11 @@ kernels with their own launch counts: ``dynamic_step`` (analytic fields),
 per-cell tables).  :func:`dynamic_step_plain` is their plain PyTorch
 version and :func:`dynamic_step` the wrapper: a CPU state runs the plain
 version, a CUDA state launches the kernel or raises.  Only the smooth ops
-op1/op2/op6/op8: a golden op's tangent is zero almost everywhere.
+op1/op2/op6/op8: a golden op's tangent is zero almost everywhere.  On the
+analytic fields the kernel and its plain version fuse each product that
+feeds a sum into it (:func:`field_fn_h`, ``utils/fma.py::mads``), so
+they no longer follow JAX's step operation for operation; both stay within
+JAX's bars (ROADMAP.md section 3).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from raytracing_tpu_torch.kernels.fused import (
     GridTables, StratTables, _kahan, _outside, _rot, _vectors, check_medium,
     div_exact, kernel_of, strat_tables)
 from raytracing_tpu_torch.media.fields import _sigmoid
+from raytracing_tpu_torch.utils import fma
 
 #: analytic fields with inlined Hessians
 DYN_FUSED_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
@@ -71,25 +76,31 @@ def _scal(v, dtype) -> float:
     return float(np.float32(v)) if dtype == torch.float32 else float(v)
 
 
-def field_fn_h(field: str):
+def field_fn_h(field: str, mad=fma.mads(False)):
     """n, its gradient and Hessian of an analytic field, closed form
-    (dynamic.py:78-118), in the 9-channel layout.  The interface uses the
-    overflow-safe two-branch logistic of ``media/fields.py``, not the
+    (dynamic.py:78-118), in the 9-channel layout, each product that feeds a
+    sum by ``mad`` (``utils/fma.py::mads``): JAX's roundings by default,
+    csrc/media.cuh ``Analytic::field_h``'s FMA form with ``fma.mads(True)``
+    (the fisheye's 1 + x^2 + y^2 and c + 8 n^3 x x, vert's 18 + 2 y, the
+    interface's sqrt2 - (sqrt2 - 1) sig and 1 - 2 sig).  The interface uses
+    the overflow-safe two-branch logistic of ``media/fields.py``, not the
     kinematic kernels' literal one."""
     if field == "fisheye":
         def f(x, y):
-            n = 1.0 / (1.0 + x * x + y * y)
+            s, = mad((x,), (x,), (1.0,))
+            s, = mad((y,), (y,), (s,))
+            n = 1.0 / s
             n2 = n * n
             c = -2.0 * n2
             n3_8 = 8.0 * n2 * n
+            n3_8x = n3_8 * x
             gx, gy = c * x, c * y
-            hxx = c + n3_8 * x * x
-            hxy = n3_8 * x * y
-            hyy = c + n3_8 * y * y
+            hxx, hyy = mad((n3_8x, n3_8 * y), (x, y), (c, c))
+            hxy = n3_8x * y
             return n, gx, gy, gx, gy, hxx, hxy, hxy, hyy
     elif field == "vert_heterogeneous":
         def f(x, y):
-            n = 1.0 / (18.0 + 2.0 * y)
+            n = 1.0 / mad((2.0,), (y,), (18.0,))[0]
             zero = torch.zeros_like(x)
             n2 = n * n
             gy = -2.0 * n2
@@ -97,17 +108,39 @@ def field_fn_h(field: str):
     elif field == "interface":
         def f(x, y):
             sig = _sigmoid(div_exact(y, THCK_PARAM))
-            n = _SQRT2 - (_SQRT2 - 1.0) * sig
+            n, = mad((-(_SQRT2 - 1.0),), (sig,), (_SQRT2,))
             zero = torch.zeros_like(x)
-            d = sig * (1.0 - sig)
-            gy = div_exact(-(_SQRT2 - 1.0) * d, THCK_PARAM)
-            hyy = div_exact(-(_SQRT2 - 1.0) * d * (1.0 - 2.0 * sig),
+            a = -(_SQRT2 - 1.0) * (sig * (1.0 - sig))
+            gy = div_exact(a, THCK_PARAM)
+            hyy = div_exact(a * mad((-2.0,), (sig,), (1.0,))[0],
                             THCK_PARAM * THCK_PARAM)
             return n, zero, gy, zero, gy, zero, zero, zero, hyy
     else:
         raise ValueError(f"dynamic kernel supports fields {DYN_FUSED_FIELDS},"
                          f" got {field!r}")
     return f
+
+
+def _in(v, lo, hi, hi_open=False):
+    """lo <= |v| <= hi (< hi where ``hi_open``), False for NaN."""
+    a = v.abs()
+    return (a >= lo) & ((a < hi) if hi_open else (a <= hi))
+
+
+def field_guard(field: str, x, y):
+    """Where ``dynamic_step``'s fast reciprocal of an analytic field at (x,
+    y) holds its guard (csrc/media.cuh ``Analytic::field_h``; common.cuh
+    ``rcp_fast_ge1``, ``rcp_fast``, ``div_fast_pos``): a model of the
+    kernel's guard, which reports no path of its own
+    (tests/test_torch_cuda.py holds the two together beyond it)."""
+    f32 = fma.fma32
+    if field == "fisheye":
+        return f32(y, y, f32(x, x, 1.0)) < 2.0 ** 126
+    if field == "vert_heterogeneous":
+        return _in(f32(2.0, y, 18.0), 2.0 ** -126, 2.0 ** 126, True)
+    t = div_exact(y, THCK_PARAM)
+    e = torch.exp(torch.where(t >= 0, -t, t))
+    return (t >= 0) | (1.0 + e == 1.0) | _in(e, 2.0 ** -100, 2.0 ** 100)
 
 
 def strat_nag_h(t: StratTables):
@@ -211,12 +244,13 @@ def tile_nag_h(g: GridTables):
 
 
 def nag_h_fn(field):
-    """The plain 9-channel evaluator (x, y) -> channels of a step's medium."""
+    """The plain 9-channel evaluator (x, y) -> channels of a step's medium,
+    an analytic field's in its kernel's FMA form."""
     if isinstance(field, StratTables):
         return strat_nag_h(field)
     if isinstance(field, GridTables):
         return tile_nag_h(field)
-    return field_fn_h(field)
+    return field_fn_h(field, fma.mads(True))
 
 
 class DynState(NamedTuple):
@@ -288,15 +322,30 @@ def final_from_dyn_state(st: DynState, n) -> DynFinal:
 
 
 def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
-                       delta_s, step_limit, offset: float,
-                       box) -> DynState:
+                       delta_s, step_limit, offset: float, box,
+                       guards=None) -> DynState:
     """Plain PyTorch version of the three dynamic kernels.
 
     The step of ``_make_dynamic_kernel`` (dynamic.py:421-540) on every ray
     at once, a frozen ray kept by selects; the kernels' order of
     operations, one torch call each, so that on the card the two agree to
-    the bit.  The sign of q is three-valued (0 at 0), as ``jnp.sign``.
+    the bit.  On an analytic field (a field name) the step is in the
+    kernel's FMA form (csrc/dynamic.cuh ``DynFma``): each product that
+    feeds a sum rounded once with it by ``utils/fma.py::fma32``, like terms
+    of a step stacked into one call (``utils/fma.py::mads``); the sampled
+    media keep JAX's roundings.  That kernel takes its reciprocals and
+    square root by fast paths that give the IEEE operations' bits, so this
+    version divides and takes square roots as IEEE operations.  The sign
+    of q is three-valued (0 at 0), as ``jnp.sign``.
+
+    ``guards``, a float64 tensor of 2 on the state's device, if given:
+    each step adds to ``guards[0]`` the rays it moves where a fast path's
+    guard fails (the analytic fields' kernel then takes that operation's
+    IEEE form; the sampled media's has none), to ``guards[1]`` the rays it
+    moves.
     """
+    fused = isinstance(field, str)
+    mad = fma.mads(fused)
     nag = nag_h_fn(field)
     second = op in ("op6", "op8")
     rk2 = op in ("op2", "op6")
@@ -312,26 +361,29 @@ def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
         keep = active & (float(np.float32(i) + np.float32(offset))
                          < step_limit)
         n, gx, gy, gnx, gny, hxx, hxy, hyx, hyy = f
-        dn = gnx * dpx + gny * dpy
-        dgx = hxx * dpx + hxy * dpy
-        dgy = hyx * dpx + hyy * dpy
+        dn, dgx, dgy = mad((gny, hxy, hyy), (dpy, dpy, dpy),
+                           (gnx * dpx, hxx * dpx, hyx * dpx))
         dux = -dth * uy
         duy = dth * ux
+        if second or rk2:
+            gdotu, = mad((gy,), (uy,), (gx * ux,))
 
         # position advance and its tangent
         if second:
-            gdotu = gx * ux + gy * uy
             inv_n = 1.0 / n
             half_fac = dsds_half * inv_n
-            txx = gx - gdotu * ux
-            txy = gy - gdotu * uy
-            ddx = ux * ds + txx * half_fac
-            ddy = uy * ds + txy * half_fac
-            dgdotu = dgx * ux + dgy * uy + gx * dux + gy * duy
-            dtx = dgx - dgdotu * ux - gdotu * dux
-            dty = dgy - dgdotu * uy - gdotu * duy
-            ddpx = dux * ds + (dtx - txx * dn * inv_n) * half_fac
-            ddpy = duy * ds + (dty - txy * dn * inv_n) * half_fac
+            txx, txy = mad((gdotu, gdotu), (ux, uy), (gx, gy), sub=True)
+            ddx, ddy = mad((txx, txy), (half_fac, half_fac),
+                           (ux * ds, uy * ds))
+            dgdotu, = mad((dgy,), (uy,), (dgx * ux,))
+            dgdotu, = mad((gx,), (dux,), (dgdotu,))
+            dgdotu, = mad((gy,), (duy,), (dgdotu,))
+            dtx, dty = mad((dgdotu, dgdotu), (ux, uy), (dgx, dgy), sub=True)
+            dtx, dty = mad((gdotu, gdotu), (dux, duy), (dtx, dty), sub=True)
+            ex, ey = mad((txx * dn, txy * dn), (inv_n, inv_n), (dtx, dty),
+                         sub=True)
+            ddpx, ddpy = mad((ex, ey), (half_fac, half_fac),
+                             (dux * ds, duy * ds))
         else:
             ddx = ux * ds
             ddy = uy * ds
@@ -344,49 +396,65 @@ def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
 
         f2 = nag(nx2, ny2)
         n2, gx2, gy2, gnx2, gny2, hxx2, hxy2, hyx2, hyy2 = f2
-        dn2 = gnx2 * dpx2 + gny2 * dpy2
-        dgx2 = hxx2 * dpx2 + hxy2 * dpy2
-        dgy2 = hyx2 * dpx2 + hyy2 * dpy2
+        dn2, dgx2, dgy2 = mad((gny2, hxy2, hyy2), (dpy2, dpy2, dpy2),
+                              (gnx2 * dpx2, hxx2 * dpx2, hyx2 * dpx2))
 
         # angle update and its tangent
         if rk2:
             inv_n = 1.0 / n
             inv_n2 = 1.0 / n2
-            cross1 = ux * gy - uy * gx
+            cross1, = mad((ux,), (gy,), (uy * gx,), neg_c=True)
             k1 = ds * cross1 * inv_n
-            ux1, uy1 = _rot(ux, uy, k1)
-            cross2 = ux1 * gy2 - uy1 * gx2
+            ux1, uy1 = _rot(ux, uy, k1, mad)
+            cross2, = mad((ux1,), (gy2,), (uy1 * gx2,), neg_c=True)
             k2 = ds * cross2 * inv_n2
-            nux, nuy = _rot(ux, uy, (k1 + k2) * 0.5)
-            dcross1 = -dth * (ux * gx + uy * gy) + ux * dgy - uy * dgx
-            dk1 = ds * (dcross1 - cross1 * dn * inv_n) * inv_n
+            nux, nuy = _rot(ux, uy, (k1 + k2) * 0.5, mad)
+            dcross1, = mad((ux,), (dgy,), (-dth * gdotu,))
+            dcross1, = mad((uy,), (dgx,), (dcross1,), sub=True)
+            dk1 = (ds * mad((cross1 * dn,), (inv_n,), (dcross1,), sub=True)[0]
+                   * inv_n)
             dth1 = dth + dk1
-            dcross2 = (-dth1 * (ux1 * gx2 + uy1 * gy2) + ux1 * dgy2
-                       - uy1 * dgx2)
-            dk2 = ds * (dcross2 - cross2 * dn2 * inv_n2) * inv_n2
+            gdotm, = mad((uy1,), (gy2,), (ux1 * gx2,))
+            dcross2, = mad((ux1,), (dgy2,), (-dth1 * gdotm,))
+            dcross2, = mad((uy1,), (dgx2,), (dcross2,), sub=True)
+            dk2 = (ds * mad((cross2 * dn2,), (inv_n2,), (dcross2,),
+                            sub=True)[0] * inv_n2)
             ndth, kdt2 = _kahan(dth, kdt, (dk1 + dk2) * 0.5)
         else:
-            sx = n * ux + (gx + gx2) * half
-            sy = n * uy + (gy + gy2) * half
-            inv = torch.rsqrt(sx * sx + sy * sy)
+            sx, sy = mad((gx + gx2, gy + gy2), (half, half), (n * ux, n * uy))
+            inv = torch.rsqrt(mad((sy,), (sy,), (sx * sx,))[0])
             nux = sx * inv
             nuy = sy * inv
-            dsx = dn * ux + n * dux + (dgx + dgx2) * half
-            dsy = dn * uy + n * duy + (dgy + dgy2) * half
+            dsx, dsy = mad((n, n), (dux, duy), (dn * ux, dn * uy))
+            dsx, dsy = mad((dgx + dgx2, dgy + dgy2), (half, half), (dsx, dsy))
             # recomputed fresh each step, not accumulated: no compensation
-            ndth = (dsx * (-nuy) + dsy * nux) * inv
+            ndth = mad((dsy,), (nux,), (dsx * (-nuy),))[0] * inv
             kdt2 = kdt
 
         if second:
-            dist = torch.sqrt(ddx * ddx + ddy * ddy)
+            chord, = mad((ddy,), (ddy,), (ddx * ddx,))
+            dist = torch.sqrt(chord)
             ntt, ktt2 = _kahan(tt, ktt, dist * (n + n2) * 0.5)
             ndsim = dsim + dist
         else:
             ntt, ktt2 = _kahan(tt, ktt, ds * (n + n2) * 0.5)
             ndsim = dsim + ds
 
+        if guards is not None:
+            # the fast paths of the analytic fields' kernel (the sampled
+            # media's takes the IEEE operations)
+            ok = torch.ones_like(keep)
+            if fused:
+                ok = field_guard(field, nx2, ny2)
+                if second or rk2:
+                    ok = ok & _in(n2, 2.0 ** -126, 2.0 ** 126, True)
+                if second:
+                    ok = ok & _in(chord, 2.0 ** -100, 2.0 ** 126)
+            guards[0] += (keep & ~ok).sum()
+            guards[1] += keep.sum()
+
         # caustic bookkeeping: a sign transition of q
-        q2 = dpx2 * (-nuy) + dpy2 * nux
+        q2, = mad((dpy2,), (nux,), (dpx2 * (-nuy),))
         s_new = (q2 > 0).float() - (q2 < 0).float()
         flip = keep & (sgn != 0.0) & (s_new != 0.0) & (s_new != sgn)
         kmah = kmah + torch.where(flip, 1.0, 0.0)

@@ -415,10 +415,18 @@ def rot_small(d):
     return sd, cd
 
 
-def _rot(ax, ay, d):
-    """Rotate (ax, ay) by the small angle d."""
-    s, c = rot_small(d)
-    return ax * c - ay * s, ax * s + ay * c
+def _rot(ax, ay, d, mad=fma.mads(False)):
+    """Rotate (ax, ay) by the small angle d, by :func:`rot_small`'s
+    polynomials, each product that feeds a sum by ``mad``
+    (``utils/fma.py::mads``; JAX's roundings by default), as csrc/common.cuh
+    ``rotate`` writes it."""
+    d2 = d * d
+    inner = mad((d2, d2), (0.05, 1.0 / 12.0), (1.0, 1.0), sub=True)
+    s, c = mad((d2 * (1.0 / 6.0), d2 * 0.5), inner, (1.0, 1.0), sub=True)
+    s = d * s
+    bx, = mad((ax,), (c,), (ay * s,), neg_c=True)
+    by, = mad((ay,), (c,), (ax * s,))
+    return bx, by
 
 
 def arc_advance(ux, uy, gx, gy, txx, txy, n, ds):

@@ -25,7 +25,10 @@ The impulse update normalizes by ``1 / sqrt(s)`` (IEEE square root, then
 one rounded division) where JAX writes ``lax.rsqrt`` (fused3d.py:162):
 ATen's CUDA ``rsqrt`` is the approximate ``rsqrtf``, and its CPU one a
 different function again, so the two-operation form is the one that both
-the kernel and the plain version round alike on every device.  What the
+the kernel and the plain version round alike on every device.  On the
+analytic fields the step and the rotation fuse each product that feeds a
+sum into it (``utils/fma.py::mads``), kernel and plain version alike, within
+JAX's bars (ROADMAP.md section 3).  What the
 TPU kernels carried only for Mosaic is gone: no zeros buffer, the active
 mask is a bool, the scalars are arguments, the state is plain (R,)
 vectors (no lanes, no padding to a block), and no window, sort or
@@ -42,6 +45,7 @@ from raytracing_tpu_torch.kernels import build
 from raytracing_tpu_torch.kernels.fused import (
     FIELD_CODES, _kahan, div_exact, field_fn)
 from raytracing_tpu_torch.media.grid3 import blend3
+from raytracing_tpu_torch.utils import fma
 
 FUSED3_FIELDS = ("fisheye", "vert_heterogeneous", "interface")
 FUSED3_OPS = ("op1", "op2", "op6", "op8")
@@ -173,18 +177,43 @@ def rot_coeffs(a2):
     return 1.0 - a2 * vers, sinc, vers
 
 
-def rodrigues3(ux, uy, uz, rx, ry, rz):
+def rodrigues3(ux, uy, uz, rx, ry, rz, mad=fma.mads(False)):
     """Rotate unit (ux, uy, uz) by the rotation vector (rx, ry, rz), in the
-    polynomial form (fused3d.py:79-90)."""
-    a2 = rx * rx + ry * ry + rz * rz
-    cos, sinc, vers = rot_coeffs(a2)
-    cx = ry * uz - rz * uy
-    cy = rz * ux - rx * uz
-    cz = rx * uy - ry * ux
-    rdotu = rx * ux + ry * uy + rz * uz
-    return (ux * cos + cx * sinc + rx * rdotu * vers,
-            uy * cos + cy * sinc + ry * rdotu * vers,
-            uz * cos + cz * sinc + rz * rdotu * vers)
+    polynomial form (fused3d.py:79-90, the coefficients of
+    :func:`rot_coeffs`), each product that feeds a sum by ``mad``
+    (``utils/fma.py::mads``; JAX's roundings by default), as csrc/fused3d.cuh
+    ``rodrigues3`` writes it."""
+    a2, = mad((ry,), (ry,), (rx * rx,))
+    a2, = mad((rz,), (rz,), (a2,))
+    inner = mad((a2, a2), (0.05, 1.0 / 30.0), (1.0, 1.0), sub=True)
+    sinc, v = mad((a2 * (1.0 / 6.0), a2 * (1.0 / 12.0)), inner, (1.0, 1.0),
+                  sub=True)
+    vers = 0.5 * v
+    cos, = mad((a2,), (vers,), (1.0,), sub=True)
+    c = mad((ry, rz, rx), (uz, ux, uy), (rz * uy, rx * uz, ry * ux),
+            neg_c=True)
+    rdotu, = mad((ry,), (uy,), (rx * ux,))
+    rdotu, = mad((rz,), (uz,), (rdotu,))
+    o = mad(c, (sinc,) * 3, (ux * cos, uy * cos, uz * cos))
+    return mad((rx * rdotu, ry * rdotu, rz * rdotu), (vers,) * 3, o)
+
+
+def field3_guard(field: str, x, y, z):
+    """Where ``fused3d_step``'s fast reciprocal of an analytic field at (x,
+    y, z) holds its guard (csrc/fused3d.cuh ``Analytic3::field``; common.cuh
+    ``rcp_fast_ge1``, ``rcp_fast``): a model of the kernel's guard, which
+    reports no path of its own (tests/test_torch_cuda.py holds the two
+    together beyond it)."""
+    if field == "fisheye":
+        return 1.0 + x * x + y * y + z * z < 2.0 ** 126
+    if field == "vert_heterogeneous":
+        a = (18.0 + 2.0 * y).abs()
+        return (a >= 2.0 ** -126) & (a < 2.0 ** 126)
+    return ~torch.isnan(y)
+
+
+def _within(v, lo, hi):
+    return (v >= lo) & (v <= hi)
 
 
 def initial_state3(pos0, dir0, *, device) -> Fused3State:
@@ -216,16 +245,31 @@ def final_from_state3(st: Fused3State) -> Fused3Final:
 
 
 def fused3d_step_plain(st: Fused3State, *, field, op: str, steps: int,
-                       delta_s, step_limit, offset: float,
-                       box) -> Fused3State:
+                       delta_s, step_limit, offset: float, box,
+                       guards=None) -> Fused3State:
     """Plain PyTorch version of ``fused3d_step`` and ``fused3d_step_grid``.
 
     ``_step_body3`` (fused3d.py:93-188) on every ray at once, one torch
     call an operation in its order, with a frozen ray's state kept by
     selects instead of leaving the loop.  ``offset`` is the global step
-    count before this launch (the step limit reads it).
+    count before this launch (the step limit reads it).  On an analytic
+    field (a field name) the step is in the kernel's FMA form
+    (csrc/fused3d.cuh ``Fma3``): each product that feeds a sum in the step
+    and in :func:`rodrigues3` rounded once with it by
+    ``utils/fma.py::fma32``, like terms stacked into one call
+    (``utils/fma.py::mads``); the field itself and the grid3 table keep
+    JAX's roundings.  The kernel's fast reciprocals and square roots give
+    the IEEE operations' bits, so this version divides and takes square
+    roots as IEEE operations.
+
+    ``guards``, a float64 tensor of 2 on the state's device, if given:
+    each step adds to ``guards[0]`` the rays it moves where a fast path's
+    guard fails (the kernel takes that operation's IEEE form, or on the
+    grid3 table the step's), to ``guards[1]`` the rays it moves.
     """
     nag = nag3_fn(field)
+    fused = isinstance(field, str)
+    mad = fma.mads(fused)
     second = op in ("op6", "op8")
     rk2 = op in ("op2", "op6")
     ds32 = np.float32(delta_s)
@@ -241,12 +285,14 @@ def fused3d_step_plain(st: Fused3State, *, field, op: str, steps: int,
     for i in range(steps):
         in_limit = float(np.float32(i) + np.float32(offset)) < lim32
         if second or rk2:
-            gdotu = gx * ux + gy * uy + gz * uz
+            gdotu, = mad((gy,), (uy,), (gx * ux,))
+            gdotu, = mad((gz,), (uz,), (gdotu,))
+            tx, ty, tz = mad((gdotu,) * 3, (ux, uy, uz), (gx, gy, gz),
+                             sub=True)
         if second:
             half_fac = div_exact(dsds_half, n)
-            ddx = ux * ds + (gx - gdotu * ux) * half_fac
-            ddy = uy * ds + (gy - gdotu * uy) * half_fac
-            ddz = uz * ds + (gz - gdotu * uz) * half_fac
+            ddx, ddy, ddz = mad((tx, ty, tz), (half_fac,) * 3,
+                                (ux * ds, uy * ds, uz * ds))
         else:
             ddx, ddy, ddz = ux * ds, uy * ds, uz * ds
         nx2, cx2 = _kahan(x, cx, ddx)
@@ -257,41 +303,67 @@ def fused3d_step_plain(st: Fused3State, *, field, op: str, steps: int,
         if rk2:
             # rotation-vector Heun, polynomial rotations
             inv_n = 1.0 / n
-            k1x = ds * (gx - gdotu * ux) * inv_n
-            k1y = ds * (gy - gdotu * uy) * inv_n
-            k1z = ds * (gz - gdotu * uz) * inv_n
-            r1x = uy * k1z - uz * k1y
-            r1y = uz * k1x - ux * k1z
-            r1z = ux * k1y - uy * k1x
-            umx, umy, umz = rodrigues3(ux, uy, uz, r1x, r1y, r1z)
+            k1x = ds * tx * inv_n
+            k1y = ds * ty * inv_n
+            k1z = ds * tz * inv_n
+            r1x, r1y, r1z = mad((uy, uz, ux), (k1z, k1x, k1y),
+                                (uz * k1y, ux * k1z, uy * k1x), neg_c=True)
+            umx, umy, umz = rodrigues3(ux, uy, uz, r1x, r1y, r1z, mad)
             inv_n2 = 1.0 / n2
-            gdotm = gx2 * umx + gy2 * umy + gz2 * umz
-            k2x = ds * (gx2 - gdotm * umx) * inv_n2
-            k2y = ds * (gy2 - gdotm * umy) * inv_n2
-            k2z = ds * (gz2 - gdotm * umz) * inv_n2
-            rx = (r1x + (umy * k2z - umz * k2y)) * 0.5
-            ry = (r1y + (umz * k2x - umx * k2z)) * 0.5
-            rz = (r1z + (umx * k2y - umy * k2x)) * 0.5
-            nux, nuy, nuz = rodrigues3(ux, uy, uz, rx, ry, rz)
+            gdotm, = mad((gy2,), (umy,), (gx2 * umx,))
+            gdotm, = mad((gz2,), (umz,), (gdotm,))
+            ex, ey, ez = mad((gdotm,) * 3, (umx, umy, umz), (gx2, gy2, gz2),
+                             sub=True)
+            k2x = ds * ex * inv_n2
+            k2y = ds * ey * inv_n2
+            k2z = ds * ez * inv_n2
+            c2x, c2y, c2z = mad((umy, umz, umx), (k2z, k2x, k2y),
+                                (umz * k2y, umx * k2z, umy * k2x), neg_c=True)
+            rx = (r1x + c2x) * 0.5
+            ry = (r1y + c2y) * 0.5
+            rz = (r1z + c2z) * 0.5
+            nux, nuy, nuz = rodrigues3(ux, uy, uz, rx, ry, rz, mad)
         else:
             # trapezoidal impulse on p = n u; 1 / sqrt, not rsqrt
-            sx = n * ux + (gx + gx2) * half
-            sy = n * uy + (gy + gy2) * half
-            sz = n * uz + (gz + gz2) * half
-            inv = 1.0 / torch.sqrt(sx * sx + sy * sy + sz * sz)
+            sx, sy, sz = mad((gx + gx2, gy + gy2, gz + gz2), (half,) * 3,
+                             (n * ux, n * uy, n * uz))
+            ssq, = mad((sy,), (sy,), (sx * sx,))
+            ssq, = mad((sz,), (sz,), (ssq,))
+            norm = torch.sqrt(ssq)
+            inv = 1.0 / norm
             nux, nuy, nuz = sx * inv, sy * inv, sz * inv
 
         if second:
-            dist = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
-            ntt = tt + dist * (n + n2) * 0.5
+            d2, = mad((ddy,), (ddy,), (ddx * ddx,))
+            d2, = mad((ddz,), (ddz,), (d2,))
+            dist = torch.sqrt(d2)
+            ntt, = mad((dist * (n + n2),), (0.5,), (tt,))
             ndsim = dsim + dist
         else:
-            ntt = tt + ds * (n + n2) * 0.5
+            ntt, = mad((ds * (n + n2),), (0.5,), (tt,))
             ndsim = dsim + ds
 
         out = ((nx2 > limx_s) | (nx2 < limx_i) | (ny2 > limy_s)
                | (ny2 < limy_i) | (nz2 > limz_s) | (nz2 < limz_i))
         keep = active & in_limit
+
+        if guards is not None:
+            ok = (field3_guard(field, nx2, ny2, nz2) if fused
+                  else torch.ones_like(keep))
+            if second or rk2:
+                # 1 / n carried (recip_pos) and the quotient from it
+                ok = ok & _within(n, 2.0 ** -16, 2.0 ** 16)
+            if rk2:
+                ok = ok & _within(n2, 2.0 ** -16, 2.0 ** 16)
+            if second:
+                ok = ok & _within(abs(dsds_half), 2.0 ** -100, 2.0 ** 100)
+                ok = ok & _within(d2, 2.0 ** -100, 2.0 ** 126)
+            if not rk2:
+                # 1 / sqrtf as sqrt_fast then rcp_fast
+                ok = ok & _within(ssq, 2.0 ** -100, 2.0 ** 126)
+                ok = ok & (norm >= 2.0 ** -126) & (norm < 2.0 ** 126)
+            guards[0] += (keep & ~ok).sum()
+            guards[1] += keep.sum()
 
         def sel(new, old):
             return torch.where(keep, new, old)

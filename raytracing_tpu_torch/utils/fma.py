@@ -1,10 +1,14 @@
 """A correctly rounded float32 fused multiply-add from PyTorch operations.
 
-The 2-D grid blend of ``csrc/media.cuh`` (``hermite_blend``) forms its sums
-of products with ``fmaf``: a * b + c rounded once.  Its plain version
-(``kernels/fused.py::hermite_blend``) computes the same rounding with
-:func:`fma32`, on the CPU and on the card alike, so that the kernels and
-their plain versions stay equal to the bit.
+The 2-D grid blend of ``csrc/media.cuh`` (``hermite_blend``) and the
+analytic fields' dynamic and 3-D steps (``csrc/dynamic.cuh``,
+``csrc/fused3d.cuh``) form their sums of products with ``fmaf``: a * b + c
+rounded once.  Their plain versions (``kernels/fused.py::hermite_blend``,
+``kernels/dynamic.py::dynamic_step_plain``,
+``kernels/fused3d.py::fused3d_step_plain``) compute the same rounding with
+:func:`fma32` (those steps through :func:`mads`), on the CPU and on the
+card alike, so that the kernels and their plain versions stay equal to the
+bit.
 
 How: the float32 operands are widened to float64, where a * b is exact (24
 + 24 significant bits fit in 53) and p + c rounds once to s, with TwoSum's
@@ -37,8 +41,11 @@ def _f64(v):
     return float(np.float32(v))
 
 
-def fma32(a, b, c):
-    """a * b + c rounded once to float32, elementwise (fmaf's bits).
+def fma32(a, b, c, neg_ab=False, neg_c=False):
+    """a * b + c rounded once to float32, elementwise (fmaf's bits);
+    -(a * b) for a * b where ``neg_ab``, -c for c where ``neg_c`` (the
+    negated operands of the kernels' FFMA: exact, so c - a b and a b - c
+    round once too).
 
     ``a``, ``b``, ``c``: float32 tensors or Python numbers (each number is
     taken as the float32 it rounds to), broadcast together; at least one of
@@ -46,7 +53,9 @@ def fma32(a, b, c):
     device.
     """
     a, b, c = _f64(a), _f64(b), _f64(c)
-    p = a * b                       # exact
+    p = -(a * b) if neg_ab else a * b        # exact
+    if neg_c:
+        c = -c
     s = p + c
     # TwoSum: p + c = s + e exactly
     bv = s - p
@@ -57,3 +66,35 @@ def fma32(a, b, c):
     odd = torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")),
                                             e))
     return torch.where((e != 0) & even, odd, s).to(torch.float32)
+
+
+def mads(fused: bool):
+    """``mad(a, b, c, sub=False, neg_c=False)``: a[k] * b[k] + c[k] for each
+    k of equal-length tuples of tensors or Python numbers, as a tuple; c[k]
+    - a[k] * b[k] where ``sub``, a[k] * b[k] - c[k] where ``neg_c``.  Where
+    ``fused`` (the analytic fields' FMA form, csrc/common.cuh ``mad<true>``
+    with a negated operand) each rounded once by :func:`fma32`, the
+    tuple's terms stacked into one call (the same roundings in fewer torch
+    calls) and the negation inside it, as the kernel's FFMA negates its
+    operand; else each product and sum rounded apart, JAX's roundings term
+    for term (``mad<false>``: (-a) * b + c is c - a * b, and a sum's
+    operands commute)."""
+    def apart(a, b, c, sub=False, neg_c=False):
+        if sub:
+            return tuple(z - x * y for x, y, z in zip(a, b, c))
+        if neg_c:
+            return tuple(x * y - z for x, y, z in zip(a, b, c))
+        return tuple(x * y + z for x, y, z in zip(a, b, c))
+
+    def fused_(a, b, c, sub=False, neg_c=False):
+        ref = next(v for v in (*a, *b, *c) if torch.is_tensor(v))
+
+        def column(vs):
+            if not any(torch.is_tensor(v) for v in vs) and len(set(vs)) == 1:
+                return vs[0]
+            return torch.stack([v if torch.is_tensor(v) else torch.full_like(
+                ref, float(np.float32(v))) for v in vs])
+        return tuple(fma32(column(a), column(b), column(c), neg_ab=sub,
+                           neg_c=neg_c).unbind(0))
+
+    return fused_ if fused else apart

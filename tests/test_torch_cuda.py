@@ -16,9 +16,11 @@ eigenray solver on the card; that division (csrc/common.cuh div_by)
 against IEEE division on all 2^32 numerators of 60 and 360 and 2^28
 seeded pairs; the fused step's division by a carried reciprocal
 (div_fast_pos) the same way, and the reciprocal, square root and rsqrt
-fast paths on all 2^32 operands against the card's own operations; and
-fisheye_op1 at odd step counts, to the bit; the plain versions' float32
-FMA (utils/fma.py::fma32) on the card against the card's fmaf.
+fast paths on all 2^32 operands against the card's own operations; the
+analytic dynamic and 3-D kernels with rays beyond their fast paths'
+guards; and fisheye_op1 at odd step counts, to the bit; the plain
+versions' float32 FMA (utils/fma.py::fma32) on the card against the
+card's fmaf.
 
 Marked ``cuda``; every test skips where there is no CUDA device.  The file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -853,6 +855,32 @@ def test_dynamic3d_kernels_off_the_division_fast_path(op, field,
               box=(-1.5, 1.5, -1.5, 1.5, -1.5, 1.5))
     _planes_equal(kd3.dynamic3d_step(st, **kw), replay.dynamic3d_plain(st,
                                                                        **kw))
+
+
+@pytest.mark.parametrize("dim,field,where,op", H.BEYOND_GUARD_CASES)
+def test_kernels_beyond_their_guards_equal_plain(dim, field, where, op,
+                                                 cuda_device):
+    """dynamic_step (2-D) and fused3d_step (3-D) on the analytic fields
+    where their fast paths fail their guards at every ray-step
+    (torch_port_helpers.beyond_guards: the field's reciprocal, the carried
+    1 / n, the chord's and the impulse's square roots): the plain versions'
+    model of the guards counts every ray-step, and the kernels, taking
+    the IEEE forms there, still equal the plain versions in every plane
+    to the bit."""
+    pos0, aim, ds, box = H.beyond_guards(dim, field, where, R)
+    g = torch.zeros(2, dtype=torch.float64, device=cuda_device)
+    kw = dict(field=field, op=op, steps=40, delta_s=ds, step_limit=40.0,
+              offset=0.0, box=box)
+    if dim == 2:
+        st = kd.initial_dyn_state(pos0, aim, device=cuda_device)
+        got = kd.dynamic_step(st, **kw)
+        want = kd.dynamic_step_plain(st, guards=g, **kw)
+    else:
+        st = kf3.initial_state3(pos0, aim, device=cuda_device)
+        got = kf3.fused3d_step(st, **kw)
+        want = kf3.fused3d_step_plain(st, guards=g, **kw)
+    assert g.tolist() == [40.0 * R] * 2
+    _planes_equal(got, want)
 
 
 @pytest.mark.parametrize("denominator", [60.0, 360.0, None])

@@ -118,3 +118,50 @@ def port_df_medium(jm, device="cpu"):
     if "prof" in fields:
         fields["prof"] = medium_fields(fields["prof"])
     return medium_from_numpy(type(jm).__name__, fields, device=device)
+
+
+def jax_order_forms(monkeypatch):
+    """Make the analytic dynamic and 3-D plain versions round as JAX rounds
+    (every product and sum on its own) instead of in their kernels' FMA
+    form: ``utils/fma.py::mads`` unfused."""
+    from raytracing_tpu_torch.utils import fma
+    mads = fma.mads
+    monkeypatch.setattr(fma, "mads", lambda fused: mads(False))
+
+
+#: (dimension, field, where, op): launches whose every ray-step leaves a
+#: fast path of the analytic dynamic (2-D) or 3-D kernel (see
+#: :func:`beyond_guards`); every state plane stays finite on each
+BEYOND_GUARD_CASES = (
+    [(2, f, "far", op) for f in ("fisheye", "vert_heterogeneous")
+     for op in ("op2", "op6")]
+    + [(2, "fisheye", "tiny", op) for op in ("op6", "op8")]
+    + [(3, "fisheye", "far", op) for op in ("op1", "op2", "op6", "op8")]
+    + [(3, "fisheye", "tiny", op) for op in ("op6", "op8")])
+
+
+def beyond_guards(dim, field, where, r, seed=6):
+    """(pos0, theta0 or dir0, delta_s, box) of rays beyond a fast path's
+    guard at every step, with finite values throughout.
+
+    2-D far: the fisheye's 1 + x^2 + y^2 (x in [9.3e18, 1.4e19]) or vert's
+    18 + 2 y (y in [4.3e37, 9e37]) above 2^126, so the field's reciprocal
+    fails its guard and n, and with it the next step's 1 / n2, is
+    subnormal.  3-D far: x in [1e8, 1e9], n within [1e-18, 1e-16], below
+    the carried reciprocal's 2^-16 and with |p|^2 below the impulse's
+    2^-100.  Tiny: delta_s = 1e-17, the chord's square (and in 3-D
+    delta_s^2 / 2) below 2^-100.  The box holds every ray."""
+    rng = np.random.default_rng(seed)
+    pos0 = rng.uniform(-1.0, 1.0, (r, dim))
+    ds, box = (1e-17, 1.5) if where == "tiny" else (0.05, 3e38)
+    if where == "far":
+        if dim == 3:
+            pos0[:, 0] = rng.uniform(1e8, 1e9, r)
+            box = 1e10
+        elif field == "fisheye":
+            pos0[:, 0] = rng.uniform(9.3e18, 1.4e19, r)
+        else:
+            pos0[:, 1] = rng.uniform(4.3e37, 9e37, r)
+    aim = (rng.uniform(0.0, 2 * np.pi, r) if dim == 2
+           else rng.normal(size=(r, 3)))
+    return pos0, aim, ds, (-box, box) * dim
