@@ -35,7 +35,16 @@ either is missing or any check fails.  Phases, one line or more each:
    2**20 + 17 rays, op7 with the Welford stats, a step limit of 250 steps
    (below every lifetime) and a resume chain of uneven segments, every
    plane to the bit; each line with the refill grid and the warp
-   efficiency one ray a thread would have;
+   efficiency one ray a thread would have; then the golden loop's refill
+   (golden_step_strat and golden_step) on aniso's op11 fan, the parity
+   vert table at the reference table's step (golden_strat_op11, 4142
+   steps) and the analytic field at SIGMA/1.2 (1814 steps), at 1, 31,
+   4097 and 2**20 + 17 rays for each ray's whole life (450 and 200
+   steps), the tracker on, a step limit below most lifetimes and a resume
+   chain, every plane to the bit.  Every golden line of phase 3 (and of
+   ``[custom-vs-plain]``) requires bit parity on every plane and prints
+   the share of ray-steps on which a fast path of the golden step failed
+   its guard, as golden_step_plain's model of the guards counts it;
 4. headline: fisheye op1, 2**20 rays, divisor 4587 (4587 steps) through
    make_fisheye_runner: closure error, ray-steps/s (median of 5 timed runs
    after 2 warm-ups), and the plain version's time at the same shape;
@@ -56,7 +65,7 @@ either is missing or any check fails.  Phases, one line or more each:
    plane, and to the fast_trace result, with the refill grid and the warp
    efficiency one ray a thread would have; then which loop fused_step took
    on each side of its choice (the interface's refill loop, the fisheye's
-   one ray a thread);
+   one ray a thread), and that golden_step took the refill loop on aniso;
 8. ``[sweep-vs-plain]``: fused_sweep_grid against its plain version (per-ray
    step sizes and limits) on the reference's full fisheye candidate grid
    (divisor 303 -> 4, ten turns, one ray a candidate), parity and C1 grids,
@@ -429,11 +438,14 @@ def warp_efficiency(dist_sim, ds, steps):
 
 
 def refill_line(field, op, st, out, ds, steps):
-    """The refill loop's grid and the warp efficiency one ray a thread would
-    give on this run, as one line's text."""
+    """The refill loop's grid (fused_step's, or the golden loop's for a
+    golden op) and the warp efficiency one ray a thread would give on this
+    run, as one line's text."""
     from raytracing_tpu_torch.kernels import fused as kfu
+    from raytracing_tpu_torch.kernels import golden as kg
     n = st.x.shape[0]
-    blocks = kfu.refill_grid(field, op, n, stats=st.mom_count is not None)
+    blocks = (kg.refill_grid(field, op, n) if op in kg.GOLDEN_OPS else
+              kfu.refill_grid(field, op, n, stats=st.mom_count is not None))
     return (f"grid {blocks} blocks x 128 for {n} rays "
             f"({n / (blocks * 128):.2f} rays a thread), warp efficiency one "
             f"ray a thread {warp_efficiency(out.dsim - st.dsim, ds, steps):.3f}")
@@ -616,13 +628,14 @@ def phase_kernel_vs_plain(device, rays=RAYS_CHECK, cap=STEP_CAP):
         scal = kg.golden_scalars(ds, scen.gamma, steps, 0.0, it, device=device)
         k = kg.golden_step(st, scal, field=field, op=op, steps=steps,
                            box=scen.box, gold_iters=it, polish=pol)
+        g = torch.zeros(2, dtype=torch.float64, device=device)
         p = replay.golden_plain(st, scal, field=field, op=op, steps=steps,
-                                box=tuple(scen.box), iters=it, polish=pol)
-        errs["golden_step"].compare(
-            f"golden_step {op} {field} iters={it} polish={pol} {steps} steps",
-            torch.stack([k.x, k.y], -1), torch.stack([p.x, p.y], -1),
-            k.tt, p.tt, k.active, p.active, POS_TOL_GOLDEN,
-            tt_abs=TT_ABS_TOL_GOLDEN)
+                                box=tuple(scen.box), iters=it, polish=pol,
+                                guards=g)
+        exact(errs["golden_step"],
+              f"golden_step {op} {field} iters={it} polish={pol} {steps} "
+              "steps", k, p)
+        guard_line(g)
 
     # resume: k steps then n - k steps (offset k) must equal n steps
     for op, field in (("op7", "fisheye"), ("op6", "interface"),
@@ -932,6 +945,14 @@ def phase_main_shapes(device, errs, runs):
             "one ray a thread"), flush=True)
         if (blocks > 0) != refills:
             fail(f"fused_step {name} took the wrong loop")
+    # the golden loop's two (csrc/golden.cuh, GoldRefills): aniso refills
+    from raytracing_tpu_torch.kernels import golden as kg
+    r = runs["aniso"]
+    blocks = kg.refill_grid(r.scen.field, r.op, RAYS_MAIN)
+    print(f"  golden_step aniso {r.op}: refill loop, {blocks} blocks x 128",
+          flush=True)
+    if blocks <= 0:
+        fail("golden_step aniso took the wrong loop")
     return times
 
 
@@ -1029,15 +1050,14 @@ def phase_sampled_kernel_vs_plain(device, media, rays=RAYS_CHECK,
                                      device=device)
             k = kg.golden_step(st, scal, field=tab, op=op, steps=steps,
                                box=scen.box)
+            g = torch.zeros(2, dtype=torch.float64, device=device)
             p = replay.golden_plain(st, scal, field=tab, op=op,
                                     steps=steps, box=tuple(scen.box),
-                                    iters=it, polish=pol)
+                                    iters=it, polish=pol, guards=g)
             name = "golden_step_strat" if strat else "golden_step_grid"
-            errs[name].compare(
-                f"{name} {op} {scen_name} {kind} gamma {scen.gamma} "
-                f"{steps} steps", torch.stack([k.x, k.y], -1),
-                torch.stack([p.x, p.y], -1), k.tt, p.tt, k.active, p.active,
-                POS_TOL_GOLDEN, tt_abs=TT_ABS_TOL_GOLDEN)
+            exact(errs[name], f"{name} {op} {scen_name} {kind} gamma "
+                  f"{scen.gamma} {steps} steps", k, p)
+            guard_line(g)
 
     # resume: k then n - k steps (offset k) equal n steps, one stratified
     # and one grid case of each family
@@ -1160,6 +1180,103 @@ def phase_refill_vs_plain(device, media, errs):
             segs.append(seg)
         resume_check(f"{info.name} op7 with stats, segments {segs}", one,
                      chain)
+    for kind, info in infos.items():
+        delta = info.launches - before[kind]
+        print(f"  {info.name}: {delta} launches in this phase", flush=True)
+
+
+#: the golden refill cases' ray counts: one ray, aniso's 31 launch angles
+#: once, a ragged 4097, and the main path's 2**20 plus a ragged 17
+GOLDEN_REFILL_RAYS = (1, 31, 4097, RAYS_MAIN + 17)
+
+
+def golden_refill_inputs(media, kind, rays):
+    """(scenario, field, pos0, theta0, ds, steps, depth) of aniso's op11
+    fan resized to ``rays``: on the parity vert table at the reference
+    table's step (kind "strat": golden_strat_op11, 4142 steps) or on the
+    analytic field at SIGMA/1.2 (kind "analytic", 1814 steps); ``depth``
+    is a launch's steps under that step limit by which every ray of the
+    fan has left the box (lifetimes 121-395 and 53-173 steps,
+    bench/lifetimes.py --candidates)."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    scen = rtt.scenario("aniso")
+    pos0, theta0 = fan(scen, rays)
+    if kind == "analytic":
+        ds = config.SIGMA / 1.2
+        return (scen, scen.field, pos0, theta0, float(ds),
+                scen.max_size(ds) - 1, 200)
+    ds, div = calibrated_with_fallback("op11", "aniso")
+    return (scen, kernel_medium(media, "strat", scen, ds), pos0, theta0,
+            float(ds), scen.max_size(ds, div, 1) - 1, 450)
+
+
+def phase_golden_refill_vs_plain(device, media, errs):
+    """The golden loop's refill (golden_step_strat, and golden_step on the
+    analytic field) against the plain version (replayed), every plane to
+    the bit, the Welford tracker carried across refills: aniso's op11 fan
+    at GOLDEN_REFILL_RAYS rays, each ray's whole life; a step limit below
+    most lifetimes; a resume chain of uneven segments against one launch.
+    Each line gives the refill grid, the warp efficiency one ray a thread
+    would have and the modelled guard failures."""
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.kernels import golden as kg
+
+    infos = {"strat": kg.KERNEL_STRAT, "analytic": kg.KERNEL}
+    before = {k: info.launches for k, info in infos.items()}
+    it, pol = kg.golden_schedule()
+    print("[refill-vs-plain] the golden loop on aniso's op11 fan, parity "
+          "table (golden_strat_op11) and analytic (SIGMA/1.2), with the "
+          "tracker, each ray's whole life", flush=True)
+    for kind, info in infos.items():
+        e = errs[info.name]
+
+        def run(st, scen, field, ds, limit, n, off=0.0):
+            scal = kg.golden_scalars(ds, scen.gamma, limit, off, it,
+                                     device=device)
+            return kg.golden_step(st, scal, field=field, op="op11", steps=n,
+                                  box=scen.box)
+
+        def plain(st, scen, field, ds, limit, n, guards=None):
+            scal = kg.golden_scalars(ds, scen.gamma, limit, 0.0, it,
+                                     device=device)
+            return replay.golden_plain(st, scal, field=field, op="op11",
+                                       steps=n, box=tuple(scen.box),
+                                       iters=it, polish=pol, guards=guards)
+
+        for rays in GOLDEN_REFILL_RAYS:
+            scen, field, pos0, theta0, ds, steps, depth = \
+                golden_refill_inputs(media, kind, rays)
+            st = kg.initial_state("op11", pos0, theta0, scen.gamma,
+                                  field=field, with_stats=True,
+                                  device=device)
+            k = run(st, scen, field, ds, steps, depth)
+            g = torch.zeros(2, dtype=torch.float64, device=device)
+            exact(e, f"{info.name} op11 {rays} rays x {depth} of {steps} "
+                  "steps", k, plain(st, scen, field, ds, steps, depth, g))
+            if bool(k.active.any()):
+                fail(f"{info.name}: a ray outlived {depth} steps")
+            print(f"    {refill_line(field, 'op11', st, k, ds, steps)}",
+                  flush=True)
+            guard_line(g)
+        scen, field, pos0, theta0, ds, steps, depth = golden_refill_inputs(
+            media, kind, RAYS_CHECK + 17)
+        st = kg.initial_state("op11", pos0, theta0, scen.gamma, field=field,
+                              with_stats=True, device=device)
+        short = 150.0 if kind == "strat" else 80.0
+        exact(e, f"{info.name} op11, step limit {short:g} of {steps}",
+              run(st, scen, field, ds, short, depth),
+              plain(st, scen, field, ds, short, depth))
+        one = run(st, scen, field, ds, steps, depth)
+        chain, done, segs = st, 0, []
+        for seg in (1, 37, 120, depth):
+            seg = min(seg, depth - done)
+            chain = run(chain, scen, field, ds, steps, seg, float(done))
+            done += seg
+            segs.append(seg)
+        resume_check(f"{info.name} op11 with the tracker, segments {segs}",
+                     one, chain)
     for kind, info in infos.items():
         delta = info.launches - before[kind]
         print(f"  {info.name}: {delta} launches in this phase", flush=True)
@@ -1691,7 +1808,8 @@ def guard_line(guards):
     IEEE form because a fast path's guard failed: ``guards`` as the plain
     versions' model of the kernels' guards counts them
     (kernels/dynamic.py::dynamic_step_plain,
-    kernels/fused3d.py::fused3d_step_plain: failed, moved).  Modelled, not
+    kernels/fused3d.py::fused3d_step_plain,
+    kernels/golden.py::golden_step_plain: failed, moved).  Modelled, not
     read from the kernel, which does not report its path."""
     failed, moved = (float(v) for v in guards.cpu())
     print(f"    guard failures (modelled) {failed:.0f} of {moved:.0f} "
@@ -2662,6 +2780,7 @@ def phase_custom_vs_plain(device, fields, rays=RAYS_CHECK, cap=STEP_CAP):
                                   with_stats=stats, device=device)
             scal = kg.golden_scalars(ds, scen.gamma, steps, 0.0, it,
                                      device=device)
+            g = torch.zeros(2, dtype=torch.float64, device=device)
             exact(errs["golden_step_custom"],
                   f"golden_step_custom {op} {scen_name} iters={it} "
                   f"polish={pol} {steps} steps",
@@ -2669,7 +2788,8 @@ def phase_custom_vs_plain(device, fields, rays=RAYS_CHECK, cap=STEP_CAP):
                                  box=scen.box, gold_iters=it, polish=pol),
                   replay.golden_plain(st, scal, field=field, op=op,
                                       steps=steps, box=tuple(scen.box),
-                                      iters=it, polish=pol))
+                                      iters=it, polish=pol, guards=g))
+            guard_line(g)
 
     # resume: k steps then n - k (offset k) against n steps
     scen, ds, steps, pos0, theta0 = inputs("fisheye", "op7")
@@ -3750,9 +3870,11 @@ def main():
     errs.update(phase_sampled_kernel_vs_plain("cuda", media))
     t3r = time.perf_counter()
     phase_refill_vs_plain("cuda", media, errs)
+    t3g = time.perf_counter()
+    phase_golden_refill_vs_plain("cuda", media, errs)
     print(f"[phase 3] kernel-vs-plain {t3_analytic:.1f} s, sampled-vs-plain "
-          f"{t3r - t3s:.1f} s, refill-vs-plain "
-          f"{time.perf_counter() - t3r:.1f} s (plain versions replayed "
+          f"{t3r - t3s:.1f} s, refill-vs-plain {t3g - t3r:.1f} s (golden "
+          f"{time.perf_counter() - t3g:.1f} s) (plain versions replayed "
           "from CUDA graphs)",
           flush=True)
     # the analytic main path, then the sampled one, counts from zero each

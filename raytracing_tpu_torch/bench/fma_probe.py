@@ -13,11 +13,13 @@ it compares instead the kernels built from another checkout's ``csrc``
 (e.g. the parent commit's, unpacked by ``git archive``) with this one's,
 both with the package's flags, on the analytic, sampled, df32, dynamic
 and 3-D entry points they share (SHARED_ENTRIES; a parent built before the
-refill loop of ``fused_step`` and ``fused_step_strat`` is called without
-its counter), and on row 2c's generated library (:func:`custom_library`:
-the fisheye as a ``CustomMedium``, its op6 loop emitted by each checkout's
-own ``kernels/custom.py`` where the other checkout has one beside its
-``csrc``, and built against that checkout's headers).
+refill loop of ``fused_step`` and ``fused_step_strat``, or of the golden
+loop, is called without its counter: COUNTER_ENTRIES), and on the
+generated libraries of rows 2c and 3c (:func:`custom_library`: the
+fisheye's op6 loop and vert's golden op11 loop on custom media,
+emitted by each checkout's own ``kernels/custom.py`` where the other
+checkout has one beside its ``csrc``, and built against that checkout's
+headers).
 Either way it makes four passes in the order A, B, B, A, so that a drift
 of the card's clock shows as a difference between the two passes of one
 build.  Each pass prints the card's name, power limit, SM clock, power
@@ -33,8 +35,13 @@ wrappers launch from ``build.library()``; the probe points it at each
 build in turn.  The shapes are the analytic main path's (among them the
 76-step vert op8 run, timed from a graph), row 2c's (:func:`custom_cases`:
 ``fused_step_custom`` on chip_smoke.py's ``[custom]`` fisheye fan, 2^20 x
-4586, and the analytic ``fused_step`` on the same fan), the fused kernels'
-on sampled
+4586, and the analytic ``fused_step`` on the same fan), the golden
+kernels' beyond the analytic aniso and fisheye op11 runs
+(:func:`golden_cases`:
+golden_step_strat on the golden_strat_op11 run, row 3s, and
+golden_step_custom on aniso op11 through vert's field as a
+``CustomMedium``, row 3c, both with the Welford tracker; ``--cases
+golden`` keeps rows 3, 3s, 3c and 5g), the fused kernels' on sampled
 media (:func:`sampled_cases`: interface_strat op6, vert_strat op8, and
 on the parity fisheye grid, labelled ``fisheye_grid``, op1 on its cells
 and its node table, tiled_grid_op5's golden run and the search's
@@ -63,12 +70,15 @@ built on the card beforehand), and prints the wall time of the traced
 window and the share of it in which the card was idle.
 
 ``--sass [PATTERN[,PATTERN...]]`` only builds the package's library and
-row 2c's generated one (:func:`custom_library`) and reports, for every
+the generated ones of rows 2c and 3c (:func:`custom_library`) and
+reports, for every
 kernel whose mangled name contains a PATTERN (default ``df_kernel``;
 ``fused_kernel`` gives every instantiation of the 2-D fused loop, one ray
 a thread, the refill loop's ``fused_kernel_refill`` and the generated
 ``fused_kernel<Custom, 6>``; ``fisheye_op1`` the headline's loop;
-``dynamic`` the 2-D and 3-D dynamic loops), its registers and spill bytes
+``dynamic`` the 2-D and 3-D dynamic loops; ``golden_kernel`` the golden
+loop one ray a thread and its refill form ``golden_kernel_refill``, the
+generated row-3c loop among them), its registers and spill bytes
 from ptxas (``-Xptxas -v``, the build's log), its count of SASS
 instructions, of FFMA (fused multiply-add) instructions among them, of
 F2I, I2F, LDG, MUFU, FCHK (the IEEE division's range check, whose failure
@@ -121,7 +131,8 @@ SMI_QUERY = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
 #: the entry points the probe's shapes launch, which a parent checkout's
 #: library shares
 SHARED_ENTRIES = ("rt_fisheye_op1", "rt_fused_step", "rt_golden_step",
-                  "rt_fused_step_strat", "rt_fused_step_grid",
+                  "rt_fused_step_strat", "rt_golden_step_strat",
+                  "rt_fused_step_grid",
                   "rt_fused_step_nodes", "rt_golden_step_grid",
                   "rt_fused_sweep_grid", "rt_fused3d_step", "rt_df_step",
                   "rt_df_step_grid",
@@ -135,8 +146,21 @@ BATCH_BELOW_MS = 2.0
 #: loop): the instantiation a shape's run launches, whose loops'
 #: instructions a step each pass prints beside the shape's time
 #: (:func:`loop_steps`: every outermost loop, the step budget's search
-#: among them); the first label part a shape's label contains picks it
+#: among them); the first label part a shape's label contains picks it.
+#: A kernel may be a tuple of names, where two builds name the loop apart
+#: (the golden loop one ray a thread and in its refill form)
 CASE_KERNELS = (
+    ("golden_step_strat",
+     ("golden_kernel<rt::Strat<(int)6>, (bool)0, (bool)0, (bool)0>",
+      "golden_kernel_refill<rt::Strat<(int)6>, (bool)0, (bool)0, (bool)0>"),
+     1),
+    ("golden_step_custom",
+     ("golden_kernel<rt::Custom, (bool)0, (bool)0, (bool)0>",
+      "golden_kernel_refill<rt::Custom, (bool)0, (bool)0, (bool)0>"), 1),
+    ("golden op11 aniso",
+     ("golden_kernel<rt::Analytic<(int)1>, (bool)0, (bool)0, (bool)0>",
+      "golden_kernel_refill<rt::Analytic<(int)1>, (bool)0, (bool)0, "
+      "(bool)0>"), 1),
     ("fused_step_grid", "fused_kernel<rt::Grid<(int)36>, (int)1>", 1),
     ("fused_sweep_grid", "fused_kernel<rt::Grid<(int)36>, (int)1>", 1),
     ("fused_step_nodes", "fused_kernel<rt::Nodes, (int)1>", 1),
@@ -152,9 +176,18 @@ CASE_KERNELS = (
     ("fused3d_step fisheye3", "fused3d_kernel<rt3::Analytic3<(int)0>, (int)6>",
      1),
 )
-#: the entry points that take the refill loop's ray counter before the
-#: stream; a parent built before the loop takes none
-COUNTER_ENTRIES = ("rt_fused_step", "rt_fused_step_strat")
+#: the entry points that take a refill loop's ray counter: {entry: (the
+#: entry point whose presence marks a build with that counter, the
+#: counter's place among the arguments)}; a parent built before that loop
+#: takes none
+COUNTER_ENTRIES = {
+    "rt_fused_step": ("rt_fused_refill_blocks", -2),
+    "rt_fused_step_strat": ("rt_fused_refill_blocks", -2),
+    "rt_golden_step": ("rt_golden_refill_blocks", -2),
+    "rt_golden_step_strat": ("rt_golden_refill_blocks", -9),
+    "rt_golden_step_grid": ("rt_golden_refill_blocks", -9),
+    "rt_golden_step_custom": ("rt_golden_refill_blocks", -2),
+}
 #: the depths of the df32 main path's runs (chip_smoke.py phase 14)
 DF_STEPS = {"fisheye": HEADLINE_DIVISOR - 1,
             "vert_heterogeneous": DF_VERT_STEPS,
@@ -204,6 +237,19 @@ def custom_fisheye():
     return rtt.CustomMedium(lambda x, y: 1.0 / (1.0 + x * x + y * y))
 
 
+def custom_aniso():
+    """Row 3c's medium: vert's ``1 / (18 + 2 y)`` as a ``CustomMedium``, as
+    chip_smoke.py's ``[custom]`` phase writes it for the aniso run."""
+    import raytracing_tpu_torch as rtt
+    return rtt.CustomMedium(lambda x, y: 1.0 / (18.0 + 2.0 * y))
+
+
+#: the generated libraries the probe builds: {family: (medium, op)}, row
+#: 2c's fused op6 loop on the fisheye and row 3c's golden op11 loop on vert
+CUSTOM_SPECS = {"fused": (custom_fisheye, "op6"),
+                "golden": (custom_aniso, "op11")}
+
+
 def _generator(csrc):
     """The custom-medium generator (kernels/custom.py) of the checkout whose
     ``csrc`` is given: this one's, or another checkout's own module where
@@ -222,16 +268,21 @@ def _generator(csrc):
     return sys.modules[name]
 
 
-def custom_library(csrc=build.CSRC):
-    """(library path, its entry point) of row 2c's fused op6 loop on
-    :func:`custom_fisheye`, generated by ``csrc``'s checkout and built
-    against its headers."""
+def custom_library(csrc=build.CSRC, family="fused"):
+    """(library path, its entry point) of the ``family`` loop of
+    :data:`CUSTOM_SPECS` (row 2c's or row 3c's), generated by ``csrc``'s
+    checkout and built against its headers."""
     gen = _generator(csrc)
-    source, entry = gen._unit(gen.trace_custom(custom_fisheye()), "fused",
-                              "op6")
+    medium, op = CUSTOM_SPECS[family]
+    source, entry = gen._unit(gen.trace_custom(medium()), family, op)
     custom.build_units({0: source}, csrc)
     lib = custom._library_path(source, csrc)
     return lib, getattr(build.load(lib, (entry,)), entry)
+
+
+def custom_libraries(csrc=build.CSRC):
+    """{family: (library path, entry point)} of :data:`CUSTOM_SPECS`."""
+    return {family: custom_library(csrc, family) for family in CUSTOM_SPECS}
 
 
 def custom_cases(device, rays=RAYS):
@@ -262,6 +313,45 @@ def custom_cases(device, rays=RAYS):
             return torch.stack([o.x, o.y], -1)
         out.append((f"{label} op6 custom fisheye fan, {steps} steps", run))
     return out
+
+
+def golden_cases(device, rays=RAYS):
+    """(label, run) of the golden kernels beyond the analytic ones at their
+    main shapes: golden_step_strat on the golden_strat_op11 run (the parity
+    vert table trimmed for aniso's box, op11 at the reference table's step,
+    SIGMA/2.74, 4142 steps, with the Welford tracker its momentum-CV oracle
+    reads) and golden_step_custom on aniso op11 at SIGMA/1.2 through vert's
+    ``1 / (18 + 2 y)`` as a ``CustomMedium`` (:func:`custom_aniso`, the
+    tracker on), as chip_smoke.py's sampled and ``[custom]`` phases run
+    them; the custom kernel launches from ``kg.library_for``, which
+    :func:`probe` points at each build's library in turn."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+
+    aniso, vert = scenario("aniso"), scenario("vert")
+    it, _ = kg.golden_schedule()
+
+    def case(label, field, ds, steps):
+        st = kg.initial_state("op11", *launch_fan(aniso, rays), aniso.gamma,
+                              field=field, with_stats=True, device=device)
+        scal = kg.golden_scalars(ds, aniso.gamma, steps, 0.0, it,
+                                 device=device)
+
+        def run():
+            out = kg.golden_step(st, scal, field=field, op="op11",
+                                 steps=steps, box=aniso.box)
+            return torch.stack([out.x, out.y], -1)
+        return f"{label} op11 aniso, {steps} steps", run
+
+    ds, div = calibrated_with_fallback("op11", "aniso")
+    tables = kfu.strat_tables(rtt.compact_for_trace(
+        rtt.build_stratified_medium("vert_heterogeneous", vert.box,
+                                    device=device), aniso.box, ds))
+    ds_c = config.SIGMA / 1.2
+    return [case("golden_step_strat golden_strat_op11", tables, float(ds),
+                 aniso.max_size(ds, div, 1) - 1),
+            case("golden_step_custom", custom.trace_custom(custom_aniso()),
+                 ds_c, aniso.max_size(ds_c) - 1)]
 
 
 def sampled_cases(device, rays=RAYS):
@@ -494,7 +584,8 @@ def cases(device, rays=RAYS):
         _golden_case("aniso", "op11", ds_a,
                      scenario("aniso").max_size(ds_a) - 1, device, rays),
         _golden_case("fisheye", "op11", ds_f, steps_f, device, rays),
-    ] + custom_cases(device, rays) + sampled_cases(device, rays) + \
+    ] + golden_cases(device, rays) + custom_cases(device, rays) + \
+        sampled_cases(device, rays) + \
         df_cases(device, rays) + dynamic_cases(device, rays)
 
 
@@ -543,51 +634,85 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def without_counter(fn, at):
+    """``fn`` called with this checkout's arguments less the counter at
+    ``at`` (a parent's entry point from before its refill loop)."""
+    return lambda *args: fn(*args[:at], *args[at:][1:])
+
+
 class ParentLibrary:
     """A parent checkout's library as the wrappers call it: the entry points
-    of COUNTER_ENTRIES are called without the counter that the wrapper
-    passes before the stream."""
+    in ``dropped`` ({name: counter place}) are called without the counter
+    that the wrapper passes."""
 
-    def __init__(self, lib):
-        self._lib = lib
+    def __init__(self, lib, dropped):
+        self._lib, self._dropped = lib, dropped
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name not in COUNTER_ENTRIES:
-            return fn
-        return lambda *args: fn(*args[:-2], args[-1])
+        at = self._dropped.get(name)
+        return fn if at is None else without_counter(fn, at)
+
+
+def _dropped(lib):
+    """{entry: counter place} of the COUNTER_ENTRIES that the library
+    ``lib`` (loaded by path) builds without their counter."""
+    return {name: at for name, (mark, at) in COUNTER_ENTRIES.items()
+            if not hasattr(lib, mark)}
 
 
 def load_parent(path):
-    """The parent's library; where it has no refill loop (no
-    ``rt_fused_refill_blocks``), its COUNTER_ENTRIES take this checkout's
-    arguments less the counter."""
-    lib = build.load(path, tuple(n for n in SHARED_ENTRIES
-                                 if n not in COUNTER_ENTRIES))
-    if hasattr(lib, "rt_fused_refill_blocks"):
-        return build.load(path, SHARED_ENTRIES)
-    for name in COUNTER_ENTRIES:
+    """The parent's library; the COUNTER_ENTRIES of a build without their
+    refill loop (no marking entry point) take this checkout's arguments
+    less the counter."""
+    lib = ctypes.CDLL(str(path))
+    dropped = _dropped(lib)
+    for name in SHARED_ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = list(build._SIGNATURES[name][:-2]) + [ctypes.c_void_p]
+        sig = list(build._SIGNATURES[name])
+        if name in dropped:
+            del sig[dropped[name]]
+        fn.argtypes = sig
         fn.restype = ctypes.c_int
-    return ParentLibrary(lib)
+    return ParentLibrary(lib, {k: v for k, v in dropped.items()
+                               if k in SHARED_ENTRIES})
+
+
+def load_parent_custom(main, path, entry):
+    """A parent's generated library's entry point, called as this
+    checkout's: without the counter where the parent's main library
+    ``main`` has no refill loop for it."""
+    fn = getattr(ctypes.CDLL(str(path)), entry)
+    sig = list(build._SIGNATURES[entry])
+    at = _dropped(main._lib).get(entry)
+    if at is None:
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+        return fn
+    del sig[at]
+    fn.argtypes, fn.restype = sig, ctypes.c_int
+    wrapped = without_counter(fn, at)
+    wrapped.__name__ = entry
+    return wrapped
 
 
 def probe(device, reps, builds, only=None):
     """Four passes over the shapes (those whose label contains one of the
     strings ``only``, where given), in the order A, B, B, A of the two
-    ``(label, library, custom entry point)`` builds: the main library and
-    row 2c's generated one."""
+    ``(label, library, {family: (path, entry point)})`` builds: the main
+    library and the generated ones of :data:`CUSTOM_SPECS`."""
     shapes = [(label, run) for label, run in cases(device)
               if not only or any(o in label for o in only)]
     ref = {}
     (la, liba, cua), (lb, libb, cub) = builds
-    steps_of = {id(liba): loop_steps(liba), id(libb): loop_steps(libb)}
+    steps_of = {id(liba): loop_steps([liba, *(p for p, _ in cua.values())]),
+                id(libb): loop_steps([libb, *(p for p, _ in cub.values())])}
     for p, (label_b, lib, cu) in enumerate(((la, liba, cua), (lb, libb, cub),
                                             (lb, libb, cub),
                                             (la, liba, cua))):
         build.library = lambda lib=lib: lib
-        kfu.library_for = lambda *spec, cu=cu: (cu, cu.__name__)
+        kfu.library_for = kg.library_for = (
+            lambda field, family, op, cu=cu: (cu[family][1],
+                                              cu[family][1].__name__))
         print(smi(), flush=True)
         for label, run in shapes:
             times, pos, batch = time_ms(run, reps)
@@ -751,13 +876,15 @@ def _usage(log):
     return usage
 
 
-def outer_loops(code):
-    """The (head, tail) of each loop of a kernel that no other loop holds
-    (in fused_kernel, the step loops with and without the Welford stats),
-    by address."""
+def outer_loops(code, depth=0):
+    """The (head, tail) of each loop of a kernel that ``depth`` other loops
+    hold, by address: with depth 0 the loops no other loop holds (in
+    fused_kernel, the step loops with and without the Welford stats); with
+    depth 1 those one loop holds (in golden_kernel_refill, the step loop
+    inside the refill loop)."""
     back = sorted(set(_back_branches(code)))
-    return [b for b in back if not any(o != b and o[0] <= b[0] and b[1] <= o[1]
-                                       for o in back)]
+    return [b for b in back if sum(o != b and o[0] <= b[0] and b[1] <= o[1]
+                                   for o in back) == depth]
 
 
 def _cuobjdump():
@@ -795,25 +922,34 @@ def parse_sass(lib):
     return counts, ops, code, ffma_lines
 
 
-def loop_steps(lib):
-    """{demangled kernel of CASE_KERNELS: its outermost loops' instructions
-    a step on the usual path (:func:`loop_path`), " | "-joined} for the
-    kernels of CASE_KERNELS in the loaded library ``lib``; empty where the
-    SASS cannot be read."""
-    path = getattr(lib, "_name", None) or getattr(
-        getattr(lib, "_lib", None), "_name", None)
-    try:
-        _, _, code, _ = parse_sass(path)
-    except (OSError, subprocess.CalledProcessError, TypeError):
-        return {}
-    names = list(code)
+def _names(kernel):
+    return kernel if isinstance(kernel, tuple) else (kernel,)
+
+
+def loop_steps(libs):
+    """{kernel of CASE_KERNELS: its outermost loops' instructions a step on
+    the usual path (:func:`loop_path`), " | "-joined} for the kernels of
+    CASE_KERNELS in the libraries ``libs`` (loaded libraries or paths);
+    empty where the SASS cannot be read."""
     out = {}
-    for mangled, pretty in zip(names, _demangle(names)):
-        for _, kernel, per in CASE_KERNELS:
-            if f"::{kernel}(" in pretty:
-                loops = [sum(loop_path(code[mangled], None, lp).values()) / per
-                         for lp in outer_loops(code[mangled])]
-                out[kernel] = " | ".join(f"{c:g}" for c in loops)
+    for lib in libs:
+        path = lib if isinstance(lib, Path) else (
+            getattr(lib, "_name", None)
+            or getattr(getattr(lib, "_lib", None), "_name", None))
+        try:
+            _, _, code, _ = parse_sass(path)
+        except (OSError, subprocess.CalledProcessError, TypeError):
+            continue
+        names = list(code)
+        for mangled, pretty in zip(names, _demangle(names)):
+            for _, kernel, per in CASE_KERNELS:
+                if any(f"::{k}(" in pretty for k in _names(kernel)):
+                    # a refill kernel steps in the loop its refill loop holds
+                    depth = int("_refill<" in pretty)
+                    loops = [sum(loop_path(code[mangled], None, lp).values())
+                             / per for lp in outer_loops(code[mangled],
+                                                         depth)]
+                    out[kernel] = " | ".join(f"{c:g}" for c in loops)
     return out
 
 
@@ -826,10 +962,10 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
     patterns = pattern.split(",")
     main_lib = build.build(csrc=csrc)
     digest = build.source_digest(csrc=csrc)
-    custom_lib = custom_library(csrc)[0]
     ffma_lines, loops = [], []
     for lib, log in ((main_lib, build.BUILD_DIR / f"ptxas-{digest}.log"),
-                     (custom_lib, custom_lib.with_suffix(".log"))):
+                     *((p, p.with_suffix(".log"))
+                       for p, _ in custom_libraries(csrc).values())):
         usage = _usage(log.read_text())
         counts, ops, code, ffmas = parse_sass(lib)
         ffma_lines += [text for fn, text in ffmas
@@ -851,7 +987,8 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
                 f"loop path {sum(path.values())} instructions an iteration ("
                 + ", ".join(f"{o} {path[o]}" for o in named if path[o])
                 + ")")
-            for head, tail in outer_loops(code.get(name, [])):
+            for head, tail in (outer_loops(code.get(name, []))
+                               + outer_loops(code.get(name, []), 1)):
                 more = []
                 other = loop_path(code[name], more, (head, tail))
                 loop += (f"; loop at {head:#x} {sum(other.values())} ("
@@ -898,18 +1035,22 @@ def main(argv=None):
         sass_report(args.sass)
         return 0
     only = args.cases.split(",") if args.cases else None
-    own = ("fmad=false", build.load(build.build()), custom_library()[1])
+    own = ("fmad=false", build.load(build.build()), custom_libraries())
     if args.parent_csrc is not None:
-        other = ("parent", load_parent(build.build(csrc=args.parent_csrc)),
-                 custom_library(args.parent_csrc)[1])
+        main_parent = load_parent(build.build(csrc=args.parent_csrc))
+        other = ("parent", main_parent, {
+            family: (path, load_parent_custom(main_parent, path,
+                                              fn.__name__))
+            for family, (path, fn) in custom_libraries(
+                args.parent_csrc).items()})
         probe("cuda", args.reps, (other, ("change", *own[1:])), only)
     else:
-        # row 2c's generated library is built with the package's flags only
+        # the generated libraries are built with the package's flags only
         probe("cuda", args.reps,
               (own, ("fmad=true", build.load(build.build(fmad_flags(True))),
                      own[2])), only)
     build.library = lambda: own[1]
-    kfu.library_for = custom.library_for
+    kfu.library_for = kg.library_for = custom.library_for
     if args.profile:
         profile_main_path("cuda", args.profile)
     if args.profile_sampled:

@@ -28,12 +28,16 @@ metric.
 ``--candidates`` prints instead the one-ray-a-thread warp efficiency of the
 fans of the kernels the refill loop could serve next, from their plain
 versions on the CPU: golden_step on aniso op11 (SIGMA/1.2, the scenario's
-angles resized), dynamic_step_strat on the vert_strat run (op6, ds
+angles resized), golden_step_strat on the golden_strat_op11 run (op11 on
+the parity vert table trimmed for aniso's box, at the reference table's
+step, 4142 steps, the same angles resized), dynamic_step_strat on the vert_strat run (op6, ds
 0.0193, 2000 steps from (-2, -2) at angles U[0.05, 1.5], numpy seed 0;
 its first 4096 rays, in the order the kernel's warps take them), and a
 dispersed fisheye fan (op1 at the headline step, 4586 steps, launch
 points and angles uniform, seed 5, 4096 rays), traced on the analytic
-fisheye that the grid, node-table and custom media fit.
+fisheye that the grid, node-table and custom media fit; for the two golden
+fans, which the golden loop's refill (csrc/golden.cuh) serves, also the
+lockstep model at :data:`GOLDEN_BLOCKS_PER_SM`.
 """
 from __future__ import annotations
 
@@ -53,6 +57,9 @@ SMS = 132
 #: the refill grid's 128-thread blocks an SM that the model runs: the
 #: occupancies around what the refill instantiations' 44-52 registers allow
 BLOCKS_PER_SM = (8, 12, 16)
+#: the same for the golden loop's refill (``--candidates``), whose 64-128
+#: registers allow 4-8 blocks an SM
+GOLDEN_BLOCKS_PER_SM = (4, 6, 8)
 
 
 def interface_lifetimes():
@@ -143,6 +150,25 @@ def candidate_efficiencies():
         "resized to 2^20)"] = (warp_efficiency(np.resize(life, RAYS)),
                                life)
 
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    ds, div = calibrated_with_fallback("op11", "aniso")
+    steps = aniso.max_size(ds, div, 1) - 1
+    tables = kfu.strat_tables(rtt.compact_for_trace(
+        rtt.build_stratified_medium("vert_heterogeneous",
+                                    rtt.scenario("vert").box, device="cpu"),
+        aniso.box, ds))
+    st = kg.initial_state("op11", pos0, theta0, aniso.gamma, field=tables,
+                          with_stats=False, device="cpu")
+    scal = kg.golden_scalars(float(ds), aniso.gamma, steps, 0.0, it,
+                             device="cpu")
+    p = kg.golden_step_plain(st, scal, field=tables, op="op11", steps=steps,
+                             box=tuple(aniso.box), iters=it, polish=pol)
+    life = np.minimum(np.rint(p.dsim.double().numpy() / float(np.float32(
+        ds))), steps).astype(np.int64)
+    out[f"golden_step_strat golden_strat_op11, {steps} steps (the "
+        f"{len(life)} angles resized to 2^20)"] = (
+            warp_efficiency(np.resize(life, RAYS)), life)
+
     vert = rtt.scenario("vert")
     ds = float(np.float32(0.0193))
     th = np.random.default_rng(0).uniform(0.05, 1.5, 1 << 20)[:CANDIDATE_RAYS]
@@ -185,6 +211,13 @@ def main(argv=None):
             print(f"{fan}: lifetimes {life.min()}-{life.max()} (mean "
                   f"{life.mean():.1f}), warp efficiency one ray a thread "
                   f"{eff:.3f}", flush=True)
+            if fan.startswith("golden"):
+                for b in GOLDEN_BLOCKS_PER_SM:
+                    eff, _, iters = refill_model(np.resize(life, RAYS),
+                                                 b * 128 * SMS)
+                    print(f"  refill, {b} blocks of 128 on {SMS} SMs: warp "
+                          f"efficiency {eff:.3f}, {iters} iterations",
+                          flush=True)
         return 0
     for kind, (life42, steps) in interface_lifetimes().items():
         life = np.resize(life42, RAYS)

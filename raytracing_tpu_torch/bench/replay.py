@@ -84,17 +84,21 @@ def fused_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
 
 
 def golden_plain(st, scal, *, field, op: str, steps: int, box, iters: int,
-                 polish: int):
+                 polish: int, guards=None):
     """``golden_step_plain`` with the same arguments, replayed from a CUDA
     graph; equal to it to the bit.  The plain version reads the scalar
-    bundle on the host, so the captured step gets a host copy of it."""
+    bundle on the host, so the captured step gets a host copy of it.
+    ``guards`` counts as there, the warm-up step's count taken back before
+    the first replay."""
     from raytracing_tpu_torch.kernels.golden import golden_step_plain
     host = scal.cpu()
     limit, offset = float(host[2]), float(host[3])
     return replay_steps(
         lambda s: golden_step_plain(s, host, field=field, op=op, steps=1,
-                                    box=box, iters=iters, polish=polish),
-        st, live_steps(steps, offset, limit))
+                                    box=box, iters=iters, polish=polish,
+                                    guards=guards),
+        st, live_steps(steps, offset, limit),
+        before_replay=None if guards is None else guards.zero_)
 
 
 def fused3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,

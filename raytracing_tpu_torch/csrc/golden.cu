@@ -24,14 +24,61 @@
 // clip bounds (0.15 polish, 0.3 Newton, L_final after a bracket) and the
 // |d2| < 1e-12 floor are part of the result and kept.
 //
-// One thread per ray, state in registers for every step, coalesced planes
-// read and written once, ragged edge masked, and a thread stops stepping
-// once its ray is frozen.  A step costs ~150-900 FP32 operations (each
-// Newton step is one Dual2 cost, ~4 plain costs; each bracket iteration one
-// cost) against ~60 bytes a ray for the whole launch: FP32-issue bound.
+// State in registers for every step, coalesced planes read and written
+// once, ragged edge masked, and a ray stops stepping once it is frozen:
+// one ray a thread on the analytic fisheye and the grid, the persistent
+// refill loop (a lane whose ray froze takes the next) on the other media,
+// whose fans mix rays of very different lifetimes in a warp (golden.cuh).
+// A step costs ~150-900 FP32 operations (each Newton step is one Dual2
+// cost, ~4 plain costs; each bracket iteration one cost) against ~60 bytes
+// a ray for the whole launch: FP32-issue bound.
 //
 // The loop itself, its arguments and launchers are in golden.cuh.
 #include "golden.cuh"
+
+// The refill loop's grid: blocks of 128 threads that a launch of the
+// variant (curv, newton, iso) on medium (0 analytic, field = code; 1
+// stratified, ch = code; 2 grid, cell_ch = code) takes for n rays on the
+// current device, into *blocks; 0 where the medium runs one ray a thread
+extern "C" int rt_golden_refill_blocks(int medium, int code, int curv,
+                                       int newton, int iso, int n,
+                                       int* blocks) {
+  using rt::golden_refill_blocks;
+  if (n <= 0 || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (medium == 0) {
+    switch (code) {
+      case rt::FISHEYE:
+        return golden_refill_blocks<rt::Analytic<rt::FISHEYE>>(
+            curv, newton, iso, n, blocks);
+      case rt::VERT:
+        return golden_refill_blocks<rt::Analytic<rt::VERT>>(curv, newton,
+                                                            iso, n, blocks);
+      case rt::INTERFACE:
+        return golden_refill_blocks<rt::Analytic<rt::INTERFACE>>(
+            curv, newton, iso, n, blocks);
+    }
+  } else if (medium == 1) {
+    switch (code) {
+      case 6:
+        return golden_refill_blocks<rt::Strat<6>>(curv, newton, iso, n,
+                                                  blocks);
+      case 4:
+        return golden_refill_blocks<rt::Strat<4>>(curv, newton, iso, n,
+                                                  blocks);
+    }
+  } else if (medium == 2) {
+    switch (code) {
+      case 36:
+        return golden_refill_blocks<rt::Grid<36>>(curv, newton, iso, n,
+                                                  blocks);
+      case 16:
+        return golden_refill_blocks<rt::Grid<16>>(curv, newton, iso, n,
+                                                  blocks);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // golden_step: the analytic fields (row 3 of the kernel table)
 extern "C" int rt_golden_step(int field, RT_GOLDEN_PARAMS, void* stream) {

@@ -59,9 +59,14 @@ _SIGNATURES = {
     "rt_fused_refill_blocks": (_I, _I, _I, _I, _I, _P),
     # field, curv, newton, iso, stats, in_planes, out_planes, n, steps,
     # scal (device), iters, polish, limx_i, limx_s, limy_i, limy_s,
-    # curv_tol, cos_c0, sin_c0, cos_d0, sin_d0, cos_m, sin_m, l_final, stream
+    # curv_tol, cos_c0, sin_c0, cos_d0, sin_d0, cos_m, sin_m, l_final,
+    # counter (the refill loop's int, on the card), stream
     "rt_golden_step": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P,
+                       _P),
+    # medium (0 analytic, 1 stratified, 2 grid), field, ch or cell_ch, curv,
+    # newton, iso, n, out: blocks of the golden refill loop's grid
+    "rt_golden_refill_blocks": (_I, _I, _I, _I, _I, _I, _P),
     # rt_fused_step's arguments after field, without the counter (a
     # generated custom-medium library, kernels/custom.py: one op on one
     # medium)
@@ -85,14 +90,15 @@ _SIGNATURES = {
     # library: one variant on one medium)
     "rt_golden_step_custom": (_I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                               _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
-                              _F, _P),
-    # ch, then rt_golden_step's arguments after field, the table, stream
+                              _F, _P, _P),
+    # ch, then rt_golden_step's arguments after field up to the counter,
+    # the table, stream
     "rt_golden_step_strat": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                              _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
-                             *_TABLE, _P),
+                             _P, *_TABLE, _P),
     "rt_golden_step_grid": (_I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
                             _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
-                            *_TABLE, _P),
+                            _P, *_TABLE, _P),
     # field, op, in_planes, out_planes, n, steps, ds, limit, offset,
     # limx_i, limx_s, limy_i, limy_s, stream (csrc/dynamic.cu)
     "rt_dynamic_step": (_I, _I, _P, _P, _I, _I, _F, _F, _F,

@@ -32,10 +32,14 @@ with their own launch counts (``golden_step``, ``golden_step_strat``,
 :func:`golden_step` the wrapper that dispatches on the device of the
 state.  Both take the cost's first and
 second derivatives from :class:`Dual2`, the counterpart of the nested
-``jax.jvp`` at golden.py:306-328.
+``jax.jvp`` at golden.py:306-328.  Every medium but the analytic fisheye
+and the grid launches the persistent refill loop of ``csrc/golden.cuh``
+(a lane whose ray froze takes the next ray), on a ray counter the wrapper
+allocates for each call; :func:`refill_grid` gives its grid.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Any, NamedTuple
 
@@ -47,9 +51,9 @@ from raytracing_tpu_torch.kernels import build
 from raytracing_tpu_torch.kernels.custom import (
     KERNEL_GOLDEN as KERNEL_CUSTOM, library_for, trace_custom)
 from raytracing_tpu_torch.kernels.fused import (
-    CURV_TOL, FUSED_FIELDS, NodeTables, ResumeState, _kahan, _outside,
-    _vectors, arc_advance, check_medium, check_state, div_exact, kernel_of,
-    nag_fn, rot_small, strat_tables)
+    CURV_TOL, FIELD_CODES, FUSED_FIELDS, GridTables, NodeTables, ResumeState,
+    StratTables, _kahan, _outside, _vectors, arc_advance, check_medium,
+    check_state, div_exact, kernel_of, nag_fn, rot_small, strat_tables)
 from raytracing_tpu_torch.media.medium import CustomMedium
 
 GOLDEN_OPS = {"op5": ("curv", "golden"), "op9": ("t2", "golden"),
@@ -213,7 +217,8 @@ def _asin_small(s):
     return s * (1.0 + s2 * ((1.0 / 6.0) + s2 * (3.0 / 40.0)))
 
 
-def _newton_polish(cost_uv, mc, ms, t0, n_steps: int, clip_b: float):
+def _newton_polish(cost_uv, mc, ms, t0, n_steps: int, clip_b: float,
+                   guard=None):
     """Newton on d(cost)/d(delta), delta from the seed (mc, ms)."""
     dlt = torch.zeros_like(t0)
     one, zero = torch.ones_like(t0), torch.zeros_like(t0)
@@ -222,17 +227,51 @@ def _newton_polish(cost_uv, mc, ms, t0, n_steps: int, clip_b: float):
         f = cost_uv(mc * cd - ms * sd, mc * sd + ms * cd)
         ad2 = torch.abs(f.d2)
         safe = torch.where(ad2 < 1e-12, torch.full_like(ad2, 1e-12), ad2)
+        if guard is not None:
+            guard(lambda: _div_ok(f.d1, safe))
         dlt = dlt - torch.clamp(f.d1 / safe, -clip_b, clip_b)
     dlt = torch.clamp(dlt, -clip_b, clip_b)
     sd, cd = rot_small(dlt)
     return t0 + dlt, mc * cd - ms * sd, mc * sd + ms * cd
 
 
+# Where the kernels' fast paths hold their guards (csrc/common.cuh): a
+# model of them, since the kernel reports no path of its own.  Each is
+# False for NaN, as the guard is.
+def _div_ok(a, b):
+    """div_pos_m's fast path: div_fast_pos from recip_pos(b)."""
+    aa = a.abs() if torch.is_tensor(a) else abs(a)
+    return ((b >= 2.0 ** -16) & (b <= 2.0 ** 16) & (aa <= 2.0 ** 100)
+            & ((aa >= 2.0 ** -100) | (aa == 0.0)))
+
+
+def _sqrt_ok(v):
+    """sqrt_m's and sqrt_rsqrt_m's fast path."""
+    return (v >= 2.0 ** -100) & (v <= 2.0 ** 126)
+
+
+def _rsqrt_ok(v):
+    return v >= 2.0 ** -126
+
+
+def _rcp_ok(v):
+    a = v.abs()
+    return (a >= 2.0 ** -126) & (a < 2.0 ** 126)
+
+
 def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
                       op: str, steps: int, box, iters: int,
-                      polish: int) -> ResumeState:
+                      polish: int, guards=None) -> ResumeState:
     """Plain PyTorch version of the ``golden_step`` kernels (golden.py:230-455)
-    on every ray at once; frozen rays are kept by selects."""
+    on every ray at once; frozen rays are kept by selects.
+
+    ``guards``, a float64 tensor of 2 on the state's device, if given: each
+    step adds to ``guards[0]`` the rays it moves where any of the kernels'
+    fast paths (csrc/golden.cuh: the reciprocals, square roots, reciprocal
+    square roots and quotients) fails its guard, so that the kernel takes
+    that operation's IEEE form, and to ``guards[1]`` the rays it moves: a
+    model of the kernels' guards, which report no path of their own.  The
+    grid's kernel takes the IEEE operations throughout: none fails there."""
     nag = nag_fn(field)
     stepper, solver = GOLDEN_OPS[op]
     iso = op in ("op5", "op9")
@@ -252,17 +291,24 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
 
     for i in range(steps):
         keep = active & (float(np.float32(i) + offset) < float(limit))
+        bad = []
+        guard = None if guards is None or isinstance(field, GridTables) \
+            else (lambda ok: bad.append(~ok()))
         gdotu = gx * ux + gy * uy
         txx = gx - gdotu * ux
         txy = gy - gdotu * uy
         if stepper == "t2":
             half_fac = div_exact(dsds_half, n)
+            if guard:
+                guard(lambda: _div_ok(dsds_half, n))
             ddx = ux * ds + txx * half_fac
             ddy = uy * ds + txy * half_fac
             significant = torch.ones_like(active)
         else:
             ddx, ddy, significant = arc_advance(ux, uy, gx, gy, txx, txy, n,
                                                 ds)
+            if guard:
+                guard(lambda: _arc_ok(ux, uy, gx, gy, txx, txy, n, ds))
         nx2, cx2 = _kahan(x, cx, ddx)
         ny2, cy2 = _kahan(y, cy, ddy)
         n2, gx2, gy2 = nag(nx2, ny2)
@@ -289,6 +335,10 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
             def cost_uv(ct, st_):
                 gs = gamma * st_
                 s2 = gs * gs + ct * ct
+                if guard:
+                    v = s2.v if isinstance(s2, Dual2) else s2
+                    guard(lambda: _rsqrt_ok(v) & (_rcp_ok(v) if isinstance(
+                        s2, Dual2) else True))
                 inv = _rsqrt(s2)
                 cf = s2 * inv
                 rx = n2 * ct * inv - kx - cf * hx
@@ -296,19 +346,22 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
                 return rx * rx + ry * ry
 
         kyg = ky if iso else ky * inv_g2
-        inv_k = torch.rsqrt(kx * kx + kyg * kyg)
+        kk = kx * kx + kyg * kyg
+        inv_k = torch.rsqrt(kk)
+        if guard:
+            guard(lambda: _rsqrt_ok(kk))
         mc, ms = kx * inv_k, kyg * inv_k
         tc = ts = None
         if solver == "newton":
             t0 = ang + _asin_small(ux * ms - uy * mc)
-            t_new, tc, ts = _newton_polish(cost_uv, mc, ms, t0, 3, 0.3)
+            t_new, tc, ts = _newton_polish(cost_uv, mc, ms, t0, 3, 0.3, guard)
         elif iters == 0:
             t_new = ang + _asin_small(ux * ms - uy * mc)
             if iso or not polish:
                 tc, ts = mc, ms
             else:
                 t_new, tc, ts = _newton_polish(cost_uv, mc, ms, t_new,
-                                               polish, 0.15)
+                                               polish, 0.15, guard)
         else:
             a_ang = ang - DELTA_G
             b_ang = ang + DELTA_G
@@ -339,18 +392,25 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
                 mmc = pc * cos_m - ps * sin_m
                 mms = pc * sin_m + ps * cos_m
                 t_new, tc, ts = _newton_polish(cost_uv, mmc, mms, t_new,
-                                               polish, l_final)
+                                               polish, l_final, guard)
         nang = torch.where(significant, t_new, ang)
         if tc is not None:
-            inv_nrm = torch.rsqrt(tc * tc + ts * ts)
+            nrm = tc * tc + ts * ts
+            inv_nrm = torch.rsqrt(nrm)
+            if guard:
+                guard(lambda: _rsqrt_ok(nrm))
             nux = torch.where(significant, tc * inv_nrm, ux)
             nuy = torch.where(significant, ts * inv_nrm, uy)
         else:
             nux, nuy = torch.cos(nang), torch.sin(nang)
 
-        dist = torch.sqrt(ddx * ddx + ddy * ddy)
+        dd = ddx * ddx + ddy * ddy
+        dist = torch.sqrt(dd)
         gnu = gamma * nuy
-        cf_new = one if iso else torch.sqrt(gnu * gnu + nux * nux)
+        cf2 = gnu * gnu + nux * nux
+        cf_new = one if iso else torch.sqrt(cf2)
+        if guard:
+            guard(lambda: _sqrt_ok(dd) & (True if iso else _sqrt_ok(cf2)))
         ntt = tt + dist * (coef_i * n + cf_new * n2) * 0.5
         ndsim = dsim + dist
 
@@ -363,7 +423,16 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
             delta = mx2 - mean
             mean2 = mean + delta / cnt2
             m22 = m2 + delta * (mx2 - mean2)
+            if guard:
+                guard(lambda: _div_ok(delta, cnt2) & (
+                    True if iso else _div_ok(n2 * nux, cf_new)))
             cnt, mean, m2 = sel(cnt2, cnt), sel(mean2, mean), sel(m22, m2)
+        if guards is not None:
+            failed = torch.zeros_like(keep)
+            for b in bad:
+                failed = failed | b
+            guards[0] += (keep & failed).sum()
+            guards[1] += keep.sum()
         active = active & ~(keep & _outside(nx2, ny2, box))
         x, y, cx, cy = sel(nx2, x), sel(ny2, y), sel(cx2, cx), sel(cy2, cy)
         ang, ux, uy = sel(nang, ang), sel(nux, ux), sel(nuy, uy)
@@ -373,6 +442,21 @@ def golden_step_plain(st: ResumeState, scal: torch.Tensor, *, field,
     return ResumeState(x=x, y=y, ux=ux, uy=uy, cx=cx, cy=cy, tt=tt, dsim=dsim,
                        active=active, ang=ang, mom_count=cnt, mom_mean=mean,
                        mom_m2=m2)
+
+
+def _arc_ok(ux, uy, gx, gy, txx, txy, n, ds):
+    """The guards of arc_advance_m's fast paths (csrc/common.cuh): the
+    curvature's square root (a zero sum of squares on the fast path too)
+    and both quotients, from :func:`arc_advance`'s operands."""
+    v = txx * txx + txy * txy
+    t = torch.sqrt(v)
+    curv = t / n
+    one = torch.ones_like(n)
+    significant = curv >= CURV_TOL
+    sgn = torch.where(gx * uy - gy * ux > 0, -one, one)
+    sh, _ = rot_small(sgn * (curv * ds) * 0.5)
+    return ((_sqrt_ok(v) | (v == 0.0)) & _div_ok(t, n)
+            & _div_ok(2.0 * sh * sgn, torch.where(significant, curv, one)))
 
 
 def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
@@ -406,7 +490,6 @@ def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
         raise ValueError(f"scal must be the contiguous float32 bundle of "
                          f"{iters} bracket iterations on {st.x.device}")
     box = tuple(float(v) for v in box)
-    stepper, solver = GOLDEN_OPS[op]
     if st.x.device.type == "cpu":
         return golden_step_plain(st, scal, field=field, op=op,
                                  steps=int(steps), box=box, iters=iters,
@@ -419,15 +502,51 @@ def golden_step(st: ResumeState, scal: torch.Tensor, *, field, op: str,
                  "rt_golden_step" + suffix))
     out = ResumeState(*(None if t is None else torch.empty_like(t) for t in st))
     with torch.cuda.device(st.x.device):
-        err = fn(*lead, int(stepper == "curv"), int(solver == "newton"),
-                 int(op in ("op5", "op9")), int(st.mom_count is not None),
+        # the refill loop's ray counter (a launch that refills zeroes it on
+        # its stream; one ray a thread leaves it alone)
+        counter = torch.empty(1, dtype=torch.int32, device=st.x.device)
+        err = fn(*lead, *_variant(op), int(st.mom_count is not None),
                  build.pointer_array(st), build.pointer_array(out),
                  st.x.shape[0], int(steps), scal.data_ptr(), iters, polish,
-                 *box, CURV_TOL, *bracket_constants(iters), *table,
+                 *box, CURV_TOL, *bracket_constants(iters),
+                 counter.data_ptr(), *table,
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, name)
     kernel.launches += 1
     return out
+
+
+def _variant(op: str):
+    """(curv, newton, iso) of ``op``: the golden.cuh template parameters."""
+    stepper, solver = GOLDEN_OPS[op]
+    return (int(stepper == "curv"), int(solver == "newton"),
+            int(op in ("op5", "op9")))
+
+
+def refill_grid(field, op: str, n: int) -> int:
+    """Blocks of 128 threads that the refill loop of ``golden_step`` (an
+    analytic field name), ``golden_step_strat`` (a ``StratTables``) or
+    ``golden_step_grid`` (a ``GridTables``) launches for ``n`` rays of
+    ``op`` on the current CUDA device: as many as every SM holds at once,
+    never more than the rays fill; 0 where the medium runs one ray a thread
+    (the fisheye field and the grid)."""
+    if op not in GOLDEN_OPS:
+        raise ValueError(f"golden kernel supports {tuple(GOLDEN_OPS)}, got {op!r}")
+    if isinstance(field, StratTables):
+        medium, code = 1, field.ch
+    elif isinstance(field, GridTables):
+        medium, code = 2, field.cell_ch
+    elif isinstance(field, str) and field in FUSED_FIELDS:
+        medium, code = 0, FIELD_CODES[field]
+    else:
+        raise ValueError("the golden refill grid is for the analytic "
+                         "fields, StratTables and GridTables, not "
+                         f"{type(field).__name__}")
+    blocks = ctypes.c_int(0)
+    build.check(build.library().rt_golden_refill_blocks(
+        medium, code, *_variant(op), int(n), ctypes.addressof(blocks)),
+        "rt_golden_refill_blocks")
+    return blocks.value
 
 
 def final_from_state(st: ResumeState) -> GoldenFinal:

@@ -883,6 +883,28 @@ def test_kernels_beyond_their_guards_equal_plain(dim, field, where, op,
     _planes_equal(got, want)
 
 
+@pytest.mark.parametrize("field", ["fisheye", "vert_heterogeneous"])
+@pytest.mark.parametrize("op", ["op5", "op11", "op11n"])
+def test_golden_beyond_its_guards_equals_plain(op, field, cuda_device):
+    """golden_step one ray a thread (the fisheye) and in its refill loop
+    (vert) at delta_s = 1e-17, where the position's ds^2 / 2n and the
+    chord's square fail their fast paths' guards at every ray-step: the
+    plain version's model of the guards counts every ray-step, and the
+    kernel, taking the IEEE forms there, still equals the plain version in
+    every plane to the bit."""
+    pos0, aim, ds, box = H.beyond_guards(2, field, "tiny", R)
+    g = torch.zeros(2, dtype=torch.float64, device=cuda_device)
+    it, pol = kg.golden_schedule()
+    st = kg.initial_state(op, pos0, aim, 3.0, field=field, with_stats=True,
+                          device=cuda_device)
+    scal = kg.golden_scalars(ds, 3.0, 40.0, 0.0, it, device=cuda_device)
+    got = kg.golden_step(st, scal, field=field, op=op, steps=40, box=box)
+    want = kg.golden_step_plain(st, scal, field=field, op=op, steps=40,
+                                box=box, iters=it, polish=pol, guards=g)
+    assert g.tolist() == [40.0 * R] * 2
+    _planes_equal(got, want)
+
+
 @pytest.mark.parametrize("denominator", [60.0, 360.0, None])
 def test_div_by_equals_fdiv_rn(denominator, cuda_device):
     """common.cuh's div_by against the card's IEEE division (__fdiv_rn):
