@@ -67,9 +67,12 @@ either is missing or any check fails.  Phases, one line or more each:
    on each side of its choice (the interface's refill loop, the fisheye's
    one ray a thread), and that golden_step took the refill loop on aniso;
 8. ``[sweep-vs-plain]``: fused_sweep_grid against its plain version (per-ray
-   step sizes and limits) on the reference's full fisheye candidate grid
-   (divisor 303 -> 4, ten turns, one ray a candidate), parity and C1 grids,
-   op1/op6/op7, to the bit; ``[nodes-vs-plain]``: fused_step_nodes on the
+   step sizes and limits, replayed from a CUDA graph) on the reference's
+   full fisheye candidate grid (divisor 303 -> 4, ten turns, one ray a
+   candidate), parity and C1 grids, op1/op6/op7, to the bit; the op1
+   parity sweep's time beside its longest candidate launched alone (the
+   sweep's serial-latency figure, every plane equal to its row of the
+   sweep) and its roofline bound; ``[nodes-vs-plain]``: fused_step_nodes on the
    parity grid's node table, every fused op with and without the stats, at
    65,536 rays and at most 1,000 steps, to the bit;
 9. the search path: ``[search]`` delta_s_search (engine "fused") for
@@ -82,7 +85,8 @@ either is missing or any check fails.  Phases, one line or more each:
    interrupted and resumed;
 10. the search path's checks: every fused candidate's metric against one
    batched plain run (per-ray step sizes), the golden search's selected
-   candidate and its neighbours against golden_step_plain; grid_trace
+   candidate and its neighbours against golden_step_plain, both replayed
+   from CUDA graphs; grid_trace
    against grid_trace_tiled (phase 6's fisheye_grid run) and a direct
    launch of its kernel, that kernel against its plain version at 300
    steps, with the kernel's time; segmented_trace against one launch
@@ -96,7 +100,14 @@ either is missing or any check fails.  Phases, one line or more each:
    (the kernel then takes that operation's IEEE form), as the plain
    version's model of the guards counts them (the kernel does not report
    its path; tests/test_torch_cuda.py checks the model and the kernel's
-   IEEE forms on rays beyond each guard);
+   IEEE forms on rays beyond each guard); then ``[refill-vs-plain]``:
+   dynamic_step_strat, whose persistent loop refills the lanes of frozen
+   rays, on phase 12's vert_strat fan (ds 0.0193) on the parity and C1
+   tables, op6 and op8, at 1, 31, 4097 and 2**20 + 17 rays for each ray's
+   whole life (450 of 2000 steps), a step limit of 120 and a resume chain
+   of uneven segments, all 18 planes to the bit against the plain version
+   replayed, each line with the refill grid and the warp efficiency one
+   ray a thread would have;
 12. ``[dynamic]`` the dynamic path at 2**20 rays through fast_dynamic: the
    analytic fisheye op6 for one turn (divisor 4587, the scenario's ray with
    +-1e-3 rad of jitter), the parity vert table op6 (ds 0.0193, 2000 steps,
@@ -1282,6 +1293,92 @@ def phase_golden_refill_vs_plain(device, media, errs):
         print(f"  {info.name}: {delta} launches in this phase", flush=True)
 
 
+#: the dynamic refill cases' ray counts: one ray, 31, a ragged 4097, and
+#: the main path's 2**20 plus a ragged 17
+DYN_REFILL_RAYS = (1, 31, 4097, RAYS_MAIN + 17)
+#: the vert_strat run's step and budget, and a launch's steps by which
+#: every ray of its fan has left the box (lifetimes 157-405 steps,
+#: bench/lifetimes.py --candidates)
+DYN_REFILL_DS, DYN_REFILL_STEPS, DYN_REFILL_DEPTH = 0.0193, 2000, 450
+
+
+def phase_dynamic_refill_vs_plain(device, media, errs):
+    """dynamic_step_strat's refill loop (csrc/dynamic.cu
+    dynamic_kernel_refill) against dynamic_step_plain (replayed), all 18
+    planes to the bit, where refills happen: the dynamic main path's
+    vert_strat fan ((-2, -2), angles U[0.05, 1.5]) on the parity and C1
+    tables, op6 and op8, at DYN_REFILL_RAYS rays over each ray's whole life;
+    a step limit below most lifetimes; a resume chain of uneven segments
+    against one launch.  Each line gives the refill grid and the warp
+    efficiency one ray a thread would have."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.kernels import dynamic as kd
+
+    vert = rtt.scenario("vert")
+    ds = float(np.float32(DYN_REFILL_DS))
+    box = tuple(vert.box)
+    info = kd.KERNEL_STRAT
+    e = errs[info.name]
+    before = info.launches
+    t0 = time.perf_counter()
+
+    def fan_state(rays):
+        th = np.random.default_rng(0).uniform(0.05, 1.5, rays).astype(
+            np.float32)
+        return kd.initial_dyn_state(np.full((rays, 2), -2.0, np.float32), th,
+                                    device=device)
+
+    print(f"[refill-vs-plain] dynamic_step_strat on the vert_strat fan, ds "
+          f"{ds:g}, {DYN_REFILL_DEPTH} of {DYN_REFILL_STEPS} steps (each "
+          "ray's whole life)", flush=True)
+    for kind in ("strat", "c1_strat"):
+        tables = kernel_medium(media, kind, vert, ds)
+        for op in ("op6", "op8"):
+            for rays in DYN_REFILL_RAYS:
+                st = fan_state(rays)
+                kw = dict(field=tables, op=op, steps=DYN_REFILL_DEPTH,
+                          delta_s=ds, step_limit=DYN_REFILL_STEPS,
+                          offset=0.0, box=box)
+                k = kd.dynamic_step(st, **kw)
+                e.pos = max(e.pos, dyn_exact(
+                    f"dynamic_step_strat {op} {kind} {rays} rays x "
+                    f"{DYN_REFILL_DEPTH} of {DYN_REFILL_STEPS} steps", k,
+                    replay.dynamic_plain(st, **kw)))
+                if bool(k.active.any()):
+                    fail(f"dynamic_step_strat: a ray outlived "
+                         f"{DYN_REFILL_DEPTH} steps")
+                blocks = kd.refill_grid(tables, op, rays)
+                print(f"    grid {blocks} blocks x 128 for {rays} rays "
+                      f"({rays / (blocks * 128):.2f} rays a thread), warp "
+                      "efficiency one ray a thread "
+                      f"{warp_efficiency(k.dsim, ds, DYN_REFILL_STEPS):.3f}",
+                      flush=True)
+            st = fan_state(RAYS_CHECK + 17)
+            kw = dict(field=tables, op=op, delta_s=ds, box=box)
+            short = dict(steps=DYN_REFILL_DEPTH, step_limit=120.0,
+                         offset=0.0, **kw)
+            e.pos = max(e.pos, dyn_exact(
+                f"dynamic_step_strat {op} {kind}, step limit 120 of "
+                f"{DYN_REFILL_STEPS}", kd.dynamic_step(st, **short),
+                replay.dynamic_plain(st, **short)))
+            one = kd.dynamic_step(st, steps=DYN_REFILL_DEPTH,
+                                  step_limit=DYN_REFILL_STEPS, offset=0.0,
+                                  **kw)
+            chain, done, segs = st, 0, []
+            for seg in (1, 37, 120, DYN_REFILL_DEPTH):
+                seg = min(seg, DYN_REFILL_DEPTH - done)
+                chain = kd.dynamic_step(chain, steps=seg,
+                                        step_limit=DYN_REFILL_STEPS,
+                                        offset=float(done), **kw)
+                done += seg
+                segs.append(seg)
+            resume_check(f"dynamic_step_strat {op} {kind}, segments {segs}",
+                         one, chain)
+    print(f"  {info.name}: {info.launches - before} launches in this phase; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_sampled(device, media, rays=RAYS_MAIN):
     """The sampled main path: the seven runs through fast_trace at the
     reference table's step, each held to its oracle; returns
@@ -1389,19 +1486,22 @@ def same_final(label, a, b, names=("pos", "traveltime", "dist_sim", "active",
 
 def visited_cells(run_plain, tables):
     """Distinct grid cells a plain run of the grid kernel reads: its
-    per-cell evaluator wrapped to record each lookup's row.  A frozen ray
-    still evaluates its (constant) proposed step, so this counts at most
-    one cell a ray more than the kernel reads."""
+    per-cell evaluator wrapped to mark each lookup's row in a mask on the
+    card (no host sync, so the run may be replayed from a CUDA graph).  A
+    frozen ray still evaluates its (constant) proposed step, so this counts
+    at most one cell a ray more than the kernel reads."""
     from raytracing_tpu_torch.engine.segmented import _cells
     from raytracing_tpu_torch.kernels import fused as kfu
-    rows, inner = [], kfu.tile_nag_plain
+    seen = torch.zeros(tables.table.shape[0], dtype=torch.bool,
+                       device=tables.table.device)
+    inner = kfu.tile_nag_plain
 
     def recording(g):
         nag = inner(g)
 
         def rec(x, y):
             ix, iy, _, _ = _cells(x, y, g)
-            rows.append(iy.long() * (g.nx - 1) + ix.long())
+            seen.index_fill_(0, iy.long() * (g.nx - 1) + ix.long(), True)
             return nag(x, y)
         return rec
 
@@ -1410,17 +1510,23 @@ def visited_cells(run_plain, tables):
         run_plain()
     finally:
         kfu.tile_nag_plain = inner
-    assert rows, "the plain run read no grid cell"
-    return int(torch.unique(torch.cat(rows)).numel())
+    cells = int(seen.sum())
+    if cells == 0:
+        fail("the plain run read no grid cell")
+    return cells
 
 
 def phase_sweep_vs_plain(device, media):
-    """fused_sweep_grid against its plain version on the full fisheye
-    candidate grid, parity and C1 grids, op1/op6/op7; times the op1 parity
-    sweep (the search's own launch).  Returns (Errors, times, the plain
-    op1 parity final positions)."""
+    """fused_sweep_grid against its plain version (replayed from a CUDA
+    graph, bench/replay.py sweep_plain) on the full fisheye candidate grid,
+    parity and C1 grids, op1/op6/op7; times the op1 parity sweep (the
+    search's own launch) and its longest candidate alone, the sweep's
+    serial-latency figure beside its roofline bound.  Returns (Errors,
+    times, the plain op1 parity final positions)."""
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.kernels import fused as kfu
     errs = Errors()
+    t0 = time.perf_counter()
     scen, _, pos0, theta0, ds, lim = sweep_inputs(device)
     steps = int(lim.max())
     box = tuple(scen.box)
@@ -1437,30 +1543,45 @@ def phase_sweep_vs_plain(device, media):
                               reps=3)
 
             def plain(s, n, d=ds, m=lim):
-                return kfu.fused_step_plain(s, steps=n, delta_s=d,
-                                            step_limit=m, offset=0.0,
-                                            **{k_: v for k_, v in kw.items()
-                                               if k_ != "steps"})
+                return replay.sweep_plain(s, field=tables, op=op, steps=n,
+                                          delta_s=d, step_limit=m, box=box)
             p_ms, p = cuda_ms(lambda: plain(st, steps))
             exact(errs, f"fused_sweep_grid {op} {kind}", k, p)
-            print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms",
-                  flush=True)
+            print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms "
+                  "(replayed)", flush=True)
             if kind == "grid" and op == "op1":
                 plain_pos = torch.stack([p.x, p.y], -1)
-                ops = ops_per_step(lambda n: plain(
-                    head(st), n, ds[:HEAD_RAYS], lim[:HEAD_RAYS]))
+                ops = ops_per_step(lambda n: kfu.fused_step_plain(
+                    head(st), field=tables, op=op, steps=n,
+                    delta_s=ds[:HEAD_RAYS], step_limit=lim[:HEAD_RAYS],
+                    offset=0.0, box=box))
                 live = float(torch.clamp(torch.round(
                     k.dsim.double() / ds.double()), max=steps).sum())
                 cells = visited_cells(lambda: plain(st, steps), tables)
                 row = tables.table[0].numel() * tables.table.element_size()
                 nbytes = state_bytes(st, k, [ds, lim]) + cells * row
                 bms, by = bound(ops * live, nbytes)
-                print(f"    fused_sweep_grid bound {bms:.4f} ms ({by}: {ops} "
-                      f"FP32 ops a ray-step, {live:.0f} ray-steps, {cells} "
-                      f"of {tables.table.shape[0]} cells read); the longest "
-                      f"candidate alone is {steps} serial steps", flush=True)
+                # the longest candidate alone: one chain of dependent steps
+                i = int(torch.argmax(lim))
+                one = type(st)(*(None if t is None
+                                 else t[i:i + 1].contiguous() for t in st))
+                a_ms, a = cuda_ms(lambda: kfu.fused_sweep_grid(
+                    one, ds[i:i + 1].contiguous(), lim[i:i + 1].contiguous(),
+                    **kw), reps=3)
+                if not all(x is None or torch.equal(x, y[i:i + 1])
+                           for x, y in zip(a, k)):
+                    fail("fused_sweep_grid: a candidate alone differs from "
+                         "its row of the sweep")
+                print(f"    fused_sweep_grid {k_ms:.4f} ms for the "
+                      f"{len(ds)} candidates; the longest ({steps} steps) "
+                      f"alone {a_ms:.4f} ms, every plane equal to its row "
+                      f"(the serial-latency figure); bound {bms:.5f} ms "
+                      f"({by}: {ops} FP32 ops a ray-step, {live:.0f} "
+                      f"ray-steps, {cells} of {tables.table.shape[0]} cells "
+                      "read)", flush=True)
                 times = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                              bound_by=by)
+    print(f"[sweep-vs-plain] {time.perf_counter() - t0:.1f} s", flush=True)
     return errs, times, plain_pos
 
 
@@ -1616,14 +1737,16 @@ def phase_search_checks(device, errs, times, media, runs, sruns,
     kernel's time, segmented_trace to one launch (the sampled path's runs)
     and across a checkpoint resume."""
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.engine import segmented as seg
     from raytracing_tpu_torch.kernels import fused as kfu
     from raytracing_tpu_torch.kernels import golden as kg
     from raytracing_tpu_torch.media.samples import compact_for_trace
     from raytracing_tpu_torch.parallel import sweep
 
-    print("[search] every candidate's metric against the plain versions'",
-          flush=True)
+    t0 = time.perf_counter()
+    print("[search] every candidate's metric against the plain versions' "
+          "(replayed from CUDA graphs)", flush=True)
     for scen_name, (sr, kind) in runs["search"].items():
         scen = rtt.scenario(scen_name)
         n = len(sr.delta_s)
@@ -1658,10 +1781,10 @@ def phase_search_checks(device, errs, times, media, runs, sruns,
                                              np.float32(scen.gamma),
                                              np.float32(lim[i]), 0.0, it,
                                              device=device)
-                    p = kg.golden_step_plain(st, scal, field=tables,
-                                             op=sr.op_name, steps=max_steps,
-                                             box=tuple(scen.box), iters=it,
-                                             polish=pol)
+                    p = replay.golden_plain(st, scal, field=tables,
+                                            op=sr.op_name, steps=max_steps,
+                                            box=tuple(scen.box), iters=it,
+                                            polish=pol)
                     for k_, v in sweep.candidate_metrics(
                             scen, th, nf, kg.final_from_state(p)).items():
                         got[k_][i] = v
@@ -1675,10 +1798,9 @@ def phase_search_checks(device, errs, times, media, runs, sruns,
                 st = kfu.initial_state(
                     sr.op_name, np.tile(pos0, (n, 1)), np.tile(th, n),
                     field=tables, with_stats=scen.is_vert, device=device)
-                p = kfu.fused_step_plain(st, field=tables, op=sr.op_name,
-                                         steps=max_steps, delta_s=ds_r,
-                                         step_limit=lim_r, offset=0.0,
-                                         box=tuple(scen.box))
+                p = replay.sweep_plain(st, field=tables, op=sr.op_name,
+                                       steps=max_steps, delta_s=ds_r,
+                                       step_limit=lim_r, box=tuple(scen.box))
                 final = kfu.final_from_state(p)
                 for i in checked:
                     one = type(final)(*(None if t is None
@@ -1696,6 +1818,7 @@ def phase_search_checks(device, errs, times, media, runs, sruns,
         if worst != 0.0:
             fail(f"search {scen_name}: a candidate metric differs from the "
                  "plain version's")
+    print(f"  [search] checks {time.perf_counter() - t0:.1f} s", flush=True)
 
     g, med, pos0, theta0, ds, steps = runs["grid_trace"]
     tiled = sruns["fisheye_grid"][0].res
@@ -3908,6 +4031,7 @@ def main():
     # this slice: the dynamic path and the eigenray solver
     t_dyn = time.perf_counter()
     errs.update(phase_dynamic_vs_plain("cuda", media))
+    phase_dynamic_refill_vs_plain("cuda", media, errs)
     druns, dlaunches = main_path(
         kernels, ("dynamic_step", "dynamic_step_strat", "dynamic_step_grid"),
         lambda: phase_dynamic("cuda", media))

@@ -162,7 +162,9 @@ CASE_KERNELS = (
       "golden_kernel_refill<rt::Analytic<(int)1>, (bool)0, (bool)0, "
       "(bool)0>"), 1),
     ("fused_step_grid", "fused_kernel<rt::Grid<(int)36>, (int)1>", 1),
-    ("fused_sweep_grid", "fused_kernel<rt::Grid<(int)36>, (int)1>", 1),
+    ("fused_sweep_grid",
+     ("fused_kernel<rt::Grid<(int)36>, (int)1>",
+      "sweep_kernel<(int)36, (int)1>"), 1),
     ("fused_step_nodes", "fused_kernel<rt::Nodes, (int)1>", 1),
     ("golden_step_grid",
      "golden_kernel<rt::Grid<(int)36>, (bool)1, (bool)0, (bool)1>", 1),
@@ -171,7 +173,8 @@ CASE_KERNELS = (
     ("dynamic_step fisheye", "dynamic_kernel<rt::Analytic<(int)0>, (int)6>",
      2),
     ("dynamic_step_strat vert_strat",
-     "dynamic_kernel<rt::Strat<(int)6>, (int)6>", 2),
+     ("dynamic_kernel<rt::Strat<(int)6>, (int)6>",
+      "dynamic_kernel_refill<rt::Strat<(int)6>, (int)6>"), 2),
     ("fused3d_step_grid", "fused3d_kernel<rt3::Grid3, (int)6>", 1),
     ("fused3d_step fisheye3", "fused3d_kernel<rt3::Analytic3<(int)0>, (int)6>",
      1),
@@ -187,6 +190,7 @@ COUNTER_ENTRIES = {
     "rt_golden_step_strat": ("rt_golden_refill_blocks", -9),
     "rt_golden_step_grid": ("rt_golden_refill_blocks", -9),
     "rt_golden_step_custom": ("rt_golden_refill_blocks", -2),
+    "rt_dynamic_step_strat": ("rt_dynamic_refill_blocks", -2),
 }
 #: the depths of the df32 main path's runs (chip_smoke.py phase 14)
 DF_STEPS = {"fisheye": HEADLINE_DIVISOR - 1,
@@ -363,7 +367,8 @@ def sampled_cases(device, rays=RAYS):
     fisheye_grid run (op1, 4586 steps), fused_step_nodes on the same grid's
     node table (grid_trace's kernel), golden_step_grid on the
     tiled_grid_op5 run (op5, 299 steps) and fused_sweep_grid on the fisheye
-    search's 300 candidates (op1, one ray each, :func:`sweep_inputs`).
+    search's 300 candidates (op1, one ray each, :func:`sweep_inputs`) and
+    on its longest candidate alone (the sweep's serial latency).
     The media are built once, on ``device``."""
     import raytracing_tpu_torch as rtt
     from raytracing_tpu_torch.calibrated import calibrated_with_fallback
@@ -400,8 +405,12 @@ def sampled_cases(device, rays=RAYS):
             return torch.stack([out.x, out.y], -1)
         return f"{label} {op} {name}, {steps} steps", run
 
-    def sweep(label, field):
+    def sweep(label, field, alone=False):
         scen, _, pos0, theta0, ds, lim = sweep_inputs(device)
+        if alone:
+            i = int(torch.argmax(lim))
+            pos0, theta0 = pos0[i:i + 1], theta0[i:i + 1]
+            ds, lim = ds[i:i + 1].contiguous(), lim[i:i + 1].contiguous()
         steps = int(lim.max())
         st = kfu.initial_state("op1", pos0, theta0, field=field,
                                with_stats=False, device=device)
@@ -410,8 +419,10 @@ def sampled_cases(device, rays=RAYS):
             out = kfu.fused_sweep_grid(st, ds, lim, field=field, op="op1",
                                        steps=steps, box=tuple(scen.box))
             return torch.stack([out.x, out.y], -1)
-        return (f"{label} op1 fisheye search, {len(ds)} candidates, up to "
-                f"{steps} steps"), run
+        what = ("its longest candidate alone" if alone
+                else f"{len(ds)} candidates")
+        return (f"{label} op1 fisheye search, {what}, up to {steps} "
+                "steps"), run
 
     def strat(name, field, op):
         box = scenario(name).box
@@ -432,7 +443,8 @@ def sampled_cases(device, rays=RAYS):
                  seg.node_tables(grid)),
             golden("golden_step_grid fisheye_grid tiled_grid_op5",
                    "fisheye", "op5", cells),
-            sweep("fused_sweep_grid fisheye_grid", cells)]
+            sweep("fused_sweep_grid fisheye_grid", cells),
+            sweep("fused_sweep_grid fisheye_grid", cells, alone=True)]
 
 
 def df_cases(device, rays=RAYS):
@@ -887,6 +899,30 @@ def outer_loops(code, depth=0):
                                    for o in back) == depth]
 
 
+def ballot_free_loops(code):
+    """The (head, tail) of each loop whose body holds no ballot (a
+    ``VOTE.ANY``) and that no other such loop holds: in
+    ``dynamic_kernel_refill``, the loop of steps run while every lane's ray
+    is live (its vote a step is a ``VOTE.ALL``), which the refill loop and
+    its votes' divergent paths hold at several depths."""
+    back = sorted(set(_back_branches(code)))
+    free = [b for b in back
+            if not any(b[0] <= a <= b[1] and _opcode(t) == "VOTE"
+                       and ".ANY" in t for a, t in code)]
+    return [b for b in free if not any(o != b and o[0] <= b[0]
+                                       and b[1] <= o[1] for o in free)]
+
+
+def step_loops(code, pretty):
+    """The loops of a kernel whose instructions a step CASE_KERNELS
+    reports: the outermost loops (one ray a thread), the loops the refill
+    loop holds (``fused_kernel_refill``, ``golden_kernel_refill``), or the
+    ballot-free loops of ``dynamic_kernel_refill``."""
+    if "dynamic_kernel_refill<" in pretty:
+        return ballot_free_loops(code)
+    return outer_loops(code, int("_refill<" in pretty))
+
+
 def _cuobjdump():
     return shutil.which("cuobjdump") or str(
         Path(build._nvcc()).parent / "cuobjdump")
@@ -944,11 +980,10 @@ def loop_steps(libs):
         for mangled, pretty in zip(names, _demangle(names)):
             for _, kernel, per in CASE_KERNELS:
                 if any(f"::{k}(" in pretty for k in _names(kernel)):
-                    # a refill kernel steps in the loop its refill loop holds
-                    depth = int("_refill<" in pretty)
+                    # a refill kernel steps in a loop its refill loop holds
                     loops = [sum(loop_path(code[mangled], None, lp).values())
-                             / per for lp in outer_loops(code[mangled],
-                                                         depth)]
+                             / per for lp in step_loops(code[mangled],
+                                                        pretty)]
                     out[kernel] = " | ".join(f"{c:g}" for c in loops)
     return out
 
@@ -987,8 +1022,12 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
                 f"loop path {sum(path.values())} instructions an iteration ("
                 + ", ".join(f"{o} {path[o]}" for o in named if path[o])
                 + ")")
-            for head, tail in (outer_loops(code.get(name, []))
-                               + outer_loops(code.get(name, []), 1)):
+            held = (outer_loops(code.get(name, []))
+                    + outer_loops(code.get(name, []), 1))
+            if "dynamic_kernel_refill<" in pretty:
+                held += [b for b in ballot_free_loops(code.get(name, []))
+                         if b not in held]
+            for head, tail in held:
                 more = []
                 other = loop_path(code[name], more, (head, tail))
                 loop += (f"; loop at {head:#x} {sum(other.values())} ("

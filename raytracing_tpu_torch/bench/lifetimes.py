@@ -36,8 +36,10 @@ its first 4096 rays, in the order the kernel's warps take them), and a
 dispersed fisheye fan (op1 at the headline step, 4586 steps, launch
 points and angles uniform, seed 5, 4096 rays), traced on the analytic
 fisheye that the grid, node-table and custom media fit; for the two golden
-fans, which the golden loop's refill (csrc/golden.cuh) serves, also the
-lockstep model at :data:`GOLDEN_BLOCKS_PER_SM`.
+fans, which the golden loop's refill (csrc/golden.cuh) serves, and the
+vert_strat fan, which the dynamic loop's refill (csrc/dynamic.cu) serves
+(its 4096 lifetimes repeated to 2^20 rays), also the lockstep model at
+:data:`GOLDEN_BLOCKS_PER_SM`.
 """
 from __future__ import annotations
 
@@ -57,8 +59,8 @@ SMS = 132
 #: the refill grid's 128-thread blocks an SM that the model runs: the
 #: occupancies around what the refill instantiations' 44-52 registers allow
 BLOCKS_PER_SM = (8, 12, 16)
-#: the same for the golden loop's refill (``--candidates``), whose 64-128
-#: registers allow 4-8 blocks an SM
+#: the same for the golden and dynamic loops' refill (``--candidates``),
+#: whose 56-128 registers allow 4-8 blocks an SM
 GOLDEN_BLOCKS_PER_SM = (4, 6, 8)
 
 
@@ -211,7 +213,7 @@ def main(argv=None):
             print(f"{fan}: lifetimes {life.min()}-{life.max()} (mean "
                   f"{life.mean():.1f}), warp efficiency one ray a thread "
                   f"{eff:.3f}", flush=True)
-            if fan.startswith("golden"):
+            if fan.startswith(("golden", "dynamic")):
                 for b in GOLDEN_BLOCKS_PER_SM:
                     eff, _, iters = refill_model(np.resize(life, RAYS),
                                                  b * 128 * SMS)

@@ -1,7 +1,8 @@
 """CUDA-graph replay of the plain versions' steps, for comparing kernels
 with their plain versions on the card in less time.
 
-A plain version (``fused_step_plain``, ``golden_step_plain``,
+A plain version (``fused_step_plain``, also with a step size and limit a
+ray, ``golden_step_plain``,
 ``fused3d_step_plain``, ``dynamic_step_plain``, ``dynamic3d_step_plain``)
 performs one
 torch call an operation, so on the card its time is the host's dispatch of
@@ -16,7 +17,9 @@ versions read the step number in two places: the step limit
 and no step after it changes the state) and op7's order ramp (global steps
 1 and 2 differ from the rest).  :func:`fused_plain` and
 :func:`golden_plain` run the steps where those differ eagerly and replay
-only a run of steps over which they are constant; :func:`fused3d_plain`
+only a run of steps over which they are constant; :func:`sweep_plain`
+(a step limit a ray) keeps the steps left before each ray's limit in a
+device tensor that the captured step lowers; :func:`fused3d_plain`
 and :func:`dynamic_plain` have no order ramp, so they replay every step
 before the limit.  The 3-D
 dynamic step reads its global step number in the focus locator too (the
@@ -81,6 +84,39 @@ def fused_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
     st = run(st, head, offset)
     off = float(offset) + head
     return replay_steps(lambda s: run(s, 1, off), st, live - head)
+
+
+def sweep_plain(st, *, field, op: str, steps: int, delta_s, step_limit,
+                box):
+    """``fused_step_plain`` with a step size and a step limit a ray (``delta_s``
+    and ``step_limit`` (R,) float32 tensors: the sweep's plain version) from
+    global step 0, its steady steps replayed from a CUDA graph; equal to
+    the eager loop to the bit.  The eager loop tests each ray's limit as
+    ``i < step_limit`` with the step number i a Python value, which a graph
+    would bake in; the captured step instead tests ``head < left`` on a
+    device tensor ``left`` that starts at ``step_limit`` and that the step
+    lowers by one (exact: whole numbers below 2**24), which is the same
+    test at every step i = head + k.  op7's first two steps (its order
+    ramp) run eagerly, as in :func:`fused_plain`."""
+    from raytracing_tpu_torch.kernels.fused import fused_step_plain
+
+    def run(s, n, limit, off):
+        return fused_step_plain(s, field=field, op=op, steps=n,
+                                delta_s=delta_s, step_limit=limit,
+                                offset=off, box=box)
+
+    head = min(steps, 2) if op == "op7" else 0
+    st = run(st, head, step_limit, 0.0)
+    left = step_limit.clone()
+
+    def step(s):
+        out = run(s, 1, left, float(head))
+        left.sub_(1.0)
+        return out
+
+    return replay_steps(step, st, live_steps(steps - head, head,
+                                             float(step_limit.max())),
+                        before_replay=lambda: left.copy_(step_limit))
 
 
 def golden_plain(st, scal, *, field, op: str, steps: int, box, iters: int,

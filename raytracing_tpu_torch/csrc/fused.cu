@@ -46,15 +46,25 @@
 // step limit) — results are unchanged, since a frozen ray's state never
 // changes again.
 //
-// The sweep is n_cand independent trajectories, one thread a candidate,
-// each reading its own (ds, limit) from two per-ray arrays once before the
-// loop (FusedArgs::ds_ray/limit_ray, null for every other kernel, so the
-// hot loop is the same code).  The TPU form duplicated each candidate over
-// a 1024-lane block with its own window; here a candidate is one ray, and
-// with ~300 candidates the launch fills 2-3 blocks of 132 SMs: the sweep is
-// bound by one thread's serial step latency (the longest candidate's
-// steps), not by FP32 issue or bytes, and nothing in the kernel can change
-// that — the candidates are the only parallelism the search has.
+// The sweep is n_cand independent trajectories, each reading its own (ds,
+// limit) from two per-ray arrays once before the loop
+// (FusedArgs::ds_ray/limit_ray, null for every other kernel).  The TPU form
+// duplicated each candidate over a 1024-lane block with its own window;
+// here a candidate is one ray, and the launch takes as long as its longest
+// candidate's chain of dependent steps (3039 at the fisheye search's
+// finest divisor): latency, not FP32 issue or bytes, bounds it.  So it has
+// a kernel of its own (fused.cuh sweep_kernel, on the grid loop above)
+// built for latency: each candidate on a warp of its own, in one-warp
+// blocks spread over the SMs, which prefer L1 to shared memory, so that
+// no candidate waits on another's steps or table reads and an SM's L1
+// holds the band of cells its few candidates cross on every turn.  On an
+// H100 80GB HBM3 at 700 W (PERF.md), the fisheye search's 300 candidates
+// packed 128 to a block filled 3 SMs and took 1.09 ms, against 0.74 ms for
+// their longest alone; spread, they take 0.56 ms.  Holding the cell's row
+// in registers across steps, and loading the row of the cell predicted for
+// the next step while a step computes, were measured too: both lengthened
+// the chain (0.64 and 0.78 ms, against 0.59 for the spread loop in the same
+// runs), since the rows are L1 hits once a candidate's orbit repeats.
 //
 // The loop itself, its arguments and launchers are in fused.cuh.
 #include "fused.cuh"
@@ -122,9 +132,10 @@ extern "C" int rt_fused_step_nodes(int node_ch, RT_FUSED_PARAMS,
                     static_cast<cudaStream_t>(stream));
 }
 
-// fused_sweep_grid: fused_step_grid with a per-ray step size and step limit
-// (ds_ray, limit_ray: n floats each, on the card); the scalar ds and limit
-// of RT_FUSED_PARAMS are unread; row 6
+// fused_sweep_grid: fused_step_grid's step with a per-ray step size and
+// step limit (ds_ray, limit_ray: n floats each, on the card), in the
+// sweep's own kernel (sweep_kernel); the scalar ds and limit of
+// RT_FUSED_PARAMS are unread; row 6
 extern "C" int rt_fused_sweep_grid(int cell_ch, RT_FUSED_PARAMS,
                                    const void* ds_ray, const void* limit_ray,
                                    RT_TABLE_PARAMS, void* stream) {
@@ -138,8 +149,8 @@ extern "C" int rt_fused_sweep_grid(int cell_ch, RT_FUSED_PARAMS,
   a.limit_ray = static_cast<const float*>(limit_ray);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cell_ch) {
-    case 36: return rt::launch_fused(op, a, rt::Grid<36>{RT_TABLE}, s);
-    case 16: return rt::launch_fused(op, a, rt::Grid<16>{RT_TABLE}, s);
+    case 36: return rt::launch_sweep(op, a, rt::Grid<36>{RT_TABLE}, s);
+    case 16: return rt::launch_sweep(op, a, rt::Grid<16>{RT_TABLE}, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

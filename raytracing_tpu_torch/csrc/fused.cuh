@@ -409,6 +409,21 @@ __global__ void __launch_bounds__(kThreads)
   run_ray<Medium, OP>(a, medium, r);
 }
 
+// The candidate sweep (fused_sweep_grid): the grid loop (run_ray) with
+// each candidate on a warp of its own, in blocks of one warp (candidate r
+// on block r's first lane), so that the candidates spread over every SM
+// and no lane waits on another's steps or table reads.  A launch is one
+// candidate's serial chain of steps, so latency, not issue, bounds it
+// (fused.cu has the measurements).
+constexpr int kSweepThreads = 32;
+
+template <int CELL_CH, int OP>
+__global__ void __launch_bounds__(kSweepThreads)
+    sweep_kernel(FusedArgs a, Grid<CELL_CH> medium) {
+  if (threadIdx.x != 0 || static_cast<int>(blockIdx.x) >= a.n) return;
+  run_ray<Grid<CELL_CH>, OP>(a, medium, blockIdx.x);
+}
+
 // The persistent refill loop (top of this file), one kernel a stats flag,
 // so that each has its own register count (the Welford tracker's three
 // floats do not lower the occupancy of a launch without it).  Every lane of
@@ -547,6 +562,45 @@ static int launch_fused(int op, const FusedArgs& a, const Medium& m,
     case 7: return launch_fused_op<Medium, 7>(a, m, s);
     case 8: return launch_fused_op<Medium, 8>(a, m, s);
     case 12: return launch_fused_op<Medium, 12>(a, m, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// one op of the sweep, a block a candidate: the kernel prefers L1 to
+// shared memory, which it does not use, so that an SM's L1 holds the rows
+// of its candidates' cells
+template <int CELL_CH, int OP>
+static int launch_sweep_op(const FusedArgs& a, const Grid<CELL_CH>& m,
+                           cudaStream_t s) {
+  static bool carved[kMaxDevices];
+  int dev = 0;
+  int err = current_device(&dev);
+  if (err != 0) return err;
+  if (!carved[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep_kernel<CELL_CH, OP>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxL1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    carved[dev] = true;
+  }
+  sweep_kernel<CELL_CH, OP><<<a.n, kSweepThreads, 0, s>>>(a, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// every op of the family on the grid, chosen at run time
+template <int CELL_CH>
+static int launch_sweep(int op, const FusedArgs& a, const Grid<CELL_CH>& m,
+                        cudaStream_t s) {
+  switch (op) {
+    case 1: return launch_sweep_op<CELL_CH, 1>(a, m, s);
+    case 2: return launch_sweep_op<CELL_CH, 2>(a, m, s);
+    case 3: return launch_sweep_op<CELL_CH, 3>(a, m, s);
+    case 4: return launch_sweep_op<CELL_CH, 4>(a, m, s);
+    case 6: return launch_sweep_op<CELL_CH, 6>(a, m, s);
+    case 7: return launch_sweep_op<CELL_CH, 7>(a, m, s);
+    case 8: return launch_sweep_op<CELL_CH, 8>(a, m, s);
+    case 12: return launch_sweep_op<CELL_CH, 12>(a, m, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -104,9 +104,11 @@ _SIGNATURES = {
     "rt_dynamic_step": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
                         _F, _F, _F, _F, _P),
     # ch (6 | 4), then rt_dynamic_step's arguments after field, the table,
-    # stream
+    # counter (the refill loop's int, on the card), stream
     "rt_dynamic_step_strat": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
-                              _F, _F, _F, _F, *_TABLE, _P),
+                              _F, _F, _F, _F, *_TABLE, _P, _P),
+    # ch (6 | 4), op, n, out: blocks of the dynamic refill loop's grid
+    "rt_dynamic_refill_blocks": (_I, _I, _I, _P),
     # cell_ch (36 | 16), the same
     "rt_dynamic_step_grid": (_I, _I, _P, _P, _I, _I, _F, _F, _F,
                              _F, _F, _F, _F, *_TABLE, _P),

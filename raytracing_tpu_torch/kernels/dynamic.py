@@ -24,8 +24,9 @@ independent (the parity 2-D table fits gx and gy as separate bicubics).
 
 One CUDA step loop (``csrc/dynamic.cu``) serves three media as three
 kernels with their own launch counts: ``dynamic_step`` (analytic fields),
-``dynamic_step_strat`` (stratified tables) and ``dynamic_step_grid`` (2-D
-per-cell tables).  :func:`dynamic_step_plain` is their plain PyTorch
+``dynamic_step_strat`` (stratified tables: the persistent refill loop, on
+a ray counter the wrapper allocates for each call; :func:`refill_grid`
+gives its grid) and ``dynamic_step_grid`` (2-D per-cell tables).  :func:`dynamic_step_plain` is their plain PyTorch
 version and :func:`dynamic_step` the wrapper: a CPU state runs the plain
 version, a CUDA state launches the kernel or raises.  Only the smooth ops
 op1/op2/op6/op8: a golden op's tangent is zero almost everywhere.  On the
@@ -36,6 +37,7 @@ JAX's bars (ROADMAP.md section 3).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -528,14 +530,33 @@ def dynamic_step(st: DynState, *, field, op: str, steps: int, delta_s,
     kernel, suffix, lead, table = kernel_of(field, KERNELS)
     lib = build.library()
     with torch.cuda.device(st.x.device):
+        # the refill loop's ray counter (the launch zeroes it on its stream)
+        counter = (torch.empty(1, dtype=torch.int32, device=st.x.device)
+                   if suffix == "_strat" else None)
         err = getattr(lib, "rt_dynamic_step" + suffix)(
             *lead, int(op[2:]), build.pointer_array(st),
             build.pointer_array(out), st.x.shape[0], int(steps),
             float(delta_s), float(step_limit), float(offset), *box, *table,
+            *(() if counter is None else (counter.data_ptr(),)),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "rt_dynamic_step" + suffix)
     kernel.launches += 1
     return out
+
+
+def refill_grid(field: StratTables, op: str, n: int) -> int:
+    """Blocks of 128 threads that the refill loop of ``dynamic_step_strat``
+    launches for ``n`` rays of ``op`` on the current CUDA device: as many
+    as every SM holds at once, never more than the rays fill."""
+    if not isinstance(field, StratTables):
+        raise ValueError("the dynamic refill loop runs on StratTables, not "
+                         f"{type(field).__name__}")
+    _check_op(op)
+    blocks = ctypes.c_int(0)
+    build.check(build.library().rt_dynamic_refill_blocks(
+        field.ch, int(op[2:]), int(n), ctypes.addressof(blocks)),
+        "rt_dynamic_refill_blocks")
+    return blocks.value
 
 
 def _trace_final(pos0, theta0, delta_s, field, op, steps, box, device,

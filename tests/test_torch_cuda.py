@@ -8,7 +8,9 @@ the custom-medium kernels (a CustomMedium traced into its own library) and
 fast_trace on a CustomMedium; the plain versions replayed from a CUDA
 graph against their eager loops; the refill loop of fused_step and
 fused_step_strat on the interface fan (1 to 8,209 rays, op6 and op7 with
-the stats, a short step limit, a resume chain); the fused 3-D kernels (analytic and
+the stats, a short step limit, a resume chain), and of dynamic_step_strat
+on the vert_strat fan; the sweep's candidates alone and together; the
+fused 3-D kernels (analytic and
 grid3) with fast_trace3's routes; the 3-D dynamic kernels (analytic and
 grid3) against their plain version, also where their shared-reciprocal
 quotients leave the fast path, with fast_dynamic3's routes and the 3-D
@@ -712,6 +714,100 @@ def test_refill_grid_is_persistent(cuda_device):
         assert kfu.refill_grid(field, "op6", 1 << 20) == 0
     with pytest.raises(ValueError, match="refill loop"):
         kfu.refill_grid(kfu.GridTables(None, 36, 0, 0, 1, 1, 2, 2), "op6", 10)
+
+
+# -- the refill loop of dynamic_step_strat (csrc/dynamic.cu) ------------------
+
+def _vert_strat_fan(n, ch, device):
+    """The dynamic main path's vert_strat fan at ``n`` rays ((-2, -2),
+    angles U[0.05, 1.5], numpy seed 0; rays live 157-405 steps at ds
+    0.0193) and vert's stratified table, parity (ch 6) or C1 (ch 4),
+    trimmed at that step."""
+    vert = rtt.scenario("vert")
+    ds = float(np.float32(0.0193))
+    make = rtt.build_stratified_medium if ch == 6 else rtt.build_c1_stratified
+    tables = kfu.strat_tables(rtt.compact_for_trace(
+        make("vert_heterogeneous", vert.box, device=device), vert.box, ds))
+    theta0 = np.random.default_rng(0).uniform(0.05, 1.5, n)
+    return tables, np.full((n, 2), -2.0), theta0, ds, tuple(vert.box)
+
+
+@pytest.mark.parametrize("op", ("op6", "op8"))
+@pytest.mark.parametrize("ch", (6, 4))
+@pytest.mark.parametrize("n", (1, 31, 4097))
+def test_dynamic_refill_matches_plain(n, ch, op, cuda_device):
+    """dynamic_step_strat, whose persistent loop refills the lanes of
+    frozen rays, against the plain version (replayed) over each ray's whole
+    life, a step limit below most lifetimes, and a resume chain of uneven
+    segments against one launch: all 18 planes to the bit; the grid no
+    larger than the rays fill."""
+    tables, pos0, theta0, ds, box = _vert_strat_fan(n, ch, cuda_device)
+    st = kd.initial_dyn_state(pos0, theta0, device=cuda_device)
+    kw = dict(field=tables, op=op, delta_s=ds, box=box)
+    before = kd.KERNEL_STRAT.launches
+    one = kd.dynamic_step(st, steps=450, step_limit=2000.0, offset=0.0,
+                          **kw)
+    assert kd.KERNEL_STRAT.launches == before + 1
+    _planes_equal(one, replay.dynamic_plain(st, steps=450, step_limit=2000.0,
+                                            offset=0.0, **kw))
+    assert not bool(one.active.any())
+    short = dict(steps=450, step_limit=120.0, offset=0.0, **kw)
+    _planes_equal(kd.dynamic_step(st, **short),
+                  replay.dynamic_plain(st, **short))
+    chain, done = st, 0
+    for seg in (1, 37, 120, 450):
+        seg = min(seg, 450 - done)
+        chain = kd.dynamic_step(chain, steps=seg, step_limit=2000.0,
+                                offset=float(done), **kw)
+        done += seg
+    _planes_equal(chain, one)
+    assert 1 <= kd.refill_grid(tables, op, n) <= -(-n // 128)
+
+
+def test_dynamic_refill_grid_is_persistent(cuda_device):
+    """At 2^20 rays the dynamic refill loop's grid is what the SMs hold at
+    once: a whole number of blocks a SM, fewer blocks than the rays fill;
+    only stratified tables take the loop."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for ch in (6, 4):
+        tables = _vert_strat_fan(1, ch, cuda_device)[0]
+        for op in kd.DYN_FUSED_OPS:
+            blocks = kd.refill_grid(tables, op, 1 << 20)
+            assert blocks % sms == 0 and 0 < blocks < (1 << 20) // 128
+    with pytest.raises(ValueError, match="refill loop"):
+        kd.refill_grid("fisheye", "op6", 10)
+
+
+def test_sweep_candidates_alone_equal_the_sweep(cuda_device):
+    """The sweep's kernel (a warp a candidate, spread over the SMs) on the
+    fisheye search's 300 candidates: the longest
+    candidate launched alone, and a ray that leaves by the box's edge
+    beside them, equal their rows of one launch and the plain version,
+    every plane to the bit."""
+    from raytracing_tpu_torch.bench import sweep_inputs
+    scen, _, pos0, theta0, ds, lim = sweep_inputs(cuda_device)
+    pos0 = np.concatenate([pos0, [[1.3, 0.5]]])
+    theta0 = np.concatenate([theta0, [0.4]])
+    ds = torch.cat([ds, ds.new_tensor([0.07])])
+    lim = torch.cat([lim, lim.new_tensor([400.0])])
+    tables = _grid_tables("parity", cuda_device)
+    steps = int(lim.max())
+    st = kfu.initial_state("op1", pos0, theta0, field=tables,
+                           with_stats=False, device=cuda_device)
+    kw = dict(field=tables, op="op1", steps=steps, box=tuple(scen.box))
+    every = kfu.fused_sweep_grid(st, ds, lim, **kw)
+    _planes_equal(every, replay.sweep_plain(
+        st, field=tables, op="op1", steps=steps, delta_s=ds, step_limit=lim,
+        box=tuple(scen.box)))
+    assert not bool(every.active[-1])
+    for i in (int(torch.argmax(lim[:-1])), len(ds) - 1):
+        one = kfu.fused_sweep_grid(
+            type(st)(*(None if t is None else t[i:i + 1].contiguous()
+                       for t in st)), ds[i:i + 1].contiguous(),
+            lim[i:i + 1].contiguous(), **kw)
+        for name, a, b in zip(kfu.ResumeState._fields, one, every):
+            if a is not None:
+                assert torch.equal(a, b[i:i + 1]), name
 
 
 # -- the fused 3-D kernels (csrc/fused3d.cu) ----------------------------------
