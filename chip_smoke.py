@@ -9,14 +9,15 @@ either is missing or any check fails.  Phases, one line or more each:
 1. environment: torch and CUDA versions, the device, and the card's name
    and power limit from nvidia-smi;
 2. build: the twenty CUDA kernels of the main library compiled from
-   raytracing_tpu_torch/csrc (one nvcc a source, all at once); ``[fma32]``
-   the card's fmaf (the FFMA of the 2-D grid blend and of the analytic
-   dynamic and 3-D steps) against the plain versions' fma32 (utils/fma.py)
-   on the card, 2^26 seeded triples and 2^21 constructed float64
-   midpoints, then every operand triple of the analytic dynamic and 3-D
-   plain versions' fma32 calls (every op on each field, 256 rays, 10
-   steps), no triple differing; then the reference's sampled media built
-   on the card (``[media]``);
+   raytracing_tpu_torch/csrc (one nvcc a source, all at once); the
+   reference's sampled media built on the card (``[media]``); ``[fma32]``
+   the card's fmaf (the FFMA of the 2-D grid blends and of the 2-D dynamic
+   and analytic 3-D steps) against the plain versions' fma32
+   (utils/fma.py) on the card, 2^26 seeded triples and 2^21 constructed
+   float64 midpoints, then every operand triple of the 2-D dynamic plain
+   version's fma32 calls (every op on each analytic field and on the
+   parity and C1 fisheye grids, the grids' blends with the step) and the
+   analytic 3-D one's (256 rays, 10 steps), no triple differing;
 3. kernel against plain: every kernel against its plain PyTorch version on
    the card, for every (op, field) it serves, at 65,536 rays (each
    scenario's launch fan resized, with jitter from numpy seed 0) at the
@@ -95,7 +96,8 @@ either is missing or any check fails.  Phases, one line or more each:
    dynamic_step_plain at 65,536 rays and at most 1,000 steps, op1/op2/op6/
    op8 on the analytic fisheye, vert and interface, the parity and C1 vert
    tables, the parity interface table and the parity and C1 fisheye grids,
-   all 18 state planes to the bit, with a resume check a kernel; each
+   all 18 state planes to the bit, with a resume check a kernel (both
+   grid families for dynamic_step_grid); each
    line with the share of ray-steps on which a fast path's guard failed
    (the kernel then takes that operation's IEEE form), as the plain
    version's model of the guards counts them (the kernel does not report
@@ -118,8 +120,9 @@ either is missing or any check fails.  Phases, one line or more each:
    the sampled media its tangent from torch.func.jvp of the op6 step, not
    from the kernels' channel evaluators; the fisheye's also inside
    torch.inference_mode(), equal to the bit), each run against a direct launch
-   of its kernel at the full shape and against dynamic_step_plain at 2**20
-   rays and at most 300 steps, to the bit, and the kernels' times;
+   of its kernel at the full shape and against dynamic_step_plain
+   (replayed from a CUDA graph) at 2**20 rays and at most 300 steps, to
+   the bit, and the kernels' times;
 13. ``[eigenrays]`` on the card at float64: the TL field map of
    examples/tl_field_map.py with that example's asserts, the Slotnick
    two-point traveltime, and one ``python -m raytracing_tpu_torch.cli
@@ -1996,7 +1999,8 @@ def phase_dynamic_vs_plain(device, media, rays=RAYS_CHECK, cap=STEP_CAP):
     # resume: k then n - k steps (offset k) equal n steps, one case a kernel
     for kind, scen_name, op in (("analytic", "fisheye", "op6"),
                                 ("c1_strat", "vert", "op2"),
-                                ("grid", "fisheye", "op8")):
+                                ("grid", "fisheye", "op8"),
+                                ("c1_grid", "fisheye", "op6")):
         scen, ds, steps, pos0, theta0, tab = dyn_inputs(
             media, kind, scen_name, op, rays, rng, cap)
         st = kd.initial_dyn_state(pos0, theta0, device=device)
@@ -2221,9 +2225,11 @@ def phase_dynamic_checks(device, errs, runs):
     trace_dynamic at f64 on 4096 rays, each run's fast_dynamic result
     against a direct launch of its kernel, the kernel against
     dynamic_step_plain on the same inputs at 2**20 rays and at most
-    MAIN_PLAIN_CAP steps, and each kernel's time at the full shape.
+    MAIN_PLAIN_CAP steps (replayed from a CUDA graph, bench/replay.py),
+    and each kernel's time at the full shape.
     Returns {kernel: times}."""
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.kernels import dynamic as kd
     print("[dynamic] checks", flush=True)
     r = runs["fisheye"]
@@ -2255,7 +2261,7 @@ def phase_dynamic_checks(device, errs, runs):
         depth = min(r.steps, MAIN_PLAIN_CAP)
         k_ms, out = median_ms(lambda: kd.dynamic_step(
             st, steps=r.steps, step_limit=r.steps, **kw))
-        p_ms, p = cuda_ms(lambda: kd.dynamic_step_plain(
+        p_ms, p = cuda_ms(lambda: replay.dynamic_plain(
             st, steps=depth, step_limit=depth, **kw))
         kernel = (kd.KERNEL if isinstance(field, str) else kd.KERNEL_STRAT
                   if isinstance(field, kd.StratTables) else kd.KERNEL_GRID)
@@ -2273,7 +2279,7 @@ def phase_dynamic_checks(device, errs, runs):
         rate = live / (k_ms * 1e-3)
         print(f"    {kernel.name} {name}: {k_ms:.3f} ms median of 5 "
               f"({r.steps} steps), {rate:.4e} live ray-steps/s, plain "
-              f"{p_ms:.1f} ms ({depth} steps)", flush=True)
+              f"{p_ms:.1f} ms ({depth} steps, replayed)", flush=True)
         bms, by = timed_bound(
             kernel.name,
             lambda n: kd.dynamic_step_plain(head(st), steps=n,
@@ -3514,10 +3520,12 @@ def fma_off(card, plain):
                 & ~(card.isnan() & plain.isnan())).sum())
 
 
-def phase_fma32(device):
+def phase_fma32(device, media):
     """The card's fmaf (csrc/divide.cu rt_fma: the 2-D grid blend's FFMA,
     csrc/media.cuh hermite_blend) against the plain versions' fma32
-    (utils/fma.py) computed on the card, on FMA_CHECKS' seeded triples:
+    (utils/fma.py) computed on the card, on FMA_CHECKS' seeded triples and
+    on the operands of the plain versions' own fma32 calls
+    (:func:`fma_operands`, the sampled ``media``' 2-D grids among them):
     every result's bits (NaN against NaN).  Any differing triple fails the
     run."""
     from raytracing_tpu_torch.bench import fma_triples
@@ -3534,7 +3542,7 @@ def phase_fma32(device):
         print(f"[fma32] {kind}: {off} of {count} triples off", flush=True)
         if off:
             fail(f"[fma32] {kind}: the card's fmaf differs from fma32")
-    for label, triples in fma_operands(device):
+    for label, triples in fma_operands(device, media):
         a, b, c = (torch.cat(t) for t in zip(*triples))
         off = fma_off(fma_card(a, b, c), fma32(a, b, c))
         print(f"[fma32] {label}: {off} of {a.numel()} operand triples off",
@@ -3548,13 +3556,15 @@ def phase_fma32(device):
 FMA_OPERAND_RAYS, FMA_OPERAND_STEPS = 256, 10
 
 
-def fma_operands(device):
+def fma_operands(device, media):
     """[(label, [(a, b, c), ...])]: the operands of every fma32 call that
-    the analytic dynamic and 3-D steps' plain versions make (their FMA
-    forms), recorded on the card as float32 vectors: dynamic_step_plain
-    and fused3d_step_plain, every op on each analytic field, from
-    phase 3's and phase 16's launch fans at FMA_OPERAND_RAYS rays for
-    FMA_OPERAND_STEPS steps."""
+    the 2-D dynamic and the analytic 3-D steps' plain versions make (their
+    FMA forms), recorded on the card as float32 vectors:
+    dynamic_step_plain, every op on each analytic field and on the parity
+    and C1 fisheye grids of ``media`` (the step and the grids' blends,
+    [dynamic-vs-plain]'s inputs), and fused3d_step_plain, every op on each
+    analytic field, from phase 3's, phase 11's and phase 16's launch fans
+    at FMA_OPERAND_RAYS rays for FMA_OPERAND_STEPS steps."""
     from unittest import mock
 
     import raytracing_tpu_torch as rtt
@@ -3591,6 +3601,17 @@ def fma_operands(device):
                                       step_limit=FMA_OPERAND_STEPS,
                                       offset=0.0, box=tuple(scen.box))
             out.append((f"dynamic_step_plain {field}", rec))
+            rec = []
+        for kind in ("grid", "c1_grid"):
+            for op in DYN_OPS:
+                scen, ds, steps, pos0, theta0, tab = dyn_inputs(
+                    media, kind, "fisheye", op, FMA_OPERAND_RAYS, rng,
+                    FMA_OPERAND_STEPS)
+                kd.dynamic_step_plain(
+                    kd.initial_dyn_state(pos0, theta0, device=device),
+                    field=tab, op=op, steps=steps, delta_s=ds,
+                    step_limit=steps, offset=0.0, box=tuple(scen.box))
+            out.append((f"dynamic_step_plain fisheye {kind}", rec))
             rec = []
         for seed, (field, kind) in enumerate((
                 ("fisheye", "tilted"), ("vert_heterogeneous", "vert"),
@@ -3983,12 +4004,12 @@ def main():
     name, _ = phase_environment()
     phase_build()
     kernels = kernel_infos()
-    phase_fma32("cuda")
+    media = build_sampled_media("cuda")
+    phase_fma32("cuda", media)
 
     t3 = time.perf_counter()
     errs = phase_kernel_vs_plain("cuda")
     t3_analytic = time.perf_counter() - t3
-    media = build_sampled_media("cuda")
     t3s = time.perf_counter()
     errs.update(phase_sampled_kernel_vs_plain("cuda", media))
     t3r = time.perf_counter()

@@ -170,6 +170,8 @@ CASE_KERNELS = (
      "golden_kernel<rt::Grid<(int)36>, (bool)1, (bool)0, (bool)1>", 1),
     ("dynamic_step_grid fisheye_grid",
      "dynamic_kernel<rt::Grid<(int)36>, (int)6>", 2),
+    ("dynamic_step_grid fisheye_c1_grid",
+     "dynamic_kernel<rt::Grid<(int)16>, (int)6>", 2),
     ("dynamic_step fisheye", "dynamic_kernel<rt::Analytic<(int)0>, (int)6>",
      2),
     ("dynamic_step_strat vert_strat",

@@ -45,11 +45,13 @@
 // kernels agree to the bit with their plain PyTorch versions
 // (raytracing_tpu_torch/kernels/fused.py: field_fn, strat_nag_plain,
 // tile_nag_plain, nodes_nag_plain; kernels/dynamic.py: strat_nag_h,
-// tile_nag_h) under -fmad=false.  Two exceptions fuse each product into its
-// sum by an explicit fmaf (fma_rn) where JAX rounds the two apart: the
-// parity grid's hermite_blend (Grid<36>, Nodes) and the analytic fields'
-// dynamic channels (Analytic::field_h); their plain versions
-// (kernels/fused.py::hermite_blend, kernels/dynamic.py::field_fn_h)
+// tile_nag_h) under -fmad=false.  Three exceptions fuse each product into
+// its sum by an explicit fmaf (fma_rn) where JAX rounds the two apart: the
+// parity grid's hermite_blend (Grid<36>, Nodes), the analytic fields'
+// dynamic channels (Analytic::field_h) and both grids' dynamic blends
+// (Grid::nag_h: hermite_blend_h, c1_blend_h, in JAX's order of terms);
+// their plain versions (kernels/fused.py::hermite_blend,
+// kernels/dynamic.py::field_fn_h and tile_nag_h with fma.mads(True))
 // round the same fused operations with utils/fma.py::fma32, so each pair
 // stays bit-equal, and JAX is held to the port's tolerances there
 // (ROADMAP.md section 3).
@@ -376,11 +378,6 @@ RT_HD float hermite1(float c0, float c1, float c2, float c3, const Basis& b) {
   return c0 * b.h0 + c1 * b.g0 + c2 * b.h1 + c3 * b.g1;
 }
 
-RT_HD Basis hermite_d2basis(float t) {
-  return {12.0f * t - 6.0f, 6.0f * t - 4.0f, -12.0f * t + 6.0f,
-          6.0f * t - 2.0f};
-}
-
 // n and grad n of one bicubic patch: media/c1.py::c1_blend
 RT_HD void c1_blend(const float* c, float u, float v, float inv_hx,
                     float inv_hy, float& n, float& gx, float& gy) {
@@ -405,66 +402,104 @@ RT_HD void c1_blend(const float* c, float u, float v, float inv_hx,
   gy = gv * inv_hy;
 }
 
+// -- the dynamic grid kernel's blends (Grid::nag_h) -------------------------
+// Each product that feeds a sum is fused into it (fma_rn, one FFMA: dynamic.cuh
+// DynFma), in JAX's order of terms (dynamic.py::_tile_nag_h, _tile_nag_c1_h,
+// media/c1.py::c1_blend_h): with every fma(a, b, c) taken as a b + c rounded
+// twice, each expression below is JAX's, since (-a) b + c is c - a b and a
+// sum's operands commute.  The plain version (kernels/dynamic.py::tile_nag_h)
+// is written once in that form: with fma.mads(True) it rounds as these do
+// (utils/fma.py::fma32), with fma.mads(False) as JAX does.
+
+// hermite_basis, hermite_dbasis and hermite_d2basis as JAX writes them, t2 =
+// t t, t3 = t2 t, s = 3 t2: (fma(2, t3, -s) + 1, fma(-2, t2, t3) + t,
+// fma(-2, t3, s), t3 - t2), (fma(6, t2, -6 t), fma(-4, t, s) + 1,
+// fma(-6, t2, 6 t), fma(-2, t, s)), (fma(12, t, -6), fma(6, t, -4),
+// fma(-12, t, 6), fma(6, t, -2)).  hermite_basis_fma's Horner form is no
+// shorter, and its unfused form is not JAX's.
+RT_HD Basis hermite_basis_h(float t) {
+  const float t2 = t * t, t3 = t2 * t, s = 3.0f * t2;
+  return {fma_rn(2.0f, t3, -s) + 1.0f, fma_rn(-2.0f, t2, t3) + t,
+          fma_rn(-2.0f, t3, s), t3 - t2};
+}
+RT_HD Basis hermite_dbasis_h(float t) {
+  const float t2 = t * t, s = 3.0f * t2, t6 = 6.0f * t;
+  return {fma_rn(6.0f, t2, -t6), fma_rn(-4.0f, t, s) + 1.0f,
+          fma_rn(-6.0f, t2, t6), fma_rn(-2.0f, t, s)};
+}
+RT_HD Basis hermite_d2basis_h(float t) {
+  return {fma_rn(12.0f, t, -6.0f), fma_rn(6.0f, t, -4.0f),
+          fma_rn(-12.0f, t, 6.0f), fma_rn(6.0f, t, -2.0f)};
+}
+
 // c1_blend plus the patch's symmetric Hessian: media/c1.py::c1_blend_h, the
-// 9 channels of dynamic.py::_tile_nag_c1_h (gn == g, hyx == hxy)
+// 9 channels of dynamic.py::_tile_nag_c1_h (gn == g, hyx == hxy).  The
+// corner columns blended along v (value, d/dv, d2/dv2), each blend
+// c0 h0 + c1 g0 + c2 h1 + c3 g1 (media/c1.py::_hermite1) by dot4_fma, then
+// across u; the u-blends of one column set are taken before the next set
+// is formed, so that fewer of the twelve v-blends are live at once.
 RT_HD void c1_blend_h(const float* c, float u, float v, float inv_hx,
                       float inv_hy, float* h) {
   const float4 f = ldg4(c, 0), fv = ldg4(c, 1), fu = ldg4(c, 2),
                fw = ldg4(c, 3);
-  const Basis hv = hermite_basis(v), dv = hermite_dbasis(v),
-              ddv = hermite_d2basis(v);
-  const Basis hu = hermite_basis(u), du = hermite_dbasis(u),
-              ddu = hermite_d2basis(u);
+  const Basis hu = hermite_basis_h(u), du = hermite_dbasis_h(u),
+              ddu = hermite_d2basis_h(u);
   auto vblend = [&](const Basis& b) -> Basis {
-    return {hermite1(f.x, fv.x, f.z, fv.z, b),
-            hermite1(fu.x, fw.x, fu.z, fw.z, b),
-            hermite1(f.y, fv.y, f.w, fv.w, b),
-            hermite1(fu.y, fw.y, fu.w, fw.w, b)};
+    return {dot4_fma(f.x, fv.x, f.z, fv.z, b.h0, b.g0, b.h1, b.g1),
+            dot4_fma(fu.x, fw.x, fu.z, fw.z, b.h0, b.g0, b.h1, b.g1),
+            dot4_fma(f.y, fv.y, f.w, fv.w, b.h0, b.g0, b.h1, b.g1),
+            dot4_fma(fu.y, fw.y, fu.w, fw.w, b.h0, b.g0, b.h1, b.g1)};
   };
-  const Basis col = vblend(hv), col_dv = vblend(dv), col_ddv = vblend(ddv);
-  h[HN] = hermite1(col.h0, col.g0, col.h1, col.g1, hu);
-  h[HGX] = h[HGNX] = hermite1(col.h0, col.g0, col.h1, col.g1, du) * inv_hx;
-  h[HGY] = h[HGNY] =
-      hermite1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, hu) * inv_hy;
-  h[HXX] = hermite1(col.h0, col.g0, col.h1, col.g1, ddu) * (inv_hx * inv_hx);
-  h[HXY] = h[HYX] = hermite1(col_dv.h0, col_dv.g0, col_dv.h1, col_dv.g1, du) *
-                    (inv_hx * inv_hy);
-  h[HYY] = hermite1(col_ddv.h0, col_ddv.g0, col_ddv.h1, col_ddv.g1, hu) *
-           (inv_hy * inv_hy);
+  auto ublend = [](const Basis& col, const Basis& b) {
+    return dot4_fma(col.h0, col.g0, col.h1, col.g1, b.h0, b.g0, b.h1, b.g1);
+  };
+  const Basis col = vblend(hermite_basis_h(v));
+  h[HN] = ublend(col, hu);
+  h[HGX] = h[HGNX] = ublend(col, du) * inv_hx;
+  h[HXX] = ublend(col, ddu) * (inv_hx * inv_hx);
+  const Basis col_dv = vblend(hermite_dbasis_h(v));
+  h[HGY] = h[HGNY] = ublend(col_dv, hu) * inv_hy;
+  h[HXY] = h[HYX] = ublend(col_dv, du) * (inv_hx * inv_hy);
+  h[HYY] = ublend(vblend(hermite_d2basis_h(v)), hu) * (inv_hy * inv_hy);
 }
 
 // the parity cell's 9 channels (dynamic.py::_tile_nag_h, :177-287): the
 // bilinear n and its own gradient, the two independent bicubic gradients
-// and their full 2x2 Jacobian (hxy != hyx in general)
+// and their full 2x2 Jacobian (hxy != hyx in general).  n as JAX writes
+// it, (1 - v) r0 + v r1 with r0 = (1 - u) z00 + u z01 and r1 likewise, as
+// fma(v, r1, (1 - v) r0); each gradient channel's corner columns blended
+// along v (value, then d/dv) and across u by dot4_fma in _tile_nag_h's
+// order.
 RT_HD void hermite_blend_h(const float* c, float u, float v, float inv_hx,
                            float inv_hy, float* h) {
   const float4 z = ldg4(c, 0);
-  h[HN] = (1.0f - v) * ((1.0f - u) * z.x + u * z.y) +
-          v * ((1.0f - u) * z.z + u * z.w);
-  h[HGNX] = ((1.0f - v) * (z.y - z.x) + v * (z.w - z.z)) * inv_hx;
-  h[HGNY] = ((1.0f - u) * (z.z - z.x) + u * (z.w - z.y)) * inv_hy;
-  const Basis hv = hermite_basis(v), dv = hermite_dbasis(v);
-  const Basis hu = hermite_basis(u), du = hermite_dbasis(u);
+  const float mu = 1.0f - u, mv = 1.0f - v;
+  h[HN] = fma_rn(v, fma_rn(u, z.w, mu * z.z), mv * fma_rn(u, z.y, mu * z.x));
+  h[HGNX] = fma_rn(v, z.w - z.z, mv * (z.y - z.x)) * inv_hx;
+  h[HGNY] = fma_rn(u, z.w - z.y, mu * (z.z - z.x)) * inv_hy;
+  const Basis hv = hermite_basis_h(v), dv = hermite_dbasis_h(v);
+  const Basis hu = hermite_basis_h(u), du = hermite_dbasis_h(u);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int ch0 = 1 + 4 * k;
     const float4 f = ldg4(c, ch0), fv = ldg4(c, ch0 + 1),
                  fu = ldg4(c, ch0 + 2), fw = ldg4(c, ch0 + 3);
     // the corner columns blended along v (value, then d/dv), then across u
-    const float c0 = f.x * hv.h0 + fv.x * hv.g0 + f.z * hv.h1 + fv.z * hv.g1;
-    const float c1 = f.y * hv.h0 + fv.y * hv.g0 + f.w * hv.h1 + fv.w * hv.g1;
-    const float c2 = fu.x * hv.h0 + fw.x * hv.g0 + fu.z * hv.h1 + fw.z * hv.g1;
-    const float c3 = fu.y * hv.h0 + fw.y * hv.g0 + fu.w * hv.h1 + fw.w * hv.g1;
-    const float e0 = f.x * dv.h0 + fv.x * dv.g0 + f.z * dv.h1 + fv.z * dv.g1;
-    const float e1 = f.y * dv.h0 + fv.y * dv.g0 + f.w * dv.h1 + fv.w * dv.g1;
-    const float e2 = fu.x * dv.h0 + fw.x * dv.g0 + fu.z * dv.h1 + fw.z * dv.g1;
-    const float e3 = fu.y * dv.h0 + fw.y * dv.g0 + fu.w * dv.h1 + fw.w * dv.g1;
-    const float val = c0 * hu.h0 + c1 * hu.h1 + c2 * hu.g0 + c3 * hu.g1;
-    const float d_u = c0 * du.h0 + c1 * du.h1 + c2 * du.g0 + c3 * du.g1;
-    const float d_v = e0 * hu.h0 + e1 * hu.h1 + e2 * hu.g0 + e3 * hu.g1;
-    h[HGX + k] = val;                       // gx, gy
-    h[HXX + 2 * k] = d_u * inv_hx;          // hxx, hyx
-    h[HXY + 2 * k] = d_v * inv_hy;          // hxy, hyy
+    auto vblend = [&](const Basis& b, float* col) {
+      col[0] = dot4_fma(f.x, fv.x, f.z, fv.z, b.h0, b.g0, b.h1, b.g1);
+      col[1] = dot4_fma(f.y, fv.y, f.w, fv.w, b.h0, b.g0, b.h1, b.g1);
+      col[2] = dot4_fma(fu.x, fw.x, fu.z, fw.z, b.h0, b.g0, b.h1, b.g1);
+      col[3] = dot4_fma(fu.y, fw.y, fu.w, fw.w, b.h0, b.g0, b.h1, b.g1);
+    };
+    auto ublend = [](const float* col, const Basis& b) {
+      return dot4_fma(col[0], col[1], col[2], col[3], b.h0, b.h1, b.g0, b.g1);
+    };
+    float cv[4], ev[4];
+    vblend(hv, cv);
+    vblend(dv, ev);
+    h[HGX + k] = ublend(cv, hu);                 // gx, gy
+    h[HXX + 2 * k] = ublend(cv, du) * inv_hx;    // hxx, hyx
+    h[HXY + 2 * k] = ublend(ev, hu) * inv_hy;    // hxy, hyy
   }
 }
 

@@ -30,10 +30,16 @@ gives its grid) and ``dynamic_step_grid`` (2-D per-cell tables).  :func:`dynamic
 version and :func:`dynamic_step` the wrapper: a CPU state runs the plain
 version, a CUDA state launches the kernel or raises.  Only the smooth ops
 op1/op2/op6/op8: a golden op's tangent is zero almost everywhere.  On the
-analytic fields the kernel and its plain version fuse each product that
-feeds a sum into it (:func:`field_fn_h`, ``utils/fma.py::mads``), so
-they no longer follow JAX's step operation for operation; both stay within
-JAX's bars (ROADMAP.md section 3).
+analytic fields and the 2-D grids the kernel and its plain version fuse
+each product that feeds a sum into it, in the step and in the medium's
+channels (:func:`field_fn_h`, :func:`tile_nag_h` with
+``utils/fma.py::mads(True)``), so they no longer follow JAX's step
+operation for operation; both stay within JAX's bars (ROADMAP.md section
+3).  The grid case is checked to the bit on the CPU against the g++ build
+of ``csrc/dynamic.cuh`` (tests/test_torch_dynamic_host.py) and on the card
+by chip_smoke.py's ``[dynamic-vs-plain]``.  The 1-D tables keep JAX's
+roundings, and the float64 scan tier reads the channels in JAX's order
+(:func:`field_fn_h`, :func:`tile_nag_h` by default).
 """
 from __future__ import annotations
 
@@ -176,30 +182,57 @@ def strat_nag_h(t: StratTables):
     return nag
 
 
-def _basis(t):
+def _bases(t, mad, second=False):
+    """The Hermite basis (h0, g0, h1, g1) at ``t``, its derivative and,
+    where ``second``, its second derivative, as JAX writes them
+    (media/hermite.py::hermite_basis, media/c1.py::hermite_dbasis,
+    hermite_d2basis), each product that feeds a sum by ``mad``
+    (csrc/media.cuh ``hermite_basis_h``, ``hermite_dbasis_h``,
+    ``hermite_d2basis_h`` where fused), with t2 = t t, t3 = t2 t, s = 3
+    t2."""
     t2 = t * t
     t3 = t2 * t
-    return (2.0 * t3 - 3.0 * t2 + 1.0, t3 - 2.0 * t2 + t,
-            -2.0 * t3 + 3.0 * t2, t3 - t2)
+    s = 3.0 * t2
+    t6 = 6.0 * t
+    h0, d0 = mad((2.0, 6.0), (t3, t2), (s, t6), neg_c=True)
+    g0, h1, d1, d2, d3 = mad((2.0, 2.0, 4.0, 6.0, 2.0), (t2, t3, t, t2, t),
+                             (t3, s, s, t6, s), sub=True)
+    out = ((h0 + 1.0, g0 + t, h1, t3 - t2), (d0, d1 + 1.0, d2, d3))
+    if second:
+        e0, e1, e3 = mad((12.0, 6.0, 6.0), (t, t, t), (6.0, 4.0, 2.0),
+                         neg_c=True)
+        e2, = mad((12.0,), (t,), (6.0,), sub=True)
+        out += ((e0, e1, e2, e3),)
+    return out
 
 
-def _dbasis(t):
-    t2 = t * t
-    return (6.0 * t2 - 6.0 * t, 3.0 * t2 - 4.0 * t + 1.0,
-            -6.0 * t2 + 6.0 * t, 3.0 * t2 - 2.0 * t)
+def _dot4(mad, c, w):
+    """c[0] w[0] + c[1] w[1] + c[2] w[2] + c[3] w[3] summed left to right,
+    each product after the first by ``mad`` (csrc/media.cuh ``dot4_fma``
+    where fused); c[k] and w[k] are tuples of like terms, one sum each, as
+    a tuple."""
+    acc = tuple(a * b for a, b in zip(c[0], w[0]))
+    for k in (1, 2, 3):
+        acc = mad(c[k], w[k], acc)
+    return acc
 
 
-def tile_nag_h(g: GridTables):
+def tile_nag_h(g: GridTables, mad=fma.mads(False)):
     """The 9 channels from the per-cell rows of a 2-D grid, read directly
     (the TPU reads the same row through its window): the parity form
     (dynamic.py:177-287) gives the bilinear n and its own gradient, the two
     independent bicubic gradients and their full 2x2 Jacobian; the C1 form
-    (:290-344) the patch's n, gradient and symmetric Hessian
-    (``media.c1.c1_blend_h``)."""
+    (:290-344) the patch's n, gradient and symmetric Hessian (as
+    ``media.c1.c1_blend_h``).  Each product that feeds a sum by ``mad``
+    (``utils/fma.py::mads``): JAX's roundings by default, term for term, the
+    dynamic grid kernel's FMA form with ``fma.mads(True)`` (csrc/media.cuh
+    ``hermite_blend_h``, ``c1_blend_h``).  Like blends run as one stacked
+    call there: the bases at v and u, the v-blends, the u-blends."""
     from raytracing_tpu_torch.engine.segmented import _cells
-    from raytracing_tpu_torch.media.c1 import c1_blend_h
 
     ihx, ihy = _scal(g.inv_hx, g.table.dtype), _scal(g.inv_hy, g.table.dtype)
+    ihxx, ihxy, ihyy = (_scal(a * b, g.table.dtype)
+                        for a, b in ((ihx, ihx), (ihx, ihy), (ihy, ihy)))
 
     def nag(x, y):
         ix, iy, u, v = _cells(x, y, g)
@@ -208,50 +241,72 @@ def tile_nag_h(g: GridTables):
         def corners(ch):
             return tuple(row[..., ch * 4 + c] for c in range(4))
 
+        def columns(ch0):
+            """The corner column terms of the v-blends of channels ch0 to
+            ch0 + 3 (f, f_v, f_u, f_vu): at x = 0 and 1, value then slope."""
+            f, fv, fu, fw = (corners(ch0 + k) for k in range(4))
+            return [(f[0], fv[0], f[2], fv[2]), (f[1], fv[1], f[3], fv[3]),
+                    (fu[0], fw[0], fu[2], fw[2]), (fu[1], fw[1], fu[3], fw[3])]
+
+        bases = _bases(torch.stack((v, u)), mad, second=g.cell_ch == 16)
+        at_v = [tuple(w[0] for w in b) for b in bases]
+        at_u = [tuple(w[1] for w in b) for b in bases]
+
+        def vblend(cols, weights):
+            """Each column set's four v-blends with each basis of
+            ``weights``, stacked: column set-major, then basis, then
+            column."""
+            terms = [(col, w) for cs in cols for w in weights for col in cs]
+            return _dot4(mad, tuple(zip(*(t[0] for t in terms))),
+                         tuple(zip(*(t[1] for t in terms))))
+
         if g.cell_ch == 16:
-            n, gx, gy, hxx, hxy, hyy = c1_blend_h(corners, u, v, ihx, ihy)
-            return n, gx, gy, gx, gy, hxx, hxy, hxy, hyy
+            hv, dv, ddv = at_v
+            hu, du, ddu = at_u
+            c = vblend([columns(0)], [hv, dv, ddv])
+            # each in media/c1.py::_vblend's order: p0, m0, p1, m1
+            col, col_dv, col_ddv = ((c[j], c[j + 2], c[j + 1], c[j + 3])
+                                    for j in (0, 4, 8))
+            pairs = ((col, hu), (col, du), (col_dv, hu), (col, ddu),
+                     (col_dv, du), (col_ddv, hu))
+            n, gu, gv, huu, huv, hvv = _dot4(
+                mad, tuple(zip(*(c for c, _ in pairs))),
+                tuple(zip(*(w for _, w in pairs))))
+            gx, gy = gu * ihx, gv * ihy
+            return (n, gx, gy, gx, gy, huu * ihxx, huv * ihxy, huv * ihxy,
+                    hvv * ihyy)
         z00, z01, z10, z11 = corners(0)
-        n = ((1.0 - v) * ((1.0 - u) * z00 + u * z01)
-             + v * ((1.0 - u) * z10 + u * z11))
-        gnx = ((1.0 - v) * (z01 - z00) + v * (z11 - z10)) * ihx
-        gny = ((1.0 - u) * (z10 - z00) + u * (z11 - z01)) * ihy
-        hv, dv, hu, du = _basis(v), _dbasis(v), _basis(u), _dbasis(u)
+        mu, mv = 1.0 - u, 1.0 - v
+        r0, r1 = mad((u, u), (z01, z11), (mu * z00, mu * z10))
+        n, gnx, gny = mad((v, v, u), (r1, z11 - z10, z11 - z01),
+                          (mv * r0, mv * (z01 - z00), mu * (z10 - z00)))
+        hv, dv = at_v
+        hu, du = at_u
+        c = vblend([columns(1), columns(5)], [hv, dv])
+        # per channel: the value blends cv then the slope blends ev
+        cv = [c[0:4], c[8:12]]
+        ev = [c[4:8], c[12:16]]
 
-        def hermite_d(ch0):
-            """(value, d/du, d/dv) of one Hermite surface."""
-            f00, f01, f10, f11 = corners(ch0)
-            fv00, fv01, fv10, fv11 = corners(ch0 + 1)
-            fu00, fu01, fu10, fu11 = corners(ch0 + 2)
-            fw00, fw01, fw10, fw11 = corners(ch0 + 3)
-
-            def cols(w):
-                return (f00 * w[0] + fv00 * w[1] + f10 * w[2] + fv10 * w[3],
-                        f01 * w[0] + fv01 * w[1] + f11 * w[2] + fv11 * w[3],
-                        fu00 * w[0] + fw00 * w[1] + fu10 * w[2] + fw10 * w[3],
-                        fu01 * w[0] + fw01 * w[1] + fu11 * w[2] + fw11 * w[3])
-
-            def across(c, w):
-                return c[0] * w[0] + c[1] * w[2] + c[2] * w[1] + c[3] * w[3]
-
-            c_v = cols(hv)
-            return across(c_v, hu), across(c_v, du), across(cols(dv), hu)
-
-        gx, gx_u, gx_v = hermite_d(1)
-        gy, gy_u, gy_v = hermite_d(5)
-        return (n, gx, gy, gnx, gny, gx_u * ihx, gx_v * ihy, gy_u * ihx,
-                gy_v * ihy)
+        def across(w):
+            return (w[0], w[2], w[1], w[3])
+        pairs = [(blend[k], across(w)) for k in (0, 1)
+                 for blend, w in ((cv, hu), (cv, du), (ev, hu))]
+        gx, gx_u, gx_v, gy, gy_u, gy_v = _dot4(
+            mad, tuple(zip(*(b for b, _ in pairs))),
+            tuple(zip(*(w for _, w in pairs))))
+        return (n, gx, gy, gnx * ihx, gny * ihy, gx_u * ihx, gx_v * ihy,
+                gy_u * ihx, gy_v * ihy)
 
     return nag
 
 
 def nag_h_fn(field):
     """The plain 9-channel evaluator (x, y) -> channels of a step's medium,
-    an analytic field's in its kernel's FMA form."""
+    an analytic field's and a 2-D grid's in their kernel's FMA form."""
     if isinstance(field, StratTables):
         return strat_nag_h(field)
     if isinstance(field, GridTables):
-        return tile_nag_h(field)
+        return tile_nag_h(field, fma.mads(True))
     return field_fn_h(field, fma.mads(True))
 
 
@@ -331,11 +386,12 @@ def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
     The step of ``_make_dynamic_kernel`` (dynamic.py:421-540) on every ray
     at once, a frozen ray kept by selects; the kernels' order of
     operations, one torch call each, so that on the card the two agree to
-    the bit.  On an analytic field (a field name) the step is in the
-    kernel's FMA form (csrc/dynamic.cuh ``DynFma``): each product that
-    feeds a sum rounded once with it by ``utils/fma.py::fma32``, like terms
-    of a step stacked into one call (``utils/fma.py::mads``); the sampled
-    media keep JAX's roundings.  That kernel takes its reciprocals and
+    the bit.  On an analytic field (a field name) and a 2-D grid
+    (GridTables) the step and the channels are in the kernel's FMA form
+    (csrc/dynamic.cuh ``DynFma``): each product that feeds a sum rounded
+    once with it by ``utils/fma.py::fma32``, like terms of a step stacked
+    into one call (``utils/fma.py::mads``); the 1-D tables keep JAX's
+    roundings.  The analytic fields' kernel takes its reciprocals and
     square root by fast paths that give the IEEE operations' bits, so this
     version divides and takes square roots as IEEE operations.  The sign
     of q is three-valued (0 at 0), as ``jnp.sign``.
@@ -346,8 +402,8 @@ def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
     IEEE form; the sampled media's has none), to ``guards[1]`` the rays it
     moves.
     """
-    fused = isinstance(field, str)
-    mad = fma.mads(fused)
+    analytic = isinstance(field, str)
+    mad = fma.mads(analytic or isinstance(field, GridTables))
     nag = nag_h_fn(field)
     second = op in ("op6", "op8")
     rk2 = op in ("op2", "op6")
@@ -446,7 +502,7 @@ def dynamic_step_plain(st: DynState, *, field, op: str, steps: int,
             # the fast paths of the analytic fields' kernel (the sampled
             # media's takes the IEEE operations)
             ok = torch.ones_like(keep)
-            if fused:
+            if analytic:
                 ok = field_guard(field, nx2, ny2)
                 if second or rk2:
                     ok = ok & _in(n2, 2.0 ** -126, 2.0 ** 126, True)

@@ -1,14 +1,16 @@
 """A correctly rounded float32 fused multiply-add from PyTorch operations.
 
-The 2-D grid blend of ``csrc/media.cuh`` (``hermite_blend``) and the
-analytic fields' dynamic and 3-D steps (``csrc/dynamic.cuh``,
-``csrc/fused3d.cuh``) form their sums of products with ``fmaf``: a * b + c
-rounded once.  Their plain versions (``kernels/fused.py::hermite_blend``,
-``kernels/dynamic.py::dynamic_step_plain``,
-``kernels/fused3d.py::fused3d_step_plain``) compute the same rounding with
-:func:`fma32` (those steps through :func:`mads`), on the CPU and on the
-card alike, so that the kernels and their plain versions stay equal to the
-bit.
+The 2-D grid blend of ``csrc/media.cuh`` (``hermite_blend``), the 2-D
+dynamic step on the analytic fields and the 2-D grids with its channels
+(``csrc/dynamic.cuh``; ``Analytic::field_h``, ``hermite_blend_h``,
+``c1_blend_h``) and the analytic 3-D step (``csrc/fused3d.cuh``)
+form their sums of products with ``fmaf``: a * b + c rounded once.  Their
+plain versions (``kernels/fused.py::hermite_blend``,
+``kernels/dynamic.py::dynamic_step_plain`` with ``field_fn_h`` and
+``tile_nag_h``, ``kernels/fused3d.py::fused3d_step_plain``) compute the
+same rounding with :func:`fma32` (those steps through :func:`mads`), on
+the CPU and on the card alike, so that the kernels and their plain
+versions stay equal to the bit.
 
 How: the float32 operands are widened to float64, where a * b is exact (24
 + 24 significant bits fit in 53) and p + c rounds once to s, with TwoSum's
@@ -72,8 +74,9 @@ def mads(fused: bool):
     """``mad(a, b, c, sub=False, neg_c=False)``: a[k] * b[k] + c[k] for each
     k of equal-length tuples of tensors or Python numbers, as a tuple; c[k]
     - a[k] * b[k] where ``sub``, a[k] * b[k] - c[k] where ``neg_c``.  Where
-    ``fused`` (the analytic fields' FMA form, csrc/common.cuh ``mad<true>``
-    with a negated operand) each rounded once by :func:`fma32`, the
+    ``fused`` (the 2-D dynamic and analytic 3-D steps' FMA form,
+    csrc/common.cuh ``mad<true>`` with a negated operand) each rounded
+    once by :func:`fma32`, the
     tuple's terms stacked into one call (the same roundings in fewer torch
     calls) and the negation inside it, as the kernel's FFMA negates its
     operand; else each product and sum rounded apart, JAX's roundings term

@@ -121,9 +121,10 @@ def port_df_medium(jm, device="cpu"):
 
 
 def jax_order_forms(monkeypatch):
-    """Make the analytic dynamic and 3-D plain versions round as JAX rounds
-    (every product and sum on its own) instead of in their kernels' FMA
-    form: ``utils/fma.py::mads`` unfused."""
+    """Make the 2-D dynamic (analytic fields and grids, the grids' blends
+    too) and analytic 3-D plain versions round as JAX rounds (every product
+    and sum on its own) instead of in their kernels' FMA form:
+    ``utils/fma.py::mads`` unfused."""
     from raytracing_tpu_torch.utils import fma
     mads = fma.mads
     monkeypatch.setattr(fma, "mads", lambda fused: mads(False))
