@@ -212,6 +212,19 @@ either is missing or any check fails.  Phases, one line or more each:
    homogeneous arrival, the eddy's out-of-plane arrival, and one
    ``python -m raytracing_tpu_torch.cli --eigenrays3`` run on the Munk
    profile lifted to 3-D.
+18. the modules with no kernel of their own, each phase with its seconds:
+   ``[diff]`` trace_diff at benchmarks/diff_probe.py's configuration
+   (2**18 rays, 300 op6 steps, float32, remat 4, a 12 x 12 parametric
+   grid): forward and forward + backward seconds and peak memory, the
+   gradient finite and nonzero only on visited nodes, then float64 checks
+   (central differences, remat 1 against 4, the scan trace, the op10n
+   and op10 gamma gradients); ``[df3]`` the df32 facade of the 71^3
+   samples in trace3d and trace_dynamic3 against float64 on the
+   C1Grid3Medium, a float32 find_eigenrays3 solve against float64 (the
+   reference solve on the CPU), ms a step; ``[stream]`` stream_history against trace(mode="history") to the
+   bit, at 2**18 rays over one turn within 2 chunks' rows of device
+   memory, and trace_chunked against trace(mode="metrics"); ``[profiling]``
+   device_trace naming fisheye_op1, step_timer against CUDA events.
 
 The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
 11's ``[dynamic-vs-plain]``, 15's ``[custom-vs-plain]``, 16's
@@ -238,6 +251,7 @@ FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s); the last
 line is {"ok": true, "device": {...}}.
 """
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -3985,6 +3999,532 @@ def phase_eigenrays3(device):
     return time.perf_counter() - t0
 
 
+# -- the differentiable tier, the 3-D df32 facade, history streaming and
+# profiling: paths with no kernel of their own (each phase prints its
+# seconds; together they stay within ~90 s) --------------------------------
+#: [diff]: benchmarks/diff_probe.py's configuration
+DIFF_RAYS, DIFF_STEPS, DIFF_REMAT, DIFF_NG = 1 << 18, 300, 4, 12
+#: [diff]'s float64 checks
+DIFF_CHECK_RAYS, DIFF_CHECK_STEPS = 4096, 120
+#: [diff]'s anisotropy check: 4 rays, this many op10n / op10 steps (the
+#: Newton op's nested forward modes cost ~0.1 s a step on the card), and
+#: the gamma step of its central differences
+DIFF_GAMMA_STEPS, DIFF_GAMMA_H = 8, 1e-3
+#: [df3]: the trace3d and trace_dynamic3 runs' rays and depths (250 steps:
+#: short of the tilted fan's point focus at the antipode, ~300 steps, so
+#: KMAH and the focus locator are held on every ray)
+DF3_RAYS, DF3_STEPS = 1 << 16, 250
+DF3_DYN_RAYS, DF3_DYN_STEPS = 4096, 250
+#: [stream]: the bit-equality run's rays, the large run's, and the chunk;
+#: the bit-equality run's divisor (one turn of 1,200 rows: two chunk edges)
+STREAM_RAYS, STREAM_BIG_RAYS, STREAM_CHUNK = 4096, 1 << 18, 512
+STREAM_CHECK_DIVISOR = 1199
+
+
+def diff_case(device, rays, steps, dtype):
+    """diff_probe.py's run: the fisheye's n sampled on a 12 x 12 grid over
+    [-1, 1]^2 (144 parameters, ``parametric_grid_medium``), ``rays`` rays
+    from (0.6, 0) at pi/2 +- 0.02 rad, ``steps`` op6 steps of 2 pi /
+    steps, no box; the loss is the mean squared closure miss.  Returns
+    (values, loss(values, remat), pos0, theta0, ds, h)."""
+    import raytracing_tpu_torch as rtt
+    h = 2.0 / (DIFF_NG - 1)
+    ax = np.linspace(-1, 1, DIFF_NG)
+    X, Y = np.meshgrid(ax, ax)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    values = torch.tensor((1.0 / (1.0 + X * X + Y * Y)).astype(np_dt),
+                          device=device)
+    theta0 = torch.tensor((np.pi / 2 + np.linspace(-0.02, 0.02, rays))
+                          .astype(np_dt), device=device)
+    pos0 = torch.tensor(np.tile([[0.6, 0.0]], (rays, 1)).astype(np_dt),
+                        device=device)
+    ds = 2 * np.pi / steps
+
+    def loss(v, remat=DIFF_REMAT):
+        med = rtt.parametric_grid_medium(v, -1.0, -1.0, h, h, device=device)
+        pos, *_ = rtt.trace_diff("op6", med, pos0, theta0, ds, steps=steps,
+                                 remat_segments=remat, device=device)
+        return torch.mean(torch.sum((pos - pos0) ** 2, dim=-1))
+    return values, loss, pos0, theta0, ds, h
+
+
+def visited_nodes(device, values, pos0, theta0, ds, h, steps):
+    """(ng, ng) bool: the nodes of every cell a ray of the run evaluates the
+    medium in (the scan tier's op6 on the same parametric grid, the same
+    positions as trace_diff's, unbounded box)."""
+    import dataclasses
+    import raytracing_tpu_torch as rtt
+    scen = dataclasses.replace(rtt.scenario("fisheye"),
+                               box=(-1e30, 1e30, -1e30, 1e30))
+    med = rtt.parametric_grid_medium(values, -1.0, -1.0, h, h, device=device)
+    with torch.no_grad():
+        res = rtt.trace("op6", scen, med, delta_s=ds, dtype=values.dtype,
+                        pos0=pos0.cpu().numpy(), theta0=theta0.cpu().numpy(),
+                        max_size=steps + 1, device=device)
+    ng = values.shape[0]
+    lim = ng - 1 - 1e-9
+    ix = torch.floor(torch.clamp((res.history[..., 0] + 1.0) / h, 0.0, lim))
+    iy = torch.floor(torch.clamp((res.history[..., 1] + 1.0) / h, 0.0, lim))
+    seen = torch.zeros((ng, ng), dtype=torch.bool, device=device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            seen[(iy.long() + dy).clamp(max=ng - 1).reshape(-1),
+                 (ix.long() + dx).clamp(max=ng - 1).reshape(-1)] = True
+    return seen
+
+
+def phase_diff(device):
+    """[diff]: trace_diff at diff_probe.py's configuration (2^18 rays, 300
+    op6 steps, float32, remat 4, the 144-node grid): the forward pass
+    alone and forward plus backward (``torch.autograd.grad``), cold and
+    warm, and the peak device memory; the gradient finite and nonzero only
+    on visited nodes.  Then at float64 on 4,096 rays x 120 steps: the
+    gradient against central differences (a node step of 1e-8) on the 3
+    largest nodes (rtol 5e-5), remat 1 against 4 (rtol 1e-12 of the largest entry: the card's
+    backward gathers by atomics, so its sums are not bit-reproducible),
+    trace_diff's final state against the scan trace (atol 1e-12), and the
+    op10n gamma gradient against central differences (rtol 1e-4) with the
+    golden op10's exactly 0."""
+    import raytracing_tpu_torch as rtt
+    t0 = time.perf_counter()
+    # a short run first loads every kernel the timed runs launch
+    wv, wloss = diff_case(device, 4096, 2 * DIFF_REMAT, torch.float32)[:2]
+    wv.requires_grad_()
+    torch.autograd.grad(wloss(wv), wv)
+    warm = time.perf_counter() - t0
+    values, loss, pos0, theta0, ds, h = diff_case(device, DIFF_RAYS,
+                                                  DIFF_STEPS, torch.float32)
+    secs, peaks = {}, {}
+    for tag in ("forward", "forward+backward"):
+        v = values.clone().requires_grad_()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        if tag == "forward":
+            with torch.no_grad():
+                val = loss(v)
+        else:
+            val = loss(v)
+            grad, = torch.autograd.grad(val, v)
+        sync()
+        secs[tag] = time.perf_counter() - t
+        peaks[tag] = torch.cuda.max_memory_allocated() - base
+    seen = visited_nodes(device, values, pos0, theta0, ds, h, DIFF_STEPS)
+    nz = grad != 0
+    print(f"[diff] diff_probe.py's run: {DIFF_RAYS} rays x {DIFF_STEPS} op6 "
+          f"steps, float32, remat {DIFF_REMAT}, {values.numel()} parameters "
+          f"(after a {warm:.1f} s warm-up at 4096 rays): forward "
+          f"{secs['forward']:.3f} s, forward + backward "
+          f"{secs['forward+backward']:.3f} s; "
+          f"{DIFF_RAYS * DIFF_STEPS / secs['forward+backward']:.4e} "
+          f"ray-steps/s with the gradient; peak device memory "
+          f"{peaks['forward+backward'] / 1e9:.3f} GB (forward "
+          f"{peaks['forward'] / 1e9:.3f} GB); loss {float(val.detach()):.6e}, "
+          f"{int(nz.sum())} nonzero gradient entries, all on the "
+          f"{int(seen.sum())} visited nodes: {not bool((nz & ~seen).any())}",
+          flush=True)
+    if not bool(torch.isfinite(grad).all()) or not bool(nz.any()) \
+            or bool((nz & ~seen).any()):
+        fail("diff: the gradient is not finite, is all zero, or is nonzero "
+             "on a node no ray visits")
+
+    # float64 checks
+    t1 = time.perf_counter()
+    values, loss, pos0, theta0, ds, h = diff_case(
+        device, DIFF_CHECK_RAYS, DIFF_CHECK_STEPS, torch.float64)
+    got, remat_peak = {}, {}
+    for k in (1, DIFF_REMAT):
+        v = values.clone().requires_grad_()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        val = loss(v, k)
+        got[k] = (float(val.detach()), torch.autograd.grad(val, v)[0])
+        remat_peak[k] = torch.cuda.max_memory_allocated() - base
+    t_fd = time.perf_counter()
+    g1, g4 = got[1][1], got[DIFF_REMAT][1]
+    remat_rel = float((g1 - g4).abs().max() / g1.abs().max())
+    worst_fd = 0.0
+    # the bilinear field's gradient jumps at cell edges, so the loss jumps
+    # (by ~ds^2 |dgrad|) where an evaluation point crosses one: a node step
+    # of 1e-6 crosses some of these 4,096 x 120 points; one of 1e-8 keeps
+    # clear of them with float64 rounding at ~1e-8 relative
+    eps = 1e-8
+    for node in torch.topk(g1.abs().reshape(-1), 3).indices.tolist():
+        e = torch.zeros_like(values).reshape(-1)
+        e[node] = eps
+        e = e.reshape(values.shape)
+        with torch.no_grad():
+            fd = (float(loss(values + e)) - float(loss(values - e))) / (2 * eps)
+        an = float(g1.reshape(-1)[node])
+        worst_fd = max(worst_fd, abs(an - fd) / abs(fd))
+    t_scan = time.perf_counter()
+    # trace_diff against the scan tier: op1 on the fisheye, a fan of
+    # 4,096 rays around pi/2 from (1, 0), 120 steps of 2 pi / 400
+    scen = rtt.scenario("fisheye")
+    fds = 2 * np.pi / 400
+    fpos0 = np.tile([[1.0, 0.0]], (DIFF_CHECK_RAYS, 1))
+    fth0 = np.pi / 2 + np.linspace(-0.02, 0.02, DIFF_CHECK_RAYS)
+    fish = rtt.ParametricMedium(lambda p, x, y: 1.0 / (1.0 + p * (x * x + y * y)),
+                                torch.tensor(1.0, dtype=torch.float64,
+                                             device=device))
+    with torch.no_grad():
+        d = rtt.trace_diff("op1", fish, torch.tensor(fpos0, device=device),
+                           torch.tensor(fth0, device=device), fds,
+                           steps=DIFF_CHECK_STEPS, box=tuple(scen.box),
+                           device=device)
+    s = rtt.trace("op1", scen, rtt.analytic_medium("fisheye"), delta_s=fds, dtype=torch.float64, pos0=fpos0,
+        theta0=fth0, max_size=DIFF_CHECK_STEPS + 1, mode="metrics",
+        device=device)
+    scan_dpos = float((d.pos - s.final.pos).abs().max())
+    t_gamma = time.perf_counter()
+    # the anisotropy gamma through the Newton op (nested forward mode,
+    # reverse mode over it) and the golden op
+    vert = rtt.ParametricMedium(
+        lambda p, x, y: 1.0 / (18.0 + 2.0 * y) + 0.0 * x + 0.0 * p,
+        torch.tensor(1.0, dtype=torch.float64, device=device))
+    gpos0 = torch.tensor([[0.0, -1.0]] * 4, dtype=torch.float64,
+                         device=device)
+    gth0 = torch.full((4,), np.pi / 4, dtype=torch.float64, device=device)
+
+    def endsum(op, gam):
+        pos, *_ = rtt.trace_diff(op, vert, gpos0, gth0, 0.01,
+                                 steps=DIFF_GAMMA_STEPS, gamma=gam,
+                                 device=device)
+        return pos.sum()
+
+    gam = torch.tensor(3.0, dtype=torch.float64, device=device,
+                       requires_grad=True)
+    g_newton = float(torch.autograd.grad(endsum("op10n", gam), gam)[0])
+    hg = DIFF_GAMMA_H
+    with torch.no_grad():
+        fd_newton = (float(endsum("op10n", 3.0 + hg))
+                     - float(endsum("op10n", 3.0 - hg))) / (2 * hg)
+    g_gold, = torch.autograd.grad(endsum("op10", gam), gam,
+                                  allow_unused=True)
+    g_gold = 0.0 if g_gold is None else float(g_gold)
+    newton_rel = abs(g_newton - fd_newton) / abs(fd_newton)
+    t_end = time.perf_counter()
+    print(f"[diff] float64 checks, {DIFF_CHECK_RAYS} rays x "
+          f"{DIFF_CHECK_STEPS} steps ({t_end - t1:.1f} s: remat "
+          f"{t_fd - t1:.1f}, differences {t_scan - t_fd:.1f}, scan "
+          f"{t_gamma - t_scan:.1f}, gamma {t_end - t_gamma:.1f}): "
+          f"gradient against central differences on its 3 largest nodes, "
+          f"worst relative {worst_fd:.3e} (bar 5e-5); remat 1 against "
+          f"{DIFF_REMAT}: loss equal {got[1][0] == got[DIFF_REMAT][0]}, "
+          f"gradient {remat_rel:.3e} of its largest entry (bar 1e-12), "
+          f"peak device memory {remat_peak[1] / 1e6:.1f} MB against "
+          f"{remat_peak[DIFF_REMAT] / 1e6:.1f} MB; "
+          f"trace_diff against the scan trace (op1, fisheye) |dpos| "
+          f"{scan_dpos:.3e} (bar 1e-12); gamma through op10n "
+          f"{g_newton:.12e} against central differences {fd_newton:.12e}, "
+          f"relative {newton_rel:.3e} (bar 1e-4), through the golden op10 "
+          f"{g_gold!r} (exactly 0 required)", flush=True)
+    if not (worst_fd < 5e-5 and got[1][0] == got[DIFF_REMAT][0]
+            and remat_rel <= 1e-12 and scan_dpos <= 1e-12
+            and newton_rel < 1e-4 and g_gold == 0.0):
+        fail("diff: a float64 check failed")
+    secs_all = time.perf_counter() - t0
+    print(f"[diff] {secs_all:.1f} s", flush=True)
+    return secs_all, secs, peaks
+
+
+def dyn3_focus_and_bars(s32, s64, bars):
+    """trace_dynamic3 float32 against float64 at the [dyn3] grid bars:
+    (ok, line).  KMAH and the locator are held on rays clear of a focus
+    below float32's resolution (dyn3_oracle's rule)."""
+    dpos = float((s32.pos.double() - s64.pos).abs().max())
+    dtt = float((s32.traveltime.double() - s64.traveltime).abs().max())
+    scale = s64.history[..., 5].abs().amax(0)
+    focus = s64.history[1:, :, 5].abs().amin(0) < DYN3_FOCUS_FLOOR * scale
+    rel = ((s32.detq.double() - s64.detq).abs() / scale).cpu().numpy()
+    p95 = float(np.percentile(rel, 95))
+    kmah_off = s32.kmah.long() != s64.kmah.long()
+    loc_off = ((s32.min_absdet_step.long() - s64.min_absdet_step.long())
+               .abs() > bars["locator"])
+    bad = int(((kmah_off | loc_off) & ~focus).sum())
+    ok = (dpos <= bars["pos"] and dtt <= bars["tt"]
+          and p95 < bars["det_p95"] and bad == 0)
+    return ok, (f"|dpos| {dpos:.3e} (bar {bars['pos']}), |dtt| {dtt:.3e} "
+                f"(bar {bars['tt']}), det Q p95 relative to its path "
+                f"maximum {p95:.3e} (bar {bars['det_p95']}), KMAH or "
+                f"locator off on {bad} of the {int((~focus).sum())} rays "
+                f"clear of a focus (0 required)")
+
+
+def phase_df3(device):
+    """[df3]: the df32 facade ``df_eval_medium3_from_samples`` of the grid3
+    phase's 71^3 fisheye samples: trace3d at float32 on 2^16 tilted rays x
+    250 steps against trace3d at float64 on the float64 C1Grid3Medium of
+    the same samples (|dpos| < 5e-6, test_df_grid3.py:134);
+    trace_dynamic3 at float32 on 4,096 rays x 250 steps (its tangent from
+    ``_hess3`` through ``_medium_lin3``, counted) against float64 on that
+    medium at DYN3_BARS["grid"]'s bars; one find_eigenrays3(dtype=float32) solve
+    on the card on the facade of test_df_grid3.py:137-163's 21^3 samples
+    against the float64 solve, run on the CPU (traveltimes within 5e-5 (1
+    + max |tt|)); each tier's ms a step."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import AX3, fan3
+    from raytracing_tpu_torch.engine import df_grid3
+    t0 = time.perf_counter()
+    X, Y, Z = np.meshgrid(AX3, AX3, AX3, indexing="ij")
+    F = 1.0 / (1.0 + X ** 2 + Y ** 2 + Z ** 2)
+    facade = rtt.df_eval_medium3_from_samples(F, AX3, AX3, AX3,
+                                              device=device)
+    m64 = rtt.c1_medium3_from_samples(F, AX3, AX3, AX3, device=device,
+                                      dtype=torch.float64)
+    mb = (facade.med.Nh.numel() + facade.med.Nl.numel()) * 4 / 1e6
+    print(f"[df3] facade of the {len(AX3)}^3 fisheye samples ({mb:.1f} MB "
+          f"of split tables) and the float64 C1Grid3Medium built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ms = {}
+
+    def timed(label, fn, steps):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms[label] = (time.perf_counter() - t) * 1e3 / steps
+        return out
+
+    pos0, dir0, _, _, box = fan3("tilted", DF3_RAYS, 0)
+    ds = 2 * np.pi / 600
+    kw = dict(delta_s=ds, steps=DF3_STEPS, box=box, mode="metrics",
+              device=device)
+    r32 = timed("trace3d float32 facade", lambda: rtt.trace3d(
+        "op6", facade, pos0=pos0, dir0=dir0, dtype=torch.float32, **kw),
+        DF3_STEPS)
+    r64 = timed("trace3d float64 C1Grid3Medium", lambda: rtt.trace3d(
+        "op6", m64, pos0=pos0.astype(np.float64),
+        dir0=dir0.astype(np.float64), dtype=torch.float64, **kw), DF3_STEPS)
+    dpos3 = float((r32.final.pos.double() - r64.final.pos).abs().max())
+    print(f"[df3] trace3d op6 {DF3_RAYS} rays x {DF3_STEPS} steps: float32 "
+          f"facade against float64 C1Grid3Medium |dpos| {dpos3:.3e} (bar "
+          f"5e-6)", flush=True)
+
+    bars = DYN3_BARS["grid"]
+    n = DF3_DYN_RAYS
+    calls = []
+    real = df_grid3._hess3
+    df_grid3._hess3 = lambda *a: calls.append(1) or real(*a)
+    try:
+        s32 = timed("trace_dynamic3 float32 facade", lambda: rtt.trace_dynamic3(
+            "op6", facade, pos0=pos0[:n], dir0=dir0[:n], delta_s=ds,
+            steps=DF3_DYN_STEPS, box=box, mode="metrics",
+            dtype=torch.float32, device=device), DF3_DYN_STEPS)
+    finally:
+        df_grid3._hess3 = real
+    s64 = timed("trace_dynamic3 float64 C1Grid3Medium",
+                lambda: rtt.trace_dynamic3(
+                    "op6", m64, pos0=pos0[:n].astype(np.float64),
+                    dir0=dir0[:n].astype(np.float64), delta_s=ds,
+                    steps=DF3_DYN_STEPS, box=box, mode="history",
+                    dtype=torch.float64, device=device), DF3_DYN_STEPS)
+    ok_dyn, line = dyn3_focus_and_bars(s32, s64, bars)
+    print(f"[df3] trace_dynamic3 op6 {n} rays x {DF3_DYN_STEPS} steps, the "
+          f"facade's tangent by _hess3 ({len(calls)} evaluations, "
+          f">= {DF3_DYN_STEPS} required) against float64 C1Grid3Medium: "
+          f"{line}", flush=True)
+
+    ax = np.linspace(-1.6, 1.6, 21)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    F21 = np.transpose(1.0 / (1.0 + X ** 2 + Y ** 2 + Z ** 2), (2, 1, 0))
+    ekw = dict(source=(1.0, 0.0, 0.0), receivers=[(-0.9, 0.02, 0.01)],
+               delta_s=2 * np.pi / 500, max_size=1200,
+               box=(-1.4, 1.4, -1.4, 1.4, -1.4, 1.4),
+               fan=(-0.35, 0.35, 13, -0.35, 0.35, 13), iters=8, tol=3e-6,
+               device=device)
+    t_e = time.perf_counter()
+    e32 = rtt.find_eigenrays3("op6", rtt.df_eval_medium3_from_samples(
+        F21, ax, ax, ax, device=device), dtype=torch.float32, **ekw)
+    t_e32 = time.perf_counter() - t_e
+    # the float64 reference solve runs on the host's CPU: the same scan
+    # tier, ~2.5x faster than the card at these 1-169 rays, whose host
+    # dispatch bounds every step
+    e64 = rtt.find_eigenrays3("op6", rtt.c1_medium3_from_samples(
+        F21, ax, ax, ax, device="cpu", dtype=torch.float64),
+        **{**ekw, "device": "cpu"})
+    tt32 = np.sort(np.asarray(e32.traveltime, np.float64))
+    tt64 = np.sort(np.asarray(e64.traveltime, np.float64))
+    ok_eig = len(tt32) == len(tt64) >= 1
+    dtt = float(np.abs(tt32 - tt64).max()) if ok_eig else float("inf")
+    bar = 5e-5 * (1.0 + float(np.abs(tt64).max())) if len(tt64) else 0.0
+    print(f"[df3] find_eigenrays3 float32 on the 21^3 facade on the card "
+          f"({t_e32:.1f} s) against float64 on the CPU "
+          f"({time.perf_counter() - t_e - t_e32:.1f} s): "
+          f"{len(tt32)} and {len(tt64)} arrivals, traveltimes {tt32} and "
+          f"{tt64}, |dtt| {dtt:.3e} (bar {bar:.3e})", flush=True)
+    print("[df3] ms a step: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in ms.items()), flush=True)
+    if not (dpos3 < 5e-6 and ok_dyn and len(calls) >= DF3_DYN_STEPS
+            and ok_eig and dtt < bar):
+        fail("df3: a check of the facade failed")
+    secs = time.perf_counter() - t0
+    print(f"[df3] {secs:.1f} s", flush=True)
+    return secs, ms
+
+
+def phase_stream(device):
+    """[stream]: stream_history on the fisheye with op7 (its window and
+    order ramp across chunk edges), 4,096 rays, chunk 512, one turn of
+    1,200 rows, against trace(mode="history") to the bit; the same at
+    2^18 rays over one turn of the headline divisor (4,588 rows), each
+    chunk consumed and dropped, with the device's
+    peak memory against one turn's history (fails above 2 chunks' rows
+    plus the state); trace_chunked against trace(mode="metrics") on vert
+    with exits, every final field and exit_step to the bit."""
+    import dataclasses
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.engine.streaming import (
+        stream_history, trace_chunked)
+    from raytracing_tpu_torch.engine.trace import prepare
+    t0 = time.perf_counter()
+    scen = rtt.scenario("fisheye")
+    med = rtt.analytic_medium("fisheye")
+    rng = np.random.default_rng(0)
+    ckw = dict(delta_s=2 * np.pi / STREAM_CHECK_DIVISOR,
+               divisor=STREAM_CHECK_DIVISOR + 1, n_turns=1,
+               dtype=torch.float32, device=device)
+    pos0, theta0 = launch_fan(scen, STREAM_RAYS)
+    theta0 = jittered(theta0, rng)
+    chunks = list(stream_history("op7", scen, med, chunk=STREAM_CHUNK,
+                                 pos0=pos0, theta0=theta0, **ckw))
+    ref = rtt.trace("op7", scen, med, pos0=pos0, theta0=theta0, **ckw)
+    same = np.array_equal(np.concatenate(chunks, 0),
+                          ref.history.cpu().numpy())
+    check_secs = time.perf_counter() - t0
+    rows = sum(c.shape[0] for c in chunks)
+    del chunks, ref
+    print(f"[stream] op7 fisheye {STREAM_RAYS} rays, {rows} rows in chunks "
+          f"of {STREAM_CHUNK}: equal to trace(mode='history') to the bit: "
+          f"{same} ({check_secs:.1f} s, both runs)", flush=True)
+
+    kw = dict(delta_s=2 * np.pi / HEADLINE_DIVISOR,
+              divisor=HEADLINE_DIVISOR + 1, n_turns=1, dtype=torch.float32,
+              device=device)
+    big0, bigth = launch_fan(scen, STREAM_BIG_RAYS)
+    bigth = jittered(bigth, rng)
+    st = prepare("op7", scen, med, delta_s=kw["delta_s"], device=device,
+                 max_size=2, dtype=torch.float32, pos0=big0,
+                 theta0=bigth)[1]
+    state_bytes = sum(t.numel() * t.element_size() for t in st
+                      if torch.is_tensor(t))
+    del st
+    row_bytes = STREAM_BIG_RAYS * 6 * 4
+    limit = 2 * STREAM_CHUNK * row_bytes + state_bytes
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    n_rows = 0
+    last = None
+    for c in stream_history("op7", scen, med, chunk=STREAM_CHUNK, pos0=big0,
+                            theta0=bigth, **kw):
+        n_rows += c.shape[0]
+        last = c[-1, :, :2].copy()     # the chunk itself is dropped
+    finite = bool(np.isfinite(last).all())
+    sync()
+    big_secs = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[stream] op7 fisheye {STREAM_BIG_RAYS} rays x one turn: "
+          f"{n_rows} rows ({n_rows * row_bytes / 1e9:.2f} GB of history) "
+          f"streamed in {big_secs:.1f} s; peak device memory "
+          f"{peak / 1e9:.3f} GB (limit {limit / 1e9:.3f} GB: 2 chunks' rows "
+          f"plus the {state_bytes / 1e6:.1f} MB state); last row's "
+          f"positions finite {finite}", flush=True)
+
+    vscen = dataclasses.replace(rtt.scenario("vert"), s_max=20.0,
+                                box=(-2.0, 5.0, -2.5, 0.0))
+    vmed = rtt.analytic_medium("vert_heterogeneous")
+    vp, vt = launch_fan(vscen, STREAM_RAYS)
+    vt = (vt + rng.uniform(-0.3, 0.3, STREAM_RAYS)).astype(np.float32)
+    vkw = dict(delta_s=0.05, dtype=torch.float32, pos0=vp, theta0=vt,
+               device=device)
+    t2 = time.perf_counter()
+    one = rtt.trace("op8", vscen, vmed, mode="metrics", **vkw)
+    chk = trace_chunked("op8", vscen, vmed, chunk=13, **vkw)
+    fields = ("pos", "traveltime", "dist_sim", "active", "mom_count",
+              "mom_mean", "mom_m2")
+    chunked_same = (all(torch.equal(getattr(chk.final, f),
+                                    getattr(one.final, f)) for f in fields)
+                    and torch.equal(chk.exit_step, one.exit_step))
+    exits = int((one.exit_step < one.exit_step.max()).sum())
+    print(f"[stream] trace_chunked op8 vert {STREAM_RAYS} rays, chunks of 13 "
+          f"steps, {exits} rays exiting before the end: final state and "
+          f"exit_step equal to trace(mode='metrics') to the bit: "
+          f"{chunked_same} ({time.perf_counter() - t2:.1f} s, both runs)",
+          flush=True)
+    if not (same and rows == STREAM_CHECK_DIVISOR + 1 and finite
+            and n_rows == HEADLINE_DIVISOR + 1 and peak <= limit
+            and chunked_same and exits > 0):
+        fail("stream: a streaming check failed")
+    secs = time.perf_counter() - t0
+    print(f"[stream] {secs:.1f} s", flush=True)
+    return secs, peak
+
+
+def phase_profiling(device):
+    """[profiling]: ``device_trace`` around one headline launch (2^20 rays,
+    one fisheye turn) writes a Chrome trace that names fisheye_op1; then
+    ``step_timer``'s rate on that launch against CUDA events' (within
+    10 %, median of 3).  The launches here are not the main path's: the
+    kernel's count is taken back."""
+    import glob
+    import os
+    from raytracing_tpu_torch.kernels import fisheye as kf
+    from raytracing_tpu_torch.utils.profiling import device_trace, step_timer
+    t0 = time.perf_counter()
+    counted = kf.KERNEL.launches
+    run = kf.make_fisheye_runner(RAYS_MAIN, HEADLINE_DIVISOR, 1,
+                                 device=device)
+    run()
+    from raytracing_tpu_torch.kernels import build
+    logdir = str(build.BUILD_DIR / "device_trace")
+    before = set(glob.glob(os.path.join(logdir, "*.pt.trace.json")))
+    with device_trace(logdir) as prof:
+        run()
+    new = sorted(set(glob.glob(os.path.join(logdir, "*.pt.trace.json")))
+                 - before)
+    names = set()
+    if new:
+        with open(new[-1]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernel_names = sorted(n for n in names if "fisheye_op1" in n)
+    dev_us = [getattr(e, "device_time_total", getattr(e, "cuda_time_total",
+                                                      0.0))
+              for e in prof.key_averages() if "fisheye_op1" in e.key]
+    print(f"[profiling] device_trace of one headline launch: {len(new)} "
+          f"trace file ({new[-1] if new else None}, "
+          f"{os.path.getsize(new[-1]) if new else 0} bytes), events naming "
+          f"fisheye_op1: {kernel_names}, its device time "
+          f"{sum(dev_us) / 1e3:.3f} ms", flush=True)
+    ratios = []
+    steps = run.steps
+    for _ in range(3):
+        sink = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with step_timer(RAYS_MAIN * steps, sink=sink, device=device):
+            start.record()
+            run()
+            end.record()
+        ev_rate = RAYS_MAIN * steps / (start.elapsed_time(end) / 1e3)
+        ratios.append(sink[0].rate / ev_rate)
+    ratio = float(np.median(ratios))
+    kf.KERNEL.launches = counted
+    print(f"[profiling] step_timer on the headline launch: "
+          f"{sink[0].rate:.4e} ray-steps/s, CUDA events {ev_rate:.4e}; "
+          f"ratio median of 3 {ratio:.4f} ({', '.join(f'{r:.4f}' for r in ratios)}; "
+          f"within 10 % required)", flush=True)
+    if not (new and kernel_names and 0.9 <= ratio <= 1.1):
+        fail("profiling: no trace naming fisheye_op1, or step_timer and "
+             "CUDA events disagree")
+    secs = time.perf_counter() - t0
+    print(f"[profiling] {secs:.1f} s", flush=True)
+    return secs
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -4105,6 +4645,34 @@ def main():
     print(f"[phase 17] the 3-D dynamic phase {time.perf_counter() - t_d3:.1f}"
           f" s: [dyn3-vs-plain] {t_d3_main - t_d3:.1f} s, [eigenrays3] "
           f"{eig3_secs:.1f} s", flush=True)
+    # this slice: the differentiable tier, the 3-D df32 facade, history
+    # streaming and profiling (no kernels of their own).  The earlier
+    # paths' runs and media are dropped first (their figures are in
+    # `times`, `errs` and `launches`), so that phase 18 starts from a card
+    # holding only what it makes (it allocates up to 16 GB)
+    del (media, runs, sruns, search_runs, sweep_pos, druns, df_media, dfruns,
+         cmedia, cfields, curuns, gmed, runs3, druns3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the objects the earlier phases left are moved out of the collector's
+    # reach: phase 18's host-bound loops create tensors by the million, and
+    # every full collection would walk them all again
+    tracked = len(gc.get_objects())
+    gc.freeze()
+    print(f"[phase 18] device memory at its start: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved; "
+          f"{tracked} objects frozen out of the garbage collector",
+          flush=True)
+    t_api = time.perf_counter()
+    diff_secs, _, _ = phase_diff("cuda")
+    df3_secs, _ = phase_df3("cuda")
+    stream_secs, _ = phase_stream("cuda")
+    prof_secs = phase_profiling("cuda")
+    api_secs = time.perf_counter() - t_api
+    print(f"[phase 18] [diff] {diff_secs:.1f} s, [df3] {df3_secs:.1f} s, "
+          f"[stream] {stream_secs:.1f} s, [profiling] {prof_secs:.1f} s: "
+          f"{api_secs:.1f} s together", flush=True)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
           f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
           f"phase's {t_cu - t_df:.1f} s, of which its 2^20-ray"
@@ -4113,7 +4681,7 @@ def main():
           f"{t_3d - t_cu:.1f} s; the 3-D phase's "
           f"{t_d3 - t_3d:.1f} s, of which [3d-shapes] "
           f"{secs3:.1f} s; the 3-D dynamic phase's "
-          f"{time.perf_counter() - t_d3:.1f} s; "
+          f"{t_api - t_d3:.1f} s; phase 18's {api_secs:.1f} s; "
           f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
           flush=True)
     print(json.dumps({"kernels": [

@@ -11,7 +11,10 @@ media, ``CustomMedium``, traced into kernels of their own; and the 3-D
 kinematic and dynamic tiers: ``trace3d``, ``fast_trace3``,
 ``trace_dynamic3``, ``fast_dynamic3`` and the 3-D eigenray solver on the
 analytic 3-D fields, lifted and user-defined 3-D media and tri-Hermite
-sampled 3-D grids), written as
+sampled 3-D grids; the 3-D df32 facade, ``df_eval_medium3_from_samples``;
+the differentiable tier, ``trace_diff`` on ``ParametricMedium``; history
+streaming, ``engine/streaming.py``, and profiling, ``utils/profiling.py``),
+written as
 plain torch functions on tensors, with the JAX package's TPU kernels
 replaced by CUDA C++ kernels for the H100 (``csrc/``, built at first use by
 :mod:`raytracing_tpu_torch.kernels.build`; a custom medium's by
@@ -26,6 +29,18 @@ from raytracing_tpu_torch.config import (  # noqa: F401
     SIGMA,
     ScenarioConfig,
     scenario,
+)
+from raytracing_tpu_torch.engine.df_grid3 import (  # noqa: F401
+    DfEvalMedium3,
+    df_c1_medium3_from_samples,
+    df_eval_medium3_from_samples,
+)
+from raytracing_tpu_torch.engine.diff import (  # noqa: F401
+    DiffTrace,
+    ParametricMedium,
+    parametric_grid_medium,
+    parametric_profile_medium,
+    trace_diff,
 )
 from raytracing_tpu_torch.engine.df_grid import (  # noqa: F401
     df_c1_medium_from_samples,
@@ -144,4 +159,7 @@ __all__ = [
     "Stratified3D", "analytic_medium3",
     "Dynamic3Result", "trace_dynamic3", "Eigenrays3", "find_eigenrays3",
     "Dyn3Final", "fast_dynamic3",
+    "df_c1_medium3_from_samples", "df_eval_medium3_from_samples",
+    "DfEvalMedium3", "ParametricMedium", "parametric_grid_medium",
+    "parametric_profile_medium", "trace_diff", "DiffTrace",
 ]

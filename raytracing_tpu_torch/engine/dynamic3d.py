@@ -28,7 +28,8 @@ normalization and the exact Rodrigues rotation differentiated term by
 term, with the medium's n, gradient and their derivatives along each
 tangent from :func:`_medium_lin3`: the closed-form Hessians of the
 analytic fields (``kernels/dynamic3d.py::field3_fn_h``) and of the
-tri-Hermite patch (``media/grid3.py::blend3_h``), the 2-D channel
+tri-Hermite patch (``media/grid3.py::blend3_h``; its df32 facade's
+``engine/df_grid3.py::_hess3``), the 2-D channel
 evaluators of ``engine/dynamic.py::_medium_jvp`` under ``Stratified3D``,
 and ``torch.func.jvp`` of ``n_and_grad3`` for any other medium
 (``Custom3D``).  PyTorch's forward-mode autodiff through the whole step
@@ -136,7 +137,9 @@ def _medium_lin3(medium, dtype):
 
     The analytic fields and grid3 media contract a closed-form Hessian
     (a coordinate clamped at the grid's edge has zero derivative, as the
-    jvp of the clamp gives); a user's field (``Custom3D``, or the
+    jvp of the clamp gives), and so does the df32 facade
+    ``DfEvalMedium3``, unmasked, as JAX's ``custom_jvp`` rule gives
+    (``engine/df_grid3.py::_hess3``); a user's field (``Custom3D``, or the
     ``CustomMedium`` under a ``Stratified3D``) its derivatives by
     reverse-mode autograd on its elementwise definition (:func:`_autograd`,
     ~40x faster than nested ``torch.func.jvp`` calls); a ``Stratified3D``
@@ -144,6 +147,7 @@ def _medium_lin3(medium, dtype):
     (``engine/dynamic.py::_medium_jvp``); any other medium goes through
     ``torch.func.jvp``.
     """
+    from raytracing_tpu_torch.engine.df_grid3 import DfEvalMedium3
     from raytracing_tpu_torch.kernels.dynamic3d import field3_fn_h, hdot
     from raytracing_tpu_torch.media.fields3d import (
         Analytic3D, Custom3D, Stratified3D)
@@ -179,6 +183,16 @@ def _medium_lin3(medium, dtype):
                 inside(z, medium.z0, medium.inv_hz, medium.nz)], dim=-1)
             g = torch.stack(g, dim=-1)
             return n, g, hess_lin(g, h, mask)
+        return f
+    if isinstance(medium, DfEvalMedium3):
+        # JAX's custom_jvp rule (df_grid3.py:331-354): the df gradient and
+        # the closed-form float32 Hessian, no autodiff through the df
+        # contraction
+        def f(pos):
+            x, y, z = pos.unbind(-1)
+            n, g = medium.n_and_grad3(x, y, z)
+            g = torch.stack(g, dim=-1)
+            return n, g, hess_lin(g, medium.hess3(x, y, z))
         return f
     if isinstance(medium, Custom3D):
         def f(pos):

@@ -87,13 +87,27 @@ def _row(st: RayState):
 
 
 def run_steps(op, st0: RayState, medium, gamma, delta_s, *, max_size: int,
-              step_limit: int, box, history: bool) -> TraceResult:
-    """Step ``max_size - 1`` times from ``st0`` (the body of trace.py:100-175)."""
+              step_limit: int, box, history: bool,
+              step_offset: int = 0) -> TraceResult:
+    """Step ``max_size - 1`` times from ``st0`` (the body of trace.py:100-175).
+
+    The steps are numbered ``step_offset + 1`` .. ``step_offset + max_size -
+    1``: a chunked run (``engine/streaming.py``) passes the steps done before
+    it, so that op7's order ramp and ``exit_step`` see global indices, and
+    ``step_limit`` is global too.  History rows are written into one
+    preallocated (max_size, R, 6) tensor, so a run holds its rows once.
+    """
     stats = st0.mom_count is not None
     # rays that never exit report step_limit as exit_step
     st = st0._replace(exit_step=torch.clamp(st0.exit_step, max=step_limit))
-    rows, nrows = [], []
-    for i in range(1, max_size):
+    hist = n_hist = None
+    if history:
+        row0 = _row(st0)
+        hist = row0.new_empty((max_size,) + tuple(row0.shape))
+        n_hist = st0.n_eff.new_empty((max_size,) + tuple(st0.n_eff.shape))
+        hist[0] = row0
+        n_hist[0] = st0.n_eff
+    for k, i in enumerate(range(step_offset + 1, step_offset + max_size), 1):
         pt = RayPoint(pos=st.pos, angle=st.angle, unitv=st.unitv, n=st.n,
                       grad=st.grad, coef=st.coef, window=st.window)
         res = op(pt, i, medium, gamma, delta_s)
@@ -134,16 +148,13 @@ def run_steps(op, st0: RayState, medium, gamma, delta_s, *, max_size: int,
         st2 = st2._replace(active=active2, exit_step=exit_step)
 
         if history:
-            mask = st.active[..., None]
-            rows.append(torch.where(mask, _row(st2), torch.zeros_like(_row(st2))))
-            nrows.append(torch.where(st.active, st2.n_eff,
-                                     torch.zeros_like(st2.n_eff)))
+            row = _row(st2)
+            hist[k] = torch.where(st.active[..., None], row,
+                                  torch.zeros_like(row))
+            n_hist[k] = torch.where(st.active, st2.n_eff,
+                                    torch.zeros_like(st2.n_eff))
         st = st2
 
-    hist = n_hist = None
-    if history:
-        hist = torch.stack([_row(st0)] + rows, dim=0)
-        n_hist = torch.stack([st0.n_eff] + nrows, dim=0)
     return TraceResult(final=st, exit_step=st.exit_step,
                        dist_real=st.dist_real, dist_sim=st.dist_sim,
                        history=hist, n_hist=n_hist)
@@ -155,6 +166,28 @@ def _torch_dtype(dtype) -> torch.dtype:
         return dtype
     return {np.dtype(np.float32): torch.float32,
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def prepare(op_name: str, scen: config.ScenarioConfig, medium, *,
+            delta_s: float, device, max_size: int, dtype, pos0, theta0):
+    """``(op, st0, gamma, ds)`` of a trace: the op, the launch state on
+    ``device`` at ``dtype``, and the step size and gamma rounded to the
+    working dtype, as the JAX tier's traced scalars are.  ``pos0``/``theta0``
+    None take the scenario's launch fan."""
+    pos0 = torch.as_tensor(np.asarray(scen.pos0 if pos0 is None else pos0),
+                           dtype=dtype, device=device)
+    theta0 = torch.as_tensor(np.asarray(scen.theta0 if theta0 is None
+                                        else theta0),
+                             dtype=dtype, device=device)
+    np_dtype = theta0.cpu().numpy().dtype
+    ds = float(np_dtype.type(delta_s))
+    gamma = float(np_dtype.type(scen.gamma))
+    op = build_op(canonical(op_name), dtype)
+    st0 = initial_state(pos0, theta0, medium, gamma,
+                        with_window=op.uses_window,
+                        with_momentum_stats=scen.is_vert,
+                        max_size=int(max_size))
+    return op, st0, gamma, ds
 
 
 def trace(op_name: str, scen: config.ScenarioConfig, medium, *,
@@ -178,23 +211,9 @@ def trace(op_name: str, scen: config.ScenarioConfig, medium, *,
         max_size = scen.max_size(delta_s, divisor, n_turns)
     if step_limit is None:
         step_limit = max_size - 1
-
-    pos0 = torch.as_tensor(np.asarray(scen.pos0 if pos0 is None else pos0),
-                           dtype=dtype, device=device)
-    theta0 = torch.as_tensor(np.asarray(scen.theta0 if theta0 is None
-                                        else theta0),
-                             dtype=dtype, device=device)
-    # the step size and gamma round to the working dtype, as the JAX tier's
-    # traced scalars do
-    np_dtype = theta0.cpu().numpy().dtype
-    ds = float(np_dtype.type(delta_s))
-    gamma = float(np_dtype.type(scen.gamma))
-
-    op = build_op(op_name, dtype)
-    st0 = initial_state(pos0, theta0, medium, gamma,
-                        with_window=op.uses_window,
-                        with_momentum_stats=scen.is_vert,
-                        max_size=int(max_size))
+    op, st0, gamma, ds = prepare(op_name, scen, medium, delta_s=delta_s,
+                                 device=device, max_size=int(max_size),
+                                 dtype=dtype, pos0=pos0, theta0=theta0)
     return run_steps(op, st0, medium, gamma, ds, max_size=int(max_size),
                      step_limit=int(step_limit), box=tuple(scen.box),
                      history=mode == "history")

@@ -33,11 +33,17 @@ interchange format, so neither package imports the other:
 * :func:`medium_from_numpy` builds any of the six sampled media
   (``GridMedium``, ``StratifiedGridMedium``, ``HermiteGridMedium``,
   ``C1GridMedium``, ``C1StratifiedMedium``, the 3-D ``C1Grid3Medium``) and
-  the four df32 media
+  the five df32 media
   (``DfGridMedium``, ``DfC1Medium``, ``DfC1Profile``, ``DfEvalProfile``,
-  whose ``prof`` comes as a nested dict of its ``DfC1Profile``'s fields)
+  whose ``prof`` comes as a nested dict of its ``DfC1Profile``'s fields,
+  and the 3-D ``DfC1Medium3`` with its ``Nh``/``Nl`` words and split
+  scalars)
   from the JAX medium's class name, its arrays as numpy and its static
-  fields, so both packages trace the same tables;
+  fields, so both packages trace the same tables; and the two parametric
+  media of ``engine/diff.py`` by their builders' names,
+  ``parametric_grid_medium`` (values, x0, y0, hx, hy) and
+  ``parametric_profile_medium`` (values, y0, hy), from the arrays the JAX
+  builder was given;
 * :func:`df_state_from_numpy` builds the df32 kernels' 8-plane
   :class:`~raytracing_tpu_torch.kernels.df.DfState` from the JAX df tier's
   resume tuple (``kernels/df.py:326-329``: xh, xl, yh, yl, uxh, uxl, uyh,
@@ -54,6 +60,9 @@ from raytracing_tpu_torch.engine.state import RayState
 from raytracing_tpu_torch.engine.trace import TraceResult
 from raytracing_tpu_torch.engine.df_grid import (
     DfC1Medium, DfC1Profile, DfEvalProfile, DfGridMedium)
+from raytracing_tpu_torch.engine.df_grid3 import DfC1Medium3
+from raytracing_tpu_torch.engine.diff import (
+    parametric_grid_medium, parametric_profile_medium)
 from raytracing_tpu_torch.kernels.df import DfState
 from raytracing_tpu_torch.kernels.dynamic import DynState
 from raytracing_tpu_torch.kernels.dynamic3d import Dyn3State
@@ -69,9 +78,12 @@ from raytracing_tpu_torch.media.spline import GridMedium, StratifiedGridMedium
 MEDIUM_CLASSES = {cls.__name__: cls for cls in (
     GridMedium, StratifiedGridMedium, HermiteGridMedium, C1GridMedium,
     C1StratifiedMedium, C1Grid3Medium, DfGridMedium, DfC1Medium,
-    DfC1Profile, DfEvalProfile)}
+    DfC1Profile, DfEvalProfile, DfC1Medium3)}
 #: fields that hold a medium of their own, by the class they hold
 _NESTED = {"prof": "DfC1Profile"}
+#: media made by a builder from the arrays and numbers it takes
+_BUILDERS = {f.__name__: f for f in (parametric_grid_medium,
+                                     parametric_profile_medium)}
 
 
 def _to_numpy(t):
@@ -234,10 +246,13 @@ def medium_from_numpy(kind: str, fields: dict, *, device):
     fields: arrays (numpy, e.g. ``np.asarray`` of a JAX medium's tables)
     become tensors on ``device`` in their own dtype, static fields are
     copied.  Fields with defaults (the Hermite and C1 grids' window bounds)
-    may be missing."""
+    may be missing.  A builder's name (``_BUILDERS``) calls it with
+    ``fields`` as its arguments."""
+    if kind in _BUILDERS:
+        return _BUILDERS[kind](**fields, device=device)
     if kind not in MEDIUM_CLASSES:
         raise ValueError(f"unknown medium class {kind!r}; have "
-                         f"{sorted(MEDIUM_CLASSES)}")
+                         f"{sorted(MEDIUM_CLASSES) + sorted(_BUILDERS)}")
     vals = {}
     for f in dataclasses.fields(MEDIUM_CLASSES[kind]):
         if f.name not in fields:

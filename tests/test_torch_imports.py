@@ -106,3 +106,46 @@ PATH_DYN3 = ("raytracing_tpu_torch.kernels.dynamic3d",
 
 def test_3d_dynamic_modules_import_without_jax():
     _import_without_jax(PATH_DYN3)
+
+
+#: the differentiable tier, the 3-D df32 media, history streaming and
+#: profiling, and the two example twins (examples/*_torch.py)
+PATH_API = ("raytracing_tpu_torch.utils.profiling",
+            "raytracing_tpu_torch.engine.streaming",
+            "raytracing_tpu_torch.engine.df_grid3",
+            "raytracing_tpu_torch.engine.diff")
+EXAMPLE_TWINS = ("examples/inverse_medium_torch.py",
+                 "examples/tomography_torch.py")
+
+
+def test_api_modules_import_without_jax():
+    _import_without_jax(PATH_API)
+
+
+@pytest.mark.parametrize("path", EXAMPLE_TWINS)
+def test_example_twin_imports_no_jax(path):
+    """The twins parse clean of JAX imports, and importing one loads no JAX
+    module."""
+    import subprocess
+    import sys
+    assert forbidden_imports((ROOT / path).read_text()) == []
+    code = (f"import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('twin', "
+            f"{str(ROOT / path)!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nassert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_jax_public_api_is_a_subset_of_the_port():
+    """Every name of the JAX package's ``__all__`` is in the port's: the
+    port's public API is whole."""
+    import raytracing_tpu as rt
+    import raytracing_tpu_torch as rtt
+    assert sorted(set(rt.__all__) - set(rtt.__all__)) == []
+    for name in rt.__all__:
+        assert hasattr(rtt, name), name
