@@ -225,6 +225,30 @@ either is missing or any check fails.  Phases, one line or more each:
    bit, at 2**18 rays over one turn within 2 chunks' rows of device
    memory, and trace_chunked against trace(mode="metrics"); ``[profiling]``
    device_trace naming fisheye_op1, step_timer against CUDA events.
+19. the serving layer (raytracing_tpu_torch/serve.py) on the card: the
+   server started on a thread (the kernel library already built), /healthz
+   naming the card, /v1/models equal to the JAX server's lists; the
+   serving path, posted over HTTP one request after another: /v1/trace on
+   the headline (fisheye op1, divisor 4587, one turn) at 2**20 and 2**24
+   rays (fisheye_op1), interface op6, aniso op11 and vert op8 at 2**20
+   rays at the reference table's step (fused_step, golden_step), aniso
+   op11 and vert op8 on the stratified tables (golden_step_strat,
+   fused_step_strat), fisheye op1 on the parity and C1 grids for one turn
+   (fused_step_grid), fisheye op12 at precision "high" (df_step);
+   /v1/trace_samples at 2**20 rays on a posted 501-sample profile with the
+   conservation report and on a posted 129 x 129 grid; /v1/calibrate_samples
+   on the profile at 65,536 rays; each response equal to the bit to the
+   response rebuilt from a direct call of its work on the same inputs, the
+   closures and the CV under their bars; the serving overhead of the two
+   headline requests (the request's seconds beside the kernel's, by CUDA
+   events, median of three after the main path's); the solve endpoints at
+   small sizes (/v1/eigenrays at float64 and on_device, fan 64 x 60 steps
+   of 0.16; /v1/trace3d_samples on the lifted
+   profile, 2**16 rays x 300 steps, and on a posted 31**3 grid;
+   /v1/eigenrays3, fan 8 x 8 x 160 steps), each equal to its direct call
+   with its seconds; eight requests at once across the endpoints, each
+   equal to the same request alone; one hostile payload of each kind of
+   tests/test_serve.py answered 400, and /healthz after them.
 
 The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
 11's ``[dynamic-vs-plain]``, 15's ``[custom-vs-plain]``, 16's
@@ -237,7 +261,8 @@ eagerly, as their times are reported.
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
 the search path, phase 12 the dynamic one, phase 14's ``[df32]`` the df32
 one, phase 15's ``[custom]`` the custom one, phase 16's ``[3d]`` the
-3-D one and phase 17's ``[dyn3]`` the 3-D dynamic one: every launch count
+3-D one, phase 17's ``[dyn3]`` the 3-D dynamic one and phase 19's
+requests the serving one: every launch count
 is set
 to 0 just before each and read just after, and each kernel of that path
 must have launched; the launches phases 3, 7, 8, 10, 11, 12's checks,
@@ -4525,6 +4550,336 @@ def phase_profiling(device):
     return secs
 
 
+#: the kernels the serving path launches (phase 19)
+SERVE_KERNELS = ("fisheye_op1", "fused_step", "golden_step",
+                 "fused_step_strat", "golden_step_strat", "fused_step_grid",
+                 "df_step")
+#: the JAX server's /v1/models lists (raytracing_tpu/serve.py:785-796), as
+#: the port's copies of the names give them
+SERVE_MEDIA = ["analytic", "stratified", "grid", "c1", "c1-stratified"]
+SERVE_ENDPOINTS = ["/healthz", "/v1/models", "/v1/trace",
+                   "/v1/trace_samples", "/v1/calibrate_samples",
+                   "/v1/eigenrays", "/v1/trace3d_samples", "/v1/eigenrays3"]
+#: one payload of each kind tests/test_serve.py::
+#: test_trace_hostile_payloads_rejected sends
+SERVE_HOSTILE = [
+    {"scenario": "fisheye", "op": "op1", "delta_s": 0.0},
+    {"scenario": "interface", "op": "op1", "delta_s": 1e-9},
+    {"scenario": "interface", "op": "op1", "delta_s": float("nan")},
+    {"scenario": "interface", "op": "op1", "delta_s": -1.0},
+    {"scenario": "fisheye", "op": "op1", "n_turns": 10 ** 9},
+    {"rays": "many"},
+]
+
+
+def serve_get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return r.status, json.loads(r.read())
+
+
+def serve_post(url, body):
+    """(status, response, the request's seconds on the client's clock)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, resp = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, resp = e.code, json.loads(e.read())
+    return code, resp, time.perf_counter() - t0
+
+
+def serve_strip(resp):
+    """A response without its timings, which no two runs share."""
+    return {k: v for k, v in resp.items()
+            if k not in ("seconds", "ray_steps_per_sec")}
+
+
+def serve_direct(device, path, body):
+    """The response the server gives ``body``, rebuilt from a direct call
+    of the endpoint's work (fast_trace, delta_s_search_convergence,
+    find_eigenrays, trace3d, find_eigenrays3) on the same inputs; its
+    timings are placeholders."""
+    from raytracing_tpu_torch import serve as ts
+    ep = ts.ROUTES[path]
+    inp = ep.inputs(body, device)
+    return serve_strip(ep.response(inp, ep.call(inp, device), 1.0))
+
+
+def serve_parts(device, body, path="/v1/trace"):
+    """Seconds of a direct call's three parts: the inputs (validation,
+    launch arrays), the call (upload, kernel, host copy), the response."""
+    from raytracing_tpu_torch import serve as ts
+    ep = ts.ROUTES[path]
+    t0 = time.perf_counter()
+    inp = ep.inputs(body, device)
+    t1 = time.perf_counter()
+    out = ep.call(inp, device)
+    t2 = time.perf_counter()
+    ep.response(inp, out, t2 - t1)
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def serve_profile(n=501):
+    """(samples, y): a parabolic index channel, ``n`` samples over 3 units
+    of depth (tests/test_serve.py:321's waveguide, finer)."""
+    y = np.linspace(-1.5, 1.5, n)
+    return (1.2 - 0.25 * y * y).tolist(), y.tolist()
+
+
+def serve_grid(n=129):
+    """(Z, x, y): tests/test_serve.py:180's lens sampled on n x n nodes."""
+    gx = np.linspace(-2.0, 2.0, n)
+    gy = np.linspace(-1.5, 1.5, n)
+    Z = 1.0 / (1.0 + 0.4 * gx[None, :] ** 2 + 0.6 * gy[:, None] ** 2)
+    return Z.tolist(), gx.tolist(), gy.tolist()
+
+
+def serve_requests(rays=RAYS_MAIN, big=1 << 24):
+    """The serving path: (label, path, body, engine) in the order posted."""
+    ds = 2 * math.pi / HEADLINE_DIVISOR
+    head = {"scenario": "fisheye", "op": "op1", "rays": rays, "delta_s": ds,
+            "divisor": HEADLINE_DIVISOR, "n_turns": 1}
+    col, y = serve_profile()
+    Z, gx, gy = serve_grid()
+    profile = {"samples": col, "y": y, "op": "op6", "family": "c1",
+               "rays": rays, "delta_s": 0.01, "steps": 1000,
+               "box": [-1e6, 1e6, -1.5, 1.5], "report_conservation": True,
+               "launch": {"x": 0.0, "y": [-0.1, 0.1], "theta": 0.3}}
+    return [
+        ("headline_2^20", "/v1/trace", head, "fisheye"),
+        ("headline_2^24", "/v1/trace", dict(head, rays=big), "fisheye"),
+        ("interface_op6", "/v1/trace",
+         {"scenario": "interface", "op": "op6", "rays": rays}, "fused"),
+        ("aniso_op11", "/v1/trace",
+         {"scenario": "aniso", "op": "op11", "rays": rays}, "golden"),
+        ("vert_op8", "/v1/trace",
+         {"scenario": "vert", "op": "op8", "rays": rays}, "fused"),
+        ("aniso_op11_strat", "/v1/trace",
+         {"scenario": "aniso", "op": "op11", "rays": rays,
+          "medium": "stratified"}, "golden-strat"),
+        ("vert_op8_strat", "/v1/trace",
+         {"scenario": "vert", "op": "op8", "rays": rays,
+          "medium": "stratified"}, "fused-strat"),
+        ("fisheye_op1_grid", "/v1/trace",
+         {"scenario": "fisheye", "op": "op1", "rays": rays, "medium": "grid",
+          "n_turns": 1}, "grid"),
+        ("fisheye_op1_c1", "/v1/trace",
+         {"scenario": "fisheye", "op": "op1", "rays": rays, "medium": "c1",
+          "n_turns": 1}, "grid"),
+        ("fisheye_op12_df32", "/v1/trace",
+         dict(head, op="op12", precision="high"), "df32"),
+        ("samples_profile", "/v1/trace_samples", profile, "fused-strat"),
+        ("samples_grid", "/v1/trace_samples",
+         {"samples": Z, "x": gx, "y": gy, "op": "op6", "rays": rays,
+          "delta_s": 0.01, "steps": 300,
+          "launch": {"x": -1.5, "y": [-0.3, 0.3], "theta": 0.0}}, "grid"),
+        ("calibrate_profile", "/v1/calibrate_samples",
+         {k: v for k, v in profile.items()
+          if k not in ("delta_s", "steps", "report_conservation")}
+         | {"rays": 65536, "arc_length": 1.0, "tol": 1e-4}, None),
+    ]
+
+
+def serve_solves():
+    """The solve endpoints at small sizes (host-bound: each step is
+    hundreds of torch calls): (label, path, body)."""
+    col, y = serve_profile(61)
+    eig = {"samples": col, "y": y, "op": "op6", "family": "c1",
+           "delta_s": 0.16, "steps": 60, "box": [-1.0, 10.0, -1.5, 1.5],
+           "source": [0.0, 0.0], "receivers": [[8.0, 0.0], [8.0, 0.3]],
+           "fan": {"theta": [-0.45, 0.45], "count": 64}, "omega": 40.0}
+    ax = np.linspace(-1.5, 1.5, 31)
+    Zg, Yg, Xg = np.meshgrid(ax, ax, ax, indexing="ij")
+    F = 1.2 - 0.1 * (Yg ** 2 + 0.3 * Xg * Zg)
+    return [
+        ("eigenrays_f64", "/v1/eigenrays", eig),
+        ("eigenrays_on_device", "/v1/eigenrays",
+         {k: v for k, v in eig.items() if k != "family"} | {"on_device": True}),
+        ("trace3d_profile", "/v1/trace3d_samples",
+         {"samples": col, "y": y, "op": "op6", "family": "c1",
+          "delta_s": 0.02, "steps": 300, "rays": 1 << 16,
+          "box": [-1.0, 50.0, -1.5, 1.5, -50.0, 50.0],
+          "launch": {"pos": [0.0, 0.0, 0.0], "axis": [1.0, 0.0, 0.2],
+                     "half_angle": 0.2}, "report_conservation": True}),
+        ("trace3d_grid3", "/v1/trace3d_samples",
+         {"samples": F.tolist(), "x": ax.tolist(), "y": ax.tolist(),
+          "z": ax.tolist(), "op": "op6", "delta_s": 0.02, "steps": 120,
+          "rays": 1 << 16,
+          "launch": {"pos": [-1.0, 0.0, 0.0], "axis": [1.0, 0.0, 0.1],
+                     "half_angle": 0.15}}),
+        ("eigenrays3", "/v1/eigenrays3",
+         {"samples": col, "y": y, "op": "op6", "family": "c1",
+          "delta_s": 0.03, "steps": 160,
+          "box": [-1.0, 10.0, -1.5, 1.5, -5.0, 5.0],
+          "source": [0.0, 0.0, 0.0],
+          "receivers": [[4.0, 0.0, 0.0], [4.0, 0.2, 0.1]],
+          "fan": {"alpha": [-0.35, 0.35], "beta": [-0.35, 0.35],
+                  "count": [8, 8]}, "omega": 40.0}),
+    ]
+
+
+def headline_kernel_ms(rays, reps=3):
+    """fisheye_op1's device time at the headline shape and ``rays`` rays
+    (CUDA events, after one warm-up); its launches are taken back."""
+    from raytracing_tpu_torch.kernels import fisheye as kf
+    counted = kf.KERNEL.launches
+    x = torch.ones(rays, device="cuda")
+    y = torch.zeros(rays, device="cuda")
+    ux = torch.zeros(rays, device="cuda")
+    uy = torch.ones(rays, device="cuda")
+    ds = float(np.float32(2 * math.pi / HEADLINE_DIVISOR))
+    kf.fisheye_op1(x, y, ux, uy, ds, HEADLINE_DIVISOR)
+    ms, _ = cuda_ms(lambda: kf.fisheye_op1(x, y, ux, uy, ds,
+                                           HEADLINE_DIVISOR), reps)
+    kf.KERNEL.launches = counted
+    return ms
+
+
+def phase_serve(device, kernels, name, rays=RAYS_MAIN, big=1 << 24):
+    """Phase 19: the port's server on ``device`` (module docstring), the
+    headline requests at ``rays`` and ``big`` rays, the others at
+    ``rays``.  Returns (seconds, the serving path's launches)."""
+    import threading
+    from raytracing_tpu_torch import config
+    from raytracing_tpu_torch import serve as ts
+    from raytracing_tpu_torch.ops.registry import EXTENSION_OPS, OP_NAMES
+    t0 = time.perf_counter()
+    srv = ts.create_server("127.0.0.1", 0, device=device)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        code, health = serve_get(url + "/healthz")
+        if code != 200 or name not in health["device"]:
+            fail(f"serve: /healthz names {health.get('device')!r}, not {name}")
+        code, listing = serve_get(url + "/v1/models")
+        want = {"scenarios": list(config.SCENARIO_NAMES),
+                "ops": list(OP_NAMES), "extensions": list(EXTENSION_OPS),
+                "media": SERVE_MEDIA, "sample_families": ["parity", "c1"],
+                "endpoints": SERVE_ENDPOINTS}
+        if code != 200 or listing != want:
+            fail(f"serve: /v1/models differs from JAX's lists: {listing}")
+        print(f"[serve] up in {time.perf_counter() - t0:.1f} s on "
+              f"{health['device']}; /v1/models equal to JAX's lists",
+              flush=True)
+
+        reqs = serve_requests(rays, big)
+        answers, launches = main_path(
+            kernels, SERVE_KERNELS,
+            lambda: [serve_post(url + p, b) for _, p, b, _ in reqs])
+        alone = {}
+        for (label, path, body, engine), (code, resp, wall) in zip(reqs,
+                                                                   answers):
+            if code != 200:
+                fail(f"serve: {label} answered {code}: {resp}")
+            if engine is not None and resp["engine"] != engine:
+                fail(f"serve: {label} ran on {resp['engine']}, not {engine}")
+            same = serve_strip(resp) == serve_direct(device, path, body)
+            alone[label] = resp
+            extra = {k: resp[k] for k in ("closure_error_pct",
+                                          "momentum_cv_pct_max", "delta_s",
+                                          "escaped_rays") if k in resp}
+            print(f"  {label}: {resp.get('engine', path)} {wall:.3f} s "
+                  f"request, {resp['seconds']:.4f} s in the server, "
+                  f"{extra}; equal to the direct call to the bit: {same}",
+                  flush=True)
+            if not same:
+                fail(f"serve: {label} differs from its direct call")
+        for label, bar in (("headline_2^20", 5.0), ("headline_2^24", 5.0),
+                           ("fisheye_op1_grid", 5.0), ("fisheye_op1_c1", 5.0),
+                           ("fisheye_op12_df32", 1e-4)):
+            if not alone[label]["closure_error_pct"] < bar:
+                fail(f"serve: {label} closure {alone[label]} >= {bar} %")
+        if not alone["samples_profile"]["momentum_cv_pct_max"] < 0.05:
+            fail("serve: the posted profile's momentum CV >= 0.05 %")
+        if not alone["calibrate_profile"]["accepted"]:
+            fail("serve: no calibrate candidate accepted")
+
+        # the serving overhead of the headline requests: the main path's
+        # (the server's first request) and the median of three more
+        for label, n in (("headline_2^20", rays), ("headline_2^24", big)):
+            first = answers[[r[0] for r in reqs].index(label)][2]
+            body = next(b for lb, _, b, _ in reqs if lb == label)
+            again = [serve_post(url + "/v1/trace", body) for _ in range(3)]
+            wall = float(np.median([w for _, _, w in again]))
+            server = float(np.median([r["seconds"] for _, r, _ in again]))
+            kms = headline_kernel_ms(n)
+            parts = serve_parts(device, body)
+            print(f"[serve-overhead] {label}: request {wall:.4f} s (median "
+                  f"of 3; the first {first:.4f} s), {server:.4f} s in the "
+                  f"server, kernel {kms:.3f} ms: host share "
+                  f"{1 - kms / 1e3 / wall:.4f}; a direct call's parts: "
+                  f"inputs {parts[0]:.4f} s, trace and host copy "
+                  f"{parts[1]:.4f} s, response {parts[2]:.4f} s", flush=True)
+        t_main = time.perf_counter() - t0
+
+        # the solve endpoints at small sizes
+        t_solve = time.perf_counter()
+        for label, path, body in serve_solves():
+            code, resp, wall = serve_post(url + path, body)
+            if code != 200:
+                fail(f"serve: {label} answered {code}: {resp}")
+            same = serve_strip(resp) == serve_direct(device, path, body)
+            alone[label] = resp
+            n_arr = len(resp.get("arrivals", ()))
+            print(f"  {label}: {wall:.3f} s request, {resp['seconds']:.4f} s"
+                  f" in the server, {n_arr} arrivals; equal to the direct "
+                  f"call to the bit: {same}", flush=True)
+            if not same:
+                fail(f"serve: {label} differs from its direct call")
+            if path != "/v1/trace3d_samples" and not (
+                    n_arr >= 2 and all(a["converged"]
+                                       for a in resp["arrivals"])):
+                fail(f"serve: {label}: {resp['arrivals']}")
+        t_solve = time.perf_counter() - t_solve
+
+        # eight requests at once, across the endpoints
+        t_conc = time.perf_counter()
+        pool = {label: (path, body) for label, path, body, _ in reqs}
+        pool.update({label: (path, body) for label, path, body
+                     in serve_solves()})
+        labels = ("headline_2^20", "interface_op6", "aniso_op11_strat",
+                  "fisheye_op1_grid", "fisheye_op12_df32", "samples_profile",
+                  "calibrate_profile", "trace3d_profile")
+        import concurrent.futures as cf
+        with cf.ThreadPoolExecutor(8) as ex:
+            together = list(ex.map(
+                lambda lb: serve_post(url + pool[lb][0], pool[lb][1]),
+                labels))
+        for label, (code, resp, _) in zip(labels, together):
+            if code != 200 or serve_strip(resp) != serve_strip(alone[label]):
+                fail(f"serve: {label} answered concurrently differs from "
+                     "the same request alone")
+        t_conc = time.perf_counter() - t_conc
+        print(f"[serve-concurrent] 8 requests at once ({', '.join(labels)})"
+              f" in {t_conc:.1f} s, each equal to the same request alone "
+              "to the bit", flush=True)
+
+        for body in SERVE_HOSTILE:
+            code, resp, _ = serve_post(url + "/v1/trace", body)
+            if code != 400:
+                fail(f"serve: hostile payload {body} answered {code}")
+        code, health = serve_get(url + "/healthz")
+        if code != 200:
+            fail("serve: /healthz after the hostile payloads")
+        print(f"[serve-errors] {len(SERVE_HOSTILE)} hostile payloads "
+              "answered 400, /healthz 200 after them", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    secs = time.perf_counter() - t0
+    print(f"[phase 19] the serving path {secs:.1f} s: main path and its "
+          f"direct calls {t_main:.1f} s, the solve endpoints {t_solve:.1f}"
+          f" s, concurrency {t_conc:.1f} s", flush=True)
+    return secs, launches
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -4673,6 +5028,8 @@ def main():
     print(f"[phase 18] [diff] {diff_secs:.1f} s, [df3] {df3_secs:.1f} s, "
           f"[stream] {stream_secs:.1f} s, [profiling] {prof_secs:.1f} s: "
           f"{api_secs:.1f} s together", flush=True)
+    # this slice: the serving layer, its requests through the kernels
+    serve_secs, _ = phase_serve("cuda", kernels, name)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
           f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
           f"phase's {t_cu - t_df:.1f} s, of which its 2^20-ray"
@@ -4681,7 +5038,8 @@ def main():
           f"{t_3d - t_cu:.1f} s; the 3-D phase's "
           f"{t_d3 - t_3d:.1f} s, of which [3d-shapes] "
           f"{secs3:.1f} s; the 3-D dynamic phase's "
-          f"{t_api - t_d3:.1f} s; phase 18's {api_secs:.1f} s; "
+          f"{t_api - t_d3:.1f} s; phase 18's {api_secs:.1f} s; phase "
+          f"19's {serve_secs:.1f} s; "
           f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
           flush=True)
     print(json.dumps({"kernels": [

@@ -69,6 +69,7 @@ traveltime or ``dist_sim``; any other op or medium raises JAX's
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, NamedTuple
 
 import torch
@@ -110,22 +111,25 @@ GRID_MEDIA = (GridMedium, HermiteGridMedium, C1GridMedium)
 
 # GridMedium -> HermiteGridMedium conversions, cached by table identity.
 # LRU-bounded: an unbounded cache would keep every medium a caller ever
-# traced alive on the card.
+# traced alive on the card.  The lock makes a lookup, and the conversion
+# it may need, one step for concurrent callers (serve.py's threads).
 _HERMITE_CACHE: dict = {}
 _HERMITE_CACHE_MAX = 4
+_HERMITE_LOCK = threading.Lock()
 
 
 def _as_hermite(medium: GridMedium) -> HermiteGridMedium:
     key = id(medium.Z)
-    hit = _HERMITE_CACHE.pop(key, None)
-    # the cached entry keeps a strong reference to the key object, so an id
-    # reuse after garbage collection cannot alias a different medium
-    if hit is None or hit[0] is not medium.Z:
-        hit = (medium.Z, build_hermite_medium(medium))
-    _HERMITE_CACHE[key] = hit  # (re)insert at the recent end
-    while len(_HERMITE_CACHE) > _HERMITE_CACHE_MAX:
-        _HERMITE_CACHE.pop(next(iter(_HERMITE_CACHE)))
-    return hit[1]
+    with _HERMITE_LOCK:
+        hit = _HERMITE_CACHE.pop(key, None)
+        # the cached entry keeps a strong reference to the key object, so an
+        # id reuse after garbage collection cannot alias a different medium
+        if hit is None or hit[0] is not medium.Z:
+            hit = (medium.Z, build_hermite_medium(medium))
+        _HERMITE_CACHE[key] = hit  # (re)insert at the recent end
+        while len(_HERMITE_CACHE) > _HERMITE_CACHE_MAX:
+            _HERMITE_CACHE.pop(next(iter(_HERMITE_CACHE)))
+        return hit[1]
 
 
 class FastResult(NamedTuple):

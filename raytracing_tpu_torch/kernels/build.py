@@ -14,16 +14,21 @@ carries the SHA-256 of every source and of the flags, so an edited source
 builds anew and an unchanged one loads the existing file.  A failed build raises with the
 compiler's output; nothing falls back to another path.  ptxas's register
 report goes to ``_build/ptxas-<hash>.log``.
+
+:func:`library` builds once a process: concurrent first calls (the request
+threads of ``serve.py``) wait on a lock for the one build.  The object
+files and the unlinked library carry the process and the thread in their
+names, so builds in two processes, or two threads, never share a path.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -196,7 +201,7 @@ def build(flags=NVCC_FLAGS, csrc=CSRC) -> Path:
     BUILD_DIR.mkdir(exist_ok=True)
     cu, _ = _sources(csrc)
     nvcc = _nvcc()
-    tag = f"{digest}.{os.getpid()}"
+    tag = f"{digest}.{os.getpid()}.{threading.get_ident()}"
     objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in cu]
     jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True))
@@ -212,7 +217,7 @@ def build(flags=NVCC_FLAGS, csrc=CSRC) -> Path:
     (BUILD_DIR / f"ptxas-{digest}.log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError("\n".join(failed))
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(f"{lib.name}.{tag}.tmp")
     cmd = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     for obj in objs:
@@ -242,10 +247,18 @@ def load(path: Path, names=MAIN_ENTRIES) -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
+_LIBRARY: list = []
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The library every kernel wrapper launches from, built on first call."""
-    return load(build())
+    """The library every kernel wrapper launches from, built on first call;
+    concurrent first calls wait for that one build."""
+    if not _LIBRARY:
+        with _LIBRARY_LOCK:
+            if not _LIBRARY:
+                _LIBRARY.append(load(build()))
+    return _LIBRARY[0]
 
 
 def check(err: int, name: str) -> None:

@@ -115,11 +115,20 @@ PATH_API = ("raytracing_tpu_torch.utils.profiling",
             "raytracing_tpu_torch.engine.df_grid3",
             "raytracing_tpu_torch.engine.diff")
 EXAMPLE_TWINS = ("examples/inverse_medium_torch.py",
-                 "examples/tomography_torch.py")
+                 "examples/tomography_torch.py",
+                 "examples/sampled_medium_production_torch.py")
 
 
 def test_api_modules_import_without_jax():
     _import_without_jax(PATH_API)
+
+
+#: the serving layer: the model zoo and the HTTP server
+PATH_SERVE = ("raytracing_tpu_torch.models", "raytracing_tpu_torch.serve")
+
+
+def test_serve_modules_import_without_jax():
+    _import_without_jax(PATH_SERVE)
 
 
 @pytest.mark.parametrize("path", EXAMPLE_TWINS)
