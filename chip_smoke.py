@@ -123,10 +123,12 @@ either is missing or any check fails.  Phases, one line or more each:
    of its kernel at the full shape and against dynamic_step_plain
    (replayed from a CUDA graph) at 2**20 rays and at most 300 steps, to
    the bit, and the kernels' times;
-13. ``[eigenrays]`` on the card at float64: the TL field map of
-   examples/tl_field_map.py with that example's asserts, the Slotnick
-   two-point traveltime, and one ``python -m raytracing_tpu_torch.cli
-   --eigenrays`` run;
+13. ``[eigenrays]`` on the card at float64: the aten operations a step of
+   the TL map's crossing trace, the Slotnick two-point traveltime, and one
+   ``python -m raytracing_tpu_torch.cli --eigenrays`` run (in a process
+   of its own, started with phase 20's APART after phase 19, its lines
+   printed in phase 20; the TL field map of examples/tl_field_map.py runs
+   in phase 20, as its twin);
 14. the df32 tier: ``[df32-vs-plain]`` the four df kernels on their five
    media (the analytic fisheye and vert, the reference's parity and C1
    fisheye grids split into hi/lo words, the Munk profile) against
@@ -211,7 +213,8 @@ either is missing or any check fails.  Phases, one line or more each:
    ``[eigenrays3]`` find_eigenrays3 at float64 on the card: the
    homogeneous arrival, the eddy's out-of-plane arrival, and one
    ``python -m raytracing_tpu_torch.cli --eigenrays3`` run on the Munk
-   profile lifted to 3-D.
+   profile lifted to 3-D (in a process of its own, started with phase
+   20's APART after phase 19, its lines printed in phase 20).
 18. the modules with no kernel of their own, each phase with its seconds:
    ``[diff]`` trace_diff at benchmarks/diff_probe.py's configuration
    (2**18 rays, 300 op6 steps, float32, remat 4, a 12 x 12 parametric
@@ -249,6 +252,37 @@ either is missing or any check fails.  Phases, one line or more each:
    with its seconds; eight requests at once across the endpoints, each
    equal to the same request alone; one hostile payload of each kind of
    tests/test_serve.py answered 400, and /healthz after them.
+20. the native spline library, the display path and the example twins:
+   ``[native]`` the g++ build of raytracing_tpu_torch/native (its seconds,
+   printed after phase 1's build, since phase 2's sampled media are the
+   first to use it; the run fails unless it is available), gradient2 and
+   bicubic_cells
+   against numpy and FITPACK at tests/test_native.py's bars, the table
+   builds timed native against scipy (best of 3, in this process before
+   any other starts: the interface reference grid, the 511**2 fisheye
+   parity grid and its C1 twin, the vert stratified tables,
+   grid_medium_from_samples on 511**2 samples),
+   fused_step_grid and fused_step_strat on native-built tables against
+   their plain versions (65,536 rays, at most 300 steps, every plane to
+   the bit, replayed), and the 2**20-ray one-turn fisheye grid run (op1)
+   on native tables, its closure under 5 % and its positions within 1e-5
+   of the scipy tables' run; ``[viz-cli]`` whether matplotlib is
+   installed: with it the CLI's --plot static (figure, momentum plot,
+   wavefront report), --plot movie --save-video, the interface and a
+   --medium-file profile with --plot static, and the menus from a scripted
+   input_fn, each file written and each printed oracle under its bar;
+   without it the CLI's vert op8 run and ray_xy, wavefront and
+   wavefront_report on a vert trace on the card, no drawing call;
+   ``[examples]`` the example twins' main on the card: million_ray,
+   delta_s_search, ocean_waveguide and measured_medium in this process
+   (one main path), transmission_loss (6 160), tl_field_map (19 12 256),
+   eddy_3d (32 2300) and wavefront_movie (--report-only) in processes of
+   their own (float64 scan tiers, no kernel); each twin's own asserts, its
+   seconds.  The host-bound work that launches no kernel (APART: those
+   four twins, phase 13's [eigenrays] and phase 17's [eigenrays3]) starts
+   in its processes after the timed table builds, once every timed phase
+   before it is done, and runs beside the rest of phase 20 on the host's
+   other cores.
 
 The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
 11's ``[dynamic-vs-plain]``, 15's ``[custom-vs-plain]``, 16's
@@ -261,8 +295,8 @@ eagerly, as their times are reported.
 Phases 4-5 are the analytic main path, phase 6 the sampled one, phase 9
 the search path, phase 12 the dynamic one, phase 14's ``[df32]`` the df32
 one, phase 15's ``[custom]`` the custom one, phase 16's ``[3d]`` the
-3-D one, phase 17's ``[dyn3]`` the 3-D dynamic one and phase 19's
-requests the serving one: every launch count
+3-D one, phase 17's ``[dyn3]`` the 3-D dynamic one, phase 19's
+requests the serving one and phase 20's grid run and twins theirs: every launch count
 is set
 to 0 just before each and read just after, and each kernel of that path
 must have launched; the launches phases 3, 7, 8, 10, 11, 12's checks,
@@ -2357,61 +2391,20 @@ def cli_eigenrays(device, timeout=600):
 
 
 def phase_eigenrays(device):
-    """The eigenray solver on the card at float64: the TL field map of
-    examples/tl_field_map.py with the example's own asserts, the Slotnick
+    """The eigenray solver on the card at float64: the scan tier's aten
+    operations a step of the TL map's crossing trace, the Slotnick
     two-point traveltime, and the CLI's --eigenrays run
-    (:func:`cli_eigenrays`)."""
+    (:func:`cli_eigenrays`).  The TL field map of examples/tl_field_map.py
+    itself (19 x 12 receivers, fan 256, the example's asserts) runs in
+    phase 20, as that example's twin in a process of its own."""
     import raytracing_tpu_torch as rtt
-    from raytracing_tpu_torch.engine import dynamic as edyn
-
-    traces = []
-    inner = edyn._build_dynamic_fn
-
-    def counting(op_name, max_size, mode, dtype, max_ord=0):
-        traces.append((mode, max_size))
-        return inner(op_name, max_size, mode, dtype, max_ord)
 
     # the Munk-style profile, source on the channel axis (0, -1)
     depth, c = munk_profile()
     medium = rtt.c1_stratified_from_samples(c.min() / c, depth,
                                             dtype=torch.float64,
                                             device=device)
-    n_ranges, n_depths = 19, 12
-    ranges = np.linspace(4.0, 40.0, n_ranges)
-    depths = np.linspace(-2.5, -0.2, n_depths)
-    receivers = np.stack(np.meshgrid(ranges, depths, indexing="ij"),
-                         -1).reshape(-1, 2)
-    edyn._build_dynamic_fn = counting
-    try:
-        t0 = time.perf_counter()
-        eig = rtt.find_eigenrays(
-            "op6", medium, source=(0.0, -1.0), receivers=receivers,
-            delta_s=0.01, max_size=int(ranges.max() / 0.01 * 1.2),
-            box=(-1.0, ranges.max() + 2.0, -3.0, 0.0), fan=(-0.3, 0.3, 256),
-            tol=1e-7, device=device)
-        secs = time.perf_counter() - t0
-    finally:
-        edyn._build_dynamic_fn = inner
-    tl_map = rtt.incoherent_tl(eig, n_receivers=len(receivers)).reshape(
-        n_ranges, n_depths)
-    covered = np.isfinite(tl_map)
-    axis_j = int(np.argmin(np.abs(depths + 1.0)))
-    duct_wins = 0
-    for i in range(n_ranges):
-        row = tl_map[i]
-        if np.isfinite(row[axis_j]) and np.isfinite(row).sum() >= 3:
-            duct_wins += row[axis_j] <= np.nanmedian(row)
-    print(f"[eigenrays] TL field map {n_ranges} x {n_depths} receivers, fan "
-          f"256, f64 on {device}: {len(eig.theta0)} arrivals in {secs:.1f} s "
-          f"({covered.mean() * 100:.1f} % of cells reached, bar > 30; "
-          f"{int(np.sum(eig.converged))} converged; channel axis at or below "
-          f"the row median in {duct_wins}/{n_ranges} ranges, bar >= "
-          f"{n_ranges // 2}); scan-tier traces {len(traces)} "
-          f"({', '.join(f'{m} x {n - 1} steps' for m, n in traces[:3])}"
-          f"{', ...' if len(traces) > 3 else ''})", flush=True)
-    if not (covered.mean() > 0.3 and bool(np.all(eig.converged))
-            and duct_wins >= n_ranges // 2):
-        fail("eigenrays: the TL field map misses the example's asserts")
+    ranges = np.linspace(4.0, 40.0, 19)
 
     # the scan tier's cost a step: the aten operations one step dispatches
     # (each launches at least one kernel), from a 1- and a 2-step crossing
@@ -2438,7 +2431,8 @@ def phase_eigenrays(device):
                 pos0=np.tile([[0.0, -1.0]], (256, 1)),
                 theta0=np.linspace(-0.3, 0.3, 256))
         counts.append(m.n)
-    print(f"  the crossing trace dispatches {counts[1] - counts[0]} aten "
+    print(f"[eigenrays] the crossing trace of the TL map's fan dispatches "
+          f"{counts[1] - counts[0]} aten "
           "operations a step", flush=True)
 
     vert = rtt.analytic_medium("vert_heterogeneous")
@@ -4880,6 +4874,480 @@ def phase_serve(device, kernels, name, rays=RAYS_MAIN, big=1 << 24):
     return secs, launches
 
 
+# -- phase 20: the native spline library, the display path, the example twins
+#: the native library's bars (tests/test_native.py): gradient2 against
+#: np.gradient; bicubic_cells against FITPACK (rtol, atol); the grid run's
+#: positions on native tables against the scipy tables' (JAX's grid bar)
+NATIVE_GRAD_TOL = 1e-12
+NATIVE_CELL_TOL = (1e-9, 1e-10)
+NATIVE_GRID_POS_TOL = 1e-5
+#: the 65,536-ray kernel-against-plain depth of [native]
+NATIVE_STEP_CAP = 300
+
+
+def best_of(fn, n=3):
+    """The least of ``n`` wall times of ``fn()`` (seconds), synchronized."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return min(ts)
+
+
+def native_build():
+    """``[native]``'s first line: the g++ build (or the load of a built
+    library) and its seconds; fails unless the library is available.
+    Returns the seconds."""
+    from raytracing_tpu_torch import native
+    built = native.library_path().exists()
+    t0 = time.perf_counter()
+    ok = native.available()
+    secs = time.perf_counter() - t0
+    print(f"[native] g++ {' '.join(native.GXX_FLAGS)}: "
+          f"{'loaded the built library' if built else 'built'} in "
+          f"{secs:.2f} s, {native.library_path().name}; available: {ok}",
+          flush=True)
+    if not ok:
+        fail("native: the spline library does not build on this host")
+    return secs
+
+
+@contextlib.contextmanager
+def native_off():
+    """The port's native spline library reported unavailable, as the tests
+    switch it off, so that every build takes scipy."""
+    from raytracing_tpu_torch import native
+    available = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = available
+
+
+def native_build_times(device):
+    """The table builds timed native against scipy (under :func:`native_off`)
+    on ``device``, best of 3 with the upload, a ``[build]`` line each;
+    returns {label: (native seconds, scipy seconds)}.  Run with no other
+    process of this script alive."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.media.grid import gen_grid
+    vert, fish = rtt.scenario("vert"), rtt.scenario("fisheye")
+    _, _, fz = gen_grid("fisheye", fish.box)
+    sx = np.linspace(-1.5, 1.5, 511)
+    samples = 1.0 / (1.0 + sx[None, :] ** 2 + sx[:, None] ** 2)
+    builds = (
+        ("interface reference grid (-2, 20, -2, 4)",
+         lambda: rtt.build_grid_medium("interface", (-2.0, 20.0, -2.0, 4.0),
+                                       device=device)),
+        (f"fisheye parity grid {fz.shape[0]}x{fz.shape[1]}",
+         lambda: rtt.build_grid_medium("fisheye", fish.box, device=device)),
+        (f"fisheye C1 grid {fz.shape[0]}x{fz.shape[1]}",
+         lambda: rtt.build_c1_medium("fisheye", fish.box, device=device)),
+        ("vert stratified tables",
+         lambda: rtt.build_stratified_medium("vert_heterogeneous", vert.box,
+                                             device=device)),
+        ("grid_medium_from_samples 511x511",
+         lambda: rtt.grid_medium_from_samples(samples, sx, sx,
+                                              device=device)),
+    )
+    times = {}
+    for label, build in builds:
+        tn = best_of(build)
+        with native_off():
+            ts = best_of(build)
+        times[label] = (tn, ts)
+        print(f"  [build] {label}: native {tn * 1e3:.1f} ms, scipy "
+              f"{ts * 1e3:.1f} ms (best of 3, tables uploaded): "
+              f"{ts / tn:.1f}x", flush=True)
+    return times
+
+
+def phase_native(device, kernels):
+    """Phase 20's ``[native]`` in this process: the library against numpy
+    and scipy, the fused grid and stratified kernels on native-built
+    tables against their plain versions, and the 2**20-ray one-turn
+    fisheye grid run on native and scipy tables (the build is
+    :func:`native_build`'s, the timed builds :func:`native_build_times`').
+    Returns (seconds, the grid run's launches)."""
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch import native
+    from raytracing_tpu_torch.bench import replay
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    from raytracing_tpu_torch.engine import fast
+    from raytracing_tpu_torch.engine.segmented import grid_tables
+    from raytracing_tpu_torch.kernels import fused as kfu
+    from raytracing_tpu_torch.kernels.fused import strat_tables
+    from scipy.interpolate import RectBivariateSpline
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    Z = rng.normal(size=(57, 83))
+    ddx, ddy = native.gradient2(Z, 0.13)
+    want_dy, want_dx = np.gradient(Z, 0.13, edge_order=2)
+    dg = max(float(np.abs(ddx - want_dx).max()),
+             float(np.abs(ddy - want_dy).max()))
+    ny, nx, hy, hx = 40, 55, 0.21, 0.17
+    y, x = np.arange(ny) * hy, np.arange(nx) * hx
+    Z = (np.cos(y[:, None]) * np.sin(x[None, :])
+         + 0.1 * rng.normal(size=(ny, nx)))
+    C = native.bicubic_cells(Z)
+    qy, qx = rng.uniform(0, (ny - 1) * hy, 400), rng.uniform(0, (nx - 1) * hx,
+                                                            400)
+    iy = np.minimum((qy / hy).astype(int), ny - 2)
+    ix = np.minimum((qx / hx).astype(int), nx - 2)
+    uy, ux = qy / hy - iy, qx / hx - ix
+    got = np.einsum("qab,qa,qb->q", C[iy, ix],
+                    np.stack([uy ** 0, uy, uy ** 2, uy ** 3], -1),
+                    np.stack([ux ** 0, ux, ux ** 2, ux ** 3], -1))
+    want = RectBivariateSpline(y, x, Z, kx=3, ky=3)(qy, qx, grid=False)
+    rtol, atol = NATIVE_CELL_TOL
+    dc = float(np.abs(got - want).max())
+    cells_ok = bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+    print(f"  gradient2 against np.gradient: max |d| {dg:.3e} (bar "
+          f"{NATIVE_GRAD_TOL}); bicubic_cells against RectBivariateSpline "
+          f"on 400 points: max |d| {dc:.3e} (bar rtol {rtol}, atol {atol})",
+          flush=True)
+    if not (dg <= NATIVE_GRAD_TOL and cells_ok):
+        fail("native: the library misses tests/test_native.py's bars")
+
+    iface, vert, fish = (rtt.scenario(n) for n in ("interface", "vert",
+                                                   "fisheye"))
+
+    # the fused grid and stratified kernels on native-built tables against
+    # their plain versions, every plane to the bit
+    errs = {}
+    nat = {"grid": rtt.build_grid_medium("fisheye", fish.box, device=device,
+                                         backend="native"),
+           "strat": rtt.build_stratified_medium("interface", iface.box,
+                                                device=device),
+           "vert": rtt.build_stratified_medium("vert_heterogeneous",
+                                               vert.box, device=device)}
+    for name, scen, key, op in (
+            ("fused_step_grid", fish, "grid", "op1"),
+            ("fused_step_grid", fish, "grid", "op6"),
+            ("fused_step_strat", iface, "strat", "op6"),
+            ("fused_step_strat", vert, "vert", "op8")):
+        ds, div = calibrated_with_fallback(op, scen.name)
+        steps = min(NATIVE_STEP_CAP, scen.max_size(ds, div, 1) - 1)
+        pos0, theta0 = fan(scen, RAYS_CHECK, np.random.default_rng(1))
+        tab = (grid_tables(fast._as_hermite(nat[key])) if key == "grid"
+               else strat_tables(rtt.compact_for_trace(nat[key], scen.box,
+                                                       ds)))
+        st = kfu.initial_state(op, pos0, theta0, field=tab,
+                               with_stats=key != "grid", device=device)
+        kw = dict(field=tab, op=op, steps=steps, delta_s=float(ds),
+                  step_limit=steps, offset=0.0, box=tuple(scen.box))
+        errs.setdefault(name, Errors())
+        exact(errs[name], f"[native] {name} {op} {scen.name} on native "
+              f"tables, {RAYS_CHECK} rays x {steps} steps",
+              kfu.fused_step(st, **kw), replay.fused_plain(st, **kw))
+
+    # the 2**20-ray one-turn fisheye grid run, native against scipy tables
+    ds, div = calibrated_with_fallback("op1", "fisheye")
+    steps = fish.max_size(ds, div, 1) - 1
+    pos0, theta0 = fan(fish, RAYS_MAIN)
+    sci = rtt.build_grid_medium("fisheye", fish.box, device=device,
+                                backend="scipy")
+    runs, launches = main_path(
+        kernels, ("fused_step_grid",),
+        lambda: [rtt.fast_trace("op1", fish, m, delta_s=ds, pos0=pos0,
+                                theta0=theta0, steps=steps, device=device)
+                 for m in (nat["grid"], sci)])
+    (rn, rs) = runs
+    closure = float(100.0 * torch.linalg.vector_norm(
+        rn.pos[0] - torch.tensor([1.0, 0.0], device=device)) / (2 * math.pi))
+    dpos = float((rn.pos - rs.pos).abs().max())
+    print(f"[native] fisheye grid op1, {RAYS_MAIN} rays x {steps} steps "
+          f"(divisor {div}) on {rn.engine}: closure {closure:.6f} % (bar < 5)"
+          f"; positions against the scipy tables' run: max |d| {dpos:.3e} "
+          f"(bar {NATIVE_GRID_POS_TOL})", flush=True)
+    if not (closure < 5.0 and dpos <= NATIVE_GRID_POS_TOL):
+        fail("native: the grid run on native tables misses its bars")
+    return time.perf_counter() - t_phase, launches
+
+
+def cli_lines(device, argv, input_fn=None):
+    """``cli.main(argv)`` on ``device`` (or ``cli.interactive(input_fn,
+    device)``) in this process; returns (result, seconds, its standard
+    output)."""
+    import io
+    from raytracing_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = (cli.interactive(input_fn=input_fn, device=device)
+               if input_fn is not None
+               else cli.main(argv + ["--device", str(device)]))
+    sync()
+    return res, time.perf_counter() - t0, buf.getvalue()
+
+
+def oracle_value(label, pattern, text, bar):
+    """The number ``pattern`` captures in ``text``; fails unless it is
+    under ``bar``."""
+    import re
+    m = re.search(pattern, text)
+    if not m:
+        fail(f"viz-cli: {label}: no line matches {pattern!r}")
+    v = float(m[1])
+    print(f"  {label}: {v:.6g} (bar < {bar})", flush=True)
+    if not v < bar:
+        fail(f"viz-cli: {label} {v} not under {bar}")
+    return v
+
+
+def phase_viz_cli(device):
+    """Phase 20's ``[viz-cli]``: with matplotlib, the CLI's plots and menus
+    on the card, each file written and each printed oracle under its bar;
+    without it, the wavefront analysis of a vert trace on the card, no
+    drawing call.  Returns seconds."""
+    import importlib.util
+    import os
+    import tempfile
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    from raytracing_tpu_torch.viz import plots
+
+    t0 = time.perf_counter()
+    have = importlib.util.find_spec("matplotlib") is not None
+    print(f"[viz-cli] importlib.util.find_spec('matplotlib'): "
+          f"{'found' if have else 'None (not installed here)'}", flush=True)
+    cv = r"Coefficient of Variation:\s+(\S+)"
+    if have:
+        with tempfile.TemporaryDirectory() as tmp:
+            f = os.path.join(tmp, "vert.png")
+            _, secs, out = cli_lines(device, [
+                "--scenario", "vert", "--op", "8", "--delta-s", "calibrated",
+                "--plot", "static", "--save-plot", f])
+            sizes = [os.path.getsize(p) for p in (f, f + ".momentum.png")]
+            print(f"  vert op8 --plot static --save-plot: {secs:.1f} s, "
+                  f"figure {sizes[0]} bytes, momentum plot {sizes[1]} bytes, "
+                  f"{out.count('Travel Time')} wavefronts reported",
+                  flush=True)
+            if min(sizes) <= 0 or "Travel Time" not in out:
+                fail("viz-cli: the static plot or its report is missing")
+            oracle_value("vert op8 momentum CV %", cv, out, 0.05)
+
+            video = os.path.join(tmp, "wf.mp4")
+            _, secs, out = cli_lines(device, [
+                "--scenario", "vert", "--op", "8", "--plot", "movie",
+                "--save-video", video])
+            movie = [p for p in (video, video[:-4] + ".gif")
+                     if os.path.exists(p)]
+            print(f"  vert op8 --plot movie --save-video: {secs:.1f} s, "
+                  f"{movie} {[os.path.getsize(p) for p in movie]} bytes",
+                  flush=True)
+            if not movie or os.path.getsize(movie[0]) <= 0:
+                fail("viz-cli: the movie was not written")
+            oracle_value("vert op8 momentum CV %", cv, out, 0.05)
+
+            _, secs, out = cli_lines(device, [
+                "--scenario", "interface", "--op", "6", "--plot", "static"])
+            print(f"  interface op6 --plot static: {secs:.1f} s", flush=True)
+            oracle_value("interface op6 mean Snell error (deg)",
+                         r"Average ray error:\s+(\S+) degrees", out, 0.2)
+
+            y = np.linspace(-2.0, 1.0, 61)
+            prof = os.path.join(tmp, "prof.npz")
+            np.savez(prof, samples=1.0 + 0.3 * np.tanh(2.0 * y), y=y)
+            png = os.path.join(tmp, "prof.png")
+            _, secs, out = cli_lines(device, [
+                "--medium-file", prof, "--op", "op6", "--delta-s-value",
+                "0.01", "--steps", "80", "--rays", "4096", "--family", "c1",
+                "--box", "-5", "5", "-2", "1", "--launch", "0.0", "-1.5",
+                "-0.5", "0.3", "--plot", "static", "--save-plot", png])
+            print(f"  --medium-file profile --plot static: {secs:.1f} s, "
+                  f"figure {os.path.getsize(png)} bytes", flush=True)
+            oracle_value("profile momentum CV max %",
+                         r"CV\(p_x\).*max (\S+) %", out, 0.05)
+
+            answers = iter(["2", "1", "n", "y", "n"])
+            _, secs, out = cli_lines(device, None, lambda _: next(answers))
+            print(f"  interactive (fisheye, op1, calibrated, no benchmark, "
+                  f"static plot): {secs:.1f} s", flush=True)
+            if "Choose a Test Option" not in out:
+                fail("viz-cli: the menus did not show")
+            oracle_value("fisheye op1 closure %", r"Closure error\s+(\S+) %",
+                         out, 5.0)
+    else:
+        _, secs, out = cli_lines(device, [
+            "--scenario", "vert", "--op", "8", "--delta-s", "calibrated"])
+        oracle_value("cli vert op8 momentum CV %", cv, out, 0.05)
+        scen = rtt.scenario("vert")
+        ds, _ = calibrated_with_fallback("op8", "vert")
+        res = rtt.trace("op8", scen, rtt.analytic_medium("vert_heterogeneous"),
+                        delta_s=ds, device=device)
+        x, y, ang, tt = plots.ray_xy(res, 3)
+        wf = plots.wavefront(res, 0.3)
+        lines = []
+        fronts = plots.wavefront_report(res, printer=lines.append)
+        med = float(np.median(wf.angle_diffs[2:-2]))
+        print(f"  vert op8 on {device} ({secs:.1f} s through cli.main): "
+              f"ray_xy(ray 3) {len(x)} points to ({x[-1]:.4f}, {y[-1]:.4f}) "
+              f"at traveltime {tt[-1]:.4f}; wavefront at 0.3: "
+              f"{wf.points.shape[0]} rays, median interior |ray - normal| "
+              f"{med:.4f} rad (bar < 0.05); wavefront_report: "
+              f"{len(fronts)} fronts, {len(lines)} lines", flush=True)
+        for line in lines[:3]:
+            print(f"    {line.strip()}", flush=True)
+        if not (med < 0.05 and len(fronts) > 0):
+            fail("viz-cli: the wavefront analysis misses its bar")
+    secs = time.perf_counter() - t0
+    print(f"[viz-cli] {secs:.1f} s", flush=True)
+    return secs
+
+
+#: the example twins (examples/*_torch.py) phase 20 calls in this process,
+#: under ``main_path``, with the kernels each should launch; each twin's
+#: own asserts hold inside its ``main``
+TWINS_HERE = (("million_ray_benchmark", [], ("fused_step",)),
+              ("delta_s_search", [], ("fused_step",)),
+              ("ocean_waveguide", [], ("fused_step_strat",)),
+              ("measured_medium", [], ("fused_step_grid", "df_step_c1")))
+#: the host-bound work with no kernel launch that runs in processes of its
+#: own, started in phase 20 after its timed table builds (every timed phase
+#: before it done) and collected at its end: phase 20's twins that run the
+#: float64 scan tiers (~3.5 ms of dispatch a step), phase 13's [eigenrays]
+#: and phase 17's [eigenrays3] (float64 scan-tier solves); each (label,
+#: module, argv).
+#: tl_field_map
+#: at its default argv is the TL field map phase 13 ran before (19 x 12
+#: receivers, fan 256, its asserts)
+APART = (("transmission_loss", "examples", ["6", "160"]),
+         ("tl_field_map", "examples", []),
+         ("eddy_3d", "examples", ["32", "2300"]),
+         ("wavefront_movie", "examples", ["--report-only"]),
+         ("phase_eigenrays", "chip_smoke", []),
+         ("phase_eigenrays3", "chip_smoke", []))
+#: a process of APART: the twin's main (or chip_smoke's function) on the
+#: card, then one JSON line with its seconds, the scan-tier traces it built
+#: and the kernels it launched
+APART_RUNNER = """
+import json, sys, time, importlib.util
+sys.path.insert(0, {root!r})
+import chip_smoke
+from raytracing_tpu_torch.engine import dynamic as edyn
+traces, inner = [], edyn._build_dynamic_fn
+def counting(op_name, max_size, mode, dtype, max_ord=0):
+    traces.append((mode, max_size - 1))
+    return inner(op_name, max_size, mode, dtype, max_ord)
+edyn._build_dynamic_fn = counting
+name, where, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+t0 = time.perf_counter()
+if where == "chip_smoke":
+    getattr(chip_smoke, name)("cuda")
+else:
+    spec = importlib.util.spec_from_file_location(
+        name, {root!r} + "/examples/" + name + "_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(argv + ["--device", "cuda"])
+secs = time.perf_counter() - t0
+print(json.dumps({{"seconds": secs, "traces": traces,
+                  "launches": sum(k.launches
+                                  for k in chip_smoke.kernel_infos())}}))
+"""
+
+
+def start_apart(tmp):
+    """Start each of APART in its own process, working in ``tmp``; returns
+    [(label, argv, Popen, start time)]."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = APART_RUNNER.format(root=root)
+    procs = []
+    for name, where, argv in APART:
+        procs.append((name, argv, subprocess.Popen(
+            [sys.executable, "-c", code, name, where, *argv], cwd=tmp,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            time.perf_counter()))
+    return procs
+
+
+def stop_apart(procs):
+    """Kill whatever of ``procs`` still runs."""
+    for _, _, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_apart(procs, timeout=900):
+    """Wait for APART's processes; print each one's seconds and the end of
+    its output (every line of [eigenrays] and [eigenrays3]); fail if one
+    failed.  Returns {label: seconds}."""
+    secs = {}
+    for name, argv, proc, t0 in procs:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            rec = None
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or rec is None:
+            fail(f"{name} {argv} (own process) exited {proc.returncode}: "
+                 f"{err[-2000:]}")
+        secs[name] = rec["seconds"]
+        if name in ("phase_eigenrays", "phase_eigenrays3"):
+            print(f"[{name}] in a process of its own, {rec['seconds']:.1f} "
+                  "s:", flush=True)
+            for line in lines[:-1]:
+                print(line, flush=True)
+            continue
+        kinds = sorted({m for m, _ in rec["traces"]})
+        print(f"  [twin] {name}_torch {' '.join(argv)} (own process): main "
+              f"{rec['seconds']:.1f} s, done {wall:.1f} s after it started; "
+              f"{len(rec['traces'])} scan-tier dynamic traces "
+              f"({', '.join(kinds)}); kernel launches {rec['launches']}",
+              flush=True)
+        for line in lines[:-1][-4:]:
+            print(f"    {line.strip()}", flush=True)
+    return secs
+
+
+def phase_examples(kernels):
+    """Phase 20's ``[examples]`` in this process: TWINS_HERE on the card,
+    one ``main_path``; returns ({name: seconds}, launches)."""
+    import io
+    import importlib.util
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs = {}
+
+    def run():
+        for name, argv, _ in TWINS_HERE:
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(root, "examples", f"{name}_torch.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            # delta_s_search writes its checkpoint in the working directory
+            with tempfile.TemporaryDirectory() as tmp, \
+                    contextlib.chdir(tmp), contextlib.redirect_stdout(buf):
+                mod.main(argv + ["--device", "cuda"])
+            sync()
+            secs[name] = time.perf_counter() - t0
+            print(f"  [twin] {name}_torch {' '.join(argv)}: "
+                  f"{secs[name]:.1f} s", flush=True)
+            for line in buf.getvalue().strip().splitlines()[-4:]:
+                print(f"    {line.strip()}", flush=True)
+
+    want = tuple(dict.fromkeys(k for *_, ks in TWINS_HERE for k in ks))
+    _, launches = main_path(kernels, want, run)
+    return secs, launches
+
+
+
 def main_path(kernels, want, run):
     """Drive one main path with every launch count set to 0 just before it
     and read just after; each kernel named in ``want`` must have launched."""
@@ -4898,6 +5366,8 @@ def main():
     t_start = time.perf_counter()
     name, _ = phase_environment()
     phase_build()
+    # the native spline library before the first sampled medium needs it
+    build_secs = native_build()
     kernels = kernel_infos()
     media = build_sampled_media("cuda")
     phase_fma32("cuda", media)
@@ -4953,7 +5423,7 @@ def main():
         lambda: phase_dynamic("cuda", media))
     launches.update(dlaunches)
     times.update(phase_dynamic_checks("cuda", errs, druns))
-    phase_eigenrays("cuda")
+    # phase 13's [eigenrays] runs in phase 20, in a process of its own
     # this slice: the df32 tier
     t_df = time.perf_counter()
     df_media = build_df_media("cuda")
@@ -4996,10 +5466,9 @@ def main():
         lambda: phase_dyn3("cuda", gmed))
     launches.update(dlaunches3)
     times.update(phase_dyn3_checks("cuda", errs, druns3, gmed))
-    eig3_secs = phase_eigenrays3("cuda")
     print(f"[phase 17] the 3-D dynamic phase {time.perf_counter() - t_d3:.1f}"
-          f" s: [dyn3-vs-plain] {t_d3_main - t_d3:.1f} s, [eigenrays3] "
-          f"{eig3_secs:.1f} s", flush=True)
+          f" s: [dyn3-vs-plain] {t_d3_main - t_d3:.1f} s ([eigenrays3] runs "
+          "in phase 20, in a process of its own)", flush=True)
     # this slice: the differentiable tier, the 3-D df32 facade, history
     # streaming and profiling (no kernels of their own).  The earlier
     # paths' runs and media are dropped first (their figures are in
@@ -5025,11 +5494,41 @@ def main():
     stream_secs, _ = phase_stream("cuda")
     prof_secs = phase_profiling("cuda")
     api_secs = time.perf_counter() - t_api
-    print(f"[phase 18] [diff] {diff_secs:.1f} s, [df3] {df3_secs:.1f} s, "
-          f"[stream] {stream_secs:.1f} s, [profiling] {prof_secs:.1f} s: "
-          f"{api_secs:.1f} s together", flush=True)
+    print(f"[phase 18] [diff] {diff_secs:.1f} s, [df3] {df3_secs:.1f} s,"
+          f" [stream] {stream_secs:.1f} s, [profiling] {prof_secs:.1f} "
+          f"s: {api_secs:.1f} s together", flush=True)
     # this slice: the serving layer, its requests through the kernels
     serve_secs, _ = phase_serve("cuda", kernels, name)
+    # this slice: the native spline library, the display path and the
+    # example twins.  The timed table builds first, with no other process
+    # of this script alive; then the host-bound work with no kernel launch
+    # in processes of its own (APART), beside the rest of the phase
+    t20 = time.perf_counter()
+    native_build_times("cuda")
+    times_secs = time.perf_counter() - t20
+    import tempfile
+    apart_tmp = tempfile.TemporaryDirectory()
+    t_apart = time.perf_counter()
+    procs = start_apart(apart_tmp.name)
+    try:
+        native_secs, _ = phase_native("cuda", kernels)
+        viz_secs = phase_viz_cli("cuda")
+        here_secs, _ = phase_examples(kernels)
+        t_here = time.perf_counter() - t_apart
+        apart_secs = finish_apart(procs)
+    finally:
+        stop_apart(procs)
+        apart_tmp.cleanup()
+    secs20 = time.perf_counter() - t20
+    print(f"[phase 20] {secs20:.1f} s: the timed table builds "
+          f"{times_secs:.1f} s alone, then beside the processes of APART: "
+          f"[native] {native_secs:.1f} s (its g++ build {build_secs:.2f} s, "
+          f"before phase 2's media), [viz-cli] {viz_secs:.1f} s, the twins "
+          f"here {sum(here_secs.values()):.1f} s, then "
+          f"{secs20 - times_secs - t_here:.1f} s waiting for the processes "
+          "(their own seconds: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in apart_secs.items()) + ")",
+          flush=True)
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
           f" (the dynamic path's phases {t_df - t_dyn:.1f} s, the df32 "
           f"phase's {t_cu - t_df:.1f} s, of which its 2^20-ray"
@@ -5039,7 +5538,7 @@ def main():
           f"{t_d3 - t_3d:.1f} s, of which [3d-shapes] "
           f"{secs3:.1f} s; the 3-D dynamic phase's "
           f"{t_api - t_d3:.1f} s; phase 18's {api_secs:.1f} s; phase "
-          f"19's {serve_secs:.1f} s; "
+          f"19's {serve_secs:.1f} s; phase 20's {secs20:.1f} s; "
           f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
           flush=True)
     print(json.dumps({"kernels": [

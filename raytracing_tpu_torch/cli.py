@@ -1,16 +1,29 @@
-"""Command line: the flags front end of the reference's scenario pipeline.
+"""Command line: the reference's interactive menus plus a flags front end.
 
-Port of ``raytracing_tpu/cli.py``: ``op_for_choice`` (cli.py:79),
-``run_batch`` (:86), ``load_samples_medium`` (:130), ``run_samples_file``
-(:159), ``run_eigenrays_file`` (:273), ``run_eigenrays3_file`` (:336),
-``samples_is_profile`` (:397), ``build_medium`` (:404),
-``run_pipeline`` (:419) and ``main`` (:566) — the reference's main() pipeline (RT_bench.py:961-1547) with its
-three modes: display/validate, search for a suitable DELTA_S
-(``--delta-s search``), and benchmark.  Everything runs on ``--device``
-(default ``cuda``); the search runs through the kernels there.
+Port of ``raytracing_tpu/cli.py``: ``_menu`` and ``_yes_no`` (cli.py:58-77),
+``op_for_choice`` (:79), ``run_batch`` (:86), ``load_samples_medium``
+(:130), ``run_samples_file`` (:159), ``run_eigenrays_file`` (:273),
+``run_eigenrays3_file`` (:336), ``samples_is_profile`` (:397),
+``build_medium`` (:404), ``run_pipeline`` (:419), ``interactive`` (:514)
+and ``main`` (:566) — the reference's main() pipeline (RT_bench.py:961-1547)
+with its three modes: display/validate (with the plots of
+``viz/plots.py``), search for a suitable DELTA_S (``--delta-s search``),
+and benchmark.  Everything runs on ``--device`` (default ``cuda``); the
+search runs through the kernels there.
 
+    python -m raytracing_tpu_torch.cli                 # interactive menus
     python -m raytracing_tpu_torch.cli --scenario fisheye --op 1 --delta-s search
     python -m raytracing_tpu_torch.cli --scenario vert --op 8 --benchmark
+    python -m raytracing_tpu_torch.cli --scenario vert --op 8 --plot static --save-plot f.png
+
+Without ``--scenario`` or ``--medium-file`` the program asks through the
+reference's stdin menus (RT_bench.py:1550-1588, 1199-1294): scenario,
+algorithm, DELTA_S search or calibrated step, benchmark, plot.
+``--plot static`` draws the trajectories (and for the vertically
+heterogeneous scenarios the wavefronts, their console report and the
+momentum plot, saved beside ``--save-plot`` as ``.momentum.png``);
+``--plot movie`` animates the wavefronts (``--save-video``: mp4 by ffmpeg,
+a GIF where there is none).
 
 ``--medium-file`` with ``--eigenrays SRC_X SRC_Y`` solves the boundary-value
 problem instead (``run_eigenrays_file``, cli.py:273-333): every fan-resolved
@@ -20,9 +33,6 @@ arrival from the source to each ``--receiver`` through the measured medium
 lifts a 1-D profile to a ``Stratified3D`` and solves in 3-D
 (``run_eigenrays3_file``, cli.py:336-394, ``engine/eigenray3d.py``); a 2-D
 grid file is refused, as JAX refuses it.
-
-Not ported yet, each refused by the parser with its ROADMAP.md item: the
-plots (``--plot static|movie``) and the interactive menus (§1 item 12).
 """
 from __future__ import annotations
 
@@ -52,7 +62,7 @@ from raytracing_tpu_torch.ops.registry import GOLDEN_OPS, canonical
 from raytracing_tpu_torch.parallel.sweep import (
     delta_s_search, delta_s_search_convergence)
 
-BOLD, RESET = "\033[1m", "\033[0m"
+BOLD, BLUE, GREEN, RESET = "\033[1m", "\033[1;94m", "\033[92m", "\033[0m"
 
 SCENARIO_TITLES = [
     "the sharp interface scenario",
@@ -76,6 +86,27 @@ ANISO_MESSAGES = [
     " 2-point curvature + optimized 2-point momentum-impulse",
     " 2nd order Taylor  + optimized 2-point momentum-impulse",
 ]
+
+
+def _menu(title: str, items: list[str], prompt: str, keys: list[str],
+          input_fn) -> str:
+    while True:
+        print(f"{BOLD}\n{title}{RESET}")
+        print("─" * max(len(title), 20))
+        for i, item in enumerate(items, 1):
+            print(f"• {BLUE}{i}.{RESET} {item}")
+        choice = input_fn(f"\n{GREEN}{prompt}{RESET} ").strip()
+        if choice in keys:
+            return choice
+        print(f"Invalid choice. Please choose {', '.join(keys[:-1])} or {keys[-1]}.")
+
+
+def _yes_no(prompt: str, input_fn) -> bool:
+    while True:
+        v = input_fn(f"\n{GREEN}{prompt} (Y/N):{RESET} ").strip().lower()
+        if v in ("y", "n"):
+            return v == "y"
+        print("Invalid input. Please enter 'Y' or 'N'.")
 
 
 def op_for_choice(scen_name: str, choice: str) -> str:
@@ -176,13 +207,15 @@ def load_samples_medium(path: str, family: str = "parity",
 def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
                      rays: int, launch, family: str = "parity",
                      box=None, gamma: float = 1.0, save_pos=None,
+                     plot: str = "none", save_plot=None,
                      preloaded=None, device="cuda", printer=print):
     """Trace a measured medium loaded from an ``.npz`` file.
 
     ``launch`` is (x, y_lo, y_hi, theta): a ``rays``-ray fan.  A profile
     (x-independent) medium also reports the conservation of p_x, from the
     kernels' Welford tracker, or from a strided subset's scan-tier history
-    where the op has no tracker.
+    where the op has no tracker.  ``plot="static"`` draws that subset's
+    trajectories over the medium (``save_plot``: the figure's file).
     """
     medium, default_box, kind = (preloaded if preloaded is not None
                                  else load_samples_medium(path, family,
@@ -217,6 +250,21 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
         np.save(save_pos, pos)
         printer(f"Final positions saved to {save_pos}")
 
+    # the conservation fallback and the static plot share one strided
+    # subset's history trace, run at most once (a whole scan-tier run)
+    _sub = []
+
+    def subset_history():
+        if not _sub:
+            # strided subset: the first rays of a linspace fan would all
+            # sample one edge of the launch span
+            sel = slice(None, None, max(1, rays // 64))
+            _sub.append(trace(op_name, scen, medium, delta_s=float(delta_s),
+                              mode="history", max_size=steps + 1,
+                              pos0=pos0[sel], theta0=theta0[sel],
+                              device=device))
+        return _sub[0]
+
     if isinstance(medium, STRAT_MEDIA):
         try:
             # full-batch conservation from the kernels' Welford tracker
@@ -225,12 +273,7 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
                 s.mom_count, s.mom_mean, s.mom_m2)
             span = f"full {rays}-ray batch"
         except ValueError:              # op has no stats kernel path
-            # strided subset: the first rays of a linspace fan would all
-            # sample one edge of the launch span
-            sel = slice(None, None, max(1, rays // 64))
-            res = trace(op_name, scen, medium, delta_s=float(delta_s),
-                        mode="history", max_size=steps + 1, pos0=pos0[sel],
-                        theta0=theta0[sel], device=device)
+            res = subset_history()
             cv = _host(oracles.momentum_cv_pct_from_history(res))
             span = f"{res.history.shape[1]}-ray subset"
         cv_mean, cv_max, n_excluded = oracles.momentum_cv_summary(cv)
@@ -243,6 +286,23 @@ def run_samples_file(path: str, op_name: str, *, delta_s: float, steps: int,
             printer(f"Momentum conservation CV(p_x), {span}: "
                     f"mean {cv_mean:.6f} % / max {cv_max:.6f} % "
                     f"(x-independent medium: p_x is an invariant){note}")
+    if plot == "static":
+        from raytracing_tpu_torch.viz import plots
+
+        res = subset_history()
+        pscen = scen
+        if not np.all(np.isfinite(scen.box)) or \
+                max(map(abs, scen.box)) > 1e6:
+            # an unbounded box (a profile's default) cannot frame a plot:
+            # frame the subset's trajectories instead
+            h = _host(res.history)
+            pscen = dataclasses.replace(scen, box=(
+                float(h[:, :, 0].min()), float(h[:, :, 0].max()),
+                float(h[:, :, 1].min()), float(h[:, :, 1].max())))
+        fig, _ = plots.plot_static(res, pscen, medium=medium, save=save_plot)
+        if save_plot:
+            printer(f"Plot saved to {save_plot}")
+        plots._mpl()[1].close(fig)
     return out
 
 
@@ -358,10 +418,12 @@ def samples_is_profile(medium) -> bool:
 def run_pipeline(scen, op_name: str, *, delta_s_mode: str = "calibrated",
                  medium_kind: str = "auto", dtype=torch.float32,
                  n_turns: int = config.N_TURNS, do_benchmark: bool = False,
-                 bench_trials: int = 10, device="cuda", printer=print):
+                 bench_trials: int = 10, plot: str = "none", save_plot=None,
+                 save_video=None, device="cuda", printer=print):
     """The reference's main() pipeline, flag-driven (RT_bench.py:961-1547):
     the step (searched, calibrated or default), the display run through
-    the scan tier with its oracle, and the optional benchmark."""
+    the scan tier with its oracle, the optional benchmark, and the plots
+    (RT_bench.py:1121-1197: ``plot`` "static" or "movie")."""
     dtype = _torch_dtype(dtype)
     medium = build_medium(scen, medium_kind, dtype, device=device)
 
@@ -434,7 +496,72 @@ def run_pipeline(scen, op_name: str, *, delta_s_mode: str = "calibrated",
         b = harness.benchmark(fn, scen.ray_count * steps, trials=bench_trials)
         printer(f"\nCompletion time per scenario: {b.seconds} seconds.")
         printer(f"Throughput: {b.ray_steps_per_sec:.3e} ray-steps/sec")
+
+    if plot != "none":
+        from raytracing_tpu_torch.viz import plots
+        _, plt = plots._mpl()
+        if plot == "movie" and scen.is_vert:
+            ani, _ = plots.animate_wavefronts(result, scen, save=save_video)
+            plt.close(ani._fig)
+        else:
+            fig, _ = plots.plot_static(result, scen, save=save_plot)
+            plt.close(fig)
+            if scen.is_vert:
+                plots.wavefront_report(result, printer=printer)
+                plt.close(plots.plot_momentum(
+                    result, scen, delta_s=delta_s,
+                    save=(save_plot + ".momentum.png") if save_plot
+                    else None))
     return result
+
+
+def interactive(input_fn=input, device="cuda"):
+    """The reference's stdin flow (RT_bench.py:1550-1588), on ``device``."""
+    key = _menu("Choose a Test Option",
+                ["Sharp changes in n(x,y)", "Gradual changes in n(x,y)",
+                 "Vertically heterogeneous - isotropic",
+                 "Vertically heterogeneous - anisotropic"],
+                "Enter the number of your choice:",
+                ["1", "2", "3", "4"], input_fn)
+    scen = config.scenario(key)
+    if key == "4":
+        choice = _menu("Choose an Algorithm Option. (Methods for ray advancement + angle determination)",
+                       [f"Run{m}..." for m in ANISO_MESSAGES],
+                       "Enter the number of your choice:", ["1", "2"], input_fn)
+    else:
+        choice = _menu("Choose an Algorithm Option. (Methods for ray advancement + angle determination)",
+                       [f"Run{m}..." for m in ISO_MESSAGES],
+                       "Enter the number of your choice:",
+                       [str(i) for i in range(1, 10)], input_fn)
+    op_name = op_for_choice(scen.name, choice)
+
+    if _yes_no("Do you want to find an appropriate DELTA_S?", input_fn):
+        mode = "search"
+    elif _yes_no("Do you want to use the calibrated DELTA_S? If not, the "
+                 "default DELTA_S will be used.", input_fn):
+        mode = "calibrated"
+    else:
+        mode = "default"
+
+    do_bench = _yes_no("Do you want to proceed with the benchmark?", input_fn)
+    plot = "none"
+    save_video = None
+    if scen.is_vert:
+        while True:
+            v = input_fn(f"\n{GREEN}Do you want to make a static (enter 1) or "
+                         f"movie (enter 2) plot?: {RESET} ").strip()
+            if v in ("1", "2"):
+                plot = "static" if v == "1" else "movie"
+                break
+            print("Invalid input. Please enter 1 or 2.")
+        if plot == "movie" and _yes_no("Do you want to save a video?", input_fn):
+            save_video = "wavefront_propagation.mp4"
+    else:
+        plot = "static"
+
+    return run_pipeline(scen, op_name, delta_s_mode=mode,
+                        do_benchmark=do_bench, plot=plot,
+                        save_video=save_video, device=device)
 
 
 def main(argv=None):
@@ -460,6 +587,8 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--plot", default="none", choices=["none", "static", "movie"])
+    p.add_argument("--save-plot")
+    p.add_argument("--save-video")
     g = p.add_argument_group("measured media (.npz with samples + x/y)")
     g.add_argument("--medium-file", metavar="FILE.npz",
                    help="trace a MEASURED medium instead of a named "
@@ -513,9 +642,6 @@ def main(argv=None):
                         "receiver direction (default -0.3 0.3 25 x2)")
     args = p.parse_args(argv)
 
-    if args.plot != "none":
-        p.error(f"--plot {args.plot}: the plots (viz/plots.py) are not "
-                "ported yet: ROADMAP.md §1 item 12")
     if args.eigenrays is not None and not args.medium_file:
         p.error("--eigenrays needs --medium-file (measured media; named "
                 "scenarios have analytic eigenray oracles in the tests)")
@@ -564,6 +690,10 @@ def main(argv=None):
         missing = [f for f, v in need if v is None]
         if missing:
             p.error(f"--medium-file needs {', '.join(missing)}")
+        if args.plot == "movie":
+            p.error("--plot movie is not supported with --medium-file "
+                    "(wavefront movies need a named scenario); use "
+                    "--plot static")
         op = canonical(f"op{int(args.op)}" if args.op.isdigit()
                        else args.op)
         delta_s, steps = args.delta_s_value, args.steps
@@ -594,11 +724,11 @@ def main(argv=None):
             args.medium_file, op, delta_s=delta_s, steps=steps,
             rays=args.rays or 1024, launch=args.launch,
             family=args.family, box=args.box, gamma=args.gamma,
-            save_pos=args.save_pos, preloaded=pre, device=device)
+            save_pos=args.save_pos, plot=args.plot,
+            save_plot=args.save_plot, preloaded=pre, device=device)
 
     if args.scenario is None:
-        p.error("--scenario (or --medium-file) is required: the interactive "
-                "menus are not ported yet: ROADMAP.md §1 item 12")
+        return interactive(device=device)
 
     scen = config.scenario(args.scenario)
     op_name = args.op or "1"
@@ -613,7 +743,8 @@ def main(argv=None):
         scen, op_name, delta_s_mode=args.delta_s_mode,
         medium_kind=args.medium, dtype=np.dtype(args.dtype),
         n_turns=args.n_turns, do_benchmark=args.benchmark,
-        bench_trials=args.bench_trials, device=device)
+        bench_trials=args.bench_trials, plot=args.plot,
+        save_plot=args.save_plot, save_video=args.save_video, device=device)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ angle rate ``_make_df_k`` (:137-391); ``df_grid_trace`` (:399); and the
 scan-tier facade ``DfEvalProfile`` / ``df_eval_profile_medium``
 (:436-488).
 
-The tables are built in float64 on the host (FITPACK through scipy, as the
-port's other media) and split into (hi, lo) float32 words; every
+The tables are built in float64 on the host (the native library or
+FITPACK, ``media/spline.py::resolve_backend``, as the port's other media)
+and split into (hi, lo) float32 words; every
 evaluation runs in double-word float32, so the medium the df RK4
 integrates is the float64 spline to ~1e-14.  The step is
 ``kernels/df.py``'s: JAX runs it here at the jnp level in ``fori_loop``

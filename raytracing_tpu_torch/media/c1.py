@@ -3,7 +3,7 @@
 Port of ``raytracing_tpu/media/c1.py``: ``hermite_dbasis`` (c1.py:49),
 ``hermite_d2basis`` (:56), ``_hermite1`` (:62), ``c1_blend`` (:68),
 ``c1_blend_h`` (:101), ``C1GridMedium`` (:138), ``C1StratifiedMedium``
-(:188), ``_n_spline_cells`` with scipy (:289),
+(:188), ``_n_spline_cells`` (:289, native or scipy by ``backend``),
 ``c1_medium_from_samples`` (:305), ``build_c1_medium`` (:331),
 ``compact_c1_stratified`` (:338), ``c1_stratified_from_samples`` (:377) and
 ``build_c1_stratified`` (:394).
@@ -33,7 +33,8 @@ from raytracing_tpu_torch.media.hermite import (
     _node_data, corner_rows, hermite_basis)
 from raytracing_tpu_torch.media.spline import (
     TableMedium, _check_profile, _promoted, _spline_to_cells, _upload,
-    cell_index, check_uniform_grid, cubic_cells_1d, stratified_window)
+    cell_index, check_uniform_grid, cubic_cells_1d, resolve_backend,
+    stratified_window)
 
 
 def hermite_dbasis(t):
@@ -161,32 +162,38 @@ class C1StratifiedMedium(TableMedium):
         return n, (torch.zeros_like(gy), gy)
 
 
-def _n_spline_cells(Z, y, x):
+def _n_spline_cells(Z, y, x, backend: str = "auto"):
     """Per-cell (ncy, ncx, 4, 4) power coefficients of the not-a-knot
-    bicubic interpolant of Z itself (float64, FITPACK)."""
+    bicubic interpolant of Z itself (float64; the native library or
+    FITPACK, ``backend``)."""
+    if resolve_backend(backend) == "native":
+        from raytracing_tpu_torch import native
+        return native.bicubic_cells(Z)
     from scipy.interpolate import RectBivariateSpline
 
     return _spline_to_cells(RectBivariateSpline(y, x, Z, kx=3, ky=3), y, x)
 
 
-def c1_medium_from_samples(Z, x, y, *, device="cuda",
-                           dtype=torch.float32) -> C1GridMedium:
+def c1_medium_from_samples(Z, x, y, *, device="cuda", dtype=torch.float32,
+                           backend: str = "auto") -> C1GridMedium:
     """Consistent-gradient 2-D medium from user index samples (uniform
     grids, >= 4x4, as spline.grid_medium_from_samples)."""
     Z, x, y, hx, hy = check_uniform_grid(Z, x, y)
-    nodes = _node_data(torch.as_tensor(_n_spline_cells(Z, y, x)))
+    nodes = _node_data(_n_spline_cells(Z, y, x, backend))
     ny, nx = nodes.shape[:2]
     return C1GridMedium(
-        nodes=_upload(nodes.reshape(ny * nx, 4).numpy(), dtype, device),
+        nodes=_upload(nodes.reshape(ny * nx, 4), dtype, device),
         x0=float(x[0]), y0=float(y[0]), inv_hx=float(1.0 / hx),
         inv_hy=float(1.0 / hy), nx=nx, ny=ny)
 
 
 def build_c1_medium(field: str, box, delta: float = config.DELTA, *,
-                    device="cuda", dtype=torch.float32) -> C1GridMedium:
+                    device="cuda", dtype=torch.float32,
+                    backend: str = "auto") -> C1GridMedium:
     """Sample ``field`` on the reference's padded grid, build a C1 medium."""
     x, y, Z = _grid.gen_grid(field, box, delta)
-    return c1_medium_from_samples(Z, x, y, device=device, dtype=dtype)
+    return c1_medium_from_samples(Z, x, y, device=device, dtype=dtype,
+                                  backend=backend)
 
 
 def compact_c1_stratified(medium: C1StratifiedMedium, margin: int = 2,

@@ -24,50 +24,52 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from raytracing_tpu_torch.media.spline import (
-    GridMedium, TableMedium, cell_index)
+    GridMedium, TableMedium, _upload, cell_index)
 
 
-def _node_data(cells: torch.Tensor) -> torch.Tensor:
+def _node_data(cells: np.ndarray) -> np.ndarray:
     """(ncy, ncx, 4, 4) power-basis cells -> (ncy+1, ncx+1, 4) node data.
 
     Node (I, J) takes (f, f_v, f_u, f_vu) from the adjacent cell
     (min(I, ncy-1), min(J, ncx-1)) at in-cell offsets (I - ciy, J - cix)
     in {0, 1}; C1 continuity of the source spline makes the choice of
-    adjacent cell immaterial.
+    adjacent cell immaterial.  Host numpy, summed by ``np.einsum`` in the
+    JAX package's order, so the node data equal JAX's to the bit.
     """
     ncy, ncx = cells.shape[:2]
-    out = cells.new_empty((ncy + 1, ncx + 1, 4))
+    out = np.empty((ncy + 1, ncx + 1, 4), cells.dtype)
 
     def powers(t):
-        return (cells.new_tensor([1.0, t, t * t, t ** 3]),
-                cells.new_tensor([0.0, 1.0, 2.0 * t, 3.0 * t * t]))
+        return (np.array([1.0, t, t * t, t ** 3], cells.dtype),
+                np.array([0.0, 1.0, 2.0 * t, 3.0 * t * t], cells.dtype))
 
     p0, d0 = powers(0.0)
     p1, d1 = powers(1.0)
     # interior + bottom/left edge nodes from their own cell at offset 0
-    out[:ncy, :ncx, 0] = torch.einsum("yxab,a,b->yx", cells, p0, p0)
-    out[:ncy, :ncx, 1] = torch.einsum("yxab,a,b->yx", cells, d0, p0)
-    out[:ncy, :ncx, 2] = torch.einsum("yxab,a,b->yx", cells, p0, d0)
-    out[:ncy, :ncx, 3] = torch.einsum("yxab,a,b->yx", cells, d0, d0)
+    out[:ncy, :ncx, 0] = np.einsum("yxab,a,b->yx", cells, p0, p0)
+    out[:ncy, :ncx, 1] = np.einsum("yxab,a,b->yx", cells, d0, p0)
+    out[:ncy, :ncx, 2] = np.einsum("yxab,a,b->yx", cells, p0, d0)
+    out[:ncy, :ncx, 3] = np.einsum("yxab,a,b->yx", cells, d0, d0)
     # top row from the last cell row at v = 1
-    out[ncy, :ncx, 0] = torch.einsum("xab,a,b->x", cells[-1], p1, p0)
-    out[ncy, :ncx, 1] = torch.einsum("xab,a,b->x", cells[-1], d1, p0)
-    out[ncy, :ncx, 2] = torch.einsum("xab,a,b->x", cells[-1], p1, d0)
-    out[ncy, :ncx, 3] = torch.einsum("xab,a,b->x", cells[-1], d1, d0)
+    out[ncy, :ncx, 0] = np.einsum("xab,a,b->x", cells[-1], p1, p0)
+    out[ncy, :ncx, 1] = np.einsum("xab,a,b->x", cells[-1], d1, p0)
+    out[ncy, :ncx, 2] = np.einsum("xab,a,b->x", cells[-1], p1, d0)
+    out[ncy, :ncx, 3] = np.einsum("xab,a,b->x", cells[-1], d1, d0)
     # right column at u = 1
-    out[:ncy, ncx, 0] = torch.einsum("yab,a,b->y", cells[:, -1], p0, p1)
-    out[:ncy, ncx, 1] = torch.einsum("yab,a,b->y", cells[:, -1], d0, p1)
-    out[:ncy, ncx, 2] = torch.einsum("yab,a,b->y", cells[:, -1], p0, d1)
-    out[:ncy, ncx, 3] = torch.einsum("yab,a,b->y", cells[:, -1], d0, d1)
+    out[:ncy, ncx, 0] = np.einsum("yab,a,b->y", cells[:, -1], p0, p1)
+    out[:ncy, ncx, 1] = np.einsum("yab,a,b->y", cells[:, -1], d0, p1)
+    out[:ncy, ncx, 2] = np.einsum("yab,a,b->y", cells[:, -1], p0, d1)
+    out[:ncy, ncx, 3] = np.einsum("yab,a,b->y", cells[:, -1], d0, d1)
     # far corner at (1, 1)
     c = cells[-1, -1]
-    out[ncy, ncx, 0] = torch.einsum("ab,a,b->", c, p1, p1)
-    out[ncy, ncx, 1] = torch.einsum("ab,a,b->", c, d1, p1)
-    out[ncy, ncx, 2] = torch.einsum("ab,a,b->", c, p1, d1)
-    out[ncy, ncx, 3] = torch.einsum("ab,a,b->", c, d1, d1)
+    out[ncy, ncx, 0] = np.einsum("ab,a,b->", c, p1, p1)
+    out[ncy, ncx, 1] = np.einsum("ab,a,b->", c, d1, p1)
+    out[ncy, ncx, 2] = np.einsum("ab,a,b->", c, p1, d1)
+    out[ncy, ncx, 3] = np.einsum("ab,a,b->", c, d1, d1)
     return out
 
 
@@ -136,15 +138,17 @@ def _hermite2d(c00, c01, c10, c11, v, u):
 
 def build_hermite_medium(gm: GridMedium,
                          dtype=torch.float32) -> HermiteGridMedium:
-    """Convert a GridMedium's per-cell tables to packed Hermite node form,
-    in float64 on the medium's own device."""
+    """Convert a GridMedium's per-cell tables to packed Hermite node form:
+    built in float64 on the host, uploaded to the medium's own device."""
     ny, nx = gm.ny, gm.nx
-    cx = gm.cx.double().reshape(ny - 1, nx - 1, 4, 4)
-    cy = gm.cy.double().reshape(ny - 1, nx - 1, 4, 4)
-    nodes = torch.empty((ny, nx, 9), dtype=torch.float64, device=gm.Z.device)
-    nodes[..., 0] = gm.Z.double()
-    nodes[..., 1:5] = _node_data(cx)
-    nodes[..., 5:9] = _node_data(cy)
+
+    def host(t):
+        return t.double().cpu().numpy()
+
+    nodes = np.empty((ny, nx, 9), np.float64)
+    nodes[..., 0] = host(gm.Z)
+    nodes[..., 1:5] = _node_data(host(gm.cx).reshape(ny - 1, nx - 1, 4, 4))
+    nodes[..., 5:9] = _node_data(host(gm.cy).reshape(ny - 1, nx - 1, 4, 4))
     return HermiteGridMedium(
-        nodes=nodes.reshape(ny * nx, 9).to(dtype),
+        nodes=_upload(nodes.reshape(ny * nx, 9), dtype, gm.Z.device),
         x0=gm.x0, y0=gm.y0, inv_hx=gm.inv_hx, inv_hy=gm.inv_hy, nx=nx, ny=ny)

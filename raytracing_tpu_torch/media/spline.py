@@ -5,8 +5,8 @@ Port of ``raytracing_tpu/media/spline.py``: ``_spline_to_cells`` (spline.py:42),
 (:144), the checks ``_check_axis``/``check_uniform_grid``/``_check_profile``
 (:163-205), ``stratified_medium_from_samples`` (:207),
 ``build_stratified_medium`` (:229), ``compact_stratified`` (:244),
-``_gradient_tables_f64`` with ``backend="scipy"`` (:294-320),
-``build_grid_medium`` (:322) and ``grid_medium_from_samples`` (:340).
+``_gradient_tables_f64`` (:294-320), ``build_grid_medium`` (:322) and
+``grid_medium_from_samples`` (:340).
 
 The reference evaluates its media through FITPACK: a bilinear
 RectBivariateSpline for n and bicubic ones for each gradient component
@@ -17,11 +17,13 @@ Vandermonde system recovers it exactly); evaluation is then a cell lookup
 plus a tensor Horner.  FITPACK clamps out-of-range queries to the grid
 boundary (fpbisp.f), and so do these evaluators.
 
-The tables are built in float64 numpy with scipy (the JAX package's
-native C++ builder is not ported) and go to ``device`` once, at build, in
-``dtype``; :meth:`to` moves a medium.  ``n_and_grad`` takes tensors on the
-medium's device and computes in the promoted dtype of the table and the
-coordinates, as the JAX media do.
+The tables are built in float64 numpy, by the port's C++ library
+(``raytracing_tpu_torch/native``) where g++ builds it and by scipy
+otherwise, as the JAX package's ``backend="auto"`` chooses; the 2-D
+builders' ``backend=`` forces either.  They go to ``device`` once, at
+build, in ``dtype``; :meth:`to` moves a medium.  ``n_and_grad`` takes
+tensors on the medium's device and computes in the promoted dtype of the
+table and the coordinates, as the JAX media do.
 """
 from __future__ import annotations
 
@@ -160,16 +162,31 @@ class StratifiedGridMedium(TableMedium):
         return n, (torch.zeros_like(gy), gy)
 
 
+def resolve_backend(backend: str) -> str:
+    """"auto" -> "native" where the C++ library builds, else "scipy"."""
+    if backend not in ("auto", "native", "scipy"):
+        raise ValueError(f"backend must be 'auto', 'native' or 'scipy', "
+                         f"got {backend!r}")
+    if backend == "auto":
+        from raytracing_tpu_torch import native
+        return "native" if native.available() else "scipy"
+    return backend
+
+
 def cubic_cells_1d(vals: np.ndarray) -> np.ndarray:
     """(ny,) f64 samples -> (ny-1, 4) not-a-knot cubic cells.
 
     Power-basis coefficients in the normalized in-cell offset: the same fit
-    as the 2-D pipeline's y-direction (an x-constant bicubic's
-    y-coefficients ARE the 1-D spline's).
+    as the 2-D pipeline's y-direction (native builder when present; an
+    x-constant bicubic's y-coefficients ARE the 1-D spline's).
     """
-    from scipy.interpolate import CubicSpline
+    from raytracing_tpu_torch import native
 
     vals = np.asarray(vals, np.float64)
+    if native.available():
+        return native.bicubic_cells(np.stack([vals] * 4, -1))[:, 0, :, 0]
+    from scipy.interpolate import CubicSpline
+
     spl = CubicSpline(np.arange(len(vals)), vals, bc_type="not-a-knot")
     return np.stack([spl.c[3], spl.c[2], spl.c[1], spl.c[0]], axis=-1)
 
@@ -300,9 +317,15 @@ def compact_stratified(medium: StratifiedGridMedium, margin: int = 2,
         inv_hy=medium.inv_hy, ny=hi - lo + 2)
 
 
-def gradient_tables_f64(Z, x, y, gs: float):
+def gradient_tables_f64(Z, x, y, gs: float, backend: str = "auto"):
     """(cx, cy) per-cell bicubic tables of np.gradient(Z) in float64, by
-    FITPACK (the JAX package's ``backend="scipy"`` path)."""
+    the native library or by FITPACK (``backend``, :func:`resolve_backend`).
+    """
+    if resolve_backend(backend) == "native":
+        from raytracing_tpu_torch import native
+        dndx, dndy = native.gradient2(Z, gs)
+        return (native.bicubic_cells(dndx).reshape(-1, 16),
+                native.bicubic_cells(dndy).reshape(-1, 16))
     from scipy.interpolate import RectBivariateSpline
 
     dndx, dndy = _grid.gradient_grids(Z, gs)
@@ -314,7 +337,8 @@ def gradient_tables_f64(Z, x, y, gs: float):
 
 
 def build_grid_medium(field: str, box, delta: float = config.DELTA, *,
-                      device="cuda", dtype=torch.float32) -> GridMedium:
+                      device="cuda", dtype=torch.float32,
+                      backend: str = "auto") -> GridMedium:
     """Sample ``field`` on the padded grid and build its tables: the
     reference pipeline genZ -> np.gradient -> bicubic fit
     (RT_bench.py:1587-1588), with the fit converted to per-cell
@@ -323,10 +347,11 @@ def build_grid_medium(field: str, box, delta: float = config.DELTA, *,
     # the reference differentiates with the NOMINAL pitch regardless of the
     # per-axis linspace spacing (np.gradient(Z, DELTA), RT_bench.py:450)
     return grid_medium_from_samples(Z, x, y, device=device, dtype=dtype,
-                                    gradient_spacing=delta)
+                                    backend=backend, gradient_spacing=delta)
 
 
 def grid_medium_from_samples(Z, x, y, *, device="cuda", dtype=torch.float32,
+                             backend: str = "auto",
                              gradient_spacing: float | None = None
                              ) -> GridMedium:
     """A 2-D grid medium from user-measured index samples.
@@ -337,12 +362,13 @@ def grid_medium_from_samples(Z, x, y, *, device="cuda", dtype=torch.float32,
     (edge_order=2), bicubic not-a-knot splines of each component, bilinear
     n (RT_bench.py:435-464).  ``gradient_spacing`` is the step fed to
     np.gradient: the reference uses the nominal DELTA; user grids default
-    to their mean pitch.
+    to their mean pitch.  ``backend``: "native" (the C++ library), "scipy"
+    (FITPACK) or "auto" (native where g++ builds it).
     """
     Z, x, y, hx, hy = check_uniform_grid(Z, x, y)
     gs = float(gradient_spacing if gradient_spacing is not None
                else 0.5 * (hx + hy))
-    cx, cy = gradient_tables_f64(Z, x, y, gs)
+    cx, cy = gradient_tables_f64(Z, x, y, gs, backend)
     return GridMedium(
         Z=_upload(Z, dtype, device), cx=_upload(cx, dtype, device),
         cy=_upload(cy, dtype, device),

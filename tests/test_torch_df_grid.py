@@ -1,8 +1,8 @@
 """The port's split-word sampled media (raytracing_tpu_torch/engine/
 df_grid.py) against the JAX package's (raytracing_tpu/engine/df_grid.py).
 
-The three builders' split tables equal JAX's bit for bit (JAX's FITPACK
-path, ``native`` off, as the port builds); the df evaluators reproduce the
+The three build functions' split tables equal JAX's bit for bit (both packages'
+FITPACK path, both ``native`` libraries off); the df evaluators reproduce the
 float64 splines; the df RK4 step on each medium equals JAX's, one jnp call
 at a time, to the bit, and ``df_grid_trace`` is held to JAX's jitted
 tracer; ``DfEvalProfile`` equals JAX's facade bit for bit and carries the
@@ -24,6 +24,7 @@ from raytracing_tpu.kernels import df as jdf  # noqa: E402
 
 import raytracing_tpu_torch as rtt  # noqa: E402
 from raytracing_tpu_torch.engine import df_grid as tdg  # noqa: E402
+from raytracing_tpu_torch import native as tnative  # noqa: E402
 from raytracing_tpu_torch.kernels import df as tdf  # noqa: E402
 
 #: the coarse fisheye grid (177 x 177 nodes) keeps the plain version quick
@@ -45,21 +46,24 @@ EVAL_TOL = {"grid": (1e-10, 1e-9, 1e-9), "c1": (1e-10, 1e-9, 1e-9),
 @pytest.fixture(scope="module")
 def media():
     """{kind: (JAX medium, port medium)}: the fisheye parity and C1 grids
-    at DELTA and the Munk profile, JAX's tables built by its FITPACK path
-    (the port's builder); the port's built by the port."""
+    at DELTA and the Munk profile, each package's tables built by its
+    FITPACK path (both native libraries off, so that the recorded bars
+    hold); the port's built by the port."""
     box = rt.scenario("fisheye").box
     samples, depth = H.munk_profile()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         jax_media = {"grid": jdg.build_df_grid_medium("fisheye", box, DELTA),
                      "c1": jdg.build_df_c1_medium("fisheye", box, DELTA),
                      "profile": jdg.df_c1_profile_from_samples(samples,
                                                                depth)}
-    port = {"grid": tdg.build_df_grid_medium("fisheye", box, DELTA,
+        port = {"grid": tdg.build_df_grid_medium("fisheye", box, DELTA,
+                                                 device="cpu"),
+                "c1": tdg.build_df_c1_medium("fisheye", box, DELTA,
                                              device="cpu"),
-            "c1": tdg.build_df_c1_medium("fisheye", box, DELTA, device="cpu"),
-            "profile": tdg.df_c1_profile_from_samples(samples, depth,
-                                                      device="cpu")}
+                "profile": tdg.df_c1_profile_from_samples(samples, depth,
+                                                          device="cpu")}
     return {k: (jax_media[k], port[k]) for k in KINDS}
 
 
@@ -225,8 +229,9 @@ def eval_profiles():
     samples, depth = H.munk_profile()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         jp = jdg.df_eval_profile_medium(samples, depth)
-    return jp, rtt.df_eval_profile_medium(samples, depth, device="cpu")
+        return jp, rtt.df_eval_profile_medium(samples, depth, device="cpu")
 
 
 def test_df_eval_profile_equals_jax_bit_for_bit(eval_profiles):

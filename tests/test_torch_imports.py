@@ -116,7 +116,15 @@ PATH_API = ("raytracing_tpu_torch.utils.profiling",
             "raytracing_tpu_torch.engine.diff")
 EXAMPLE_TWINS = ("examples/inverse_medium_torch.py",
                  "examples/tomography_torch.py",
-                 "examples/sampled_medium_production_torch.py")
+                 "examples/sampled_medium_production_torch.py",
+                 "examples/eddy_3d_torch.py",
+                 "examples/delta_s_search_torch.py",
+                 "examples/million_ray_benchmark_torch.py",
+                 "examples/measured_medium_torch.py",
+                 "examples/wavefront_movie_torch.py",
+                 "examples/ocean_waveguide_torch.py",
+                 "examples/transmission_loss_torch.py",
+                 "examples/tl_field_map_torch.py")
 
 
 def test_api_modules_import_without_jax():
@@ -129,6 +137,23 @@ PATH_SERVE = ("raytracing_tpu_torch.models", "raytracing_tpu_torch.serve")
 
 def test_serve_modules_import_without_jax():
     _import_without_jax(PATH_SERVE)
+
+
+#: the native spline library and the plots (matplotlib is imported only
+#: when something is drawn)
+PATH_DISPLAY = ("raytracing_tpu_torch.native.__init__",
+                "raytracing_tpu_torch.viz.plots")
+
+
+def test_native_and_viz_modules_import_without_jax():
+    _import_without_jax(PATH_DISPLAY)
+    code = ("import sys\nimport raytracing_tpu_torch.viz.plots\n"
+            "assert 'matplotlib' not in sys.modules\n")
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("path", EXAMPLE_TWINS)

@@ -1,5 +1,6 @@
 """The port's sampled media against the JAX package's at float64: the
-builders' tables (JAX with ``backend="scipy"`` where it has the switch),
+build functions' tables (both with ``backend="scipy"`` where they have the
+switch; the 1-D cells by the native library in both, where g++ builds it),
 the stratified trims, ``medium_from_samples``, ``n_and_grad`` of all five
 classes on seeded points (cell edges and points outside the grid included),
 and the interop that carries a JAX medium across."""
@@ -58,10 +59,12 @@ def build_pair(kind):
     if kind == "C1GridMedium":
         return (jc1.build_c1_medium("fisheye", box, GRID_DELTA,
                                     dtype=np.float64, backend="scipy"),
-                tc1.build_c1_medium("fisheye", box, GRID_DELTA, **F64))
+                tc1.build_c1_medium("fisheye", box, GRID_DELTA,
+                                    backend="scipy", **F64))
     jg = jspline.build_grid_medium("fisheye", box, GRID_DELTA,
                                    dtype=np.float64, backend="scipy")
-    tg = tspline.build_grid_medium("fisheye", box, GRID_DELTA, **F64)
+    tg = tspline.build_grid_medium("fisheye", box, GRID_DELTA,
+                                   backend="scipy", **F64)
     if kind == "GridMedium":
         return jg, tg
     return (jherm.build_hermite_medium(jg, dtype=np.float64),
@@ -157,10 +160,11 @@ def test_medium_from_samples_matches_jax(family):
     tm, tbox, tkind = tsamples.medium_from_samples(Z, x, y, family=family,
                                                    **F64)
     assert (tbox, tkind) == (jbox, jkind)
-    # JAX's 2-D sample builders take the native spline builder here when
-    # it builds (no backend switch in medium_from_samples): same spline,
-    # float64 rounding apart
-    assert_same_medium(tm, jm, tol=1e-10)
+    # both packages' 2-D sample build functions take their native spline library
+    # where g++ builds it (no backend switch in medium_from_samples): the
+    # same C++ source and flags give the same bits, else both fall back to
+    # FITPACK
+    assert_same_medium(tm, jm, tol=0.0)
 
 
 def test_samples_and_builders_refuse_bad_input():

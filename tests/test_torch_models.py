@@ -1,8 +1,8 @@
 """The port's model zoo (raytracing_tpu_torch/models.py) against the JAX
 package's (raytracing_tpu/models.py): ``get`` on every (scenario, medium)
 pair JAX builds, the tables equal to JAX's at the bars of
-tests/test_torch_media.py (JAX's native spline builder switched off, as
-the port builds with scipy), the calibrated steps equal, the pairs JAX
+tests/test_torch_media.py (both packages' native spline libraries switched
+off, so that both build with scipy), the calibrated steps equal, the pairs JAX
 refuses refused; ``Model.run`` and ``Model.trace`` against JAX's at a few
 hundred rays and at most 300 steps; the cache filled once under
 concurrent calls."""
@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from raytracing_tpu import models as jmodels  # noqa: E402
 from raytracing_tpu import native as jnative  # noqa: E402
+from raytracing_tpu_torch import native as tnative  # noqa: E402
 
 from raytracing_tpu_torch import models as tmodels  # noqa: E402
 
@@ -35,6 +36,7 @@ REFUSED = [("fisheye", "stratified"), ("fisheye", "c1-stratified"),
 def scipy_tables(monkeypatch):
     """Both packages build on scipy, each from an empty cache."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     monkeypatch.setattr(jmodels, "_CACHE", {})
     monkeypatch.setattr(tmodels, "_CACHE", {})
 

@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from raytracing_tpu import models as jmodels  # noqa: E402
 from raytracing_tpu import native as jnative  # noqa: E402
+from raytracing_tpu_torch import native as tnative  # noqa: E402
 from raytracing_tpu import serve as jserve  # noqa: E402
 
 from raytracing_tpu_torch import models as tmodels  # noqa: E402
@@ -66,10 +67,11 @@ SCAN3 = 5e-6
 @pytest.fixture(scope="module")
 def servers():
     """The JAX server and the port's on the CPU, each on a daemon thread;
-    both build their sampled media with scipy (JAX's native builder off,
-    as in the port's media tests), from empty model caches."""
+    both build their sampled media with scipy (both native libraries off,
+    so that the recorded bars hold), from empty model caches."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jnative, "available", lambda: False)
+    mp.setattr(tnative, "available", lambda: False)
     mp.setattr(jmodels, "_CACHE", {})
     mp.setattr(tmodels, "_CACHE", {})
     srvs = [jserve.create_server("127.0.0.1", 0),
