@@ -283,6 +283,22 @@ either is missing or any check fails.  Phases, one line or more each:
    in its processes after the timed table builds, once every timed phase
    before it is done, and runs beside the rest of phase 20 on the host's
    other cores.
+21. ``[mesh]``, the sharded path (parallel/mesh.py, parallel/distributed.py),
+   run after phase 19 and before phase 20's timed builds, in three
+   processes of its own started together, so that no process group is left
+   in this one: world size 1, make_mesh()'s own one-rank NCCL group, and
+   world size 2, a gloo group of two processes on the one card (NCCL
+   refuses two ranks on one GPU).  Each rank runs fast_trace_sharded at
+   2**20 rays and full depth on interface_strat op6 with stats
+   (fused_step_strat), aniso op11 (golden_step) and the parity fisheye grid
+   op1 (fused_step_grid), each kernel launched in the sharded call, every
+   plane of the rank's rows equal to fast_trace's on the same batch to the
+   bit, the sharded and unsharded calls' ms beside each other;
+   summarize_sharded against numpy on the host copy (1e-12); in world 2
+   also run_candidates(mesh=make_mesh(2, sweep=2)) on the first 8 fisheye
+   candidates against the unsharded metrics and grid3_trace_dynamic_tiled
+   (mesh=) at dyn3_tiled_op6's shape, 100 steps, against the call without
+   a mesh (dynamic3d_step_grid); the phase's seconds.
 
 The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
 11's ``[dynamic-vs-plain]``, 15's ``[custom-vs-plain]``, 16's
@@ -5207,6 +5223,224 @@ TWINS_HERE = (("million_ray_benchmark", [], ("fused_step",)),
               ("delta_s_search", [], ("fused_step",)),
               ("ocean_waveguide", [], ("fused_step_strat",)),
               ("measured_medium", [], ("fused_step_grid", "df_step_c1")))
+# -- the sharded path (parallel/mesh.py, parallel/distributed.py) ------------
+#: [mesh]'s three fast_trace_sharded runs at 2**20 rays and full depth:
+#: (name, scenario, medium kind, op, stats, kernel)
+MESH_RUNS = (("interface_strat", "interface", "strat", "op6", True,
+              "fused_step_strat"),
+             ("aniso", "aniso", "analytic", "op11", False, "golden_step"),
+             ("fisheye_grid", "fisheye", "grid", "op1", False,
+              "fused_step_grid"))
+#: the sweep check's candidates: the reference's first 8 fisheye divisors
+#: (303 -> 296), one turn, on the float32 scan tier
+MESH_CANDIDATES = 8
+#: the 3-D dynamic grid check's depth (dyn3_tiled_op6 runs 600 steps)
+MESH_DYN3_STEPS = 100
+#: a process of [mesh]: mesh_rank on the card, then one JSON line
+MESH_RUNNER = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+print(json.dumps(chip_smoke.mesh_rank(int(sys.argv[1]), int(sys.argv[2]),
+                                      sys.argv[3])))
+"""
+
+
+def mesh_rank(world, rank, store):
+    """One rank of [mesh]: world 1 is make_mesh()'s own one-rank NCCL group;
+    world 2 is a gloo group of two processes on the one card, joined through
+    a FileStore at ``store`` (NCCL refuses two ranks on one GPU).  Runs
+    MESH_RUNS through fast_trace_sharded and fast_trace on the same batch,
+    every plane of this rank's rows equal to the bit, with each call's ms
+    (CUDA events, medians of 3) and the kernel's launches in the sharded
+    call; summarize_sharded against numpy on the host copy; in world 2 also
+    run_candidates(mesh=) on the fisheye candidates and
+    grid3_trace_dynamic_tiled(mesh=) at dyn3_tiled_op6's shape, each
+    against the call without a mesh.  Returns {"lines": [...]}; raises on
+    any disagreement."""
+    import torch.distributed as dist
+
+    import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.calibrated import calibrated_with_fallback
+    from raytracing_tpu_torch.engine.fast import fast_trace_sharded
+    from raytracing_tpu_torch.parallel.distributed import summarize_sharded
+    from raytracing_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    lines = []
+
+    def say(msg):
+        lines.append(f"  [mesh] world {world} rank {rank} at "
+                     f"{time.perf_counter() - t0:.1f} s: {msg}")
+
+    if world > 1:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
+    mesh = make_mesh(world, device="cuda")
+    backend = dist.get_backend()
+    kernels = {k.name: k for k in kernel_infos()}
+    lo, hi = rank * (RAYS_MAIN // world), (rank + 1) * (RAYS_MAIN // world)
+    media = {"strat": rtt.build_stratified_medium(
+        "interface", rtt.scenario("interface").box, device="cuda"),
+             "grid": rtt.build_grid_medium(
+        "fisheye", rtt.scenario("fisheye").box, device="cuda")}
+    for name, scen_name, kind, op, stats, kernel in MESH_RUNS:
+        scen = rtt.scenario(scen_name)
+        ds, div = (calibrated_step(op, scen_name) if kind == "analytic"
+                   else calibrated_with_fallback(op, scen_name))
+        steps = scen.max_size(float(ds), div, 1) - 1
+        med = (rtt.analytic_medium(scen.field) if kind == "analytic"
+               else media[kind])
+        pos0, theta0 = fan(scen, RAYS_MAIN, np.random.default_rng(0))
+        kw = dict(delta_s=ds, pos0=pos0, theta0=theta0, steps=steps,
+                  stats=stats, device="cuda")
+        kernels[kernel].launches = 0
+        s = fast_trace_sharded(op, scen, med, mesh=mesh, **kw)
+        launched = kernels[kernel].launches
+        if launched <= 0:
+            fail(f"[mesh] {name}: {kernel} never launched in the sharded run")
+        del s
+        # medians of 3 after a warm-up each, sharded and unsharded in turn
+        sh_ms, s = median_ms(lambda: fast_trace_sharded(
+            op, scen, med, mesh=mesh, **kw), reps=3)
+        one_ms, one = median_ms(lambda: rtt.fast_trace(op, scen, med, **kw),
+                                reps=3)
+        planes = [f for f in one._fields
+                  if torch.is_tensor(getattr(one, f))]
+        for f in planes:
+            if not torch.equal(getattr(s, f).to_local(),
+                               getattr(one, f)[lo:hi]):
+                fail(f"[mesh] world {world} {name}: plane {f} of rank "
+                     f"{rank}'s rows differs from the unsharded run")
+        say(f"{name} {op} engine={s.engine} {RAYS_MAIN} rays x {steps} "
+            f"steps ({RAYS_MAIN // world} on this rank), {kernel} "
+            f"launched {launched}x, every plane of its rows equal to "
+            f"fast_trace's ({', '.join(planes)}): sharded {sh_ms:.3f} ms, "
+            f"unsharded {one_ms:.3f} ms (medians of 3)")
+        if name == "fisheye_grid":
+            summ = summarize_sharded(s)
+            p = one.pos.double().cpu().numpy()
+            closure = 100.0 * np.linalg.norm(p - [1.0, 0.0], axis=-1) / (
+                2.0 * math.pi)
+            dsum = one.dist_sim.double().cpu().numpy().sum()
+            ok = (summ.rays == RAYS_MAIN
+                  and abs(float(summ.mean_closure_pct) - closure.mean())
+                  <= 1e-12 * abs(closure.mean())
+                  and abs(float(summ.total_distance) - dsum) <= 1e-12 * dsum)
+            say(f"summarize_sharded ({backend}): mean closure "
+                f"{float(summ.mean_closure_pct):.9f} % (numpy on the host "
+                f"copy {closure.mean():.9f}), total distance "
+                f"{float(summ.total_distance):.6f} ({dsum:.6f}), rays "
+                f"{summ.rays}, within 1e-12: {ok}")
+            if not ok:
+                fail("[mesh] summarize_sharded disagrees with numpy")
+        del s, one
+    if world > 1:
+        from raytracing_tpu_torch.engine.tiled3 import (
+            grid3_trace_dynamic_tiled)
+        from raytracing_tpu_torch.parallel import sweep as sw
+
+        scen = rtt.scenario("fisheye")
+        divs, ds, tdivs = sw.candidates(scen)
+        divs, ds, tdivs = (a[:MESH_CANDIDATES] for a in (divs, ds, tdivs))
+        sizes = sw._max_sizes(scen, ds, tdivs, 1)
+        med = rtt.analytic_medium("fisheye")
+        kw = dict(n_turns=1, dtype=torch.float32, device="cuda")
+        t1 = time.perf_counter()
+        one = sw.run_candidates("op1", scen, med, ds, sizes - 1,
+                                int(sizes.max()), **kw)
+        t2 = time.perf_counter()
+        smesh = make_mesh(world, sweep=world, device="cuda")
+        shard = sw.run_candidates("op1", scen, med, ds, sizes - 1,
+                                  int(sizes.max()), mesh=smesh, **kw)
+        t3 = time.perf_counter()
+        if not np.array_equal(shard["closure_pct"], one["closure_pct"]):
+            fail("[mesh] run_candidates(mesh=) differs from the unsharded "
+                 "metrics")
+        say(f"run_candidates(mesh={tuple(smesh.mesh.shape)}) on the "
+            f"fisheye divisors {divs[0]:.0f}-{divs[-1]:.0f} (one turn, "
+            f"float32 scan tier): every candidate's closure equal to the "
+            f"unsharded sweep's; sharded {t3 - t2:.3f} s, unsharded "
+            f"{t2 - t1:.3f} s")
+        gmed = grid3_medium("cuda")
+        pos0, dir0, ds3, _, box = fan3_dyn("matrix", RAYS_MAIN, 0)
+        kw = dict(steps=MESH_DYN3_STEPS, box=box, device="cuda")
+        kernels["dynamic3d_step_grid"].launches = 0
+        s = grid3_trace_dynamic_tiled("op6", pos0, dir0, ds3, gmed,
+                                      mesh=mesh, **kw)
+        launched = kernels["dynamic3d_step_grid"].launches
+        sh_ms, s = cuda_ms(lambda: grid3_trace_dynamic_tiled(
+            "op6", pos0, dir0, ds3, gmed, mesh=mesh, **kw))
+        one_ms, one = cuda_ms(lambda: grid3_trace_dynamic_tiled(
+            "op6", pos0, dir0, ds3, gmed, **kw))
+        for f in one._fields:
+            if not torch.equal(getattr(s, f).to_local(),
+                               getattr(one, f)[lo:hi]):
+                fail(f"[mesh] grid3_trace_dynamic_tiled(mesh=): plane {f} "
+                     f"of rank {rank}'s rows differs")
+        if launched <= 0:
+            fail("[mesh] dynamic3d_step_grid never launched in the sharded "
+                 "run")
+        say(f"grid3_trace_dynamic_tiled(mesh=) dyn3_tiled_op6 "
+            f"{gmed.nz}x{gmed.ny}x{gmed.nx} nodes, {RAYS_MAIN} rays x "
+            f"{MESH_DYN3_STEPS} steps, dynamic3d_step_grid launched "
+            f"{launched}x, all {len(one._fields)} planes of its rows equal: "
+            f"sharded {sh_ms:.3f} ms, unsharded {one_ms:.3f} ms")
+    dist.destroy_process_group()
+    return {"lines": lines, "seconds": time.perf_counter() - t0}
+
+
+def phase_mesh(name):
+    """[mesh]: the sharded path in processes of their own, so that no
+    process group is left in this one: world size 1 over NCCL and world
+    size 2 over gloo on the one card, started together (mesh_rank).
+    Returns the phase's seconds; fails if a process fails."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = MESH_RUNNER.format(root=root)
+    tmp = tempfile.TemporaryDirectory()
+    store = os.path.join(tmp.name, "store")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    procs = [(w, r, subprocess.Popen(
+        [sys.executable, "-c", code, str(w), str(r), store], cwd=tmp.name,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for w, r in ((1, 0), (2, 0), (2, 1))]
+    try:
+        for w, r, proc in procs:
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            try:
+                rec = json.loads(out.strip().splitlines()[-1])
+            except (IndexError, ValueError):
+                rec = None
+            if proc.returncode != 0 or rec is None:
+                fail(f"[mesh] world {w} rank {r} exited {proc.returncode}: "
+                     f"{out[-1500:]} {err[-3000:]}")
+            for line in rec["lines"]:
+                print(line, flush=True)
+            print(f"  [mesh] world {w} rank {r}: {rec['seconds']:.1f} s in "
+                  "its process", flush=True)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    secs = time.perf_counter() - t0
+    print(f"[mesh] world size 1 (NCCL) and 2 (gloo) on {name}: every "
+          f"sharded run equal to the unsharded one; phase {secs:.1f} s",
+          flush=True)
+    return secs
+
+
 #: the host-bound work with no kernel launch that runs in processes of its
 #: own, started in phase 20 after its timed table builds (every timed phase
 #: before it done) and collected at its end: phase 20's twins that run the
@@ -5499,6 +5733,9 @@ def main():
           f"s: {api_secs:.1f} s together", flush=True)
     # this slice: the serving layer, its requests through the kernels
     serve_secs, _ = phase_serve("cuda", kernels, name)
+    # this slice: the sharded path, in processes of its own, before phase
+    # 20's timed builds (no other process of this script alive there)
+    mesh_secs = phase_mesh(name)
     # this slice: the native spline library, the display path and the
     # example twins.  The timed table builds first, with no other process
     # of this script alive; then the host-bound work with no kernel launch
@@ -5538,7 +5775,8 @@ def main():
           f"{t_d3 - t_3d:.1f} s, of which [3d-shapes] "
           f"{secs3:.1f} s; the 3-D dynamic phase's "
           f"{t_api - t_d3:.1f} s; phase 18's {api_secs:.1f} s; phase "
-          f"19's {serve_secs:.1f} s; phase 20's {secs20:.1f} s; "
+          f"19's {serve_secs:.1f} s; [mesh]'s {mesh_secs:.1f} s; phase "
+          f"20's {secs20:.1f} s; "
           f"{time.perf_counter() - T_IMPORTS:.1f} s with the imports)",
           flush=True)
     print(json.dumps({"kernels": [

@@ -36,6 +36,7 @@ from raytracing_tpu_torch.engine.dynamic import (
     CROSS_COLS, DYN_COLS, spreading_amplitude, trace_crossings_fan,
     trace_crossings_pick)
 from raytracing_tpu_torch.engine.trace import _torch_dtype
+from raytracing_tpu_torch.parallel.mesh import run_over_rays
 
 # history-row columns (DYN_COLS) of the host-side crossing scans
 _X = DYN_COLS.index("x")
@@ -150,11 +151,16 @@ def find_eigenrays(op_name: str, medium, *, source, receivers, delta_s,
     receiver range.  The traces run on ``device`` at ``dtype``: a medium's
     tables are read at their own precision, so build sampled media in
     float64 for eigenray work (float32 tables floor the miss near 1e-5).
+
+    ``mesh`` (a ``torch.distributed`` mesh, ``parallel/mesh.py``) pads
+    each fan and each Newton batch to the mesh's ``"rays"`` extent and
+    splits it over that axis (eigenray.py:279-305); the crossings are
+    all-gathered, so the host Newton steps and the merge run the same on
+    every rank, and every rank returns the same arrivals.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "find_eigenrays(mesh=...) is not ported yet: ROADMAP.md §1 "
-            "item 18")
+        from raytracing_tpu_torch.parallel.mesh import check_device
+        check_device(mesh, device)
     dtype = _torch_dtype(dtype)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     source = np.asarray(source, np_dtype)
@@ -170,17 +176,21 @@ def find_eigenrays(op_name: str, medium, *, source, receivers, delta_s,
     kw = dict(delta_s=delta_s, dtype=dtype, max_size=max_size, device=device)
 
     def fan_crossings(theta0, ranges, m_ord):
-        res = trace_crossings_fan(op_name, scen, medium, ranges=ranges,
-                                  max_ord=m_ord,
-                                  pos0=np.tile(source, (len(theta0), 1)),
-                                  theta0=theta0, **kw)
-        return res.depths.cpu().numpy(), res.counts.cpu().numpy()
+        def run(th):
+            res = trace_crossings_fan(op_name, scen, medium, ranges=ranges,
+                                      max_ord=m_ord,
+                                      pos0=np.tile(source, (len(th), 1)),
+                                      theta0=th, **kw)
+            return res.depths.cpu().numpy(), res.counts.cpu().numpy()
+        return run_over_rays(mesh, run, theta0)
 
     def pick(theta0, xr, ordk):
-        res = trace_crossings_pick(op_name, scen, medium, xr=xr, ordk=ordk,
-                                   pos0=np.tile(source, (len(theta0), 1)),
-                                   theta0=theta0, **kw)
-        return res.state.cpu().numpy(), res.found.cpu().numpy()
+        def run(th, x, o):
+            res = trace_crossings_pick(op_name, scen, medium, xr=x, ordk=o,
+                                       pos0=np.tile(source, (len(th), 1)),
+                                       theta0=th, **kw)
+            return res.state.cpu().numpy(), res.found.cpu().numpy()
+        return run_over_rays(mesh, run, theta0, xr, ordk)
 
     # --- bracket scan: one fan trace records every range-line crossing; a
     # (range x depth) receiver grid shares a range's records

@@ -27,8 +27,11 @@ by default: the Newton floor is the landing surface's noise, so build
 sampled media in float64 for eigenray work); the seed scan, the
 Gauss-Newton bookkeeping and the merge are host numpy.  The JAX package's
 host/accelerator routing (``on_host``, ``_solve_device``) existed for a
-remote TPU without float64 and is not ported; ``mesh=`` raises (ROADMAP.md
-§1 item 18).
+remote TPU without float64 and is not ported.  ``mesh=`` (a
+``torch.distributed`` mesh) pads the fan and each Gauss-Newton batch to
+the mesh's ``"rays"`` extent and splits it over that axis
+(eigenray3d.py:148-165); the crossings are all-gathered, so every rank
+runs the same host steps and returns the same arrivals.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from raytracing_tpu_torch.engine.dynamic3d import (
     CROSS3_COLS, _transverse_frame, spreading_amplitude3,
     trace_crossings_fan3, trace_crossings_pick3)
 from raytracing_tpu_torch.engine.trace import _torch_dtype
+from raytracing_tpu_torch.parallel.mesh import run_over_rays
 
 
 class Eigenrays3(NamedTuple):
@@ -96,9 +100,8 @@ def find_eigenrays3(method: str, medium, *, source, receivers, delta_s,
     empty when no fan ray lands near any receiver.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "find_eigenrays3(mesh=...) is not ported yet: ROADMAP.md §1 "
-            "item 18")
+        from raytracing_tpu_torch.parallel.mesh import check_device
+        check_device(mesh, device)
     dtype = _torch_dtype(dtype)
     source = np.asarray(source, np.float64)
     receivers = np.atleast_2d(np.asarray(receivers, np.float64))
@@ -118,10 +121,13 @@ def find_eigenrays3(method: str, medium, *, source, receivers, delta_s,
     # the miss per (receiver, ordinal) seed one candidate each
     uniq_xr, xr_inv = np.unique(receivers[:, 0], return_inverse=True)
     fan_dirs = dirs.reshape(-1, 3)
-    fanres = trace_crossings_fan3(
-        method, medium, pos0=np.tile(source, (len(fan_dirs), 1)),
-        dir0=fan_dirs, ranges=uniq_xr, max_ord=int(max_ord), **kw)
-    depths = fanres.depths.cpu().numpy()         # (F, NRu, max_ord, 2)
+
+    def run_fan(d):
+        res = trace_crossings_fan3(
+            method, medium, pos0=np.tile(source, (len(d), 1)), dir0=d,
+            ranges=uniq_xr, max_ord=int(max_ord), **kw)
+        return (res.depths.cpu().numpy(),)
+    depths, = run_over_rays(mesh, run_fan, fan_dirs)  # (F, NRu, max_ord, 2)
 
     cand_dir, cand_rec, cand_ord = [], [], []
     for ui in range(len(uniq_xr)):
@@ -159,10 +165,12 @@ def find_eigenrays3(method: str, medium, *, source, receivers, delta_s,
     cDPB = CROSS3_COLS.index("dpbx")
 
     def run_pick(dir_batch):
-        res = trace_crossings_pick3(
-            method, medium, pos0=np.tile(source, (len(dir_batch), 1)),
-            dir0=dir_batch, xr=xr, ordk=ordk, **kw)
-        return res.state.cpu().numpy(), res.found.cpu().numpy()
+        def run(d, x, o):
+            res = trace_crossings_pick3(
+                method, medium, pos0=np.tile(source, (len(d), 1)), dir0=d,
+                xr=x, ordk=o, **kw)
+            return res.state.cpu().numpy(), res.found.cpu().numpy()
+        return run_over_rays(mesh, run, dir_batch, xr, ordk)
 
     # --- damped Gauss-Newton, all candidates in one trace an iteration;
     # each candidate follows its seeded crossing ordinal

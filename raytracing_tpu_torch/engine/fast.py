@@ -31,14 +31,29 @@ stratified tables and 2-D grids go to the three dynamic kernels
 the scan tier's ``trace_dynamic`` on the same device (``"dynamic-scan"``),
 as JAX routes them.
 
+* Any other 2-D medium (one with ``n_and_grad`` and no kernel, e.g. a
+  ``ParametricMedium``) goes to the scan tier, ``engine/trace.py::trace``
+  in metrics mode at float32 on ``device`` (``"scan"``), with ``active``
+  the box test on the final positions, as JAX routes it (fast.py:237-253);
+  ``stats=True`` raises there.  An object that is no medium at all raises
+  NotImplementedError.
+
 Not ported, on purpose: ``SEGMENT_THRESHOLD`` and the segmented route
 (fast.py:56, 226-307) and the angle sort (fast.py:275-283).  They bound
 Mosaic's compile time and skip frozen TPU blocks; on the card one launch
 covers every trace length, and each thread stops stepping once its ray is
-frozen, which gives the same results.  No medium falls back to the scan
-tier: any other medium raises NotImplementedError.  JAX sends a custom
-trace longer than ``SEGMENT_THRESHOLD`` to the scan tier (fast.py:226-231),
-a Mosaic compile guard; here it is one launch at every length.
+frozen, which gives the same results.  JAX sends a custom trace longer
+than ``SEGMENT_THRESHOLD`` to the scan tier (fast.py:226-231), a Mosaic
+compile guard; here it is one launch at every length.
+
+``fast_trace_sharded`` (fast.py:693-804) is the multi-device form over a
+``torch.distributed`` mesh (``parallel/mesh.py``): the routing and the
+refusals of JAX's, each rank calling the kernels of :func:`fast_trace` on
+its rows of the batch; the per-ray results, ``mom_*`` included, come back
+as DTensors sharded over the flattened mesh.  Engines ``"fused-sharded"``,
+``"golden-sharded"``, ``"fused-strat-sharded"``, ``"golden-strat-sharded"``,
+``"fused-custom-sharded"``, ``"golden-custom-sharded"`` and
+``"grid-sharded"`` (JAX: ``"grid-tiled-sharded"``).
 
 ``fast_trace3`` (fast.py:601-690) is the 3-D twin, metrics only: the
 vector ops on the analytic 3-D fields go to ``fused3d_step``
@@ -81,6 +96,7 @@ from raytracing_tpu_torch.engine.segmented import (
     grid_trace_dynamic_tiled, grid_trace_tiled)
 from raytracing_tpu_torch.engine.tiled3 import (
     grid3_trace_dynamic_tiled, grid3_trace_tiled)
+from raytracing_tpu_torch.engine.trace import _outside, trace
 from raytracing_tpu_torch.engine.trace3d import canonical3, trace3d
 from raytracing_tpu_torch.kernels.df import DF_FIELDS, df_trace
 from raytracing_tpu_torch.kernels.dynamic import (
@@ -182,20 +198,42 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
     # trim stratified tables to their reachable, nontrivial window exactly
     # as JAX does: the trim fixes y0 and so every cell index's rounding
     medium = compact_for_trace(medium, scen.box, delta_s)
+    if steps is None:
+        steps = scen.max_size(float(delta_s), divisor, n_turns) - 1
+    if not (supports(op, medium) or hasattr(medium, "n_and_grad")):
+        raise NotImplementedError(
+            f"fast_trace has no route for {type(medium).__name__}: it is no "
+            "2-D medium (no n_and_grad; ROADMAP.md §3)")
+    if not supports(op, medium):
+        if stats:
+            raise ValueError(f"stats=True has no kernel path for {op!r} on "
+                             f"{type(medium).__name__} (scan fallback)")
+        res = trace(op, scen, medium, delta_s=float(delta_s), device=device,
+                    divisor=divisor, n_turns=n_turns, mode="metrics",
+                    dtype=torch.float32, max_size=int(steps) + 1, pos0=pos0,
+                    theta0=theta0)
+        f = res.final
+        # "active" = still inside the box, as the kernels report it; the
+        # scan's own flag also counts the end of the step budget
+        return FastResult(pos=f.pos, traveltime=f.traveltime,
+                          dist_sim=f.dist_sim,
+                          active=~_outside(f.pos, tuple(scen.box)),
+                          engine="scan", tangent=f.unitv)
+    return _kernel_route(op, scen, medium, delta_s=delta_s, pos0=pos0,
+                         theta0=theta0, device=device, steps=int(steps),
+                         stats=stats)
+
+
+def _kernel_route(op, scen, medium, *, delta_s, pos0, theta0, device,
+                  steps: int, stats: bool) -> FastResult:
+    """:func:`fast_trace`'s kernel tier for a supported (op, medium) pair,
+    the medium already trimmed by ``compact_for_trace``."""
     strat = isinstance(medium, STRAT_MEDIA)
     grid = isinstance(medium, GRID_MEDIA)
     custom = isinstance(medium, CustomMedium)
-    if not (strat or grid or custom or isinstance(medium, AnalyticMedium)):
-        raise NotImplementedError(
-            f"fast_trace has no kernel for {type(medium).__name__}, and no "
-            "medium falls back to the scan tier (ROADMAP.md §3)")
     if stats and custom:
         raise ValueError("stats=True has no CustomMedium path: JAX's custom "
                          "kernels carry no Welford tracker (fast.py:330-343)")
-    if not supports(op, medium):
-        on = (f"field {medium.field!r}" if isinstance(medium, AnalyticMedium)
-              else type(medium).__name__)
-        raise ValueError(f"no kernel for {op!r} on {on}")
     if stats and grid:
         raise ValueError("stats=True needs a stratified (x-independent) "
                          "medium — p_x is only an invariant there; got "
@@ -204,16 +242,13 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
         raise ValueError(f"stats=True needs an x-independent field "
                          f"{STATS_FIELDS}; p_x is not an invariant on "
                          f"{medium.field!r}")
-    if steps is None:
-        steps = scen.max_size(float(delta_s), divisor, n_turns) - 1
-
     box = tuple(scen.box)
     if grid:
         if isinstance(medium, GridMedium):
             # the Hermite node form is the same spline in the kernels' layout
             medium = _as_hermite(medium)
         f = grid_trace_tiled(op, pos0, theta0, delta_s, medium,
-                             steps=int(steps), box=box, device=device,
+                             steps=steps, box=box, device=device,
                              gamma=float(scen.gamma))
         return FastResult(pos=f.pos, traveltime=f.traveltime,
                           dist_sim=f.dist_sim, active=f.active, engine="grid",
@@ -225,7 +260,7 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
         kw = (dict(field=None, medium=medium) if strat or custom
               else dict(field=medium.field))
         g = golden_trace_final(pos0, theta0, delta_s, scen.gamma, op=op,
-                               steps=int(steps), box=box, device=device,
+                               steps=steps, box=box, device=device,
                                with_stats=stats, **kw)
         tangent = torch.stack([torch.cos(g.angle), torch.sin(g.angle)], dim=-1)
         return FastResult(pos=g.pos, traveltime=g.traveltime,
@@ -235,20 +270,81 @@ def fast_trace(op_name: str, scen: config.ScenarioConfig, medium, *,
                           mom_m2=g.mom_m2, tangent=tangent)
     if strat:
         f = fused_trace_final_strat(pos0, theta0, delta_s, medium, op=op,
-                                    steps=int(steps), box=box, device=device,
+                                    steps=steps, box=box, device=device,
                                     with_stats=stats)
     elif custom:
         f = fused_trace_final_custom(pos0, theta0, delta_s, medium=medium,
-                                     op=op, steps=int(steps), box=box,
+                                     op=op, steps=steps, box=box,
                                      device=device)
     else:
         f = fused_trace_final(pos0, theta0, delta_s, field=medium.field,
-                              op=op, steps=int(steps), box=box, device=device,
+                              op=op, steps=steps, box=box, device=device,
                               with_stats=stats)
     return FastResult(pos=f.pos, traveltime=f.traveltime, dist_sim=f.dist_sim,
                       active=f.active, engine="fused" + kind,
                       mom_count=f.mom_count, mom_mean=f.mom_mean,
                       mom_m2=f.mom_m2, tangent=f.tangent)
+
+
+def fast_trace_sharded(op_name: str, scen: config.ScenarioConfig, medium, *,
+                       delta_s, pos0, theta0, mesh, steps: int,
+                       block_rays: int = 4096, stats: bool = False,
+                       device="cuda") -> FastResult:
+    """Kernel-tier tracing with the ray batch sharded across ``mesh``
+    (fast.py:693-804), a ``DeviceMesh`` from ``parallel.mesh.make_mesh``.
+
+    Every rank passes the whole batch (or a DTensor of it) and traces its
+    rows of it with the kernels :func:`fast_trace` launches, on ``device``
+    (this rank's card, or the CPU on a CPU mesh); no collective runs inside
+    the trace.  The per-ray results, ``mom_*`` included (``stats=True``,
+    stratified media only, as in JAX), come back as DTensors of the whole
+    batch sharded over the flattened mesh: ``.to_local()`` is this rank's
+    rows, ``.full_tensor()`` gathers them.  The batch must divide by the
+    device count times ``block_rays``, JAX's kernel block (the kernels here
+    have none, but the port refuses exactly the calls JAX refuses).  2-D
+    grids go through ``grid_trace_tiled(mesh=)`` (``"grid-sharded"``).  A
+    rank that fails makes the call fail on every rank.
+    """
+    from raytracing_tpu_torch.parallel import mesh as meshlib
+
+    op = canonical(op_name)
+    meshlib.check_device(mesh, device)
+    if stats and not isinstance(medium, STRAT_MEDIA):
+        raise ValueError("stats=True needs a stratified (x-independent) "
+                         "medium — p_x is only an invariant there; got "
+                         f"{type(medium).__name__}")
+    if isinstance(medium, GridMedium):
+        medium = _as_hermite(medium)
+    if isinstance(medium, (HermiteGridMedium, C1GridMedium)):
+        if op not in FUSED_OPS and op not in GOLDEN_OPS:
+            raise ValueError(f"2-D grid media cover {FUSED_OPS} and "
+                             f"{tuple(GOLDEN_OPS)}, got {op!r}")
+        g = grid_trace_tiled(op, pos0, theta0, delta_s, medium,
+                             steps=int(steps), box=tuple(scen.box),
+                             device=device, gamma=float(scen.gamma),
+                             mesh=mesh, block_rays=min(block_rays, 1024))
+        return FastResult(pos=g.pos, traveltime=g.traveltime,
+                          dist_sim=g.dist_sim, active=g.active,
+                          engine="grid-sharded", tangent=g.tangent)
+    # only media this function dispatches on: the wider supports() set
+    # would trace the wrong field here (fast.py:761-771)
+    sharded_ok = (isinstance(medium, STRAT_MEDIA + (CustomMedium,))
+                  or (isinstance(medium, AnalyticMedium)
+                      and medium.field in FUSED_FIELDS))
+    golden = op in GOLDEN_OPS
+    if not (sharded_ok and (op in FUSED_OPS or golden)):
+        raise ValueError(
+            f"fast_trace_sharded covers the fused and golden ops on "
+            f"analytic/stratified/custom media and the full op set on "
+            f"2-D grid media; got {op!r} on {type(medium).__name__}")
+    # one trim, on the whole scenario, before the split (fast.py:758)
+    medium = compact_for_trace(medium, scen.box, delta_s)
+    f = meshlib.over_batch(
+        mesh, device, lambda p, t: _kernel_route(
+            op, scen, medium, delta_s=delta_s, pos0=p, theta0=t,
+            device=device, steps=int(steps), stats=stats),
+        "fast_trace_sharded", pos0, theta0, block_rays=block_rays)
+    return f._replace(engine=f.engine + "-sharded")
 
 
 def _fast_trace_df(op, scen, medium, *, delta_s, pos0, theta0, device,

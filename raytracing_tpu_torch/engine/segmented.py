@@ -17,11 +17,13 @@ that exists because ``tpu.dynamic_gather`` spans one 128-lane vreg.  On the
 card every ray reads its own cell's row of the whole table in global memory
 (``Grid`` in csrc/media.cuh), so none of it is ported (ROADMAP.md "Not to
 port"): no window, sort, containment flag or replay ladder; no
-``segment``, ``block_rays``, ``tile_shape``, ``refreshes_per_round``,
-``row_windows``, ``oriented``, ``pack``, ``mesh`` or ``interpret``; no
+``segment``, ``tile_shape``, ``refreshes_per_round``,
+``row_windows``, ``oriented``, ``pack`` or ``interpret``; no
 ``RuntimeError`` for a dispersed batch.  A trace is one launch of the
 ``fused_step_grid`` or ``golden_step_grid`` kernel, for any grid of at least
-2x2 nodes.  The same holds for the candidate sweep (one launch of
+2x2 nodes; ``mesh=`` shards the rays over a ``torch.distributed`` mesh, one
+launch a rank on its rows, and keeps ``block_rays`` only as the granule of
+JAX's divisibility check.  The same holds for the candidate sweep (one launch of
 ``fused_sweep_grid``, one ray a candidate, no window classes, so no
 candidate ever falls back), for the supercell path, ``grid_trace`` (one
 launch of ``fused_step_nodes`` on the node table, no per-ray node blocks),
@@ -278,7 +280,8 @@ def grid_tables(medium, dtype=torch.float32) -> GridTables:
 def grid_trace_tiled(op: str, pos0, theta0, delta_s, medium, *, steps: int,
                      box, device="cuda", with_stats: bool = False,
                      gamma: float = 1.0,
-                     gold_schedule: tuple | None = None) -> FusedFinal:
+                     gold_schedule: tuple | None = None, mesh=None,
+                     block_rays: int = 1024) -> FusedFinal:
     """Trace through a 2-D sampled-spline medium in one kernel launch.
 
     ``medium`` is a :class:`HermiteGridMedium` (parity, 36 floats a cell)
@@ -294,12 +297,26 @@ def grid_trace_tiled(op: str, pos0, theta0, delta_s, medium, *, steps: int,
     sensitivity to the segment cadence (7e-6 over 606 coarse fisheye steps,
     segmented.py:1193-1197); one launch has no cadence, so golden results
     differ from the TPU tier's by that much.
+
+    ``mesh`` (a ``DeviceMesh``, ``parallel/mesh.py``) shards the rows over
+    every mesh axis: each rank builds the per-cell table once on its device
+    and launches on its rows; the fields come back as DTensors of the whole
+    batch.  The batch must divide by the device count times ``block_rays``
+    (JAX's check, segmented.py:1258; the kernel has no block otherwise).
     """
     _check_grid("grid_trace_tiled", medium, (HermiteGridMedium, C1GridMedium))
     golden = op in GOLDEN_OPS
     if not golden and op not in FUSED_OPS:
         raise ValueError(f"grid_trace_tiled supports {FUSED_OPS} and "
                          f"{tuple(GOLDEN_OPS)}, got {op!r}")
+    if mesh is not None:
+        from raytracing_tpu_torch.parallel.mesh import over_batch
+        return over_batch(
+            mesh, device, lambda p, t: grid_trace_tiled(
+                op, p, t, delta_s, medium, steps=steps, box=box,
+                device=device, with_stats=with_stats, gamma=gamma,
+                gold_schedule=gold_schedule),
+            "grid_trace_tiled", pos0, theta0, block_rays=block_rays)
     tables = grid_tables(medium)
     if not golden:
         return fused_trace_final(pos0, theta0, delta_s, field=tables, op=op,
@@ -376,7 +393,8 @@ def grid_trace(op: str, pos0, theta0, delta_s, medium, *, steps: int, box,
 
 
 def grid_trace_dynamic_tiled(op: str, pos0, theta0, delta_s, medium, *,
-                             steps: int, box, device="cuda"):
+                             steps: int, box, device="cuda", mesh=None,
+                             block_rays: int = 1024):
     """Dynamic trace through a 2-D sampled-spline medium in one launch of the
     ``dynamic_step_grid`` kernel: the kinematics, the paraxial tangent and
     the KMAH count on the per-cell table of :func:`grid_tables`, with the
@@ -389,13 +407,21 @@ def grid_trace_dynamic_tiled(op: str, pos0, theta0, delta_s, medium, *,
     ``kernels.dynamic.DYN_FUSED_OPS``.  The launch state is JAX's 18-plane
     resume state from (pos0, theta0) (segmented.py:1844-1850).  Returns a
     ``DynFinal`` whose ``n`` is ``medium.n`` at the final positions
-    (segmented.py:1945).
+    (segmented.py:1945).  ``mesh`` shards the rows as in
+    :func:`grid_trace_tiled` (JAX's check, segmented.py:1818).
     """
     if op not in kd.DYN_FUSED_OPS:
         raise ValueError(f"dynamic tiled kernel supports {kd.DYN_FUSED_OPS}, "
                          f"got {op!r}")
     _check_grid("grid_trace_dynamic_tiled", medium,
                 (HermiteGridMedium, C1GridMedium))
+    if mesh is not None:
+        from raytracing_tpu_torch.parallel.mesh import over_batch
+        return over_batch(
+            mesh, device, lambda p, t: grid_trace_dynamic_tiled(
+                op, p, t, delta_s, medium, steps=steps, box=box,
+                device=device),
+            "grid_trace_dynamic_tiled", pos0, theta0, block_rays=block_rays)
     st = kd.initial_dyn_state(pos0, theta0, device=device)
     st = kd.dynamic_step(st, field=grid_tables(medium), op=op, steps=steps,
                          delta_s=delta_s, step_limit=steps, offset=0.0,

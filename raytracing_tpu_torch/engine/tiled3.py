@@ -16,10 +16,13 @@ the exact excess flag and the replay ladder (``_drive_tiled3``), the window
 classes and the segment length (``_SWEEP_TILES3``, ``_default_segment3``)
 and the sharded round (``_tiled3_segments_sharded``): they keep a block's
 cells in a TPU core's VMEM.  So are the arguments that steer them,
-``segment``, ``block_rays``, ``tile_shape``, ``refreshes_per_round``,
+``segment``, ``tile_shape``, ``refreshes_per_round``,
 ``sort`` and ``interpret``; no batch is too dispersed, and nothing raises
-JAX's ``RuntimeError`` for one.  ``mesh=`` raises NotImplementedError
-(ROADMAP.md §1 item 18).
+JAX's ``RuntimeError`` for one.  ``mesh=`` shards the rays over a
+``torch.distributed`` mesh (``parallel/mesh.py``): each rank builds the
+per-cell table once on its device and launches on its rows, and the fields
+come back as DTensors of the whole batch; ``block_rays`` is kept only as
+the granule of JAX's divisibility check (tiled3.py:330).
 """
 from __future__ import annotations
 
@@ -32,10 +35,6 @@ from raytracing_tpu_torch.kernels.fused3d import (
     FUSED3_OPS, Fused3Final, Grid3Tables, final_from_state3,
     fused3d_step, initial_state3)
 from raytracing_tpu_torch.media.grid3 import C1Grid3Medium
-
-_MESH_TODO = ("sharding the 3-D grid tier over a device mesh is not ported "
-              "yet: ROADMAP.md §1 item 18")
-
 
 def cells64(nodes4d):
     """Per-cell packed node table: (nz, ny, nx, 8) -> (ncells, 64) rows.
@@ -82,7 +81,7 @@ def _prep_tiled3(method, medium, *, box, fname):
 
 def grid3_trace_tiled(method: str, pos0, dir0, delta_s, medium, *,
                       steps: int, box, device="cuda",
-                      mesh=None) -> Fused3Final:
+                      mesh=None, block_rays: int = 1024) -> Fused3Final:
     """Kernel-tier tracing through a sampled tri-Hermite 3-D medium
     (tiled3.py:346): one launch of ``fused3d_step_grid`` on ``device``.
 
@@ -90,11 +89,17 @@ def grid3_trace_tiled(method: str, pos0, dir0, delta_s, medium, *,
     lies on ``device``; ``method`` one of the vector ops
     (engine/trace3d.METHODS3); ``box`` the 6 faces.  Returns a
     :class:`kernels.fused3d.Fused3Final` in the caller's ray order.
+    ``mesh`` shards the rows (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     op = _prep_tiled3(method, medium, box=tuple(box),
                       fname="grid3_trace_tiled")
+    if mesh is not None:
+        from raytracing_tpu_torch.parallel.mesh import over_batch
+        return over_batch(
+            mesh, device, lambda p, d: grid3_trace_tiled(
+                op, p, d, delta_s, medium, steps=steps, box=box,
+                device=device),
+            "grid3_trace_tiled", pos0, dir0, block_rays=block_rays)
     st = initial_state3(pos0, dir0, device=device)
     st = fused3d_step(st, field=grid3_tables(medium), op=op,
                       steps=int(steps), delta_s=delta_s,
@@ -104,7 +109,7 @@ def grid3_trace_tiled(method: str, pos0, dir0, delta_s, medium, *,
 
 def grid3_trace_dynamic_tiled(method: str, pos0, dir0, delta_s, medium, *,
                               steps: int, box, device="cuda",
-                              mesh=None) -> Dyn3Final:
+                              mesh=None, block_rays: int = 1024) -> Dyn3Final:
     """Kernel-tier DYNAMIC tracing through a sampled tri-Hermite 3-D medium
     (tiled3.py:513): one launch of ``dynamic3d_step_grid`` on ``device``,
     both launch tangents with the exact Hessian of the same tricubic patch.
@@ -114,12 +119,17 @@ def grid3_trace_dynamic_tiled(method: str, pos0, dir0, delta_s, medium, *,
     focus locator match ``trace_dynamic3``'s metrics.  ``n`` at the exit
     point is the medium's own evaluation there (``n_and_grad3``, as JAX,
     :578).  Returns a :class:`kernels.dynamic3d.Dyn3Final` in the caller's
-    ray order.
+    ray order.  ``mesh`` shards the rows (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     op = _prep_tiled3(method, medium, box=tuple(box),
                       fname="grid3_trace_dynamic_tiled")
+    if mesh is not None:
+        from raytracing_tpu_torch.parallel.mesh import over_batch
+        return over_batch(
+            mesh, device, lambda p, d: grid3_trace_dynamic_tiled(
+                op, p, d, delta_s, medium, steps=steps, box=box,
+                device=device),
+            "grid3_trace_dynamic_tiled", pos0, dir0, block_rays=block_rays)
     st = initial_dyn3_state(pos0, dir0, device=device)
     st = dynamic3d_step(st, field=grid3_tables(medium), op=op,
                         steps=int(steps), delta_s=delta_s,

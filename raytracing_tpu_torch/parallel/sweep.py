@@ -23,8 +23,15 @@ Two tiers, as in JAX:
 ``delta_s_search_convergence3`` (:624) calibrates the 3-D tier's step the
 same way, through the port's ``engine/trace3d.py::trace3d``.
 
-Not ported: sharding the candidates over a mesh (``mesh=``, ROADMAP.md §1
-item 18) and the padding of the launch fan to a kernel block (``rays``,
+``mesh=`` (a ``torch.distributed`` mesh, ``parallel/mesh.py``) splits each
+chunk of candidates over the ``"sweep"`` axis when it divides by the
+device count, as JAX shards it (sweep.py:399-401); the ranks along
+``"rays"`` repeat the fan, and the per-candidate metrics are all-gathered,
+so every rank returns the whole dict and selects the same divisor.  Given
+a mesh, ``delta_s_search``'s auto tier is the scan tier (sweep.py:467-470).
+With a checkpoint, only rank 0 writes the file, and every rank reads it.
+
+Not ported: the padding of the launch fan to a kernel block (``rays``,
 ``block_rays``): the kernels mask the ragged edge, and the metrics read
 only the fan's first rays.
 """
@@ -42,10 +49,6 @@ from raytracing_tpu_torch.engine import oracles
 from raytracing_tpu_torch.engine.trace import (
     _torch_dtype, initial_state, run_steps)
 from raytracing_tpu_torch.ops.registry import build_op, canonical
-
-_MESH_TODO = ("sharding a sweep over a device mesh is not ported yet: "
-              "ROADMAP.md §1 item 18")
-
 
 class SweepResult(NamedTuple):
     scenario: str
@@ -315,9 +318,14 @@ def run_candidates(op_name: str, scen: config.ScenarioConfig, medium,
     JAX package's.  ``checkpoint`` names an .npz file: each finished chunk
     of candidates is persisted there, and a rerun resumes at the first
     unfinished chunk.  ``pos0``/``theta0`` override the scenario's fan.
+    ``mesh`` splits each chunk over its ``"sweep"`` axis when the chunk
+    divides by the device count (else every rank runs the chunk) and
+    gathers the metrics on every rank; with ``checkpoint`` only rank 0
+    writes.
     """
     if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+        from raytracing_tpu_torch.parallel import mesh as meshlib
+        meshlib.check_device(mesh, device)
     dt = _torch_dtype(dtype)
     np_dtype = np.dtype(str(dt).removeprefix("torch."))
     op = build_op(op_name, dt)
@@ -349,21 +357,52 @@ def run_candidates(op_name: str, scen: config.ScenarioConfig, medium,
     if chunk is None:
         chunk = n if not scen.is_interface else 16
     store = None
+    writer = mesh is None or meshlib.flat_index(mesh)[0] == 0
     if checkpoint is not None:
         from raytracing_tpu_torch.utils.checkpoint import SweepCheckpoint
-        store = SweepCheckpoint(checkpoint, meta={
-            "op": op_name, "scenario": scen.name, "dtype": np_dtype.name,
-            "candidates": int(n), "chunk": int(chunk)})
+
+        def open_store():
+            return SweepCheckpoint(checkpoint, meta={
+                "op": op_name, "scenario": scen.name,
+                "dtype": np_dtype.name, "candidates": int(n),
+                "chunk": int(chunk)})
+
+        if mesh is None:
+            store = open_store()
+        else:
+            # rank 0 adopts (or writes) the manifest before the others read
+            # it; its first chunk write comes after a collective every rank
+            # joins with its store open, so every rank reads the same chunks
+            store = meshlib.agree(mesh, lambda: open_store() if writer
+                                  else None, "a sweep checkpoint")
+            store = meshlib.agree(mesh, lambda: store or open_store(),
+                                  "a sweep checkpoint")
+
+    def chunk_rows(ds, lims):
+        if mesh is None:
+            return [one(d, lim) for d, lim in zip(ds, lims)]
+        n_dev = meshlib.flat_index(mesh)[1]
+        if len(ds) % n_dev:
+            # a ragged chunk runs whole on every rank, as JAX replicates it
+            return meshlib.agree(mesh, lambda: [
+                one(d, lim) for d, lim in zip(ds, lims)], "run_candidates")
+        i, ext = meshlib.axis_index(mesh, meshlib.SWEEP_AXIS)
+        m = len(ds) // ext
+        part = meshlib.agree(mesh, lambda: [
+            one(d, lim) for d, lim in zip(ds[i * m:(i + 1) * m],
+                                          lims[i * m:(i + 1) * m])],
+            "run_candidates")
+        return [r for p in meshlib.all_gather_list(
+            part, mesh.get_group(meshlib.SWEEP_AXIS)) for r in p]
 
     outs = []
     for ci, lo in enumerate(range(0, n, chunk)):
         if store is not None and store.has_chunk(ci):
             outs.append(store.chunk(ci))
             continue
-        rows = [one(d, lim) for d, lim in zip(delta_s[lo:lo + chunk],
-                                              step_limits[lo:lo + chunk])]
+        rows = chunk_rows(delta_s[lo:lo + chunk], step_limits[lo:lo + chunk])
         out = {k: np.array([r[k] for r in rows], np_dtype) for k in rows[0]}
-        if store is not None:
+        if store is not None and writer:
             store.add_chunk(ci, out)
         outs.append(out)
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
@@ -414,13 +453,15 @@ def delta_s_search(op_name: str, scen: config.ScenarioConfig, medium, *,
     ``divisors`` overrides the reference candidate grid, descending, in that
     grid's units (fisheye: circle segments; otherwise SIGMA divisors).
     The kernel tier launches the scenario's own fan (:func:`sweep_fan`).
+    ``mesh`` shards the scan tier's candidates (:func:`run_candidates`);
+    given a mesh, "auto" takes the scan tier, as JAX does (the kernel tier
+    runs unsharded).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     op_c = canonical(op_name)
     dt = _torch_dtype(dtype)
     if engine == "auto":
         engine = ("fused" if (torch.device(device).type == "cuda"
+                              and mesh is None
                               and dt == torch.float32
                               and fused_sweep_supported(op_c, scen, medium))
                   else "scan")
@@ -449,8 +490,8 @@ def delta_s_search(op_name: str, scen: config.ScenarioConfig, medium, *,
     else:
         metrics = run_candidates(op_name, scen, medium, delta_s, sizes - 1,
                                  max_size, n_turns=n_turns, dtype=dt,
-                                 chunk=chunk, checkpoint=checkpoint,
-                                 device=device)
+                                 chunk=chunk, mesh=mesh,
+                                 checkpoint=checkpoint, device=device)
 
     if scen.is_interface:
         index = find_index_interface(metrics["mean_err"], metrics["max_err"])

@@ -223,9 +223,17 @@ def test_grid3_trace_dynamic_tiled_errors(fisheye12):
                                   rtt.analytic_medium3("fisheye"), **kw)
     with pytest.raises(ValueError, match="planar"):
         grid3_trace_dynamic_tiled("op5", pos0, dirs, 0.01, tm, **kw)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        grid3_trace_dynamic_tiled("op6", pos0, dirs, 0.01, tm, mesh=object(),
-                                  **kw)
+    # mesh= (ROADMAP.md §1 item 18, done): a one-rank CPU mesh gives the
+    # call without one, to the bit
+    import torch_dist_helpers as D
+    one = grid3_trace_dynamic_tiled("op6", pos0, dirs, 0.01, tm, **kw)
+    with D.one_rank_mesh() as mesh:
+        meshed = grid3_trace_dynamic_tiled("op6", pos0, dirs, 0.01, tm,
+                                           mesh=mesh, block_rays=8, **kw)
+    for f in one._fields:
+        np.testing.assert_array_equal(H.to_np(getattr(meshed, f)
+                                              .full_tensor()),
+                                      H.to_np(getattr(one, f)), err_msg=f)
     g = grid3_tables(tm)
     st = tk3.initial_dyn3_state(pos0, dirs, **CPU)
     with pytest.raises(ValueError, match="grid3 table"):

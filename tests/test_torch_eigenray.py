@@ -157,11 +157,20 @@ def test_no_arrivals_is_empty_not_error():
                               fan=(0.0, 1.0, 16), device="cpu")
     assert len(eig.theta0) == 0
     assert np.isinf(teig.incoherent_tl(eig, n_receivers=1)).all()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        teig.find_eigenrays("op6", homog()[1], source=(0, 0),
-                            receivers=[(1.0, 0.0)], delta_s=0.05,
-                            max_size=60, box=(-5, 5, -5, 5), mesh=object(),
-                            device="cpu")
+    # mesh= (ROADMAP.md §1 item 18, done): on a one-rank CPU mesh the
+    # solver gives the call without one, to the bit
+    import torch_dist_helpers as D
+
+    kw = dict(source=(0, 0), receivers=[(1.0, 0.5), (-3.0, 0.0)],
+              delta_s=0.05, max_size=60, box=(-5, 5, -5, 5),
+              fan=(0.0, 1.0, 16), device="cpu")
+    one = teig.find_eigenrays("op6", homog()[1], **kw)
+    with D.one_rank_mesh() as mesh:
+        meshed = teig.find_eigenrays("op6", homog()[1], mesh=mesh, **kw)
+    assert len(one.theta0) == 1
+    for f in one._fields:
+        np.testing.assert_array_equal(getattr(meshed, f), getattr(one, f),
+                                      err_msg=f)
 
 
 @pytest.fixture

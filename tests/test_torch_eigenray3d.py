@@ -91,8 +91,14 @@ def test_stratified_waveguide_matches_jax():
     assert set(t.receiver.tolist()) == {0, 1} and bool(t.converged.all())
     assert np.isfinite(teig.incoherent_tl(t, n_receivers=2)).all()
     assert np.isfinite(teig.coherent_tl(t, 40.0, n_receivers=2)).all()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        teig3.find_eigenrays3("op6", tm, mesh=object(), **kw, **CPU)
+    # mesh= (ROADMAP.md §1 item 18, done): on a one-rank CPU mesh the
+    # solver gives the call without one, to the bit
+    import torch_dist_helpers as D
+    with D.one_rank_mesh() as mesh:
+        meshed = teig3.find_eigenrays3("op6", tm, mesh=mesh, **kw, **CPU)
+    for f in t._fields:
+        np.testing.assert_array_equal(getattr(meshed, f), getattr(t, f),
+                                      err_msg=f)
 
 
 # -- the CLI's --eigenrays3 (cli.py:336-394, :627-658) ---------------------

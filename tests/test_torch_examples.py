@@ -36,6 +36,18 @@ def test_delta_s_search_example(capsys, tmp_path, monkeypatch):
     assert "selected divisor" in out
     assert res.divisor == 176.0
     assert (tmp_path / "fisheye_sweep.npz").exists()
+    # the same search over a 2-rank gloo world (a mesh, as under torchrun):
+    # both ranks select 176 on the scan tier, and rank 0 wrote the file
+    import os
+    import torch_dist_helpers as D
+    work = tmp_path / "mesh"
+    work.mkdir()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    world = D.run_world(2, [("example_search", (root, str(work), 180.0,
+                                                172.0))], tmp_path)
+    got = D.result(world, "example_search")
+    assert [g[:2] for g in got] == [(176.0, "scan")] * 2 and got[0][2]
+    assert (work / "fisheye_sweep.npz").exists()
 
 
 def test_million_ray_benchmark_example(capsys):

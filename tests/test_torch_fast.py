@@ -113,3 +113,51 @@ def test_fast_trace_refuses_what_it_does_not_port():
         rtt.fast_trace("op6", rtt.scenario("fisheye"),
                        rtt.analytic_medium("fisheye"), stats=True, steps=3,
                        **kw)
+
+
+#: ROADMAP.md §3's input for the scan route: a ParametricMedium with the
+#: interface's sigmoid at thickness 0.15, op6, delta_s 0.02, 50 steps, 8 rays
+#: from (-2, -1); JAX's first ray ends at (-1.1716, -0.4398)
+SQRT2 = float(np.sqrt(2.0))
+
+
+def test_fast_trace_without_a_kernel_takes_the_scan_tier():
+    """A 2-D medium with no kernel goes to the float32 scan tier, engine
+    "scan", active from the box test on the final positions, as JAX routes
+    it (engine/fast.py:237-253); held to JAX's kernel-against-scan bars,
+    position 5e-6 and traveltime 5e-5 (tests/test_kernels.py:24-27)."""
+    import jax
+    import jax.numpy as jnp
+    from raytracing_tpu.engine.diff import ParametricMedium as JPM
+
+    jscen, tscen = rt.scenario("interface"), rtt.scenario("interface")
+    pos0 = np.tile([-2.0, -1.0], (8, 1))
+    theta0 = np.linspace(0.6, 1.2, 8)
+    kw = dict(delta_s=0.02, steps=50, pos0=pos0, theta0=theta0)
+    j = jfast("op6", jscen, JPM(lambda p, x, y: SQRT2 - (SQRT2 - 1.0)
+                                * jax.nn.sigmoid(y / p), jnp.asarray(0.15)),
+              **kw)
+    t = rtt.fast_trace("op6", tscen, rtt.ParametricMedium(
+        lambda p, x, y: SQRT2 - (SQRT2 - 1.0) * torch.sigmoid(y / p),
+        torch.tensor(0.15)), device="cpu", **kw)
+    assert (t.engine, j.engine) == ("scan", "scan")
+    np.testing.assert_allclose(np.asarray(j.pos[0]), [-1.1716, -0.4398],
+                               atol=1e-4)
+    np.testing.assert_allclose(H.to_np(t.pos), np.asarray(j.pos), atol=5e-6)
+    for f in ("traveltime", "dist_sim"):
+        np.testing.assert_allclose(H.to_np(getattr(t, f)),
+                                   np.asarray(getattr(j, f)), atol=5e-6,
+                                   err_msg=f)
+    np.testing.assert_array_equal(H.to_np(t.active), np.asarray(j.active))
+    # a ray that leaves the box is inactive; one that ran out of steps not
+    out = rtt.fast_trace("op6", dataclasses.replace(
+        tscen, box=(-2.5, 20.0, -1.5, -0.3)), rtt.ParametricMedium(
+        lambda p, x, y: SQRT2 - (SQRT2 - 1.0) * torch.sigmoid(y / p),
+        torch.tensor(0.15)), device="cpu", **kw)
+    assert not out.active[-1] and out.active[0]
+    with pytest.raises(ValueError, match="scan fallback"):
+        rtt.fast_trace("op6", tscen, rtt.ParametricMedium(
+            lambda p, x, y: 1.0 + 0.0 * x, torch.tensor(0.0)), stats=True,
+            device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="no 2-D medium"):
+        rtt.fast_trace("op6", tscen, object(), device="cpu", **kw)

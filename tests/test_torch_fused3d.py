@@ -193,9 +193,24 @@ def test_named_errors(fisheye12):
     with pytest.raises(ValueError, match="planar"):
         grid3_trace_tiled("op5", pos0, dir0, 0.01, fisheye12[1], steps=2,
                           box=BOX, **CPU)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        grid3_trace_tiled("op6", pos0, dir0, 0.01, fisheye12[1], steps=2,
-                          box=BOX, mesh=object(), **CPU)
+    # mesh= (ROADMAP.md §1 item 18, done): a one-rank CPU mesh gives the
+    # call without one, to the bit, and refuses a batch that does not
+    # divide by devices x block
+    import torch_dist_helpers as D
+    one = grid3_trace_tiled("op6", pos0, dir0, 0.01, fisheye12[1], steps=2,
+                            box=BOX, **CPU)
+    with D.one_rank_mesh() as mesh:
+        meshed = grid3_trace_tiled("op6", pos0, dir0, 0.01, fisheye12[1],
+                                   steps=2, box=BOX, mesh=mesh,
+                                   block_rays=len(pos0), **CPU)
+        with pytest.raises(ValueError, match="must divide by devices"):
+            grid3_trace_tiled("op6", pos0, dir0, 0.01, fisheye12[1],
+                              steps=2, box=BOX, mesh=mesh,
+                              block_rays=len(pos0) + 1, **CPU)
+    for f in one._fields:
+        np.testing.assert_array_equal(H.to_np(getattr(meshed, f)
+                                              .full_tensor()),
+                                      H.to_np(getattr(one, f)), err_msg=f)
 
 
 # -- fast_trace3 (engine/fast.py:601-690) -------------------------------------

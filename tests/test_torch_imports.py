@@ -183,3 +183,16 @@ def test_jax_public_api_is_a_subset_of_the_port():
     assert sorted(set(rt.__all__) - set(rtt.__all__)) == []
     for name in rt.__all__:
         assert hasattr(rtt, name), name
+
+
+#: the sharded path: the mesh over torch.distributed and data-parallel
+#: tracing (fast.py's fast_trace_sharded and every mesh= entry point use
+#: them), and the mesh tests' rank-side helper, which the ranks import
+PATH_MESH = ("raytracing_tpu_torch.parallel.mesh",
+             "raytracing_tpu_torch.parallel.distributed")
+
+
+def test_mesh_modules_import_without_jax():
+    _import_without_jax(PATH_MESH)
+    helper = ROOT / "tests" / "torch_dist_helpers.py"
+    assert forbidden_imports(helper.read_text()) == []

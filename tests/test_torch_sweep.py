@@ -324,9 +324,21 @@ def test_fused_sweep_supported_matches_jax(fisheye_grid):
 
 
 def test_search_refuses_what_is_not_ported():
+    """mesh= (ROADMAP.md §1 item 18, done): the search on a one-rank CPU
+    mesh gives the search without one, to the bit, on the scan tier; a bad
+    engine is still refused."""
+    import torch_dist_helpers as D
+
     scen = rtt.scenario("fisheye")
     med = rtt.analytic_medium("fisheye")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tsw.delta_s_search("op1", scen, med, mesh=object(), device="cpu")
+    kw = dict(n_turns=1, dtype=torch.float64,
+              divisors=np.arange(24.0, 16.0, -1.0), device="cpu")
+    one = tsw.delta_s_search("op1", scen, med, **kw)
+    with D.one_rank_mesh() as mesh:
+        s = tsw.delta_s_search("op1", scen, med, mesh=mesh, **kw)
+    assert s.engine == "scan"
+    assert (s.index, s.divisor) == (one.index, one.divisor)
+    np.testing.assert_array_equal(s.metrics["closure_pct"],
+                                  one.metrics["closure_pct"])
     with pytest.raises(ValueError, match="engine"):
         tsw.delta_s_search("op1", scen, med, engine="pallas", device="cpu")
