@@ -16,8 +16,10 @@ either is missing or any check fails.  Phases, one line or more each:
    (utils/fma.py) on the card, 2^26 seeded triples and 2^21 constructed
    float64 midpoints, then every operand triple of the 2-D dynamic plain
    version's fma32 calls (every op on each analytic field and on the
-   parity and C1 fisheye grids, the grids' blends with the step) and the
-   analytic 3-D one's (256 rays, 10 steps), no triple differing;
+   parity and C1 fisheye grids, the grids' blends with the step), the
+   analytic 3-D one's and the df32 one's in the FMA form (the analytic
+   fields and the Munk profile) (256 rays, 10 steps), no triple
+   differing;
 3. kernel against plain: every kernel against its plain PyTorch version on
    the card, for every (op, field) it serves, at 65,536 rays (each
    scenario's launch fan resized, with jitter from numpy seed 0) at the
@@ -132,9 +134,12 @@ either is missing or any check fails.  Phases, one line or more each:
 14. the df32 tier: ``[df32-vs-plain]`` the four df kernels on their five
    media (the analytic fisheye and vert, the reference's parity and C1
    fisheye grids split into hi/lo words, the Munk profile) against
-   df_step_plain at 65,536 rays, the analytic fields at most 1,000 steps
-   (vert 500), the tables 200, all 8 planes to the bit, with a resume check
-   each; ``[df32]`` the df32 main path: fast_trace(precision="high") on the
+   df_step_plain in the kernel's form (the FMA form on the analytic fields
+   and the profile, JAX's roundings on the grids; replayed from a CUDA
+   graph, bench/replay.py df_plain) at 65,536 rays, the
+   analytic fields at most 1,000 steps (vert 500), the tables 200, all 8
+   planes to the bit, with a resume check each; ``[df32]`` the df32 main
+   path: fast_trace(precision="high") on the
    fisheye at 2**20 rays for one turn at the headline divisor (median of 5,
    the one-turn error against the circle, the north-star RMS over ten
    prefixes read from resumed segments), the ORACLES ten-turn closure
@@ -301,8 +306,8 @@ either is missing or any check fails.  Phases, one line or more each:
    a mesh (dynamic3d_step_grid); the phase's seconds.
 
 The kernel-against-plain phases (3, 7's two interface runs, 8's nodes,
-11's ``[dynamic-vs-plain]``, 15's ``[custom-vs-plain]``, 16's
-``[3d-vs-plain]``, 17's
+11's ``[dynamic-vs-plain]``, 14's ``[df32-vs-plain]`` and the [df32]
+checks, 15's ``[custom-vs-plain]``, 16's ``[3d-vs-plain]``, 17's
 ``[dyn3-vs-plain]`` and the [dyn3] checks) replay their plain versions'
 steps from a CUDA graph (raytracing_tpu_torch/bench/replay.py), equal to
 the eager loop to the bit; the other main shapes' plain versions run
@@ -2541,12 +2546,14 @@ def df_exact(label, k, p):
 
 
 def phase_df_vs_plain(device, media, rays=RAYS_CHECK):
-    """The four df kernels on their five media against df_step_plain at
-    65,536 rays (jitter from numpy seed 0), the analytic fields at most
+    """The four df kernels on their five media against df_step_plain in the
+    kernel's form (kernels/df.py fma_form: the FMA form on the analytic
+    fields and the profile, JAX's roundings on the grids) at 65,536 rays
+    (jitter from numpy seed 0), the analytic fields at most
     DF_CAP_ANALYTIC steps (vert DF_VERT_STEPS), the tables DF_CAP_TABLES;
     every plane to the bit, and k + (n - k) steps against n.  Returns
     {kernel: Errors}."""
-    from raytracing_tpu_torch.bench import df_launch, df_state
+    from raytracing_tpu_torch.bench import df_launch, df_state, replay
     from raytracing_tpu_torch.kernels import df as kdf
     rng = np.random.default_rng(0)
     errs = {k.name: Errors() for k in kdf.KERNELS}
@@ -2564,9 +2571,11 @@ def phase_df_vs_plain(device, media, rays=RAYS_CHECK):
                  else DF_CAP_TABLES)
         st = df_state(kind, pos0, theta0, device)
         k_ms, k = cuda_ms(lambda: kdf.df_step(st, medium, ds, steps))
-        p_ms, p = cuda_ms(lambda: kdf.df_step_plain(st, medium, ds, steps))
-        dpos = df_exact(f"{name} {kind} {steps} steps (kernel {k_ms:.3f} "
-                        f"ms, plain {p_ms:.1f} ms)", k, p)
+        p_ms, p = cuda_ms(lambda: replay.df_plain(st, medium, ds, steps))
+        form = "FMA form" if kdf.fma_form(medium) else "JAX's roundings"
+        dpos = df_exact(f"{name} {kind} ({form}) {steps} steps (kernel "
+                        f"{k_ms:.3f} ms, plain (replayed) {p_ms:.1f} ms)",
+                        k, p)
         errs[name].pos = max(errs[name].pos, dpos)
         cut = steps // 3
         resume_check(f"{name} {kind}", k, kdf.df_step(
@@ -2704,12 +2713,13 @@ def phase_df_checks(device, errs, runs):
     float64 scan tier (every 256th ray), DfEvalProfile on the card against
     the CPU; then each 2^20-ray run's result against a direct launch of its
     kernel on the same launch state (every ray to the bit), that kernel
-    against df_step_plain at min(steps, MAIN_PLAIN_CAP) steps (all 8 planes
-    to the bit), and each kernel's time at its main shape beside its bound
-    and its plain version's there.  Returns ({kernel: times}, the seconds
+    against df_step_plain (replayed) at min(steps, MAIN_PLAIN_CAP) steps
+    (all 8 planes to the bit), and each kernel's time at its main shape
+    beside its bound and its plain version's there.  Returns ({kernel: times}, the seconds
     of those comparisons)."""
     import dataclasses
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import replay
     from raytracing_tpu_torch.kernels import df as kdf
     print("[df32] checks", flush=True)
     v = runs["vert"]
@@ -2768,8 +2778,8 @@ def phase_df_checks(device, errs, runs):
         if not direct:
             fail(f"df32 {name}: the main path differs from its kernel")
         depth = min(r.steps, MAIN_PLAIN_CAP)
-        p_ms, p = cuda_ms(lambda: kdf.df_step_plain(r.st, r.medium, r.ds,
-                                                    depth))
+        p_ms, p = cuda_ms(lambda: replay.df_plain(r.st, r.medium, r.ds,
+                                                  depth))
         k = out if depth == r.steps else kdf.df_step(r.st, r.medium, r.ds,
                                                      depth)
         dpos = df_exact(f"[df32] {name} {r.kernel} {rays} rays x {depth} of "
@@ -2778,7 +2788,8 @@ def phase_df_checks(device, errs, runs):
         rate = rays * r.steps / (k_ms * 1e-3)
         print(f"    {r.kernel} {name}: {k_ms:.3f} ms ({r.steps} steps, "
               f"{'median of 5' if fisheye else 'one run'}), {rate:.4e} "
-              f"ray-steps/s; plain {p_ms:.1f} ms ({depth} steps)",
+              f"ray-steps/s; plain (replayed) {p_ms:.1f} ms ({depth} "
+              "steps)",
               flush=True)
         if name != "vert":
             bms, by = df_bound(r.kernel, r.medium, r.st, r.steps)
@@ -3607,16 +3618,20 @@ FMA_OPERAND_RAYS, FMA_OPERAND_STEPS = 256, 10
 
 def fma_operands(device, media):
     """[(label, [(a, b, c), ...])]: the operands of every fma32 call that
-    the 2-D dynamic and the analytic 3-D steps' plain versions make (their
-    FMA forms), recorded on the card as float32 vectors:
+    the 2-D dynamic, the analytic 3-D and the df32 steps' plain versions
+    make (their FMA forms), recorded on the card as float32 vectors:
     dynamic_step_plain, every op on each analytic field and on the parity
     and C1 fisheye grids of ``media`` (the step and the grids' blends,
-    [dynamic-vs-plain]'s inputs), and fused3d_step_plain, every op on each
-    analytic field, from phase 3's, phase 11's and phase 16's launch fans
-    at FMA_OPERAND_RAYS rays for FMA_OPERAND_STEPS steps."""
+    [dynamic-vs-plain]'s inputs), fused3d_step_plain, every op on each
+    analytic field, and df_step_plain on the analytic fields and the Munk
+    profile, from phase 3's, phase 11's, phase 16's and phase 14's launch
+    fans at FMA_OPERAND_RAYS rays for FMA_OPERAND_STEPS steps."""
     from unittest import mock
 
     import raytracing_tpu_torch as rtt
+    from raytracing_tpu_torch.bench import df_launch, df_state
+    from raytracing_tpu_torch.engine import df_grid as dg
+    from raytracing_tpu_torch.kernels import df as kdf
     from raytracing_tpu_torch.kernels import dynamic as kd
     from raytracing_tpu_torch.kernels import fused3d as kf3
     from raytracing_tpu_torch.utils import fma
@@ -3624,10 +3639,11 @@ def fma_operands(device, media):
     rec = []
 
     def recording(a, b, c, neg_ab=False, neg_c=False):
-        # the FFMA's own operands: -(a b) as (-a) b, both exact
+        # the FFMA's own operands: -(a b) as (-a) b, both exact; a 0-d
+        # host tensor (the df grid coordinate's constants) is a scalar
         out = inner(a, b, c, neg_ab=neg_ab, neg_c=neg_c)
         rec.append(tuple(
-            (v if torch.is_tensor(v) else torch.tensor(
+            (v.to(out.device) if torch.is_tensor(v) else torch.tensor(
                 float(np.float32(v)), device=out.device)).expand(
                 out.shape).reshape(-1).float() * sign
             for v, sign in ((a, -1.0 if neg_ab else 1.0), (b, 1.0),
@@ -3673,6 +3689,16 @@ def fma_operands(device, media):
                                        step_limit=FMA_OPERAND_STEPS,
                                        offset=0.0, box=box)
             out.append((f"fused3d_step_plain {field}", rec))
+            rec = []
+        depth, c = munk_profile()
+        for kind in ("fisheye", "vert_heterogeneous", "profile"):
+            medium = kind if kind != "profile" else (
+                dg.df_c1_profile_from_samples(c.min() / c, depth,
+                                              device=device))
+            pos0, theta0, ds = df_launch(kind, FMA_OPERAND_RAYS, rng)
+            kdf.df_step_plain(df_state(kind, pos0, theta0, device), medium,
+                              ds, FMA_OPERAND_STEPS)
+            out.append((f"df_step_plain {kind}", rec))
             rec = []
     return out
 

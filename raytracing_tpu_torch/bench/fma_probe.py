@@ -94,7 +94,9 @@ the parent's builds first; each FFMA line is written with the
 instructions before it to ``sass-ffma-<digest>.txt`` beside the library
 in ``_build/``, so that what issues it (an exact product, the IEEE
 division's refinement, or a contraction) can be read, and each loop's
-path to ``sass-loop-<digest>.txt``.
+path to ``sass-loop-<digest>.txt``; then, for each kernel both builds
+hold, whether its SASS listing is the parent's, instruction for
+instruction.
 """
 from __future__ import annotations
 
@@ -180,6 +182,11 @@ CASE_KERNELS = (
     ("fused3d_step_grid", "fused3d_kernel<rt3::Grid3, (int)6>", 1),
     ("fused3d_step fisheye3", "fused3d_kernel<rt3::Analytic3<(int)0>, (int)6>",
      1),
+    ("df_step fisheye", "df_kernel<rt::df::DfAnalytic<(int)0>>", 1),
+    ("df_step vert", "df_kernel<rt::df::DfAnalytic<(int)1>>", 1),
+    ("df_step_grid", "df_kernel<rt::df::DfGrid>", 1),
+    ("df_step_c1", "df_kernel<rt::df::DfC1>", 1),
+    ("df_step_profile", "df_kernel<rt::df::DfProfile>", 1),
 )
 #: the entry points that take a refill loop's ray counter: {entry: (the
 #: entry point whose presence marks a build with that counter, the
@@ -964,6 +971,13 @@ def _names(kernel):
     return kernel if isinstance(kernel, tuple) else (kernel,)
 
 
+def _launches(pretty, kernel):
+    """Whether the demangled ``pretty`` is a launch of ``kernel`` (a name
+    of CASE_KERNELS), blanks aside (a demangler may write "> >")."""
+    flat = pretty.replace(" ", "")
+    return any(f"::{k.replace(' ', '')}(" in flat for k in _names(kernel))
+
+
 def loop_steps(libs):
     """{kernel of CASE_KERNELS: its outermost loops' instructions a step on
     the usual path (:func:`loop_path`), " | "-joined} for the kernels of
@@ -981,7 +995,7 @@ def loop_steps(libs):
         names = list(code)
         for mangled, pretty in zip(names, _demangle(names)):
             for _, kernel, per in CASE_KERNELS:
-                if any(f"::{k}(" in pretty for k in _names(kernel)):
+                if _launches(pretty, kernel):
                     # a refill kernel steps in a loop its refill loop holds
                     loops = [sum(loop_path(code[mangled], None, lp).values())
                              / per for lp in step_loops(code[mangled],
@@ -990,13 +1004,14 @@ def loop_steps(libs):
     return out
 
 
-def sass_report(pattern: str, csrc=build.CSRC) -> None:
+def sass_report(pattern: str, csrc=build.CSRC) -> dict:
     """Registers, spills, SASS instructions, FFMAs, opcodes and the loop's
     path of each kernel whose mangled name contains one of the
     comma-separated ``pattern``s, in the library built from ``csrc`` and in
     row 2c's generated library (:func:`custom_library`) built against it
-    (module docstring)."""
+    (module docstring).  Returns {demangled name: its SASS listing}."""
     patterns = pattern.split(",")
+    listings = {}
     main_lib = build.build(csrc=csrc)
     digest = build.source_digest(csrc=csrc)
     ffma_lines, loops = [], []
@@ -1012,6 +1027,7 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
         print(f"[sass] {lib.name} from {csrc}: {len(names)} kernels matching "
               f"{pattern!r}", flush=True)
         for name, pretty in zip(names, _demangle(names)):
+            listings[pretty] = [text for _, text in code.get(name, [])]
             instr, ffma = counts.get(name, [0, 0])
             top = ", ".join(f"{o} {c}" for o, c in ops.get(
                 name, collections.Counter()).most_common(14))
@@ -1048,6 +1064,18 @@ def sass_report(pattern: str, csrc=build.CSRC) -> None:
         "\n\n".join(ffma_lines) + "\n")
     (build.BUILD_DIR / f"sass-loop-{digest}.txt").write_text(
         "\n\n".join(loops) + "\n")
+    return listings
+
+
+def compare_listings(parent, own) -> None:
+    """Print, for each kernel both builds hold, whether its SASS listing
+    (every instruction with its address) is the parent's."""
+    for pretty in sorted(set(parent) & set(own)):
+        same = "identical to" if parent[pretty] == own[pretty] else (
+            "differs from")
+        print(f"[sass] {pretty}: listing {same} the parent's "
+              f"({len(parent[pretty])} -> {len(own[pretty])} instructions)",
+              flush=True)
 
 
 def main(argv=None):
@@ -1071,9 +1099,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("fma_probe: needs a CUDA device")
     if args.sass:
-        if args.parent_csrc is not None:
-            sass_report(args.sass, csrc=args.parent_csrc)
-        sass_report(args.sass)
+        parent = (None if args.parent_csrc is None
+                  else sass_report(args.sass, csrc=args.parent_csrc))
+        own = sass_report(args.sass)
+        if parent is not None:
+            compare_listings(parent, own)
         return 0
     only = args.cases.split(",") if args.cases else None
     own = ("fmad=false", build.load(build.build()), custom_libraries())

@@ -3,8 +3,8 @@ with their plain versions on the card in less time.
 
 A plain version (``fused_step_plain``, also with a step size and limit a
 ray, ``golden_step_plain``,
-``fused3d_step_plain``, ``dynamic_step_plain``, ``dynamic3d_step_plain``)
-performs one
+``fused3d_step_plain``, ``dynamic_step_plain``, ``dynamic3d_step_plain``,
+``df_step_plain``) performs one
 torch call an operation, so on the card its time is the host's dispatch of
 some hundreds of small kernels a step.  :func:`replay_steps` captures one
 step, with its output copied back into the input buffers, in a
@@ -21,7 +21,7 @@ only a run of steps over which they are constant; :func:`sweep_plain`
 (a step limit a ray) keeps the steps left before each ray's limit in a
 device tensor that the captured step lowers; :func:`fused3d_plain`
 and :func:`dynamic_plain` have no order ramp, so they replay every step
-before the limit.  The 3-D
+before the limit; :func:`df_plain`'s step reads no step number at all.  The 3-D
 dynamic step reads its global step number in the focus locator too (the
 past-source guard and the recorded step), so :func:`dynamic3d_plain`
 keeps it in a device tensor that the captured step advances.
@@ -135,6 +135,16 @@ def golden_plain(st, scal, *, field, op: str, steps: int, box, iters: int,
                                     guards=guards),
         st, live_steps(steps, offset, limit),
         before_replay=None if guards is None else guards.zero_)
+
+
+def df_plain(st, medium, delta_s, steps: int):
+    """``df_step_plain`` with the same arguments, every step replayed from a
+    CUDA graph; equal to it to the bit."""
+    from raytracing_tpu_torch.kernels.df import df_step_plain
+
+    return replay_steps(
+        lambda s: df_step_plain(s, medium, delta_s, 1), st,
+        int(steps))
 
 
 def fused3d_plain(st, *, field, op: str, steps: int, delta_s, step_limit,

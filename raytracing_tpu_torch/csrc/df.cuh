@@ -23,15 +23,30 @@
 // them (in float64, where the split is exact: high word the constant
 // itself, low word 0).
 //
-// The one fused operation is explicit: the error of an exact product,
-// fmaf(a, b, -a * b) (two_prod).  The plain version computes that error
-// with Dekker's split (17 operations); the card's FFMA rounds a * b - p
-// once, and the error is a float32 number wherever the product neither
+// Every fused operation is explicit.  The first is the error of an exact
+// product, fmaf(a, b, -a * b) (two_prod).  The plain version computes that
+// error with Dekker's split (17 operations); the card's FFMA rounds a * b -
+// p once, and the error is a float32 number wherever the product neither
 // overflows nor has an error below the smallest subnormal, so the two are
 // the same bits there (tests/test_torch_df_host.py maps the domain: every
 // |a|, |b| in [2^-50, 2^50] is inside it, and the df path's magnitudes,
 // positions O(1), low words ~1e-8 and rates O(1-100), are far from its
 // edges).  On the host, glibc's fmaf is correctly rounded like the card's.
+//
+// The second is the FMA form (template flag F, a medium's kFma: true for
+// the analytic fields and the profile, false for the two grids).  Where F,
+// each low-word sum of products is one fmaf in JAX's order of terms (the
+// cross terms of df_mul, the residual of df_recip, the analytic rates' low
+// words, the step's rx, ry, pe and the angle's low word): JAX's (p + a b)
+// + c d becomes fmaf(c, d, fmaf(a, b, p)), and the plain version rounds it
+// alike with utils/fma.py::fma32.  A product by a power of two is exact, so
+// fusing it changes no bit; the kernel fuses it where it falls and the
+// plain version keeps its two operations.  What F leaves in JAX's
+// roundings: two_prod_const (JAX rounds a * b there, and an exact product
+// would move the angle's low word by up to its own size) and the step's
+// float32-only terms (the stage corrections, the small-angle polynomials,
+// the rotation, the midpoints), whose rounding lands in the high word.
+// Where F is false every expression is the JAX package's, term for term.
 #pragma once
 
 #include <math.h>
@@ -105,13 +120,16 @@ RT_HD DF df_add(float ah, float al, float bh, float bl) {
   return fast_two_sum(s.h, (s.l + al) + bl);
 }
 
+template <bool F>
 RT_HD DF df_mul(float ah, float al, float bh, float bl) {
   const DF p = two_prod(ah, bh);
+  if constexpr (F) return fast_two_sum(p.h, fmaf(al, bh, fmaf(ah, bl, p.l)));
   return fast_two_sum(p.h, (p.l + ah * bl) + al * bh);
 }
 
 RT_HD DF df_add(DF a, DF b) { return df_add(a.h, a.l, b.h, b.l); }
-RT_HD DF df_mul(DF a, DF b) { return df_mul(a.h, a.l, b.h, b.l); }
+template <bool F>
+RT_HD DF df_mul(DF a, DF b) { return df_mul<F>(a.h, a.l, b.h, b.l); }
 
 RT_HD float sin_poly(float d) {
   const float d2 = d * d;
@@ -143,43 +161,49 @@ RT_HD void apply_rotation(float& uxh, float& uxl, float& uyh, float& uyl,
 }
 
 // 1/(dh + dl): one Newton refinement of the IEEE quotient (df.py:106-111)
+template <bool F>
 RT_HD DF df_recip(float dh, float dl) {
   const float n0 = 1.0f / dh;
   const DF t = two_prod(dh, n0);
-  const float resid = ((1.0f - t.h) - t.l) - dl * n0;
+  float resid;
+  if constexpr (F) resid = fmaf(-dl, n0, (1.0f - t.h) - t.l);
+  else resid = ((1.0f - t.h) - t.l) - dl * n0;
   return {n0, n0 * resid};
 }
 
 // -- the analytic angle rates (df.py:199-232) --------------------------------
+// in the FMA form; kernels/df.py df_k_fisheye and df_k_vert with fused
 template <int FIELD>
 struct DfAnalytic {
+  static constexpr bool kFma = true;
+
   RT_HD DF k(float pxh, float pxl, float pyh, float pyl, float vxh, float vxl,
              float vyh, float vyl) const {
     if (FIELD == DF_FISHEYE) {
       // k = -2 n (v_x y - v_y x), n = 1/(1 + r^2) Newton-refined
       const DF a = two_prod(vxh, pyh);
-      const float al = a.l + (vxh * pyl + vxl * pyh);
+      const float al = a.l + fmaf(vxl, pyh, vxh * pyl);
       const DF b = two_prod(vyh, pxh);
-      const float bl = b.l + (vyh * pxl + vyl * pxh);
+      const float bl = b.l + fmaf(vyl, pxh, vyh * pxl);
       const DF c = two_sum(a.h, -b.h);
       const float cl = c.l + (al - bl);
       const DF xx = two_prod(pxh, pxh);
-      const float xxl = xx.l + 2.0f * pxh * pxl;
+      const float xxl = fmaf(2.0f * pxh, pxl, xx.l);
       const DF yy = two_prod(pyh, pyh);
-      const float yyl = yy.l + 2.0f * pyh * pyl;
+      const float yyl = fmaf(2.0f * pyh, pyl, yy.l);
       const DF s = two_sum(xx.h, yy.h);
       const DF d = two_sum(1.0f, s.h);
       const float dl = d.l + s.l + xxl + yyl;
-      const DF n = df_recip(d.h, dl);
+      const DF n = df_recip<kFma>(d.h, dl);
       const DF kk = two_prod(-2.0f * n.h, c.h);
-      return {kk.h, kk.l + (-2.0f) * (n.l * c.h + n.h * cl)};
+      return {kk.h, fmaf(-2.0f, fmaf(n.h, cl, n.l * c.h), kk.l)};
     } else {
       // vert_heterogeneous: n = 1/(18 + 2y), k = -2 n u_x
       const DF d = two_sum(18.0f, 2.0f * pyh);
-      const float dl = d.l + 2.0f * pyl;
-      const DF n = df_recip(d.h, dl);
+      const float dl = fmaf(2.0f, pyl, d.l);
+      const DF n = df_recip<kFma>(d.h, dl);
       const DF kk = two_prod(-2.0f * n.h, vxh);
-      return {kk.h, kk.l + (-2.0f) * (n.l * vxh + n.h * vxl)};
+      return {kk.h, fmaf(-2.0f, fmaf(n.h, vxl, n.l * vxh), kk.l)};
     }
   }
 };
@@ -191,10 +215,11 @@ struct Coord {
   float i, uh, ul;
 };
 
+template <bool F>
 RT_HD Coord cell_coord(float ph, float pl, float oh, float ol, float ihh,
                        float ihl, int n) {
   const DF t = df_add(ph, pl, -oh, -ol);
-  const DF f = df_mul(t.h, t.l, ihh, ihl);
+  const DF f = df_mul<F>(t.h, t.l, ihh, ihl);
   const float lim = (float)(n - 1);
   const bool out = (f.h < 0.0f) | (f.h > lim);
   const float fh = fminf(fmaxf(f.h, 0.0f), lim);
@@ -223,11 +248,12 @@ RT_HD void load_row(const float* __restrict__ p, float* c) {
 }
 
 // cubic df Horner, sum c[k] u^k; c = (h0, l0, h1, l1, h2, l2, h3, l3)
+template <bool F>
 RT_HD DF horner4(const float* c, float uh, float ul) {
   DF r = {c[6], c[7]};
 #pragma unroll
   for (int k = 2; k >= 0; --k) {
-    r = df_mul(r.h, r.l, uh, ul);
+    r = df_mul<F>(r.h, r.l, uh, ul);
     r = df_add(r.h, r.l, c[2 * k], c[2 * k + 1]);
   }
   return r;
@@ -238,11 +264,11 @@ RT_HD DF tensor_horner(const float* C, float uh, float ul, float vh,
                        float vl) {
   DF rows[4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) rows[a] = horner4(C + 8 * a, uh, ul);
+  for (int a = 0; a < 4; ++a) rows[a] = horner4<false>(C + 8 * a, uh, ul);
   DF r = rows[3];
 #pragma unroll
   for (int a = 2; a >= 0; --a) {
-    r = df_mul(r.h, r.l, vh, vl);
+    r = df_mul<false>(r.h, r.l, vh, vl);
     r = df_add(r, rows[a]);
   }
   return r;
@@ -257,18 +283,21 @@ RT_HD DF cell_horner(const float* __restrict__ row, float uh, float ul,
 }
 
 // the rate (u x grad n)/n of a table medium's df (n, gx, gy) (:376-391)
+template <bool F>
 RT_HD DF rate(DF n, DF gx, DF gy, float vxh, float vxl, float vyh,
               float vyl) {
-  const DF a = df_mul(vxh, vxl, gy.h, gy.l);
-  const DF b = df_mul(vyh, vyl, gx.h, gx.l);
+  const DF a = df_mul<F>(vxh, vxl, gy.h, gy.l);
+  const DF b = df_mul<F>(vyh, vyl, gx.h, gx.l);
   const DF c = df_add(a.h, a.l, -b.h, -b.l);
-  const DF r = df_recip(n.h, n.l);
-  return df_mul(c, r);
+  const DF r = df_recip<F>(n.h, n.l);
+  return df_mul<F>(c, r);
 }
 
 // DfGridMedium: nodes (ny*nx, 2) = Z's (hi, lo) a node; cells (ncells, 64) =
 // cx's 16 (hi, lo) pairs, then cy's (df_grid.py:183-224)
 struct DfGrid {
+  static constexpr bool kFma = false;
+
   const float* __restrict__ nodes;
   const float* __restrict__ cells;
   float x0h, x0l, y0h, y0l, ihxh, ihxl, ihyh, ihyl;
@@ -285,8 +314,8 @@ struct DfGrid {
 
   RT_HD DF k(float pxh, float pxl, float pyh, float pyl, float vxh, float vxl,
              float vyh, float vyl) const {
-    const Coord cx = cell_coord(pxh, pxl, x0h, x0l, ihxh, ihxl, nx);
-    const Coord cy = cell_coord(pyh, pyl, y0h, y0l, ihyh, ihyl, ny);
+    const Coord cx = cell_coord<kFma>(pxh, pxl, x0h, x0l, ihxh, ihxl, nx);
+    const Coord cy = cell_coord<kFma>(pyh, pyl, y0h, y0l, ihyh, ihyl, ny);
     const int ixi = (int)cx.i;
     const int iyi = (int)cy.i;
     const int flat = iyi * nx + ixi;
@@ -296,57 +325,62 @@ struct DfGrid {
     const DF u = {cx.uh, cx.ul}, v = {cy.uh, cy.ul};
     const DF cu = df_add(1.0f, 0.0f, -cx.uh, -cx.ul);
     const DF cv = df_add(1.0f, 0.0f, -cy.uh, -cy.ul);
-    const DF lo = df_add(df_mul(cu, z00), df_mul(u, z01));
-    const DF hi = df_add(df_mul(cu, z10), df_mul(u, z11));
-    const DF n = df_add(df_mul(cv, lo), df_mul(v, hi));
+    const DF lo = df_add(df_mul<kFma>(cu, z00), df_mul<kFma>(u, z01));
+    const DF hi = df_add(df_mul<kFma>(cu, z10), df_mul<kFma>(u, z11));
+    const DF n = df_add(df_mul<kFma>(cv, lo), df_mul<kFma>(v, hi));
     const float* row = cells + (size_t)(iyi * (nx - 1) + ixi) * 64;
     const DF gx = cell_horner(row, cx.uh, cx.ul, cy.uh, cy.ul);
     const DF gy = cell_horner(row + 32, cx.uh, cx.ul, cy.uh, cy.ul);
-    return rate(n, gx, gy, vxh, vxl, vyh, vyl);
+    return rate<kFma>(n, gx, gy, vxh, vxl, vyh, vyl);
   }
 };
 
 // DfC1Medium: cells (ncells, 96) = C, Cu, Cv, each 16 (hi, lo) pairs
 // (df_grid.py:299-316)
 struct DfC1 {
+  static constexpr bool kFma = false;
+
   const float* __restrict__ cells;
   float x0h, x0l, y0h, y0l, ihxh, ihxl, ihyh, ihyl;
   int nx, ny;
 
   RT_HD DF k(float pxh, float pxl, float pyh, float pyl, float vxh, float vxl,
              float vyh, float vyl) const {
-    const Coord cx = cell_coord(pxh, pxl, x0h, x0l, ihxh, ihxl, nx);
-    const Coord cy = cell_coord(pyh, pyl, y0h, y0l, ihyh, ihyl, ny);
+    const Coord cx = cell_coord<kFma>(pxh, pxl, x0h, x0l, ihxh, ihxl, nx);
+    const Coord cy = cell_coord<kFma>(pyh, pyl, y0h, y0l, ihyh, ihyl, ny);
     const float* row =
         cells + (size_t)((int)cy.i * (nx - 1) + (int)cx.i) * 96;
     const DF n = cell_horner(row, cx.uh, cx.ul, cy.uh, cy.ul);
     const DF gx = cell_horner(row + 32, cx.uh, cx.ul, cy.uh, cy.ul);
     const DF gy = cell_horner(row + 64, cx.uh, cx.ul, cy.uh, cy.ul);
-    return rate(n, gx, gy, vxh, vxl, vyh, vyl);
+    return rate<kFma>(n, gx, gy, vxh, vxl, vyh, vyl);
   }
 };
 
 // DfC1Profile: cells (ny-1, 16) = C's 4 (hi, lo) pairs, then Cv's; gx = 0
-// (df_grid.py:361-373)
+// (df_grid.py:361-373); in the FMA form
 struct DfProfile {
+  static constexpr bool kFma = true;
+
   const float* __restrict__ cells;
   float y0h, y0l, ihyh, ihyl;
   int ny;
 
   RT_HD DF k(float pxh, float pxl, float pyh, float pyl, float vxh, float vxl,
              float vyh, float vyl) const {
-    const Coord cy = cell_coord(pyh, pyl, y0h, y0l, ihyh, ihyl, ny);
+    const Coord cy = cell_coord<kFma>(pyh, pyl, y0h, y0l, ihyh, ihyl, ny);
     float c[16];
     load_row<16>(cells + (size_t)(int)cy.i * 16, c);
-    const DF n = horner4(c, cy.uh, cy.ul);
-    const DF gy = horner4(c + 8, cy.uh, cy.ul);
+    const DF n = horner4<kFma>(c, cy.uh, cy.ul);
+    const DF gy = horner4<kFma>(c + 8, cy.uh, cy.ul);
     const DF zero = {0.0f, 0.0f};
-    return rate(n, zero, gy, vxh, vxl, vyh, vyl);
+    return rate<kFma>(n, zero, gy, vxh, vxl, vyh, vyl);
   }
 };
 
 // -- the step (df.py:114-186) ------------------------------------------------
-template <class Medium>
+// in the FMA form where F (the medium's kFma)
+template <bool F, class Medium>
 RT_HD void rk4_step(const Medium& m, float ds, float h2, float h6, float* s) {
   const float xh = s[0], xl = s[1], yh = s[2], yl = s[3];
   const float uxh = s[4], uxl = s[5], uyh = s[6], uyl = s[7];
@@ -385,8 +419,14 @@ RT_HD void rk4_step(const Medium& m, float ds, float h2, float h6, float* s) {
   // position: h u + h/6 (2 c1 + 2 c2 + c3), df-accumulated
   const DF px = two_prod(ds, uxh);
   const DF py = two_prod(ds, uyh);
-  const float rx = h6 * (2.0f * c1x + 2.0f * c2x + c3x) + ds * uxl + px.l;
-  const float ry = h6 * (2.0f * c1y + 2.0f * c2y + c3y) + ds * uyl + py.l;
+  float rx, ry;
+  if constexpr (F) {
+    rx = fmaf(ds, uxl, h6 * (fmaf(2.0f, c2x, 2.0f * c1x) + c3x)) + px.l;
+    ry = fmaf(ds, uyl, h6 * (fmaf(2.0f, c2y, 2.0f * c1y) + c3y)) + py.l;
+  } else {
+    rx = h6 * (2.0f * c1x + 2.0f * c2x + c3x) + ds * uxl + px.l;
+    ry = h6 * (2.0f * c1y + 2.0f * c2y + c3y) + ds * uyl + py.l;
+  }
   const DF nx = df_add_f(xh, xl + rx, px.h);
   const DF ny = df_add_f(yh, yl + ry, py.h);
 
@@ -394,12 +434,22 @@ RT_HD void rk4_step(const Medium& m, float ds, float h2, float h6, float* s) {
   const DF ks = two_sum(k1.h, k4.h);
   const DF ks2 = two_sum(2.0f * k2.h, 2.0f * k3.h);
   const DF ksum = two_sum(ks.h, ks2.h);
-  const float ksum_l = ksum.l + ks.l + ks2.l +
-                       (k1.l + 2.0f * k2.l + 2.0f * k3.l + k4.l);
-  const DF p = two_prod(ds, ksum.h);
-  const float pe = p.l + ds * ksum_l;
-  const DF a = two_prod_const(p.h, kSixthHi);
-  const DF dth = fast_two_sum(a.h, a.l + p.h * kSixthLo + pe * kSixthHi);
+  DF dth;
+  if constexpr (F) {
+    const float ksum_l = ksum.l + ks.l + ks2.l +
+                         (fmaf(2.0f, k3.l, fmaf(2.0f, k2.l, k1.l)) + k4.l);
+    const DF p = two_prod(ds, ksum.h);
+    const float pe = fmaf(ds, ksum_l, p.l);
+    const DF a = two_prod_const(p.h, kSixthHi);
+    dth = fast_two_sum(a.h, fmaf(pe, kSixthHi, fmaf(p.h, kSixthLo, a.l)));
+  } else {
+    const float ksum_l = ksum.l + ks.l + ks2.l +
+                         (k1.l + 2.0f * k2.l + 2.0f * k3.l + k4.l);
+    const DF p = two_prod(ds, ksum.h);
+    const float pe = p.l + ds * ksum_l;
+    const DF a = two_prod_const(p.h, kSixthHi);
+    dth = fast_two_sum(a.h, a.l + p.h * kSixthLo + pe * kSixthHi);
+  }
   float nuxh = uxh, nuxl = uxl, nuyh = uyh, nuyl = uyl;
   apply_rotation(nuxh, nuxl, nuyh, nuyl, dth.h, dth.l);
   s[0] = nx.h;
@@ -413,11 +463,11 @@ RT_HD void rk4_step(const Medium& m, float ds, float h2, float h6, float* s) {
 }
 
 // ``steps`` df RK4 steps of one ray's 8-plane state ``s``, in place
-template <class Medium>
+template <class Medium, bool F = Medium::kFma>
 RT_HD void run_df(const Medium& m, float ds, int steps, float* s) {
   const float h2 = ds * 0.5f;
   const float h6 = ds * kSixth;
-  for (int i = 0; i < steps; ++i) rk4_step(m, ds, h2, h6, s);
+  for (int i = 0; i < steps; ++i) rk4_step<F>(m, ds, h2, h6, s);
 }
 
 }  // namespace df

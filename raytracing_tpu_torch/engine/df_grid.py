@@ -46,6 +46,7 @@ from raytracing_tpu_torch.media import grid as _grid
 from raytracing_tpu_torch.media.c1 import _n_spline_cells
 from raytracing_tpu_torch.media.spline import (
     _check_profile, check_uniform_grid, cubic_cells_1d, gradient_tables_f64)
+from raytracing_tpu_torch.utils import fma
 
 
 # -- double-word helpers beyond kernels/df.py's (df_grid.py:47-70) -----------
@@ -55,9 +56,13 @@ def df_add(ah, al, bh, bl):
     return fast_two_sum(sh, se + al + bl)
 
 
-def df_mul(ah, al, bh, bl):
-    """(a * b) for two df numbers (low-order cross term dropped)."""
+def df_mul(ah, al, bh, bl, fused=False):
+    """(a * b) for two df numbers (low-order cross term dropped); the cross
+    terms rounded with their sums where ``fused`` (the FMA form of
+    csrc/df.cuh: fmaf(al, bh, fmaf(ah, bl, pe)))."""
     ph, pe = two_prod(ah, bh)
+    if fused:
+        return fast_two_sum(ph, fma.fma32(al, bh, fma.fma32(ah, bl, pe)))
     return fast_two_sum(ph, pe + ah * bl + al * bh)
 
 
@@ -104,8 +109,11 @@ class _DfTables:
                     f"{device}, got {t.dtype} on {t.device}; move the "
                     "medium with .to(device)")
 
-    def df_k(self):
-        return _make_df_k(self)
+    #: whether the medium's kernel runs the FMA form (csrc/df.cuh kFma)
+    FMA: ClassVar = False
+
+    def df_k(self, fused=False):
+        return _make_df_k(self, fused)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -269,6 +277,7 @@ class DfC1Profile(_DfTables):
     derivative cells pre-scaled by 1/hy in float64."""
 
     KERNEL: ClassVar = kdf.KERNEL_PROFILE
+    FMA: ClassVar = True
 
     Ch: Any          # (ny-1, 4) n-spline cells, hi words
     Cl: Any
@@ -289,8 +298,8 @@ class DfC1Profile(_DfTables):
         return (self.kernel_tables.data_ptr(), self.y0h, self.y0l, self.ihyh,
                 self.ihyl, self.ny)
 
-    def nag(self):
-        return _make_df_profile_nag(self)
+    def nag(self, fused=False):
+        return _make_df_profile_nag(self, fused)
 
 
 def df_c1_profile_from_samples(samples, y, *, device="cuda") -> DfC1Profile:
@@ -310,13 +319,13 @@ def df_c1_profile_from_samples(samples, y, *, device="cuda") -> DfC1Profile:
 
 
 # -- the df evaluators (df_grid.py:137-391) ----------------------------------
-def _df_cell_coord(ph, pl, o_h, o_l, ih_h, ih_l, n):
+def _df_cell_coord(ph, pl, o_h, o_l, ih_h, ih_l, n, fused=False):
     """df grid coordinate f = (p - origin) / h, clamped like FITPACK:
     (cell index i as float32, df in-cell offset (uh, ul)).  The constants
     are float32 values before any split (a split of Python floats would
     run in float64 and zero the error word)."""
     th, tl = df_add(ph, pl, kdf._f32(-o_h), kdf._f32(-o_l))
-    fh, fl = df_mul(th, tl, kdf._f32(ih_h), kdf._f32(ih_l))
+    fh, fl = df_mul(th, tl, kdf._f32(ih_h), kdf._f32(ih_l), fused)
     lim = float(n - 1)
     out = (fh < 0.0) | (fh > lim)
     fh = torch.clamp(fh, 0.0, lim)
@@ -326,11 +335,11 @@ def _df_cell_coord(ph, pl, o_h, o_l, ih_h, ih_l, n):
     return i, fh - i, fl
 
 
-def _df_horner4(c_h, c_l, uh, ul):
+def _df_horner4(c_h, c_l, uh, ul, fused=False):
     """Cubic df Horner: sum c[k] u^k, coefficients (..., 4) hi/lo."""
     rh, rl = c_h[..., 3], c_l[..., 3]
     for k in (2, 1, 0):
-        rh, rl = df_mul(rh, rl, uh, ul)
+        rh, rl = df_mul(rh, rl, uh, ul, fused)
         rh, rl = df_add(rh, rl, c_h[..., k], c_l[..., k])
     return rh, rl
 
@@ -424,33 +433,34 @@ def _make_df_c1_nag(med: DfC1Medium):
     return nag
 
 
-def _make_df_profile_nag(med: DfC1Profile):
+def _make_df_profile_nag(med: DfC1Profile, fused=False):
     """df (n, gx, gy): two cubic df Horners of one 1-D spline (its C and
-    Cv blocks); gx = 0."""
+    Cv blocks); gx = 0.  ``fused``: the FMA form of df_mul."""
     cells = med.kernel_tables
 
     def nag(pxh, pxl, pyh, pyl):
         iy, uyh, uyl = _df_cell_coord(pyh, pyl, med.y0h, med.y0l,
-                                      med.ihyh, med.ihyl, med.ny)
+                                      med.ihyh, med.ihyl, med.ny, fused)
         h, lo = _df_horner4(*_cell_rows(cells, iy.long(), 2, 4),
-                            *_per_block(uyh, uyl))
+                            *_per_block(uyh, uyl), fused)
         zero = torch.zeros_like(uyh)
         return (h[..., 0], lo[..., 0]), (zero, zero), (h[..., 1], lo[..., 1])
 
     return nag
 
 
-def _make_df_k(med):
-    """df angle rate k = (u x grad n)/n from the split tables."""
-    nag = med.nag()
+def _make_df_k(med, fused=False):
+    """df angle rate k = (u x grad n)/n from the split tables; ``fused``:
+    the FMA form (the profile's; the grids' nag has none)."""
+    nag = med.nag(fused) if fused else med.nag()
 
     def df_k(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl):
         (nh, nl), (gxh, gxl), (gyh, gyl) = nag(pxh, pxl, pyh, pyl)
-        ah, al = df_mul(vxh, vxl, gyh, gyl)
-        bh, bl = df_mul(vyh, vyl, gxh, gxl)
+        ah, al = df_mul(vxh, vxl, gyh, gyl, fused)
+        bh, bl = df_mul(vyh, vyl, gxh, gxl, fused)
         ch, cl = df_add(ah, al, -bh, -bl)
-        rh, rl = df_recip(nh, nl)
-        return df_mul(ch, cl, rh, rl)
+        rh, rl = df_recip(nh, nl, fused)
+        return df_mul(ch, cl, rh, rl, fused)
 
     return df_k
 

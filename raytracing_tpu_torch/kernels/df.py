@@ -29,20 +29,28 @@ Bit parity with the kernel rests on the JAX package's own rounding: every
 non-dyadic constant is a float32 value (0-d float32 tensors below, the
 same float32 literals in the kernel), a product with a Python constant
 splits that constant as JAX folds it in float64 (:func:`two_prod_const`),
-no operation is fused or reassociated, and reciprocals are IEEE
-divisions.  The one exception is the kernels' exact product: one FMA,
-``fmaf(a, b, -a * b)``, gives the same bits as :func:`two_prod`'s Dekker
-chain wherever the product's error is a float32 number, which holds on
-the df path (tests/test_torch_df_host.py maps the domain).
+nothing is reassociated, and reciprocals are IEEE divisions.  The kernels'
+exact product is one FMA, ``fmaf(a, b, -a * b)``, the same bits as
+:func:`two_prod`'s Dekker chain wherever the product's error is a float32
+number, which holds on the df path (tests/test_torch_df_host.py maps the
+domain).  The kernel on the analytic fields and the profile also runs the
+FMA form (:func:`fma_form`): each low-word sum of products rounded once,
+in JAX's order of terms; the plain version in that form rounds each with
+``utils/fma.py::fma32``, the terms of a step stacked into one call
+(``mads``).  With ``jax_roundings`` every operation is JAX's, one torch
+call each (``test_rk4_body_equals_jax_op_for_op`` holds that form to JAX's
+eager body to the bit); the grid media's kernels keep it.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from raytracing_tpu_torch.kernels import build
+from raytracing_tpu_torch.utils import fma
 
 #: analytic fields with a closed-form df angle rate
 DF_FIELDS = ("fisheye", "vert_heterogeneous")
@@ -150,18 +158,24 @@ def apply_rotation(uxh, uxl, uyh, uyl, dth_h, dth_l):
     return nxh, nxl, nyh, nyl
 
 
-def df_recip(dh, dl):
-    """1/(dh + dl) as df: one Newton refinement of the IEEE quotient."""
+def df_recip(dh, dl, fused=False):
+    """1/(dh + dl) as df: one Newton refinement of the IEEE quotient; the
+    residual's - dl n0 rounded with its sum where ``fused`` (the FMA
+    form)."""
     n0 = torch.reciprocal(dh)
     th, tl = two_prod(dh, n0)
-    resid = ((1.0 - th) - tl) - dl * n0
+    resid, = fma.mads(fused)((dl,), (n0,), ((1.0 - th) - tl,), sub=True)
     return n0, n0 * resid
 
 
-def make_df_rk4_body(df_k, ds):
+def make_df_rk4_body(df_k, ds, fused=False):
     """One double-word RK4 step on the 8-tuple (xh, xl, yh, yl, uxh, uxl,
     uyh, uyl) (df.py:114-186); ``df_k(pxh, pxl, pyh, pyl, vxh, vxl, vyh,
-    vyl) -> (kh, kl)`` is the df angle rate, ``ds`` a 0-d float32 tensor."""
+    vyl) -> (kh, kl)`` is the df angle rate, ``ds`` a 0-d float32 tensor.
+    ``fused``: the step's low-word sums of products (rx, ry, pe, the
+    angle's low word) in the FMA form, csrc/df.cuh ``rk4_step<true>``."""
+    mad = fma.mads(fused)
+    dsf, lo6, hi6 = float(ds), float(_SIXTH_LO), float(_SIXTH_HI)
     h2 = ds * 0.5
     h6 = ds * _SIXTH
 
@@ -194,10 +208,8 @@ def make_df_rk4_body(df_k, ds):
         # position: h u + h/6 (2 c1 + 2 c2 + c3), df-accumulated
         px, pex = two_prod(ds, uxh)
         py, pey = two_prod(ds, uyh)
-        rx = h6 * (2.0 * c1x + 2.0 * c2x + c3x) + ds * uxl + pex
-        ry = h6 * (2.0 * c1y + 2.0 * c2y + c3y) + ds * uyl + pey
-        xh, xl = df_add_f(xh, xl + rx, px)
-        yh, yl = df_add_f(yh, yl + ry, py)
+        sx = h6 * (2.0 * c1x + 2.0 * c2x + c3x)
+        sy = h6 * (2.0 * c1y + 2.0 * c2y + c3y)
 
         # dth = ds (k1 + 2 k2 + 2 k3 + k4) / 6, all in df
         ksh, kse = two_sum(k1h, k4h)
@@ -205,9 +217,14 @@ def make_df_rk4_body(df_k, ds):
         ksum_h, se_ = two_sum(ksh, ksh2)
         ksum_l = se_ + kse + kse2 + (k1l + 2.0 * k2l + 2.0 * k3l + k4l)
         ph, pe = two_prod(ds, ksum_h)
-        pe = pe + ds * ksum_l
         ah, al = two_prod_const(ph, _SIXTH_HI)
-        dth_h, dth_l = fast_two_sum(ah, al + ph * _SIXTH_LO + pe * _SIXTH_HI)
+        # rx = sx + ds uxl (+ pex), pe + ds ksum_l, al + ph lo6 (+ pe hi6)
+        rx, ry, pe, tl = mad((dsf, dsf, dsf, ph), (uxl, uyl, ksum_l, lo6),
+                             (sx, sy, pe, al))
+        tl, = mad((pe,), (hi6,), (tl,))
+        xh, xl = df_add_f(xh, xl + (rx + pex), px)
+        yh, yl = df_add_f(yh, yl + (ry + pey), py)
+        dth_h, dth_l = fast_two_sum(ah, tl)
         uxh, uxl, uyh, uyl = apply_rotation(uxh, uxl, uyh, uyl, dth_h, dth_l)
         return xh, xl, yh, yl, uxh, uxl, uyh, uyl
 
@@ -215,36 +232,41 @@ def make_df_rk4_body(df_k, ds):
 
 
 # -- the analytic angle rates (df.py:199-232) --------------------------------
-def df_k_fisheye(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl):
+def df_k_fisheye(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl, fused=False):
     """k = -2 n (v_x y - v_y x) on the fisheye, n = 1/(1 + r^2) Newton-
-    refined, all in df."""
+    refined, all in df; the low words' sums of products in the FMA form
+    where ``fused``."""
+    mad = fma.mads(fused)
     ah, al = two_prod(vxh, pyh)
-    al = al + (vxh * pyl + vxl * pyh)
     bh, bl = two_prod(vyh, pxh)
-    bl = bl + (vyh * pxl + vyl * pxh)
+    xxh, xxl = two_prod(pxh, pxh)
+    yyh, yyl = two_prod(pyh, pyh)
+    # vxh pyl + vxl pyh, vyh pxl + vyl pxh, xxl + 2 pxh pxl, yyl + 2 pyh pyl
+    sa, sb, xxl, yyl = mad((vxl, vyl, 2.0 * pxh, 2.0 * pyh),
+                           (pyh, pxh, pxl, pyl),
+                           (vxh * pyl, vyh * pxl, xxl, yyl))
+    al = al + sa
+    bl = bl + sb
     ch, ce = two_sum(ah, -bh)
     cl = ce + (al - bl)
-    xxh, xxl = two_prod(pxh, pxh)
-    xxl = xxl + 2.0 * pxh * pxl
-    yyh, yyl = two_prod(pyh, pyh)
-    yyl = yyl + 2.0 * pyh * pyl
     sh, se = two_sum(xxh, yyh)
     dh, de = two_sum(1.0, sh)
     dl = de + se + xxl + yyl
-    n0, nl = df_recip(dh, dl)
+    n0, nl = df_recip(dh, dl, fused)
     kh, ke = two_prod(-2.0 * n0, ch)
-    kl = ke + (-2.0) * (nl * ch + n0 * cl)
-    return kh, kl
+    t, = mad((n0,), (cl,), (nl * ch,))
+    return kh, ke + (-2.0) * t
 
 
-def df_k_vert(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl):
-    """k = -2 n u_x on vert_heterogeneous, n = 1/(18 + 2y)."""
+def df_k_vert(pxh, pxl, pyh, pyl, vxh, vxl, vyh, vyl, fused=False):
+    """k = -2 n u_x on vert_heterogeneous, n = 1/(18 + 2y); the low
+    words' sums of products in the FMA form where ``fused``."""
     dh, de = two_sum(18.0, 2.0 * pyh)
     dl = de + 2.0 * pyl
-    n0, nl = df_recip(dh, dl)
+    n0, nl = df_recip(dh, dl, fused)
     kh, ke = two_prod(-2.0 * n0, vxh)
-    kl = ke + (-2.0) * (nl * vxh + n0 * vxl)
-    return kh, kl
+    t, = fma.mads(fused)((n0,), (vxl,), (nl * vxh,))
+    return kh, ke + (-2.0) * t
 
 
 _DF_K = {"fisheye": df_k_fisheye, "vert_heterogeneous": df_k_vert}
@@ -282,24 +304,36 @@ def initial_df_state(pos0, theta0, *, device) -> DfState:
                    uxh, torch.zeros_like(xh), uyh, torch.zeros_like(xh))
 
 
-def df_k_of(medium):
+def fma_form(medium) -> bool:
+    """Whether the df kernel of ``medium`` runs the FMA form (csrc/df.cuh
+    ``kFma``): the analytic fields and the profile; the parity and C1
+    grids round as JAX."""
+    return isinstance(medium, str) or getattr(medium, "FMA", False)
+
+
+def df_k_of(medium, fused=False):
     """The plain df angle rate of a step's medium: an analytic field name of
-    :data:`DF_FIELDS`, or a split-word medium of ``engine/df_grid.py``."""
+    :data:`DF_FIELDS`, or a split-word medium of ``engine/df_grid.py``; in
+    the FMA form where ``fused``."""
     if isinstance(medium, str):
         if medium not in DF_FIELDS:
             raise ValueError(f"df kernel supports {DF_FIELDS}, got {medium!r}")
-        return _DF_K[medium]
+        return functools.partial(_DF_K[medium], fused=fused)
     if getattr(medium, "KERNEL", None) not in KERNELS[1:]:
         raise ValueError("a df step's medium is a field name of "
                          f"{DF_FIELDS} or a split-word df medium, got "
                          f"{type(medium).__name__}")
-    return medium.df_k()
+    return medium.df_k(fused)
 
 
-def df_step_plain(st: DfState, medium, delta_s, steps: int) -> DfState:
+def df_step_plain(st: DfState, medium, delta_s, steps: int,
+                  jax_roundings=False) -> DfState:
     """Plain PyTorch version of the four df kernels: ``steps`` df RK4 steps
-    of every ray, the kernels' operations one torch call each."""
-    body = make_df_rk4_body(df_k_of(medium), _f32(delta_s))
+    of every ray, the kernels' operations one torch call each (an FMA's,
+    fma32's few), in the kernel's form (:func:`fma_form`); in JAX's
+    roundings on any medium where ``jax_roundings``."""
+    fused = fma_form(medium) and not jax_roundings
+    body = make_df_rk4_body(df_k_of(medium, fused), _f32(delta_s), fused)
     carry = tuple(st)
     for _ in range(int(steps)):
         carry = body(carry)

@@ -74,11 +74,11 @@ def mads(fused: bool):
     """``mad(a, b, c, sub=False, neg_c=False)``: a[k] * b[k] + c[k] for each
     k of equal-length tuples of tensors or Python numbers, as a tuple; c[k]
     - a[k] * b[k] where ``sub``, a[k] * b[k] - c[k] where ``neg_c``.  Where
-    ``fused`` (the 2-D dynamic and analytic 3-D steps' FMA form,
+    ``fused`` (the 2-D dynamic, analytic 3-D and df32 steps' FMA form,
     csrc/common.cuh ``mad<true>`` with a negated operand) each rounded
-    once by :func:`fma32`, the
-    tuple's terms stacked into one call (the same roundings in fewer torch
-    calls) and the negation inside it, as the kernel's FFMA negates its
+    once by :func:`fma32`, the tuple's terms stacked into one call (the
+    same roundings in fewer torch calls; a single term passed as it is)
+    and the negation inside it, as the kernel's FFMA negates its
     operand; else each product and sum rounded apart, JAX's roundings term
     for term (``mad<false>``: (-a) * b + c is c - a * b, and a sum's
     operands commute)."""
@@ -90,6 +90,8 @@ def mads(fused: bool):
         return tuple(x * y + z for x, y, z in zip(a, b, c))
 
     def fused_(a, b, c, sub=False, neg_c=False):
+        if len(a) == 1:
+            return (fma32(a[0], b[0], c[0], neg_ab=sub, neg_c=neg_c),)
         ref = next(v for v in (*a, *b, *c) if torch.is_tensor(v))
 
         def column(vs):

@@ -436,7 +436,8 @@ def _df_case(kind, device):
 @pytest.mark.parametrize("kind", DF_MEDIA)
 def test_df_kernels_match_plain(kind, cuda_device):
     """Each df32 kernel equals its plain version in all 8 planes to the bit,
-    and k + (n - k) steps equal n."""
+    the plain version replayed from a CUDA graph equals its eager loop, and
+    k + (n - k) steps equal n."""
     med, st, ds = _df_case(kind, cuda_device)
     info = kdf.KERNELS[0 if kind in kdf.DF_FIELDS
                        else ("grid", "c1", "profile").index(kind) + 1]
@@ -445,6 +446,9 @@ def test_df_kernels_match_plain(kind, cuda_device):
     assert info.launches == before + 1
     want = kdf.df_step_plain(st, med, ds, 60)
     for name, a, b in zip(kdf.DfState._fields, got, want):
+        assert torch.equal(a, b), name
+    for name, a, b in zip(kdf.DfState._fields, want,
+                          replay.df_plain(st, med, ds, 60)):
         assert torch.equal(a, b), name
     two = kdf.df_step(kdf.df_step(st, med, ds, 25), med, ds, 35)
     for name, a, b in zip(kdf.DfState._fields, got, two):

@@ -32,6 +32,12 @@ from raytracing_tpu_torch.kernels import fused as kfu  # noqa: E402
 #: result by up to 2.7e-7 from the op-for-op evaluation the port performs
 #: (measured, 128 rays, 500 steps; ROADMAP.md §3): held to 5e-7
 JAX_TOL = {"fisheye": 1e-8, "vert_heterogeneous": 5e-7}
+#: on a fisheye fan with +-0.3 rad of jitter the tangent's float32-only
+#: rotation carries any low-word difference into the high word on some
+#: rays, so JAX's eager roundings and its jitted body part by up to
+#: 5.574e-7 (divisor 300) and 4.761e-7 (1000), 128 rays, one turn
+#: (measured): held to 6e-7
+JITTERED_BAR = 6e-7
 #: the JAX package's bars against the float64 op12 scan tier
 #: (tests/test_df.py:26-30, :92-95)
 F64_BAR = {300: 2e-7, 1000: 4e-7, 4587: 6e-7}
@@ -127,15 +133,16 @@ def _launch(field, r=128, seed=0):
 
 @pytest.mark.parametrize("field", tdf.DF_FIELDS)
 def test_rk4_body_equals_jax_op_for_op(field):
-    """The port's step is JAX's make_df_rk4_body, one jnp call at a time
-    (no XLA fusion), to the bit over 12 steps of 128 seeded rays."""
+    """The port's step in JAX's roundings (``jax_roundings``; the kernel runs
+    the FMA form) is JAX's make_df_rk4_body, one jnp call at a time (no XLA
+    fusion), to the bit over 12 steps of 128 seeded rays."""
     (pos0, theta0), ds = _launch(field)
     st = tdf.initial_df_state(pos0, theta0, device="cpu")
     carry = tuple(jnp.asarray(H.to_np(t)) for t in st)
     body = jdf.make_df_rk4_body(_jax_df_k(field), jnp.float32(ds))
     for _ in range(12):
         carry = body(0, carry)
-    _same(carry, tdf.df_step_plain(st, field, ds, 12))
+    _same(carry, tdf.df_step_plain(st, field, ds, 12, jax_roundings=True))
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +177,35 @@ def test_df_trace_matches_jax_and_f64(div, f64_truth):
     assert got.dtype == np.float64 and got.shape == (128, 2)
     assert np.abs(got - want).max() <= JAX_TOL["fisheye"]
     assert np.linalg.norm(got[0] - f64_truth(div)) < F64_BAR[div]
+
+
+@pytest.mark.parametrize("div", [300, 1000])
+def test_df_trace_on_a_jittered_fan_stays_within_jax_own_spread(div):
+    """128 rays from (1, 0) at pi/2 +- 0.3 rad for one turn.  JAX's own two
+    evaluations part here: its eager roundings (``jax_roundings``, JAX's
+    eager body to the bit) and its interpret-mode df_trace differ by up to
+    JITTERED_BAR.  The port's df_trace (the FMA form) stays within that of
+    JAX's df_trace, and is as close to the float64 op12 scan tier as
+    JAX's eager roundings: RMS error within 1 % of theirs."""
+    pos0, theta0 = H.fisheye_df_fan(128, jitter=0.3)
+    ds = np.float32(2 * np.pi / div)
+    want = jdf.df_trace(pos0, theta0, ds, steps=div, block_rays=128,
+                        interpret=True)
+    got = H.to_np(tdf.df_trace(pos0, theta0, ds, steps=div, device="cpu"))
+    st = tdf.initial_df_state(pos0, theta0, device="cpu")
+    eager = H.to_np(tdf.df_positions(tdf.df_step_plain(
+        st, "fisheye", ds, div, jax_roundings=True)))
+    assert np.abs(eager - want).max() <= JITTERED_BAR
+    assert np.abs(got - want).max() <= JITTERED_BAR
+    ref = H.to_np(rtt.trace(
+        "op12", rtt.scenario("fisheye"), rtt.analytic_medium("fisheye"),
+        delta_s=float(ds), max_size=div + 1, mode="metrics",
+        dtype=torch.float64, pos0=pos0, theta0=theta0,
+        device="cpu").final.pos)
+
+    def rms(x):
+        return np.sqrt((np.linalg.norm(x - ref, axis=1) ** 2).mean())
+    assert rms(got) <= 1.01 * rms(eager), (rms(got), rms(eager))
 
 
 def test_df_vert_matches_jax_and_f64():

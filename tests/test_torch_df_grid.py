@@ -125,9 +125,10 @@ def test_evaluators_match_the_f64_splines(kind, media):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_rk4_step_equals_jax_op_for_op(kind, media):
-    """The df RK4 step with the medium's df angle rate equals JAX's
-    (make_df_rk4_body with _make_df_k), one jnp call at a time, to the bit
-    on every plane: 3 steps of 64 seeded rays."""
+    """The df RK4 step with the medium's df angle rate, in JAX's roundings
+    (``jax_roundings``: the grids' kernels run it; the profile's runs the FMA
+    form), equals JAX's (make_df_rk4_body with _make_df_k), one jnp call
+    at a time, to the bit on every plane: 3 steps of 64 seeded rays."""
     jm, tm = media[kind]
     (pos0, theta0), ds = _launch(kind, 64)
     st = tdg.split_state(pos0, theta0, device="cpu")
@@ -135,7 +136,7 @@ def test_rk4_step_equals_jax_op_for_op(kind, media):
     body = jdf.make_df_rk4_body(jdg._make_df_k(jm), jnp.float32(ds))
     for _ in range(3):
         carry = body(0, carry)
-    got = tdf.df_step_plain(st, tm, ds, 3)
+    got = tdf.df_step_plain(st, tm, ds, 3, jax_roundings=True)
     for j, t in zip(carry, got):
         np.testing.assert_array_equal(H.to_np(t), np.asarray(j))
 

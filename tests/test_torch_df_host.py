@@ -8,9 +8,12 @@ is one product and one fused multiply-add, ``fmaf(a, b, -a * b)``, where the
 plain version (kernels/df.py::two_prod, JAX's ``_two_prod``) runs Dekker's
 split chain: the two give the same bits wherever the product's error is a
 float32 number, which the tests below map.  The loop is then held to
-``df_step_plain`` on all five media, every one of the 8 planes to the bit.
-glibc's ``fmaf`` is correctly rounded, as the card's FFMA is.  Skipped where
-g++ is missing."""
+``df_step_plain`` on all five media, every one of the 8 planes to the bit,
+in the form the kernel runs there: the FMA form (each low-word sum of
+products one ``fmaf``, the plain version's ``fma32``) on the analytic
+fields and the profile, JAX's roundings on the two grids.  glibc's
+``fmaf`` is correctly rounded, as the card's FFMA is.  Skipped where g++ is
+missing."""
 import ctypes
 import shutil
 import subprocess
@@ -31,6 +34,16 @@ from raytracing_tpu_torch.kernels import df as tdf  # noqa: E402
 #: the coarse fisheye grid (177 x 177 nodes) keeps the plain version quick
 DELTA = 0.05
 RAYS, STEPS = 512, 200
+#: the media whose kernel runs the FMA form (kernels/df.py fma_form)
+FMA_KINDS = ("fisheye", "vert_heterogeneous", "profile")
+#: the largest |dpos| between the FMA form and JAX's roundings after STEPS
+#: steps of _launch's rays, measured 7.07e-8, 3.64e-12 and 2.84e-14: the
+#: forms part in the low words, and on the fisheye's jittered fan, where a
+#: low word flips the rounding of the angle's high word, the float32-only
+#: rotation carries one float32 ulp of the angle into the tangent on a few
+#: rays, whose positions then drift apart.  JAX's eager and jitted bodies
+#: part the same way, by more (tests/df_form_spread.py)
+FORM_GAP = {"fisheye": 1e-7, "vert_heterogeneous": 1e-11, "profile": 1e-13}
 
 _STUBS = """#define __host__
 #define __device__
@@ -245,25 +258,85 @@ def _launch(kind):
     return tdg.split_state(pos0, theta0, device="cpu"), ds
 
 
-@pytest.mark.parametrize(
-    "kind", ["fisheye", "vert_heterogeneous", "grid", "c1", "profile"])
-def test_header_step_loop_on_the_host_equals_plain(kind, host, media):
-    """run_df on the host against df_step_plain, RAYS rays x STEPS steps,
-    all 8 planes to the bit (signed zeros included): the FMA products of
-    the header and the plain version's Dekker chains agree along the whole
-    path."""
-    medium = media.get(kind, kind)
-    st0, ds = _launch(kind)
-    plain = tdf.df_step_plain(st0, medium, ds, STEPS)
+@pytest.fixture(scope="module")
+def plain(media):
+    """``plain(kind, jax_roundings=False)``: df_step_plain of _launch's rays
+    for STEPS steps, in the kernel's form or in JAX's roundings, computed
+    once."""
+    runs = {}
+
+    def run(kind, jax_roundings=False):
+        if (kind, jax_roundings) not in runs:
+            st0, ds = _launch(kind)
+            runs[kind, jax_roundings] = tdf.df_step_plain(
+                st0, media.get(kind, kind), ds, STEPS,
+                jax_roundings=jax_roundings)
+        return runs[kind, jax_roundings]
+    return run
+
+
+def host_run(host, medium, st0, ds, steps):
+    """The header's run_df on the host: ``steps`` steps of ``st0``."""
     out = tdf.DfState(*(torch.empty_like(t) for t in st0))
-    common = (build.pointer_array(st0), build.pointer_array(out), RAYS,
-              STEPS, float(np.float32(ds)))
+    common = (build.pointer_array(st0), build.pointer_array(out),
+              st0.xh.shape[0], steps, float(np.float32(ds)))
     if isinstance(medium, str):
         host.host_df_step(tdf.DF_FIELDS.index(medium), *common)
     else:
         getattr(host, f"host_{medium.KERNEL.name}")(*common,
                                                     *medium.kernel_args())
-    for name, a, b in zip(tdf.DfState._fields, plain, out):
+    return out
+
+
+@pytest.mark.parametrize(
+    "kind", ["fisheye", "vert_heterogeneous", "grid", "c1", "profile"])
+def test_header_step_loop_on_the_host_equals_plain(kind, host, media, plain):
+    """run_df on the host against df_step_plain in the kernel's form (the
+    FMA form on FMA_KINDS, JAX's roundings on the grids), RAYS rays x STEPS
+    steps, all 8 planes to the bit (signed zeros included): the FMA
+    products of the header and the plain version's Dekker chains, and the
+    header's fmaf and the plain version's fma32, agree along the whole
+    path."""
+    medium = media.get(kind, kind)
+    assert tdf.fma_form(medium) == (kind in FMA_KINDS)
+    st0, ds = _launch(kind)
+    out = host_run(host, medium, st0, ds, STEPS)
+    for name, a, b in zip(tdf.DfState._fields, plain(kind), out):
         assert _equal_bits(a, b), name
     moved = tdf.df_positions(out) - tdf.df_positions(st0)
     assert bool(torch.isfinite(moved).all()) and float(moved.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("kind", FMA_KINDS)
+def test_fma_form_chain_equals_one_shot(kind, host, media, plain):
+    """The FMA form resumes: the header's run_df in three segments (60, 1,
+    139 steps) equals the plain version's STEPS steps in one, all 8 planes
+    to the bit."""
+    medium = media.get(kind, kind)
+    st, ds = _launch(kind)
+    for n in (60, 1, STEPS - 61):
+        st = host_run(host, medium, st, ds, n)
+    for name, a, b in zip(tdf.DfState._fields, plain(kind), st):
+        assert _equal_bits(a, b), name
+
+
+@pytest.mark.parametrize("kind", FMA_KINDS)
+def test_fma_form_and_jax_roundings_part_by_a_measured_amount(kind, plain):
+    """The FMA form and JAX's roundings (``jax_roundings``) differ, and by
+    no more than FORM_GAP in the positions after STEPS steps."""
+    a, b = plain(kind), plain(kind, jax_roundings=True)
+    assert not all(_equal_bits(x, y) for x, y in zip(a, b))
+    gap = float((tdf.df_positions(a) - tdf.df_positions(b)).abs().max())
+    assert gap <= FORM_GAP[kind], gap
+
+
+def test_fma_form_follows_the_medium(media):
+    """The analytic fields and the profile run the FMA form; the grids
+    round as JAX, so asking for JAX's roundings changes nothing there."""
+    assert [tdf.fma_form(media.get(k, k)) for k in (*FMA_KINDS, "grid", "c1")
+            ] == [True, True, True, False, False]
+    st0, ds = _launch("grid")
+    for kind in ("grid", "c1"):
+        a = tdf.df_step_plain(st0, media[kind], ds, 3)
+        b = tdf.df_step_plain(st0, media[kind], ds, 3, jax_roundings=True)
+        assert all(_equal_bits(x, y) for x, y in zip(a, b))
